@@ -1,0 +1,141 @@
+"""Port ops (vidi_tpu_torch.ops) against their vidi_tpu counterparts on the
+CPU in fp32. Inputs come from numpy with a fixed seed and go to both.
+
+Tolerance: atol = rtol = 1e-5. Both sides compute in fp32 with the same
+formulas; only the summation order of reductions and matmuls differs
+(XLA vs ATen), which moves results by a few ulp.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from vidi_tpu.ops import attention as jattn
+from vidi_tpu.ops import basic as jbasic
+from vidi_tpu.ops import norms as jnorms
+from vidi_tpu.ops import preprocess as jpre
+from vidi_tpu.ops import rope as jrope
+from vidi_tpu_torch.ops import attention as tattn
+from vidi_tpu_torch.ops import basic as tbasic
+from vidi_tpu_torch.ops import norms as tnorms
+from vidi_tpu_torch.ops import preprocess as tpre
+from vidi_tpu_torch.ops import rope as trope
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _rand(*shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **tol)
+
+
+@pytest.mark.parametrize("name,eps", [
+    ("rms_norm", 1e-5), ("scaled_rms_norm", 1e-5),
+    ("gemma_rms_norm", 1e-6), ("mistral_rms_norm", 1e-5)])
+def test_norms_match(name, eps):
+    x, w = _rand(3, 5, 64), _rand(64, seed=1)
+    args = () if name == "rms_norm" else (w,)
+    want = getattr(jnorms, name)(jnp.asarray(x), *map(jnp.asarray, args), eps)
+    got = getattr(tnorms, name)(torch.from_numpy(x), *map(torch.from_numpy, args), eps)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("pos_shape", [(7,), (2, 7)])
+def test_rope_matches(pos_shape):
+    pos = np.arange(np.prod(pos_shape)).reshape(pos_shape).astype(np.int32) * 3
+    jc, js = jrope.rope_cos_sin(jnp.asarray(pos), 16, 10000.0)
+    tc, ts = trope.rope_cos_sin(torch.from_numpy(pos), 16, 10000.0)
+    _close(tc, jc)
+    _close(ts, js)
+    if len(pos_shape) == 2:  # tables [B,T,D] against x [B,T,H,D]
+        x = _rand(2, 7, 3, 16)
+        _close(trope.apply_rope(torch.from_numpy(x), tc, ts),
+               jrope.apply_rope(jnp.asarray(x), jc, js))
+
+
+def test_layer_norm_and_dense_match():
+    x, s, b = _rand(2, 5, 32), _rand(32, seed=1), _rand(32, seed=2)
+    w = _rand(32, 48, seed=3)
+    tx = torch.from_numpy(x)
+    _close(tbasic.layer_norm(tx, torch.from_numpy(s), torch.from_numpy(b)),
+           jbasic.layer_norm(jnp.asarray(x), jnp.asarray(s), jnp.asarray(b)))
+    _close(tbasic.dense(tx, torch.from_numpy(w), torch.from_numpy(_rand(48, seed=4))),
+           jbasic.dense(jnp.asarray(x), jnp.asarray(w), jnp.asarray(_rand(48, seed=4))))
+    _close(tbasic.matmul_f32(tx, torch.from_numpy(w)), jnp.asarray(x) @ jnp.asarray(w))
+
+
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu_exact", "quick_gelu"])
+def test_activations_match(act):
+    x = _rand(4, 33) * 3
+    _close(tbasic.tower_act(torch.from_numpy(x), act if act != "gelu_exact" else "gelu"),
+           getattr(jbasic, act)(jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_mha_matches(use_flash):
+    """use_flash on a CPU tensor runs the K2 kernel's plain version."""
+    q, k, v = (_rand(2, 9, 48, seed=i) for i in range(3))
+    want = jbasic.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 3)
+    got = tbasic.mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                     3, use_flash=use_flash)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("window,softcap,segs", [
+    (None, None, False), (4, 50.0, False), (None, 30.0, True)])
+def test_self_attention_matches(window, softcap, segs):
+    b, t, hq, hk, d = 2, 11, 4, 2, 16
+    q, k, v = _rand(b, t, hq, d), _rand(b, t, hk, d, seed=1), _rand(b, t, hk, d, seed=2)
+    pos = np.broadcast_to(np.arange(t, dtype=np.int32), (b, t)).copy()
+    valid = np.ones((b, t), bool)
+    valid[1, 8:] = False
+    seg = np.array([[1] * 5 + [2] * 6, [1] * 8 + [0] * 3], np.int32)
+    kw = dict(scale=0.25, sliding_window=window, softcap=softcap)
+    want = jattn.self_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_positions=jnp.asarray(pos),
+        kv_positions=jnp.asarray(pos), kv_valid=jnp.asarray(valid),
+        q_segment_ids=jnp.asarray(seg) if segs else None,
+        kv_segment_ids=jnp.asarray(seg) if segs else None, **kw)
+    got = tattn.self_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        q_positions=torch.from_numpy(pos), kv_positions=torch.from_numpy(pos),
+        kv_valid=torch.from_numpy(valid),
+        q_segment_ids=torch.from_numpy(seg) if segs else None,
+        kv_segment_ids=torch.from_numpy(seg) if segs else None, **kw)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("softcap,empty_row", [(None, False), (50.0, True)])
+def test_cross_attention_matches(softcap, empty_row):
+    """Including a sample whose mask is all False: both sides average V."""
+    b, t, s, hq, hk, d = 2, 5, 23, 4, 2, 16
+    q, k, v = _rand(b, t, hq, d), _rand(b, s, hk, d, seed=1), _rand(b, s, hk, d, seed=2)
+    valid = np.ones((b, s), bool)
+    valid[0, 17:] = False
+    if empty_row:
+        valid[1] = False
+    want = jattn.cross_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 kv_valid=jnp.asarray(valid), scale=0.25,
+                                 softcap=softcap)
+    got = tattn.cross_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), kv_valid=torch.from_numpy(valid),
+                                scale=0.25, softcap=softcap)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("mean,std", [(0.5, 0.5), ((0.48, 0.45, 0.40), (0.27, 0.26, 0.28))])
+def test_normalize_uint8_matches(mean, std):
+    x = np.random.default_rng(0).integers(0, 256, (2, 6, 6, 3), dtype=np.uint8)
+    _close(tpre.normalize_uint8(torch.from_numpy(x), mean, std),
+           jpre.normalize_uint8(jnp.asarray(x), mean, std))
+    _close(tpre.preprocess_uint8(torch.from_numpy(x), 6, mean, std),
+           jpre.preprocess_uint8(jnp.asarray(x), 6, mean, std))
+
+
+def test_device_resize_is_not_ported_yet():
+    x = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError):
+        tpre.preprocess_uint8(x, 6, 0.5, 0.5)

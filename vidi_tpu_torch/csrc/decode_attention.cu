@@ -1,0 +1,212 @@
+// K3: decode attention, one query token per row against a KV cache.
+//
+// Replaces the Pallas kernel vidi_tpu/ops/pallas/decode_attention.py
+// (`decode_attention` -> `_kernel`): q [B,Hq,D] against the cache-native
+// k/v [B,Hk,S,D] (strided), GQA group rows sharing one KV head, an int32
+// kv_mask, logit softcap and the Gemma2 sliding window through q_pos
+// (key visible iff q_pos - key < window). Rows with no visible key give
+// zeros. As in `_kernel`, each probability is rounded to the cache dtype
+// before it weights V, and the row sum stays fp32.
+//
+// What bounds it on an H100: every step reads the whole cache once (2*S*D
+// bf16 per KV head) for 2*g*S*D FMAs, so it is bound by device-memory
+// bandwidth. A grid of (B, Hk) would be 8 blocks on 132 SMs at batch 1, so
+// the design splits S: pass 1 gives each block one chunk of keys for one
+// (batch, KV head), its warps stream keys (one 2*D-byte row per warp step,
+// lanes on neighbouring addresses) and keep fp32 online-softmax state for
+// the g query rows in registers, then merge into one partial (m, l, acc);
+// pass 2 merges the partials of all chunks. The wrapper allocates the
+// partials.
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;
+
+struct DecodeParams {
+  const void* q;       // [B, Hq, D], last dim contiguous
+  const void* k;       // [B, Hk, S, D], last dim contiguous
+  const void* v;
+  const int* kv_mask;  // [B, S] contiguous, nullptr = all valid
+  const int* q_pos;    // [B], read when window > 0
+  float* part_m;       // [B, Hq, n_split]
+  float* part_l;       // [B, Hq, n_split]
+  float* part_acc;     // [B, Hq, n_split, D]
+  void* out;           // [B, Hq, D] contiguous
+  int B, Hq, Hk, S, n_split, chunk;
+  long long q_sb, q_sh;
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  float scale, softcap;
+  int window;
+};
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
+  constexpr int EPL = D / 32;  // elements per lane
+  static_assert(EPL % 2 == 0, "D must be a multiple of 64");
+  __shared__ float sAcc[kWarps][G][D];
+  __shared__ float sM[kWarps][G];
+  __shared__ float sL[kWarps][G];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int c0 = split * p.chunk, c1 = min(p.S, c0 + p.chunk);
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + lane * EPL;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + lane * EPL;
+  const int qpos = p.window > 0 ? p.q_pos[b] : 0;
+
+  float qr[G][EPL], acc[G][EPL], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const T* qg = q + (hk * G + g) * p.q_sh + lane * EPL;
+#pragma unroll
+    for (int e = 0; e < EPL; e += 2) {
+      const float2 x = vidi::load2(qg + e);
+      qr[g][e] = x.x;
+      qr[g][e + 1] = x.y;
+      acc[g][e] = 0.f;
+      acc[g][e + 1] = 0.f;
+    }
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+  }
+
+  for (int key = c0 + warp; key < c1; key += kWarps) {
+    // warp-uniform skip: masked keys cost no cache read
+    if (p.kv_mask != nullptr && p.kv_mask[b * p.S + key] == 0) continue;
+    if (p.window > 0 && qpos - key >= p.window) continue;
+    float kk[EPL], vv[EPL];
+#pragma unroll
+    for (int e = 0; e < EPL; e += 2) {
+      const float2 x = vidi::load2(k + key * p.k_ss + e);
+      const float2 y = vidi::load2(v + key * p.v_ss + e);
+      kk[e] = x.x; kk[e + 1] = x.y;
+      vv[e] = y.x; vv[e + 1] = y.y;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) d = fmaf(qr[g][e], kk[e], d);
+      float s = vidi::warp_sum(d) * p.scale;
+      if (p.softcap > 0.f) s = tanhf(s / p.softcap) * p.softcap;
+      const float m_new = fmaxf(m[g], s);
+      const float alpha = expf(m[g] - m_new);
+      const float pr = expf(s - m_new);
+      const float pv = vidi::round_to<T>(pr);  // P @ V in v's dtype, l in fp32
+      l[g] = l[g] * alpha + pr;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(pv, vv[e], acc[g][e] * alpha);
+      m[g] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) sAcc[warp][g][lane * EPL + e] = acc[g][e];
+    if (lane == 0) {
+      sM[warp][g] = m[g];
+      sL[warp][g] = l[g];
+    }
+  }
+  __syncthreads();
+
+  for (int idx = threadIdx.x; idx < G * D; idx += kWarps * 32) {
+    const int g = idx / D, d = idx % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sM[w][g]);
+    float lsum = 0.f, a = 0.f;
+    if (mx != -INFINITY) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = expf(sM[w][g] - mx);
+        lsum += sL[w][g] * f;
+        a += sAcc[w][g][d] * f;
+      }
+    }
+    const long long row = ((long long)b * p.Hq + hk * G + g) * p.n_split + split;
+    p.part_acc[row * D + d] = a;
+    if (d == 0) {
+      p.part_m[row] = mx;
+      p.part_l[row] = lsum;
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void decode_combine(DecodeParams p) {
+  const int row = blockIdx.x;  // b * Hq + h
+  const int d = threadIdx.x;
+  const float* pm = p.part_m + (long long)row * p.n_split;
+  const float* pl = p.part_l + (long long)row * p.n_split;
+  const float* pa = p.part_acc + (long long)row * p.n_split * D;
+  float mx = -INFINITY;
+  for (int i = 0; i < p.n_split; ++i) mx = fmaxf(mx, pm[i]);
+  float lsum = 0.f, a = 0.f;
+  if (mx != -INFINITY) {
+    for (int i = 0; i < p.n_split; ++i) {
+      const float f = expf(pm[i] - mx);
+      lsum += pl[i] * f;
+      a += pa[(long long)i * D + d] * f;
+    }
+  }
+  T* out = static_cast<T*>(p.out) + (long long)row * D;
+  const float o = lsum == 0.f ? 0.f : a / lsum;
+  if constexpr (sizeof(T) == 4) {
+    out[d] = o;
+  } else {
+    out[d] = __float2bfloat16(o);
+  }
+}
+
+template <typename T, int D, int G>
+cudaError_t launch(const DecodeParams& p, cudaStream_t s) {
+  dim3 grid(p.n_split, p.Hk, p.B);
+  decode_partial<T, D, G><<<grid, kWarps * 32, 0, s>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_combine<T, D><<<p.B * p.Hq, D, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+// The decoders the port runs: Gemma2 with 2 query heads per KV head, head
+// dim 256 (Vidi1.5-9B) or 128 (the 1.5B configuration).
+template <typename T>
+cudaError_t dispatch(const DecodeParams& p, int D, int G, cudaStream_t s) {
+  if (G != 2) return cudaErrorInvalidValue;
+  switch (D) {
+    case 128: return launch<T, 128, 2>(p, s);
+    case 256: return launch<T, 256, 2>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int vidi_decode_attention(
+    const void* q, const void* k, const void* v, const int* kv_mask,
+    const int* q_pos, float* part_m, float* part_l, float* part_acc, void* out,
+    int B, int Hq, int Hk, int S, int D, int is_bf16,
+    long long q_sb, long long q_sh,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    float scale, float softcap, int window, int n_split, int chunk,
+    void* stream) {
+  DecodeParams p;
+  p.q = q; p.k = k; p.v = v; p.kv_mask = kv_mask; p.q_pos = q_pos;
+  p.part_m = part_m; p.part_l = part_l; p.part_acc = part_acc; p.out = out;
+  p.B = B; p.Hq = Hq; p.Hk = Hk; p.S = S; p.n_split = n_split; p.chunk = chunk;
+  p.q_sb = q_sb; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.scale = scale; p.softcap = softcap; p.window = window;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = Hq / Hk;
+  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, D, G, s)
+                            : dispatch<float>(p, D, G, s);
+  return static_cast<int>(err);
+}

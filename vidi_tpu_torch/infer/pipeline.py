@@ -1,0 +1,204 @@
+"""End-to-end temporal-retrieval inference for the port, plus its CLI
+(port of vidi_tpu/infer/pipeline.py, greedy v1.5 path).
+
+decode video -> uint8 frames + log-mel windows (host) -> SigLIP / Whisper
+towers and adapters (device) -> TR prompt -> greedy generate -> parse the
+normalized `a.aaa-b.bbb` ranges -> "HH:MM:SS-HH:MM:SS" spans.
+
+    python -m vidi_tpu_torch.infer.pipeline --video-path v.mp4 --query "a red car" \
+        --random-weights 9b|1.5b|tiny --device cuda|cpu --dtype bfloat16|float32
+"""
+from __future__ import annotations
+
+import argparse
+import re
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from vidi_tpu.constants import DEFAULT_IMAGE_TOKEN, GEMMA_EOS_TOKEN_ID, IMAGE_TOKEN_INDEX
+from vidi_tpu.core.config import DattnConfig
+from vidi_tpu.media.audio import process_audio
+from vidi_tpu.media.text import preprocess_chat, tokenizer_image_token
+from vidi_tpu_torch.infer.generate import generate, tokenize_stop_keywords
+from vidi_tpu_torch.models import dattn
+from vidi_tpu_torch.models.adapters import budget_hw
+
+TIME_RANGE_RE = re.compile(r"(\d\.\d+)-(\d\.\d+)")
+TR_PROMPT = "During which time segments in the video can we see {}?"
+TASKS = ("tr", "stg", "chapter", "highlight", "qa", "mcq", "character")
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def pick_eos(cfg: DattnConfig, tokenizer) -> int:
+    """Gemma2 stops at <end_of_turn> = 107, or at the tokenizer's eos when
+    its vocabulary is smaller (the byte tokenizer)."""
+    eos = GEMMA_EOS_TOKEN_ID if cfg.text.arch == "gemma2" else tokenizer.eos_token_id
+    if getattr(tokenizer, "vocab_size", 1 << 30) <= eos:
+        eos = tokenizer.eos_token_id
+    return eos
+
+
+def format_spans(ranges: List[Tuple[float, float]], length: float) -> str:
+    """Normalized (t0, t1) pairs -> 'HH:MM:SS-HH:MM:SS, ...'."""
+    out = []
+    for r0, r1 in ranges:
+        t0, t1 = r0 * length, r1 * length
+        out.append("{:02d}:{:02d}:{:02d}-{:02d}:{:02d}:{:02d}".format(
+            int(t0 / 3600), (int(t0) % 3600) // 60, int(t0) % 60,
+            int(t1 / 3600), (int(t1) % 3600) // 60, int(t1) % 60))
+    return ", ".join(out)
+
+
+def parse_time_ranges(text: str) -> List[Tuple[float, float]]:
+    return [(float(a), float(b)) for a, b in TIME_RANGE_RE.findall(text)]
+
+
+def decode_media_host(vid_path: str, cfg: DattnConfig, *, fps: float = 1.0):
+    """Host half of the encode: decode + PIL resize + log-mel -> (uint8
+    frames [N,S,S,3], mel windows [W,n_mels,3000], audio_len). The video
+    and image modules need libav or cv2, and PIL, so they load here only."""
+    from vidi_tpu.media.images import resize_frames_uint8
+    from vidi_tpu.media.video import load_audio, load_video
+
+    frames = load_video(vid_path, fps=fps)
+    pixels = resize_frames_uint8(frames, cfg.vision.image_size)
+    mels, audio_len = process_audio(load_audio(vid_path, cfg.audio.sampling_rate),
+                                    cfg.audio)
+    return pixels, mels, audio_len
+
+
+def encode_media_arrays(params, cfg: DattnConfig, pixels, mels, audio_len, *,
+                        mm_chunks: int = 32, use_flash: bool = False):
+    """Device half: uint8 frames + mel windows -> (img, img_mask, aud,
+    aud_mask) on the parameters' device."""
+    dev = params["text"]["embed"].device
+    n = pixels.shape[0]
+    hw = budget_hw(n, cfg.mm_image_pool_size, cfg.vision.num_patches_per_side,
+                   cfg.mm_max_tokens_base)
+    img, img_mask = dattn.encode_video_images(
+        params, cfg, torch.as_tensor(np.asarray(pixels)).to(dev)[None],
+        torch.tensor([n], device=dev), hw, mm_chunks=mm_chunks,
+        use_flash=use_flash)
+    aud, aud_mask = dattn.encode_video_audios(
+        params, cfg, torch.as_tensor(np.asarray(mels, np.float32)).to(dev)[None],
+        torch.tensor([audio_len], device=dev), mm_chunks=mm_chunks,
+        use_flash=use_flash)
+    return img, img_mask, aud, aud_mask
+
+
+def build_prompt_ids(question: str, tokenizer, task: str = "tr",
+                     options=None) -> np.ndarray:
+    """Chat-templated prompt ids with the <image> token spliced out (video
+    reaches Dattn through cross attention, not the text stream)."""
+    from vidi_tpu_torch.infer.tasks import build_task_prompt
+
+    qs = DEFAULT_IMAGE_TOKEN + "\n" + build_task_prompt(task, question, options)
+    prompt = preprocess_chat([{"from": "human", "value": qs}], tokenizer,
+                             arch="gemma2")
+    ids = tokenizer_image_token(prompt, tokenizer, IMAGE_TOKEN_INDEX)
+    return np.asarray([t for t in ids if t != IMAGE_TOKEN_INDEX], np.int32)
+
+
+def build_prompt_batch(ids_list, pad_to: int = 64):
+    """Right-pad token-id sequences to a shared multiple of `pad_to`
+    -> (prompt [Q,T] int32, mask [Q,T] bool)."""
+    t = _round_up(max(len(i) for i in ids_list), pad_to)
+    prompt = np.zeros((len(ids_list), t), np.int32)
+    mask = np.zeros((len(ids_list), t), bool)
+    for r, ids in enumerate(ids_list):
+        prompt[r, : len(ids)] = ids
+        mask[r, : len(ids)] = True
+    return prompt, mask
+
+
+def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
+        task: str = "tr", fps: float = 1.0, max_new_tokens: int = 1024,
+        mm_chunks: int = 32, eos_id: Optional[int] = None, pad_to: int = 64,
+        use_flash: Optional[bool] = None, use_flash_decode: bool = False,
+        stop_keywords: tuple = ()) -> str:
+    """Answer one query about one video -> the task's display string.
+    `use_flash=None` means "the parameters are on a CUDA device": the CUDA
+    kernels run there and the reference ops on the CPU."""
+    from vidi_tpu.media.video import get_media_length
+
+    dev = params["text"]["embed"].device
+    if use_flash is None:
+        use_flash = dev.type == "cuda"
+    length = get_media_length(vid_path)
+    img, img_mask, aud, aud_mask = encode_media_arrays(
+        params, cfg, *decode_media_host(vid_path, cfg, fps=fps),
+        mm_chunks=mm_chunks, use_flash=use_flash)
+    prompt, mask = build_prompt_batch([build_prompt_ids(question, tokenizer, task)],
+                                      pad_to)
+    result = generate(
+        params, cfg, torch.as_tensor(prompt).long().to(dev),
+        torch.as_tensor(mask).to(dev), img=img, img_mask=img_mask, aud=aud,
+        aud_mask=aud_mask, max_new_tokens=max_new_tokens,
+        eos_id=eos_id if eos_id is not None else pick_eos(cfg, tokenizer),
+        mm_chunks=mm_chunks, use_flash=use_flash,
+        use_flash_decode=use_flash_decode,
+        stop_sequences=tokenize_stop_keywords(stop_keywords, tokenizer))
+    n = int(result.lengths[0])
+    text = tokenizer.decode(result.tokens[0, :n].cpu().numpy(),
+                            skip_special_tokens=True).strip()
+    if stop_keywords:
+        from vidi_tpu.media.text import truncate_at_keywords
+        text = truncate_at_keywords(text, stop_keywords).strip()
+    return parse_task_output(text, task, length)
+
+
+def parse_task_output(text: str, task: str, length: float) -> str:
+    """Decoded model text -> the task's display string."""
+    from vidi_tpu_torch.infer import tasks
+
+    if task == "tr":
+        return format_spans(parse_time_ranges(text), length)
+    if task == "chapter":
+        return "\n".join(f"{c['start']:.1f}-{c['end']:.1f}s {c['title']}"
+                         for c in tasks.parse_chapters(text, length))
+    if task == "highlight":
+        return ", ".join(f"{a:.1f}-{b:.1f}s"
+                         for a, b in tasks.parse_highlights(text, length))
+    if task == "mcq":
+        return tasks.parse_mcq(text)
+    if task == "character":
+        import json
+        return json.dumps(tasks.parse_character(text, length))
+    return text  # qa / stg: the raw model text
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--video-path", required=True)
+    p.add_argument("--query", required=True)
+    p.add_argument("--task", default="tr", choices=TASKS)
+    p.add_argument("--random-weights", required=True, choices=["tiny", "9b", "1.5b"],
+                   help="random weights at this configuration's widths "
+                        "(checkpoint loading is not ported yet)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (raises without a card) or cpu")
+    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
+    p.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    p.add_argument("--fps", type=float, default=1.0)
+    p.add_argument("--max-new-tokens", type=int, default=1024)
+    p.add_argument("--mm-splits", type=int, default=32)
+    args = p.parse_args(argv)
+
+    from vidi_tpu_torch.infer.loader import load_model
+
+    params, cfg, tokenizer = load_model(
+        random_weights=args.random_weights, dtype=getattr(torch, args.dtype),
+        device=args.device, seed=args.seed)
+    out = ask(args.query, args.video_path, params, cfg, tokenizer,
+              task=args.task, fps=args.fps, max_new_tokens=args.max_new_tokens,
+              mm_chunks=args.mm_splits)
+    print(out if out else "(no parsed output)")
+
+
+if __name__ == "__main__":
+    main()

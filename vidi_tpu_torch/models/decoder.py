@@ -1,0 +1,96 @@
+"""Text-decoder backbone ops, Gemma2 (port of vidi_tpu/models/decoder.py,
+unquantized branch): norms, activation, gated MLP, the FFN block,
+embedding lookup and the tied-embedding logits with the final softcap.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from vidi_tpu.core.config import TextConfig
+from vidi_tpu_torch.ops.basic import gelu_tanh, matmul_f32
+from vidi_tpu_torch.ops.norms import gemma_rms_norm, mistral_rms_norm
+
+Params = Dict
+
+
+def norm(x, weight, cfg: TextConfig):
+    if cfg.arch == "gemma2":
+        return gemma_rms_norm(x, weight, cfg.rms_norm_eps)
+    return mistral_rms_norm(x, weight, cfg.rms_norm_eps)
+
+
+def activation(x, cfg: TextConfig):
+    if cfg.hidden_act == "gelu_tanh":
+        return gelu_tanh(x)
+    return F.silu(x)
+
+
+def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator) -> Params:
+    """Random init with the JAX init's shapes and scales (Gemma2: norm
+    weights are zero, the (1 + w) form makes them identity)."""
+    if cfg.arch != "gemma2" or not cfg.tie_word_embeddings:
+        raise NotImplementedError("only the Gemma2 decoder is ported "
+                                  "(Mistral / 7B waits)")
+    d, ff = cfg.hidden_size, cfg.intermediate_size
+    hq, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def nrm(shape, scale):
+        return (torch.randn(shape, generator=gen, device=device, dtype=dtype)
+                * scale)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    layers = [{
+        "input_ln": zeros((d,)), "post_attn_ln": zeros((d,)),
+        "q_w": nrm((d, hq * dh), d**-0.5),
+        "k_w": nrm((d, hk * dh), d**-0.5),
+        "v_w": nrm((d, hk * dh), d**-0.5),
+        "o_w": nrm((hq * dh, d), (hq * dh)**-0.5),
+        "gate_w": nrm((d, ff), d**-0.5),
+        "up_w": nrm((d, ff), d**-0.5),
+        "down_w": nrm((ff, d), ff**-0.5),
+        "pre_ffn_ln": zeros((d,)), "post_ffn_ln": zeros((d,)),
+    } for _ in range(cfg.num_layers)]
+    return {"embed": nrm((cfg.vocab_size, d), 1.0), "final_ln": zeros((d,)),
+            "layers": layers}
+
+
+def split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def mlp(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
+    return (activation(x @ lp["gate_w"], cfg) * (x @ lp["up_w"])) @ lp["down_w"]
+
+
+def ffn_block(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
+    """Gemma2: x + post_ffn_norm(mlp(pre_ffn_norm(x)));
+    Mistral: x + mlp(post_attn_norm(x))."""
+    if cfg.double_norms:
+        h = norm(mlp(lp, norm(x, lp["pre_ffn_ln"], cfg), cfg),
+                 lp["post_ffn_ln"], cfg)
+    else:
+        h = mlp(lp, norm(x, lp["post_attn_ln"], cfg), cfg)
+    return x + h
+
+
+def embed_tokens(params: Params, ids: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
+    return params["embed"][ids]
+
+
+def lm_logits(params: Params, hidden: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
+    """Tied-embedding logits in fp32, then the final softcap."""
+    if not cfg.tie_word_embeddings:
+        raise NotImplementedError("untied lm_head (Mistral / 7B) is not ported")
+    logits = matmul_f32(hidden, params["embed"].T)
+    if cfg.final_softcap is not None:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
