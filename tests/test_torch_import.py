@@ -51,10 +51,33 @@ print(json.dumps({{
 
 @pytest.fixture(scope="module")
 def probe():
+    return _run(PROBE.format(modules=MODULES))
+
+
+TRAIN_MODULES = [
+    "vidi_tpu_torch.ops.cuda.flash_attention_bwd",
+    "vidi_tpu_torch.train",
+    "vidi_tpu_torch.train.losses",
+    "vidi_tpu_torch.train.optimizer",
+    "vidi_tpu_torch.train.train_step",
+    "vidi_tpu_torch.train.data",
+    "vidi_tpu_torch.train.checkpoint",
+    "vidi_tpu_torch.train.train",
+]
+# the training path imports vidi_tpu.train.data (jax-free, PIL at the top)
+TRAIN_PROBE = """
+import importlib, json, sys
+for m in {modules!r}:
+    importlib.import_module(m)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m in ("jax", "optax", "orbax") or m.startswith(("jax.", "orbax.")))))
+"""
+
+
+def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", PROBE.format(modules=MODULES)],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=120)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     import json
     return json.loads(res.stdout.strip().splitlines()[-1])
@@ -62,6 +85,10 @@ def probe():
 
 def test_port_never_imports_jax(probe):
     assert probe["jax"] == []
+
+
+def test_training_path_never_imports_jax():
+    assert _run(TRAIN_PROBE.format(modules=TRAIN_MODULES)) == []
 
 
 def test_no_kernel_library_at_import(probe):

@@ -6,6 +6,7 @@ Tolerance: atol = rtol = 2e-5 in fp32 (same softmax attention; the Pallas
 kernel divides after P @ V, the plain version before it).
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -35,6 +36,28 @@ def test_matches_pallas(b, t, h, d, layout):
     got = k2.tower_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
                                    torch.from_numpy(v), d**-0.5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_function_grads_match_jax():
+    """K2's autograd Function (backward: a plain recompute under autograd,
+    as the JAX custom VJP's `_ta_bwd`) against `jax.vjp` through the
+    interpreted Pallas `tower_attention`. Tolerance 2e-5, as above."""
+    rng = np.random.default_rng(5)
+    q, k, v, do = (rng.standard_normal((2, 37, 2, 72)).astype(np.float32)
+                   for _ in range(4))
+    _, vjp = jax.vjp(lambda a, b, c: ta.tower_attention(a, b, c, 72**-0.5),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = k2.tower_attention(*leaves, 72**-0.5)
+    assert type(out.grad_fn).__name__ == "_TowerAttentionBackward"
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    plain = torch.autograd.grad(k2.tower_attention_plain(*leaves, 72**-0.5), leaves,
+                                torch.from_numpy(do))
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)  # the backward is autograd through the plain version
 
 
 def test_mha_use_flash_reaches_the_wrapper_on_cpu():

@@ -7,7 +7,7 @@ projector, the fractional-sinusoid position MLP and the audio pool conv
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,11 +83,21 @@ def pos_mlp(params: Params, frac: torch.Tensor, d: int) -> torch.Tensor:
     return F.gelu(h) @ params["w1"] + params["b1"]
 
 
+def jitter(p: torch.Tensor, noise: torch.Tensor, top) -> torch.Tensor:
+    """Training position noise: p + clip(0.45 * noise, +-0.45), clamped to
+    [0, top]; `noise` holds standard-normal draws of p's shape."""
+    noise = torch.clamp(noise.to(p.device, torch.float32) * 0.45, -0.45, 0.45)
+    return torch.minimum(torch.clamp(p + noise, min=0.0), torch.as_tensor(top))
+
+
 def pos_embed(params: Params, length: int, n_anchors: int, d: int, *,
-              device) -> torch.Tensor:
-    """Positional table [length, d] (inference: no jitter). Positions
-    arange(length) are normalized onto [0, n_anchors - 1]."""
+              device, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Positional table [length, d]. Positions arange(length) are
+    normalized onto [0, n_anchors - 1]; with `noise` ([length] standard-normal
+    draws, training) they are jittered first when length > 1."""
     p = torch.arange(length, dtype=torch.float32, device=device)
+    if noise is not None and length > 1:
+        p = jitter(p, noise, float(length - 1))
     p = p / max(length - 1, 1) * (n_anchors - 1)
     return pos_mlp(params, p, d)
 

@@ -13,6 +13,9 @@ Each decoder layer runs
 Differences of form from the JAX module: the `lax.scan` over layers is a
 Python loop (each layer's sliding flag is a plain bool), the `lax.map`
 chunking is a loop over chunks, and decode writes the text cache in place.
+Training position noise comes as explicit standard-normal draws
+(`draw_pos_noise`) instead of a JAX key; `remat=True` checkpoints each
+layer (`torch.utils.checkpoint`), the counterpart of `jax.checkpoint`.
 `use_flash` routes attention to the CUDA kernels (K1 for prefill T2T and
 stream cross attention, K3 for decode); without it the reference ops of
 `ops/attention.py` run. Caches keep the decode-native [L,B,Hk,S,D] layout.
@@ -20,10 +23,12 @@ All `*_mask` arguments are bool [B,S]; `*_counts` are int [B].
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from vidi_tpu.core.config import DattnConfig, TextConfig
 from vidi_tpu_torch.models import adapters, decoder, siglip, whisper
@@ -112,53 +117,92 @@ def _embed_scale(x: torch.Tensor, tcfg: TextConfig) -> torch.Tensor:
 # Modality encoders
 # ---------------------------------------------------------------------------
 
+def draw_pos_noise(cfg: DattnConfig, b: int, n_frames: int, n_windows: int,
+                   hw: Tuple[int, int], generator: torch.Generator) -> Dict:
+    """Standard-normal draws for one training step's position noise, on the
+    generator's device: {"img_h": [h2], "img_w": [w2], "img_t": [B,N],
+    "aud_t": [B,A]}. One h and one w vector serve every frame chunk, as the
+    JAX encoder's fixed key per chunk does."""
+    pool = cfg.mm_image_pool_size
+    n_aud = n_windows * cfg.audio.max_source_positions // cfg.mm_audio_pool_size
+
+    def draw(*shape):
+        return torch.randn(shape, generator=generator, device=generator.device)
+
+    return {"img_h": draw(hw[0] // pool), "img_w": draw(hw[1] // pool),
+            "img_t": draw(b, n_frames), "aud_t": draw(b, n_aud)}
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(_needs_grad(v) for v in tree)
+    return tree.requires_grad
+
+
+def _tower_grad(tower_params):
+    """Autograd for a tower only when one of its params requires grad: a
+    frozen (detached) tower runs under no_grad, as the reference runs frozen
+    towers; JAX's stop_gradient on its params gives the same numbers."""
+    return torch.set_grad_enabled(torch.is_grad_enabled() and _needs_grad(tower_params))
+
+
 def encode_video_images(params: Params, cfg: DattnConfig, images: torch.Tensor,
                         frame_counts: torch.Tensor, hw: Tuple[int, int], *,
-                        mm_chunks: int = 1, use_flash: bool = False):
+                        mm_chunks: int = 1, use_flash: bool = False,
+                        pos_noise: Optional[Dict] = None):
     """images [B,N,H,W,3] (uint8 at image_size, or normalized float) ->
-    (image features [B, N*h2*w2, d_llm], image mask [B, N*h2*w2])."""
+    (image features [B, N*h2*w2, d_llm], image mask [B, N*h2*w2]).
+    `pos_noise` (training) holds the draws of `draw_pos_noise`."""
     b, n, h_img, w_img, _ = images.shape
     d = cfg.text.hidden_size
     flat = images.reshape(b * n, h_img, w_img, 3)
-    tok = chunked_map(lambda x: _frame_tokens(params, x, cfg, hw, use_flash),
+    noise = pos_noise or {}
+    tok = chunked_map(lambda x: _frame_tokens(params, x, cfg, hw, use_flash, noise),
                       flat, mm_chunks)
     h2, w2 = tok.shape[1], tok.shape[2]
     return finish_video_tokens(params, cfg, tok.reshape(b, n, h2, w2, d),
-                               frame_counts)
+                               frame_counts, t_noise=noise.get("img_t"))
 
 
-def _frame_tokens(params, x, cfg: DattnConfig, hw, use_flash):
+def _frame_tokens(params, x, cfg: DattnConfig, hw, use_flash, noise=None):
     """Tower -> pool -> projector -> norm -> h/w positions for one chunk of
     frames [C,H,W,3] -> [C,h2,w2,d]."""
     if x.dtype == torch.uint8:
         from vidi_tpu_torch.ops.preprocess import preprocess_uint8
         x = preprocess_uint8(x, cfg.vision.image_size, SIGLIP_MEAN, SIGLIP_STD)
     mm = params["mm"]
+    noise = noise or {}
     s = cfg.vision.num_patches_per_side
     d = cfg.text.hidden_size
-    feats = siglip.forward_features(params["vision"], x, cfg.vision,
-                                    use_flash=use_flash)
+    with _tower_grad(params["vision"]):
+        feats = siglip.forward_features(params["vision"], x, cfg.vision,
+                                        use_flash=use_flash)
     feats = feats.reshape(x.shape[0], s, s, cfg.vision.hidden_size)
     pooled = adapters.conv2d_pool(feats, hw, cfg.mm_image_pool_size)
     t = adapters.mlp_projector(mm["img_projector"], pooled, cfg.mm_projector_depth)
     t = scaled_rms_norm(t, mm["img_norm"]["weight"], cfg.mm_rms_eps)
     pe_h = adapters.pos_embed(mm["pos_h"], t.shape[1], cfg.mm_image_pool_size,
-                              d, device=t.device)
+                              d, device=t.device, noise=noise.get("img_h"))
     pe_w = adapters.pos_embed(mm["pos_w"], t.shape[2], cfg.mm_image_pool_size,
-                              d, device=t.device)
+                              d, device=t.device, noise=noise.get("img_w"))
     t = adapters.add_pos(t, pe_h, axis=1, eps=cfg.mm_rms_eps)
     return adapters.add_pos(t, pe_w, axis=2, eps=cfg.mm_rms_eps)
 
 
 def finish_video_tokens(params: Params, cfg: DattnConfig, tok: torch.Tensor,
-                        frame_counts: torch.Tensor):
+                        frame_counts: torch.Tensor, *,
+                        t_noise: Optional[torch.Tensor] = None):
     """Temporal positions + final norms + validity mask over per-frame
-    tokens [B,N,h2,w2,d] -> ([B,N*h2*w2,d], mask)."""
+    tokens [B,N,h2,w2,d] -> ([B,N*h2*w2,d], mask). `t_noise` [B,N]:
+    training position noise draws."""
     mm = params["mm"]
     d = cfg.text.hidden_size
     b, n, h2, w2, _ = tok.shape
     counts = frame_counts.to(tok.device)
-    pe_t = _pos_embed_batch(mm["pos_t"], n, counts, cfg.mm_time_interval, d)
+    pe_t = _pos_embed_batch(mm["pos_t"], n, counts, cfg.mm_time_interval, d,
+                            t_noise)
     tok = tok + rms_norm(pe_t, cfg.mm_rms_eps)[:, :, None, None, :].to(tok.dtype)
     tok = tok.reshape(b, n * h2 * w2, d)
     frame_valid = torch.arange(n, device=tok.device)[None, :] < counts[:, None]
@@ -168,26 +212,31 @@ def finish_video_tokens(params: Params, cfg: DattnConfig, tok: torch.Tensor,
 
 
 def _pos_embed_batch(pe_params, length: int, counts: torch.Tensor,
-                     n_anchors: int, d: int) -> torch.Tensor:
+                     n_anchors: int, d: int, noise=None) -> torch.Tensor:
     """Per-sample fractional positions normalized by each sample's true
-    count -> [B, length, d] (fp32)."""
+    count -> [B, length, d] (fp32); `noise` [B, length] jitters them
+    (training) when length > 1."""
     p = torch.arange(length, dtype=torch.float32, device=counts.device)[None, :]
     denom = torch.clamp(counts[:, None] - 1, min=1).float()
+    if noise is not None and length > 1:
+        p = adapters.jitter(p, noise, denom)
     return adapters.pos_mlp(pe_params, p / denom * (n_anchors - 1), d)
 
 
 def encode_video_audios(params: Params, cfg: DattnConfig, mels: torch.Tensor,
                         audio_sizes: torch.Tensor, *, mm_chunks: int = 1,
-                        use_flash: bool = False):
+                        use_flash: bool = False, pos_noise: Optional[Dict] = None):
     """mels [B,W,n_mels,3000] Whisper windows, audio_sizes [B] real mel
-    frames -> (audio features [B, W*1500//pool, d_llm], audio mask)."""
+    frames -> (audio features [B, W*1500//pool, d_llm], audio mask).
+    `pos_noise["aud_t"]` [B,A]: training position noise draws."""
     b, w, n_mels, t_mel = mels.shape
     mm = params["mm"]
     d = cfg.text.hidden_size
     flat = mels.reshape(b * w, n_mels, t_mel)
-    enc = chunked_map(lambda x: whisper.forward(params["audio"], x, cfg.audio,
-                                                use_flash=use_flash),
-                      flat, mm_chunks)
+    with _tower_grad(params["audio"]):
+        enc = chunked_map(lambda x: whisper.forward(params["audio"], x, cfg.audio,
+                                                    use_flash=use_flash),
+                          flat, mm_chunks)
     enc = enc.reshape(b, w * cfg.audio.max_source_positions, cfg.audio.d_model)
     ratio = cfg.audio.max_source_positions / cfg.audio.nb_max_frames
     sizes = audio_sizes.to(enc.device)
@@ -200,7 +249,7 @@ def encode_video_audios(params: Params, cfg: DattnConfig, mels: torch.Tensor,
     tok = adapters.mlp_projector(mm["aud_projector"], tok, cfg.mm_projector_depth)
     tok = scaled_rms_norm(tok, mm["aud_norm"]["weight"], cfg.mm_rms_eps)
     pe_t = _pos_embed_batch(mm["pos_t"], tok.shape[1], tok_len,
-                            cfg.mm_time_interval, d)
+                            cfg.mm_time_interval, d, (pos_noise or {}).get("aud_t"))
     tok = tok + rms_norm(pe_t, cfg.mm_rms_eps).to(tok.dtype)
     mask = torch.arange(tok.shape[1], device=tok.device)[None, :] < tok_len[:, None]
     mask = mask & (tok_len > 0)[:, None]
@@ -285,24 +334,28 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
 
 
 def _self_attn_switch(q, k, v, q_pos, kv_pos, kv_valid, tcfg: TextConfig,
-                      is_sliding: bool, use_flash: bool = False):
+                      is_sliding: bool, use_flash: bool = False, segs=None):
     """T2T self attention with the layer's mask: sliding window on sliding
-    layers. The kernel masks by absolute index, which equals the position
-    rule for right-padded contiguous prompts (build_prompt_batch)."""
+    layers; `segs` [B,T] (packing segment ids) make it block-diagonal. The
+    kernel masks by absolute index, which equals the position rule for
+    right-padded contiguous prompts (build_prompt_batch) and, since segments
+    are contiguous, for packed rows whose positions restart per segment."""
     window = tcfg.sliding_window if is_sliding else None
     if use_flash:
         from vidi_tpu_torch.ops.cuda.flash_attention import flash_attention
         return flash_attention(q, k, v, kv_valid, tcfg.q_scale, True, window,
-                               tcfg.attn_softcap)[0]
+                               tcfg.attn_softcap, q_segs=segs, kv_segs=segs)[0]
     return self_attention(q, k, v, q_positions=q_pos, kv_positions=kv_pos,
                           kv_valid=kv_valid, scale=tcfg.q_scale,
-                          sliding_window=window, softcap=tcfg.attn_softcap)
+                          sliding_window=window, softcap=tcfg.attn_softcap,
+                          q_segment_ids=segs, kv_segment_ids=segs)
 
 
 def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
                 rope_cs, q_positions, kv_positions, text_mask, img_mask,
                 aud_mask, mm_chunks: int = 1, text_kv=None, img_kv=None,
-                aud_kv=None, write_at=None, use_flash: bool = False):
+                aud_kv=None, write_at=None, use_flash: bool = False,
+                text_segs=None):
     """One Dattn decoder layer -> (h, img, aud, (text_kv, img_kv, aud_kv))."""
     res = h
     hn = decoder.norm(h, lp["input_ln"], tcfg)
@@ -332,7 +385,8 @@ def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
     else:
         new_text_kv = (k_r, v)
         t2t = _self_attn_switch(q_r, k_r, v, q_positions, kv_positions,
-                                text_mask, tcfg, is_sliding, use_flash=use_flash)
+                                text_mask, tcfg, is_sliding, use_flash=use_flash,
+                                segs=text_segs)
     out = decoder.merge_heads(t2t) @ lp["o_w"]
 
     img_kv_out = aud_kv_out = None
@@ -378,10 +432,15 @@ def _caches_ys(caches):
 def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
             positions, img=None, img_mask=None, aud=None, aud_mask=None, *,
             mm_chunks: int = 1, return_caches: bool = False,
-            use_flash: bool = False):
+            use_flash: bool = False, remat: bool = False, text_segs=None):
     """Run all layers -> (final hidden [B,T,d] pre-lm_head, Caches or None).
     The caches are written layer by layer into preallocated [L,B,Hk,S,D]
-    buffers."""
+    buffers. `remat=True` recomputes each layer in the backward pass
+    (non-reentrant checkpoint) instead of keeping its activations;
+    `text_segs` [B,T] are packing segment ids for the T2T attention."""
+    if remat not in (False, True):
+        raise NotImplementedError(f"remat={remat!r}: only full remat (True) or "
+                                  "none (False) is ported")
     tcfg = cfg.text
     h = inputs_embeds
     if tcfg.embed_scale:
@@ -393,11 +452,15 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
     bufs = None
     layers = params["text"]["layers"]
     for i, lp in enumerate(layers):
-        h, img, aud, caches = dattn_layer(
-            lp, _is_sliding(i, tcfg), h, img, aud, tcfg=tcfg, rope_cs=rope_cs,
+        layer = functools.partial(
+            dattn_layer, lp, _is_sliding(i, tcfg), tcfg=tcfg, rope_cs=rope_cs,
             q_positions=positions, kv_positions=positions, text_mask=text_mask,
             img_mask=img_mask, aud_mask=aud_mask, mm_chunks=mm_chunks,
-            use_flash=use_flash)
+            use_flash=use_flash, text_segs=text_segs)
+        if remat and torch.is_grad_enabled():
+            h, img, aud, caches = checkpoint(layer, h, img, aud, use_reentrant=False)
+        else:
+            h, img, aud, caches = layer(h, img, aud)
         if return_caches:
             ys = _caches_ys(caches)
             if bufs is None:

@@ -29,10 +29,13 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with an fp32 result from bf16 operands (the JAX
     `preferred_element_type=float32` dot): cuBLAS writes fp32 directly on
-    the card; the CPU has no such op, so it upcasts."""
+    the card. That op has no autograd formula and the CPU has no such op,
+    so under autograd, and on the CPU, it upcasts: the same products, since
+    bf16 values are exact in fp32."""
     if x.dtype == torch.float32:
         return x @ w
-    if x.is_cuda:
+    needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and not needs_grad:
         y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()

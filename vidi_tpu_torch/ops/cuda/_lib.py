@@ -68,6 +68,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 _SIGNATURES = {
     "vidi_flash_attention_fwd": [_P] * 8 + [_I] * 7 + [_L] * 9
     + [_F, _I, _I, _F, _I, _I, _P, _P, _P, _P],
+    "vidi_flash_attention_bwd": [_P] * 13 + [_I] * 7 + [_L] * 9
+    + [_F, _I, _I, _F, _I, _I, _P],
     "vidi_tower_attention": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F, _P],
     "vidi_decode_attention": [_P] * 9 + [_I] * 6 + [_L] * 8
     + [_F, _F, _I, _I, _I, _P],

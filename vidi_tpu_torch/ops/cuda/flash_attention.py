@@ -13,8 +13,11 @@ window compare absolute indices (row t sees key s iff s <= t and t - s <
 window), which equals the position rule for right-padded contiguous
 prompts; rows with no visible key give zeros and lse = 0.7 * f32max.
 
-On a CPU tensor the wrapper runs `flash_attention_plain`; on a CUDA tensor
-it launches the kernel or raises.
+`flash_attention` is a `torch.autograd.Function` (the counterpart of the
+JAX `custom_vjp`): the forward saves q, k, v, the masks, the output and lse,
+and the backward is K4 (`flash_attention_bwd`). On a CPU tensor the
+Function runs `flash_attention_plain` forward and `flash_attention_bwd_plain`
+backward; on a CUDA tensor it launches the kernels or raises.
 """
 from __future__ import annotations
 
@@ -40,11 +43,54 @@ def flash_attention(q, k, v, kv_mask, sm_scale: float, causal: bool = False,
     packing); both or neither."""
     if (q_segs is None) != (kv_segs is None):
         raise ValueError("pass both q_segs and kv_segs, or neither")
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, kv_mask, sm_scale, causal, window,
-                                     softcap, q_segs=q_segs, kv_segs=kv_segs)
-    return _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap,
-                   q_segs, kv_segs)
+    return _FlashAttention.apply(q, k, v, kv_mask, q_segs, kv_segs, sm_scale,
+                                 causal, window, softcap)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K4 backward; lse carries no gradient (as in JAX, where
+    only `out` leaves the custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, q_segs, kv_segs, sm_scale, causal,
+                window, softcap):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, kv_mask, sm_scale, causal,
+                                             window, softcap, q_segs=q_segs,
+                                             kv_segs=kv_segs)
+        else:
+            out, lse = _launch(q, k, v, kv_mask, sm_scale, causal, window,
+                               softcap, q_segs, kv_segs)
+        ctx.save_for_backward(q, k, v, kv_mask, q_segs, kv_segs, out, lse)
+        ctx.args = (sm_scale, causal, window, softcap)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        from vidi_tpu_torch.ops.cuda.flash_attention_bwd import flash_attention_bwd
+        q, k, v, kv_mask, q_segs, kv_segs, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, lse, dout,
+                                         *ctx.args, q_segs=q_segs, kv_segs=kv_segs)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def visible_mask(b: int, t: int, s: int, kv_mask, causal: bool,
+                 window: Optional[int], q_segs, kv_segs, device) -> torch.Tensor:
+    """[B,T,S] bool: which keys each row sees under the kernels' rules
+    (causal and window by absolute index)."""
+    rows = torch.arange(t, device=device)[:, None]
+    cols = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((b, t, s), dtype=torch.bool, device=device)
+    if kv_mask is not None:
+        mask = mask & (kv_mask != 0)[:, None, :]
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (rows - cols < window)
+    if q_segs is not None:
+        mask = mask & (q_segs[:, :, None] == kv_segs[:, None, :])
+    return mask
 
 
 def flash_attention_plain(q, k, v, kv_mask, sm_scale: float,
@@ -61,17 +107,8 @@ def flash_attention_plain(q, k, v, kv_mask, sm_scale: float,
     logits = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * sm_scale
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
-    rows = torch.arange(t, device=q.device)[:, None]
-    cols = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((b, t, s), dtype=torch.bool, device=q.device)
-    if kv_mask is not None:
-        mask = mask & (kv_mask != 0)[:, None, :]
-    if causal:
-        mask = mask & (cols <= rows)
-    if window is not None:
-        mask = mask & (rows - cols < window)
-    if q_segs is not None:
-        mask = mask & (q_segs[:, :, None] == kv_segs[:, None, :])
+    mask = visible_mask(b, t, s, kv_mask, causal, window, q_segs, kv_segs,
+                        q.device)
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
@@ -98,31 +135,42 @@ def _kv_split(b, t, s, hq, device):
     return -(-s // kv_split), kv_split
 
 
-def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
-            kv_segs):
-    global launches
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _lib.check_operand(x, f"flash_attention {name}", 4, q.dtype)
+def int32_rows(x, shape, device, name: str):
+    """A [B,T] / [B,S] mask or segment-id tensor as the contiguous int32
+    rows the kernels read (None stays None)."""
+    if x is None:
+        return None
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: expected {shape}, got {tuple(x.shape)}")
+    return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def check_qkv(q, k, v, window, name: str):
+    """Raise unless q/k/v and the window are what K1 and K4 take."""
+    for label, x in (("q", q), ("k", k), ("v", v)):
+        _lib.check_operand(x, f"{name} {label}", 4, q.dtype)
     b, t, hq, d = q.shape
     s, hk = k.shape[1], k.shape[2]
     if k.shape != (b, s, hk, d) or v.shape != k.shape or hq % hk:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel is built for head dims "
+        raise ValueError(f"{name}: the kernel is built for head dims "
                          f"{HEAD_DIMS}, got {d}")
     if window is not None and window <= 0:
-        raise ValueError(f"flash_attention: window must be positive, got {window}")
+        raise ValueError(f"{name}: window must be positive, got {window}")
 
-    def i32(x, shape):
-        if x is None:
-            return None
-        if tuple(x.shape) != shape:
-            raise ValueError(f"flash_attention: expected {shape}, got {tuple(x.shape)}")
-        return x.to(device=q.device, dtype=torch.int32).contiguous()
 
-    mask = i32(kv_mask, (b, s))
-    qs, ks = i32(q_segs, (b, t)), i32(kv_segs, (b, s))
+def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
+            kv_segs):
+    global launches
+    check_qkv(q, k, v, window, "flash_attention")
+    b, t, hq, d = q.shape
+    s, hk = k.shape[1], k.shape[2]
+
+    mask = int32_rows(kv_mask, (b, s), q.device, "flash_attention")
+    qs = int32_rows(q_segs, (b, t), q.device, "flash_attention")
+    ks = int32_rows(kv_segs, (b, s), q.device, "flash_attention")
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
     n_split, kv_split = _kv_split(b, t, s, hq, q.device)

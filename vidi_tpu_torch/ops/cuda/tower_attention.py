@@ -7,8 +7,11 @@ One layout serves every geometry: the kernel reads the [B,T,H*D] projection
 outputs in place through strides. Reached from `ops.basic.mha(use_flash=
 True)` for SigLIP (T=729, D=72) and Whisper (T=1500, D=64).
 
-On a CPU tensor the wrapper runs `tower_attention_plain`; on a CUDA tensor
-it launches the kernel or raises.
+`tower_attention` is a `torch.autograd.Function` whose backward recomputes
+the attention with `tower_attention_plain` under autograd, as the JAX
+custom_vjp's `_ta_bwd` does: there is no backward kernel to port. On a CPU
+tensor the forward runs `tower_attention_plain`; on a CUDA tensor it
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -22,9 +25,25 @@ launches = 0  # kernel launches since the last reset (chip_smoke reads this)
 
 def tower_attention(q, k, v, scale: float):
     """q [B,T,H,D], k/v [B,S,H,D] -> softmax(q k^T * scale) v, [B,T,H,D]."""
-    if q.device.type == "cpu":
-        return tower_attention_plain(q, k, v, scale)
-    return _launch(q, k, v, scale)
+    return _TowerAttention.apply(q, k, v, scale)
+
+
+class _TowerAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return tower_attention_plain(q, k, v, scale)
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with torch.enable_grad():
+            q, k, v = (x.detach().requires_grad_() for x in ctx.saved_tensors)
+            out = tower_attention_plain(q, k, v, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return dq, dk, dv, None
 
 
 def tower_attention_plain(q, k, v, scale: float):
