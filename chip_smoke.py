@@ -3,19 +3,28 @@
     python3 chip_smoke.py [--profile]
 
 1. Builds the hand-written CUDA kernels (K1 flash_attention, K2
-   tower_attention, K3 decode_attention, K4 flash_attention_bwd) from
-   vidi_tpu_torch/csrc with nvcc.
+   tower_attention, K3 decode_attention, K4 flash_attention_bwd, K5 the
+   int8 tower layer's ln_qkv / o_residual / ln_ffn, K6 quant_matmul and
+   quant_gated_mlp, K7 fused_rms_norm) from vidi_tpu_torch/csrc with one
+   nvcc per source, all started together.
 2. Runs each kernel at the shapes the Vidi1.5-9B slices give it (and K1 /
    K3 / K4 at the 1.5B configuration's head dim 128) against its plain
-   PyTorch version on the same inputs, and times both with CUDA events.
-   Queries are scaled up so that logits reach tens and the softcap of 50
-   binds. A bf16 output must lie within ULPS bf16 ulps of the plain
-   output's largest magnitude; each case also runs planted faults (the
-   plain version with the cap, mask, window, causality, segments, di or the
-   cap's derivative dropped) and fails unless every fault lands outside
-   that limit.
+   PyTorch version on the same inputs, and times both with CUDA events,
+   beside the least time the card could take (bytes over 3.35 TB/s or
+   operations over the peak of their type) and, where one PyTorch call
+   computes the same function, that call's time. For K1-K4 queries are
+   scaled up so that logits reach tens and the softcap of 50 binds; a bf16
+   output must lie within ULPS bf16 ulps of the plain output's largest
+   magnitude. K5 / K6 must lie within INT8_REL relative error of their plain
+   versions (the int8 codes agree; see INT8_REL). K7 is held like K1-K4.
+   Each case also runs planted faults (the plain version with the cap, mask,
+   window, causality, segments, di, the cap's derivative, a per-row scale,
+   the hidden's requantize, a bias, the residual, the zero ff padding or
+   the exact gelu dropped) and fails unless every fault lands outside the
+   limit.
 3. Checks small fp32 models end to end, the card (kernels) against the CPU
-   (plain PyTorch): a prefill + greedy decode, and two training steps.
+   (plain PyTorch): a prefill + greedy decode in bf16-layout fp32 and on
+   the int8 route, and two training steps.
 4. Drives the serving slice: load_model(random_weights="9b") at full width,
    a synthetic 120 s clip (120 frames 384x384, 16 kHz audio), one media
    encode, then three temporal-retrieval queries through prompt ->
@@ -23,21 +32,30 @@
    and one query with use_flash_decode=True (K3). It holds the K3 decode
    route's step-0 logits against the default route's, and a planted fault
    (K3 without its kv_mask) against the same limits.
-5. Frees the serving model and drives the training slice: Vidi1.5-9B at
-   full width with TRAIN_LAYERS text layers (bf16, towers frozen, remat,
-   use_flash), four train_steps on synthetic batches of 256 text tokens,
-   120 frames and 4 Whisper windows, counting K1 / K2 / K4 launches. It
-   then holds the gradients of a few leaves on the kernel route against the
+5. Frees it and drives the int8 serving slice: the same model loaded with
+   load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
+   prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
+   three TR queries (K1, K6), launch counts held to the ones reckoned from
+   the code, then the step-0 logits with K5 / K6 against their plain
+   versions, and every K5 / K6 call of one encode and prefill against its
+   plain version on the same inputs, each with a planted fault (K5 without
+   the FFN requantize) that the per-call limit must reject.
+6. Frees it and drives the training slice: Vidi1.5-9B at full width with
+   TRAIN_LAYERS text layers (bf16, towers frozen, remat, use_flash), four
+   train_steps on synthetic batches of 256 text tokens, 120 frames and 4
+   Whisper windows, counting K1 / K2 / K4 launches. It then holds the
+   gradients of a few leaves on the kernel route against the
    plain-attention route, and a planted fault (K4 without di) against the
    same limits.
-6. With --profile, profiles the serving slice's encode, one prefill and
-   eight decode steps on each decode route, and one training step, with
-   torch.profiler.
+7. With --profile, profiles both serving slices' encode, one prefill and
+   eight decode steps (each decode route of the bf16 one), and one training
+   step, with torch.profiler.
 
 Exits non-zero on any failure (no CUDA device, a kernel that does not build,
-launch or agree, a planted fault the checks cannot see, a wrong output). The
-line before the last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+launch or agree, a planted fault the checks cannot see, a launch count off
+the reckoned one, a wrong output). The line before the last is a JSON
+object with one entry per kernel function; the last line is {"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
@@ -99,6 +117,26 @@ def _time_ms(fn, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W): the
+# least time a kernel's work can take is the larger of its bytes over the
+# memory rate and its operations over the peak rate of their type.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
+def _bound(ops: float, nbytes: float, kind: str) -> dict:
+    """bound_ms / bound_by for `ops` operations of type `kind` and `nbytes`
+    bytes that must cross device memory (each input read once, each output
+    written once)."""
+    t_ops, t_bytes = ops / PEAK_OPS_S[kind], nbytes / HBM_BYTES_S
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def _bf16_ulp(x: float) -> float:
@@ -215,8 +253,18 @@ def kernel_phases(dev) -> dict:
             raise AssertionError(f"K1 {label}: lse disagrees")
         ms = _time_ms(lambda: k1.flash_attention(**args))
         plain_ms = _time_ms(lambda: k1.flash_attention_plain(**args))
-        print(f"  K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms})
+        pairs = int(k1.visible_mask(1, t, s, args["kv_mask"], causal, window, None, None,
+                                    dev).sum())
+        bound = _bound(4 * hq * d * pairs, _nbytes(args["q"], args["k"], args["v"], out, lse,
+                                                   args["kv_mask"]), "bf16")
+        lib_ms = None
+        if cap is None:  # one PyTorch call computes the capless function
+            lib_ms = _time_ms(lambda: _sdpa(args["q"], args["k"], args["v"], d**-0.5,
+                                            args["kv_mask"]))
+        print(f"  K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), library {lib_ms} ms")
+        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": lib_ms})
     # the summary time is the 9B T2V case's, most of K1's time in the slice
     res["flash_attention"] = dict(
         src=K1_SRC, replaces="vidi_tpu/ops/pallas/flash_attention.py:396",
@@ -237,8 +285,12 @@ def kernel_phases(dev) -> dict:
                 q, k[:, :keep], v[:, :keep], scale)}))
         ms = _time_ms(lambda: k2.tower_attention(q, k, v, scale))
         plain_ms = _time_ms(lambda: k2.tower_attention_plain(q, k, v, scale))
-        print(f"  K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms})
+        bound = _bound(4 * b * h * n * n * dh, _nbytes(q, k, v, out), "bf16")
+        lib_ms = _time_ms(lambda: _sdpa(q, k, v, scale, None))
+        print(f"  K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), SDPA {lib_ms:.4f} ms")
+        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": lib_ms})
     res["tower_attention"] = dict(
         src=K2_SRC, replaces="vidi_tpu/ops/pallas/tower_attention.py:179",
         max_abs_err=max(errs), cases=cases, **_times(cases, "siglip"))
@@ -271,8 +323,15 @@ def kernel_phases(dev) -> dict:
                            _faults(k3.decode_attention_plain, args, faults)))
         ms = _time_ms(lambda: k3.decode_attention(**args))
         plain_ms = _time_ms(lambda: k3.decode_attention_plain(**args))
-        print(f"  K3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms})
+        visible = args["kv_mask"][0].clone()
+        if window is not None:
+            visible &= int(q_pos[0]) - torch.arange(s, device=dev) < window
+        bound = _bound(4 * hq * d * int(visible.sum()),
+                       _nbytes(args["q"], args["k"], args["v"], out, args["kv_mask"]), "bf16")
+        print(f"  K3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": None})
     res["decode_attention"] = dict(
         src=K3_SRC, replaces="vidi_tpu/ops/pallas/decode_attention.py:80",
         max_abs_err=max(errs), cases=cases, **_times(cases, "9b image cache"))
@@ -371,16 +430,336 @@ def k4_phase(dev) -> dict:
         del bad
         ms = _time_ms(lambda: k4.flash_attention_bwd(**args))
         plain_ms = _time_ms(lambda: k4.flash_attention_bwd_plain(**args))
-        print(f"  K4 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms})
+        # five D-long products per visible (row, key) pair: the recomputed
+        # scores, dP, dq, dk and dv
+        pairs = int(k1.visible_mask(1, t, s, kv_mask, causal, window, segs, segs,
+                                    dev).sum())
+        bound = _bound(10 * hq * d * pairs,
+                       _nbytes(q, k, v, kv_mask, out, lse, do, *got), "bf16")
+        print(f"  K4 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": None})
     return dict(src=K4_SRC, replaces="vidi_tpu/ops/pallas/flash_attention.py:420",
                 max_abs_err=max(errs), cases=cases, **_times(cases, "9b t2v"))
 
 
+# ---------------------------------------------------------------------------
+# K5 / K6 / K7
+# ---------------------------------------------------------------------------
+
+# K5 / K6 against their plain versions: relative error ||got - want|| /
+# ||want|| over the output. The int8 codes and the int32 sums agree exactly
+# and the epilogues round at the same points; what is left is a LayerNorm's
+# fp32 mean summed in another order (and torch's tanh / erf against the
+# kernel's), which moves a bf16 value by an ulp now and then, and when that
+# value is its row's amax or sits at an int8 rounding boundary, a row or a
+# code re-rounds. Every planted fault must land above the limit.
+INT8_REL = 1e-3
+K5_SRC = "vidi_tpu_torch/csrc/fused_tower_layer.cu"
+K6_SRC = "vidi_tpu_torch/csrc/quant_matmul.cu"
+K7_SRC = "vidi_tpu_torch/csrc/fused_rmsnorm.cu"
+SIGLIP_T, WHISPER_T = 729, 1500
+IMG_CHUNK_ROWS = 735  # 23,520 image tokens / mm_chunks 32: one diagonal-update chunk
+
+
+def _flat(out):
+    return torch.cat([o.float().flatten() for o in out]) if isinstance(out, tuple) \
+        else out.float().flatten()
+
+
+def _check_rel(name: str, got, want, faults: dict, limit: float = INT8_REL) -> tuple:
+    """got vs want within `limit` relative (Frobenius) error; every planted
+    fault (label -> the output of a known wrong kernel) must land outside.
+    -> (relative error, max abs error)."""
+    torch.cuda.synchronize()
+    got, want = _flat(got), _flat(want)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)} "
+                             "or non-finite output")
+    norm = float(want.norm())
+    err = float((got - want).norm()) / norm
+    seen = {lab: float((_flat(f) - want).norm()) / norm for lab, f in faults.items()}
+    print(f"  {name}: relative error {err:.3e} (limit {limit:.1e}) "
+          f"{'ok' if err <= limit else 'FAIL'}, max_abs_err "
+          f"{float((got - want).abs().max()):.3e}; planted faults: "
+          + ", ".join(f"{lab} {e:.3e}" for lab, e in seen.items()))
+    if not err <= limit:
+        raise AssertionError(f"{name}: relative error {err:.3e} over {limit:.1e}")
+    blind = [lab for lab, e in seen.items() if not e > limit]
+    if blind:
+        raise AssertionError(f"{name}: the limit does not reject the planted faults {blind}")
+    return err, float((got - want).abs().max())
+
+
+def _per_tensor_act(x):
+    """The planted 'per-tensor scale' fault: one amax for the whole tensor."""
+    xf = x.float()
+    amax = xf.abs().amax()
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.expand(*x.shape[:-1], 1)
+
+
+class _swap:
+    """Set module attributes for the length of a `with` block."""
+
+    def __init__(self, mod, **attrs):
+        self.mod, self.attrs, self.saved = mod, attrs, {}
+
+    def __enter__(self):
+        for k, v in self.attrs.items():
+            self.saved[k] = getattr(self.mod, k)
+            setattr(self.mod, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.mod, k, v)
+
+
+def _int8_layer(gen, dev, d: int, ff: int, k_bias: bool = True):
+    """One int8 tower layer (d, ff padded to 128) from random fp32 weights of
+    std 1/sqrt(fan-in), biases N(0, 0.5), LN scale 1 + N(0, 0.1)."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    def w(*shape):
+        return _randn(gen, shape, dev, shape[0] ** -0.5, torch.float32)
+
+    def b(n, scale=0.5):
+        return _randn(gen, (n,), dev, scale, torch.float32)
+
+    lp = {"ln1_scale": 1 + b(d, 0.1), "ln1_bias": b(d, 0.1),
+          "ln2_scale": 1 + b(d, 0.1), "ln2_bias": b(d, 0.1),
+          "q_w": w(d, d), "q_b": b(d), "k_w": w(d, d), "v_w": w(d, d), "v_b": b(d),
+          "o_w": w(d, d), "o_b": b(d), "fc1_w": w(d, ff), "fc1_b": b(ff),
+          "fc2_w": w(ff, d), "fc2_b": b(d)}
+    if k_bias:
+        lp["k_b"] = b(d)
+    lp = qz.quantize_tower_layer(lp)
+    return {k: v if isinstance(v, dict) else v.to(torch.bfloat16) for k, v in lp.items()}
+
+
+def _rows(gen, shape, dev):
+    """bf16 activations, each row scaled by a gain in [e^-2, e]: per-row scales
+    then differ from a per-tensor one."""
+    gains = torch.exp(torch.rand(shape[:-1] + (1,), generator=gen, device=dev) * 3 - 2)
+    return (_randn(gen, shape, dev, 1.0, torch.float32) * gains).to(torch.bfloat16)
+
+
+def _int8_case(name, run, plain, faults, ops, nbytes, kind="int8", library=None):
+    err, abs_err = _check_rel(name, run(), plain(), {k: f() for k, f in faults.items()})
+    ms, plain_ms = _time_ms(run), _time_ms(plain)
+    bound = _bound(ops, nbytes, kind)
+    lib_ms = None if library is None else _time_ms(library)
+    print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return {"shape": name, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": lib_ms,
+            "rel_err": err, "max_abs_err": abs_err}
+
+
+def _qbytes(w) -> int:
+    return _nbytes(w["qi8"], w["scale"])
+
+
+def _ffn_no_requant(x, lp, eps: float, hidden_act: str):
+    """The planted 'no requantize of the FFN hidden' fault: K5's ln_ffn with
+    fc2 taking the activation as it is, against the dequantized weight."""
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.ops.basic import layer_norm, tower_act
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
+
+    hq, sx = qz.quantize_act(layer_norm(x, lp["ln2_scale"], lp["ln2_bias"], eps))
+    a = tower_act(k5._qdot_plain(hq, sx, lp["fc1_w"], lp["fc1_b"], x.dtype), hidden_act)
+    w2 = qz.dequantize_weight(lp["fc2_w"], torch.float32)
+    return x + (a.float() @ w2 + lp["fc2_b"].float()).to(x.dtype)
+
+
+def k5_phase(dev) -> dict:
+    """K5's three pieces at SigLIP-so400m's encode chunk (4 frames x 729
+    patches, d 1152, ff 4304 padded to 4352, gelu_tanh, eps 1e-6) and
+    Whisper-large-v3's window (1500 x 1280, ff 5120, exact gelu, eps 1e-5,
+    no k bias) against their plain versions, with planted faults."""
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    res = {n: {"cases": []} for n in ("ln_qkv", "o_residual", "ln_ffn")}
+    for label, b, t, d, ff, act, eps, k_bias in (
+            (f"siglip [4, {SIGLIP_T}, 1152] ff 4304->4352", 4, SIGLIP_T, 1152, 4304,
+             "gelu_tanh", 1e-6, True),
+            (f"whisper [1, {WHISPER_T}, 1280] ff 5120", 1, WHISPER_T, 1280, 5120, "gelu",
+             1e-5, False)):
+        lp = _int8_layer(gen, dev, d, ff, k_bias)
+        ffp = lp["fc1_w"]["qi8"].shape[1]
+        x, attn = _rows(gen, (b, t, d), dev), _rows(gen, (b, t, d), dev)
+        m = b * t
+        no_bias = {k: torch.zeros_like(v) if k.endswith("_b") else v for k, v in lp.items()}
+        per_tensor = lambda f: lambda: _with(k5, quantize_act=_per_tensor_act)(f)  # noqa: E731
+
+        qkv_w = [lp[k] for k in ("q_w", "k_w", "v_w")]
+        res["ln_qkv"]["cases"].append(_int8_case(
+            f"K5 ln_qkv {label}", lambda: k5.ln_qkv(x, lp, eps),
+            lambda: k5.ln_qkv_plain(x, lp, eps),
+            {"per-tensor scale": per_tensor(lambda: k5.ln_qkv_plain(x, lp, eps)),
+             "bias dropped": lambda: k5.ln_qkv_plain(x, no_bias, eps)},
+            3 * 2 * m * d * d, _nbytes(x, x, x, x) + sum(_qbytes(w) for w in qkv_w)))
+        res["o_residual"]["cases"].append(_int8_case(
+            f"K5 o_residual {label}", lambda: k5.o_residual(attn, x, lp),
+            lambda: k5.o_residual_plain(attn, x, lp),
+            {"per-tensor scale": per_tensor(lambda: k5.o_residual_plain(attn, x, lp)),
+             "bias dropped": lambda: k5.o_residual_plain(attn, x, no_bias),
+             "residual dropped": lambda: k5.o_residual_plain(attn, torch.zeros_like(x), lp)},
+            2 * m * d * d, _nbytes(attn, x, x) + _qbytes(lp["o_w"])))
+        faults = {"per-tensor scale": per_tensor(lambda: k5.ln_ffn_plain(x, lp, eps, act)),
+                  "no requantize of the FFN hidden":
+                      lambda: _ffn_no_requant(x, lp, eps, act),
+                  "bias dropped": lambda: k5.ln_ffn_plain(x, no_bias, eps, act),
+                  "residual dropped": lambda: k5.ln_ffn_plain(x, lp, eps, act) - x}
+        if ffp != ff:
+            def padding_nonzero():
+                bad = dict(lp, fc1_w=dict(lp["fc1_w"]), fc2_w=dict(lp["fc2_w"]))
+                bad["fc1_w"]["qi8"] = lp["fc1_w"]["qi8"].clone()
+                bad["fc2_w"]["qi8"] = lp["fc2_w"]["qi8"].clone()
+                bad["fc1_w"]["qi8"][:, ff:] = 64
+                bad["fc2_w"]["qi8"][ff:] = 64
+                return k5.ln_ffn_plain(x, bad, eps, act)
+            faults["non-zero ff padding"] = padding_nonzero
+        if act == "gelu":
+            faults["tanh gelu for the exact one"] = \
+                lambda: k5.ln_ffn_plain(x, lp, eps, "gelu_tanh")
+        res["ln_ffn"]["cases"].append(_int8_case(
+            f"K5 ln_ffn {label}", lambda: k5.ln_ffn(x, lp, eps, act),
+            lambda: k5.ln_ffn_plain(x, lp, eps, act), faults,
+            2 * 2 * m * d * ffp, _nbytes(x, x) + _qbytes(lp["fc1_w"]) + _qbytes(lp["fc2_w"])))
+        del lp
+    for n, r in res.items():
+        r.update(src=K5_SRC, replaces=K5_REPLACES[n], kernel="K5",
+                 max_abs_err=max(c["max_abs_err"] for c in r["cases"]),
+                 **_times(r["cases"], f"K5 {n} siglip"))
+    return res
+
+
+K5_REPLACES = {"ln_qkv": "vidi_tpu/ops/pallas/fused_tower_layer.py:189",
+               "o_residual": "vidi_tpu/ops/pallas/fused_tower_layer.py:218",
+               "ln_ffn": "vidi_tpu/ops/pallas/fused_tower_layer.py:239"}
+
+
+def _with(mod, **attrs):
+    """f -> f() run with `attrs` swapped into `mod`."""
+    def run(f):
+        with _swap(mod, **attrs):
+            return f()
+    return run
+
+
+def k6_phase(dev) -> dict:
+    """K6 at the int8 prefill's W8A8 shapes (Gemma2-9B: the image stream's
+    k / v projection, one diagonal-update chunk's folded o, and its gated
+    MLP, whose down projection is a quant_matmul call) against the plain
+    versions, with planted faults."""
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def wq(k, n):
+        return qz.quantize_weight(_randn(gen, (k, n), dev, k ** -0.5, torch.float32))
+
+    res = {"quant_matmul": {"cases": []}, "quant_gated_mlp": {"cases": []}}
+    for label, m, k, n in ((f"k/v [{IMG_S}, 3584] . [3584, 2048]", IMG_S, 3584, 2048),
+                           (f"folded o [{IMG_CHUNK_ROWS}, 2048] . [2048, 3584]",
+                            IMG_CHUNK_ROWS, 2048, 3584),
+                           (f"down [{IMG_CHUNK_ROWS}, 14336] . [14336, 3584]",
+                            IMG_CHUNK_ROWS, 14336, 3584)):
+        w = wq(k, n)
+        x = _rows(gen, (m, k), dev)
+        args = (x, w["qi8"], w["scale"])
+        res["quant_matmul"]["cases"].append(_int8_case(
+            f"K6 quant_matmul {label}", lambda: k6.quant_matmul(*args),
+            lambda: k6.quant_matmul_plain(*args),
+            {"per-tensor scale": lambda: _with(k6, quantize_act=_per_tensor_act)(
+                lambda: k6.quant_matmul_plain(*args)),
+             "activations not quantized": lambda: (
+                 x.float() @ qz.dequantize_weight(w, torch.float32)).to(x.dtype)},
+            2 * m * k * n, _nbytes(x) + _qbytes(w) + m * n * 2))
+    d, ff = 3584, 14336
+    gate, up, down = wq(d, ff), wq(d, ff), wq(ff, d)
+    x = _rows(gen, (IMG_CHUNK_ROWS, d), dev)
+    for act in ("gelu_tanh", "silu"):
+        other = "silu" if act == "gelu_tanh" else "gelu_tanh"
+
+        def no_requant(act=act):
+            g = k6.quant_matmul_plain(x, gate["qi8"], gate["scale"])
+            u = k6.quant_matmul_plain(x, up["qi8"], up["scale"])
+            h = k6._act(g, act) * u
+            return (h.float() @ qz.dequantize_weight(down, torch.float32)).to(x.dtype)
+
+        res["quant_gated_mlp"]["cases"].append(_int8_case(
+            f"K6 quant_gated_mlp [{IMG_CHUNK_ROWS}, 3584] ff 14336 {act}",
+            lambda act=act: k6.quant_gated_mlp(x, gate, up, down, act),
+            lambda act=act: k6.quant_gated_mlp_plain(x, gate, up, down, act),
+            {"per-tensor scale": lambda act=act: _with(k6, quantize_act=_per_tensor_act)(
+                lambda: k6.quant_gated_mlp_plain(x, gate, up, down, act)),
+             f"{other} for {act}": lambda: k6.quant_gated_mlp_plain(x, gate, up, down, other),
+             "no requantize of the hidden": no_requant},
+            3 * 2 * IMG_CHUNK_ROWS * d * ff,
+            2 * _nbytes(x) + _qbytes(gate) + _qbytes(up) + _qbytes(down)))
+    res["quant_matmul"].update(src=K6_SRC, kernel="K6",
+                               replaces="vidi_tpu/ops/pallas/quant_matmul.py:145",
+                               **_times(res["quant_matmul"]["cases"], "K6 quant_matmul k/v"))
+    res["quant_gated_mlp"].update(src=K6_SRC, kernel="K6",
+                                  replaces="vidi_tpu/ops/pallas/quant_matmul.py:75",
+                                  **_times(res["quant_gated_mlp"]["cases"],
+                                           "K6 quant_gated_mlp"))
+    for r in res.values():
+        r["max_abs_err"] = max(c["max_abs_err"] for c in r["cases"])
+    return res
+
+
+def k7_phase(dev) -> dict:
+    """K7 (off every path) at the decoder's norm shapes, the image stream's
+    [23,520, 3584] and a 128-token prompt's [128, 3584], bf16, against its
+    plain version (ULPS bf16 ulps), with torch's rms_norm as the library
+    yardstick and a planted fault (the + 1 dropped)."""
+    from vidi_tpu_torch.ops.cuda import fused_rmsnorm as k7
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cases, errs = [], []
+    w = _randn(gen, (3584,), dev, 0.1)
+    w1 = (w.float() + 1.0).to(torch.bfloat16)
+    for rows in (IMG_S, 128):
+        x = _randn(gen, (rows, 3584), dev)
+        label = f"K7 fused_rms_norm [{rows}, 3584] bf16"
+        errs.append(_check(label, k7.fused_rms_norm(x, w, 1e-6),
+                           k7.fused_rms_norm_plain(x, w, 1e-6),
+                           {"plus_one dropped": k7.fused_rms_norm_plain(x, w, 1e-6, False)}))
+        ms = _time_ms(lambda: k7.fused_rms_norm(x, w, 1e-6))
+        plain_ms = _time_ms(lambda: k7.fused_rms_norm_plain(x, w, 1e-6))
+        lib_ms = _time_ms(lambda: torch.nn.functional.rms_norm(x, (3584,), w1, 1e-6))
+        bound = _bound(3 * x.numel(), 2 * _nbytes(x) + _nbytes(w), "fp32")
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), rms_norm {lib_ms:.4f} ms")
+        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": lib_ms})
+    return {"fused_rms_norm": dict(
+        src=K7_SRC, kernel="K7", replaces="vidi_tpu/ops/pallas/fused_rmsnorm.py:33",
+        max_abs_err=max(errs), cases=cases, **_times(cases, f"K7 fused_rms_norm [{IMG_S}"))}
+
+
 def _times(cases, prefix: str) -> dict:
-    """ms / plain_ms of the first case whose label starts with `prefix`."""
+    """ms / plain_ms / bound / library time of the first case whose label
+    starts with `prefix`."""
     c = next(c for c in cases if c["shape"].startswith(prefix))
-    return {"ms": c["ms"], "plain_ms": c["plain_ms"]}
+    return {k: c[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+
+def _sdpa(q, k, v, scale, kv_mask):
+    """torch's scaled_dot_product_attention on [B,T,H,D] operands (the
+    yardstick of a kernel that computes the same function; the port never
+    calls it)."""
+    mask = None if kv_mask is None else kv_mask[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        scale=scale, enable_gqa=q.shape[2] != k.shape[2])
 
 
 def _small_config():
@@ -470,20 +849,25 @@ def _synthetic_clip(seconds: int, size: int, sample_rate: int):
     return frames, wave
 
 
-def load_slice(dev):
-    """Vidi1.5-9B at full width on random weights, and the synthetic 120 s
-    clip's frames and mel windows: the set-up every later phase shares."""
+def load_slice(dev, int8: bool = False):
+    """Vidi1.5-9B at full width on random weights (with `int8`: int8 text
+    and towers), and the synthetic 120 s clip's frames and mel windows: the
+    set-up every later phase shares."""
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer.loader import load_model
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, cfg, tok = load_model(random_weights="9b", dtype=torch.bfloat16,
-                                  device=dev, seed=SEED)
+                                  device=dev, seed=SEED, load_8bit=int8,
+                                  load_8bit_towers=int8)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"  load_model(random_weights='9b'): {n_params / 1e9:.3f} B params, "
+    flags = ", load_8bit=True, load_8bit_towers=True" if int8 else ""
+    print(f"  load_model(random_weights='9b'{flags}): {n_params / 1e9:.3f} B values, "
           f"{time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB while loading)")
     seconds = 120
     frames, wave = _synthetic_clip(seconds, cfg.vision.image_size,
                                    cfg.audio.sampling_rate)
@@ -499,7 +883,7 @@ def _encode(sl):
                                  sl.audio_len, mm_chunks=32, use_flash=True)
 
 
-def _prefill(sl, query: str):
+def _prefill(sl, query: str, quantize_caches: bool = False):
     """Prefill of one TR query -> (h, caches, lens, embedding of token 0)."""
     from vidi_tpu_torch.infer import generate as gen
     from vidi_tpu_torch.infer import pipeline as P
@@ -509,7 +893,8 @@ def _prefill(sl, query: str):
     pr = torch.as_tensor(prompt).long().to(sl.dev)
     pm = torch.as_tensor(mask).to(sl.dev)
     h, caches, lens = gen._prefill(sl.params, sl.cfg, pr, pm, *sl.media,
-                                   max_new_tokens=32, mm_chunks=32, use_flash=True)
+                                   max_new_tokens=32, mm_chunks=32, use_flash=True,
+                                   quantize_caches=quantize_caches)
     tcfg = sl.cfg.text
     tok0 = decoder.lm_logits(sl.params["text"], h[:, int(lens[0]) - 1], tcfg).argmax(-1)
     return h, caches, lens, decoder.embed_tokens(sl.params["text"], tok0[:, None], tcfg)
@@ -682,6 +1067,336 @@ def decode_route_check(sl) -> None:
         raise AssertionError("decode routes disagree on the step-0 logits")
     if passes["planted fault, K3 without kv_mask"]:
         raise AssertionError("the step-0 logit limits do not reject the planted fault")
+
+
+# ---------------------------------------------------------------------------
+# The int8 serving slice
+# ---------------------------------------------------------------------------
+
+W8A8_MIN_TOKENS = 512  # the CLI's --w8a8-prefill 512
+# the small int8 model, card (K5 / K6 / K1 / K2) vs CPU (plain versions):
+# fp32 both, but a LayerNorm or attention sum in another order can move a
+# value across an int8 rounding boundary and re-round one code (one step of
+# 1/127 of its row's largest value), which later layers carry on
+INT8_REF_REL = 2e-2
+INT8_MODULES = ("text", "vision", "audio")
+
+
+def int8_reference_check(dev) -> None:
+    """The small fp32 model on the int8 route (int8 text and towers, W8A8
+    above 16 rows, int8 caches): the card (kernels) against the CPU (plain
+    versions), same weights and inputs. Prefill hidden states within
+    INT8_REF_REL relative error; greedy tokens identical."""
+    from vidi_tpu_torch.infer import generate as gen
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.models import dattn
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+
+    cfg = _small_config()
+    params = qz.quantize_params(dattn.init_params(cfg, torch.float32, torch.device("cpu"),
+                                                  SEED), modules=INT8_MODULES)
+    gparams = _tree_map(lambda t: t.to(dev), params)
+    rng = np.random.default_rng(SEED)
+    frames = rng.integers(0, 256, (6, 42, 42, 3), dtype=np.uint8)
+    mels = rng.standard_normal((2, 128, 3000)).astype(np.float32)
+    ids = rng.integers(3, 259, (2, 20))
+    mask = np.zeros((2, 20), bool)
+    mask[0, :17], mask[1, :11] = True, True
+    before = k5.launches["ln_ffn"], k6.launches["quant_gated_mlp"]
+    outs = {}
+    qz.w8a8_min_tokens = 16
+    try:
+        for name, p, d, flash in (("cpu", params, torch.device("cpu"), False),
+                                  ("cuda", gparams, dev, True)):
+            media = P.encode_media_arrays(p, cfg, frames, mels, 7000, mm_chunks=2,
+                                          use_flash=flash)
+            media = [m.repeat_interleave(2, dim=0) for m in media]
+            pr = torch.as_tensor(ids * mask).to(d)
+            pm = torch.as_tensor(mask).to(d)
+            h, _, _ = gen._prefill(p, cfg, pr, pm, *media, max_new_tokens=8, mm_chunks=2,
+                                   use_flash=flash, quantize_caches=True)
+            res = gen.generate(p, cfg, pr, pm, *media, max_new_tokens=8, eos_id=2,
+                               mm_chunks=2, use_flash=flash, quantize_caches=True)
+            outs[name] = (h[pm].cpu(), res.tokens.cpu())
+    finally:
+        qz.w8a8_min_tokens = None
+    got, want = outs["cuda"][0], outs["cpu"][0]
+    err = float((got - want).norm() / want.norm())
+    same = torch.equal(outs["cuda"][1], outs["cpu"][1])
+    print(f"  small fp32 int8 model, card (kernels) vs cpu (plain): hidden relative "
+          f"error {err:.3e} (limit {INT8_REF_REL}), max_abs_err "
+          f"{float((got - want).abs().max()):.3e}; tokens "
+          f"{'identical' if same else 'DIFFER'}: {outs['cuda'][1].tolist()}")
+    if not (err <= INT8_REF_REL and same):
+        raise AssertionError("small int8 model reference check failed")
+    if (k5.launches["ln_ffn"], k6.launches["quant_gated_mlp"]) == before:
+        raise AssertionError("the card's int8 run never launched K5 / K6")
+
+
+def _int8_counters():
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+    from vidi_tpu_torch.ops.cuda import tower_attention as k2
+    return k1, k2, k5, k6
+
+
+def _read_int8_counts() -> dict:
+    k1, k2, k5, k6 = _int8_counters()
+    return {"flash_attention": k1.launches, "tower_attention": k2.launches,
+            **k5.launches, **k6.launches}
+
+
+def _reset_int8_counts() -> None:
+    k1, k2, k5, k6 = _int8_counters()
+    k1.launches = k2.launches = 0
+    for d in (k5.launches, k6.launches):
+        for k in d:
+            d[k] = 0
+
+
+def _chunk_rows(n: int, chunks: int):
+    """Rows of each chunk `dattn._xattn_block` updates a stream of n tokens in."""
+    if chunks <= 1 or n <= chunks:
+        return [n]
+    size = -(-n // chunks)
+    return [min(size, n - a) for a in range(0, n, size)]
+
+
+def _map_chunks(n: int, chunks: int) -> int:
+    """How many calls `dattn.chunked_map` makes over n frames / windows."""
+    if chunks <= 1 or n <= 1:
+        return 1
+    size = -(-n // min(chunks, n))
+    return -(-n // size)
+
+
+def reckon_int8_launches(cfg, n_frames: int, n_windows: int, streams, prompt_rows: int,
+                         n_queries: int, w8a8: int, mm_chunks: int = 32) -> dict:
+    """Each kernel's launches in one encode and n_queries prefills, from the
+    code's structure: every SigLIP / Whisper layer call runs K2 and K5's
+    three pieces once per frame / window chunk; every decoder layer runs K1
+    three times (T2T, T2V, T2A); a stream of at least `w8a8` rows takes two
+    quant_matmul calls for its k / v, and each diagonal-update chunk of at
+    least `w8a8` rows a quant_matmul (folded o) and a quant_gated_mlp, whose
+    down projection is one more quant_matmul. Decode runs none of them."""
+    assert prompt_rows < w8a8, "the text prefill must stay weight-only"
+    vis_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
+    tower = (vis_layers * _map_chunks(n_frames, mm_chunks)
+             + cfg.audio.num_layers * _map_chunks(n_windows, mm_chunks))
+    qm = gated = 0
+    for rows in streams:
+        qm += 2 * (rows >= w8a8)
+        for c in _chunk_rows(rows, mm_chunks):
+            qm += 2 * (c >= w8a8)
+            gated += c >= w8a8
+    layers = cfg.text.num_layers
+    return {"flash_attention": 3 * layers * n_queries, "tower_attention": tower,
+            "ln_qkv": tower, "o_residual": tower, "ln_ffn": tower,
+            "quant_matmul": layers * qm * n_queries,
+            "quant_gated_mlp": layers * gated * n_queries}
+
+
+def _param_bytes(params) -> dict:
+    """Parameter bytes by kind: int8 text layers (codes + scales), the
+    embedding, int8 towers, everything else."""
+    text = sum(_nbytes(*_leaves(lp)) for lp in params["text"]["layers"])
+    towers = sum(_nbytes(*_leaves(lp)) for t in ("vision", "audio")
+                 for lp in params[t]["layers"])
+    embed = _nbytes(*_leaves(params["text"]["embed"]))
+    total = _nbytes(*_leaves(params))
+    return {"text_layers": text, "embed": embed, "tower_layers": towers,
+            "other": total - text - towers - embed, "total": total}
+
+
+def int8_slice_phase(sl) -> dict:
+    """The int8 serving slice: one media encode (int8 towers: K2 + K5) and
+    three TR queries x 32 new tokens with W8A8 prefill (K1 + K6) and int8
+    image / audio caches, with every kernel's launches read around them and
+    held to the reckoned counts."""
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.infer.generate import generate
+
+    cfg, tok, dev, seconds = sl.cfg, sl.tok, sl.dev, sl.seconds
+    eos = P.pick_eos(cfg, tok)
+    sizes = _param_bytes(sl.params)
+    print("  parameter bytes: " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()))
+    _reset_int8_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sl.media = img, img_mask, aud, aud_mask = _encode(sl)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    print(f"  encode (int8 towers): img {tuple(img.shape)}, aud {tuple(aud.shape)} in "
+          f"{encode_s:.3f} s")
+    for name, x in (("img", img), ("aud", aud)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"non-finite {name} features")
+    prompt_rows = 0
+    prefill, rates = [], []
+    for q in QUERIES:
+        ids = P.build_prompt_ids(q, tok)
+        prompt, mask = P.build_prompt_batch([ids])
+        prompt_rows = max(prompt_rows, prompt.shape[1])
+        res = generate(sl.params, cfg, torch.as_tensor(prompt).long().to(dev),
+                       torch.as_tensor(mask).to(dev), *sl.media, max_new_tokens=32,
+                       eos_id=eos, mm_chunks=32, use_flash=True, quantize_caches=True)
+        toks = res.tokens[0, : int(res.lengths[0])].cpu()
+        if not ((toks >= 0) & (toks < cfg.text.vocab_size)).all():
+            raise AssertionError("generated ids outside the vocabulary")
+        answer = P.parse_task_output(tok.decode(toks.numpy(), skip_special_tokens=True).strip(),
+                                     "tr", float(seconds))
+        prefill.append(res.prefill_s)
+        rates.append(res.decode_steps / res.decode_s)
+        print(f"  query {q!r}: prefill {res.prefill_s:.3f} s, decode {res.decode_steps} "
+              f"steps {res.decode_s:.3f} s = {rates[-1]:.2f} tok/s, answer {answer!r}")
+    torch.cuda.synchronize()
+    launches = _read_int8_counts()
+    want = reckon_int8_launches(cfg, len(sl.frames), sl.mels.shape[0],
+                                (img.shape[1], aud.shape[1]), prompt_rows, len(QUERIES),
+                                qz.w8a8_min_tokens)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  kernel launches: {launches}; reckoned from the code: {want}")
+    print(f"  encode {encode_s:.3f} s, prefill {statistics.mean(prefill):.3f} s a query, "
+          f"decode {statistics.mean(rates):.2f} tok/s, peak device memory "
+          f"(max_memory_allocated) {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"launch counts differ from the reckoned ones: {launches} "
+                             f"vs {want}")
+    return launches
+
+
+# The int8 slice's route check, two readings, both on the card:
+# (1) the step-0 logits with K5 / K6 against the same model with their plain
+#     versions. The plain versions compute the same int8 codes, but a
+#     LayerNorm's sum and torch's tanh / erf differ in the last bits, which
+#     re-round a code now and then (see INT8_REL); through 26 SigLIP, 32
+#     Whisper and 42 decoder layers of random weights every such flip
+#     re-rounds more codes downstream, until the two routes differ by the
+#     int8 quantization noise itself: on an H100 80GB HBM3 (700 W) the
+#     logits read 5.1e-2 of max|logit| and cosine 0.999972 (the bf16 slice's
+#     two decode routes read 4.0e-2 too), and a K5 without its FFN
+#     requantize read 4.4e-2 and 0.999974, no farther. So (1) holds the
+#     route to the bf16 decode routes' limits and can see a broken kernel,
+#     not a subtle one;
+# (2) every K5 / K6 call of one encode and prefill against its plain version
+#     on the same inputs: the real model's weights and activations, without
+#     the compounding. Each call must lie within INT8_REL, as in the kernel
+#     phases, and the planted fault must fail it.
+INT8_LOGIT_REL = 1e-1  # max |difference| / max |logit|
+INT8_LOGIT_COS = 0.9999
+
+
+def _step0_logits(sl):
+    """Encode, prefill QUERIES[0] with int8 caches -> (the logits of the
+    first generated token, the cache bytes)."""
+    from vidi_tpu_torch.models import decoder
+
+    sl.media = _encode(sl)
+    h, caches, lens, _ = _prefill(sl, QUERIES[0], quantize_caches=True)
+    logits = decoder.lm_logits(sl.params["text"], h[:, int(lens[0]) - 1], sl.cfg.text)
+    cache_bytes = {n: _nbytes(*_leaves(getattr(caches, n))) for n in ("img_k", "img_v")}
+    del h, caches
+    return logits.float(), cache_bytes
+
+
+class _Shadow:
+    """Wrappers that run a function's kernel route and its plain version on
+    the same inputs, return the kernel's output and keep each function's
+    worst relative error and call count."""
+
+    def __init__(self):
+        self.worst, self.calls = {}, {}
+
+    def wrap(self, name, run, plain):
+        def call(*args, **kw):
+            got = run(*args, **kw)
+            want = _flat(plain(*args, **kw))
+            err = float((_flat(got) - want).norm() / want.norm().clamp_min(1e-30))
+            self.worst[name] = max(self.worst.get(name, 0.0), err)
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return got
+        return call
+
+
+def _shadowed_calls(sl, ln_ffn=None) -> dict:
+    """One encode and one prefill of QUERIES[0] with every K5 / K6 call held
+    against its plain version; `ln_ffn` replaces K5's ln_ffn (a planted
+    fault). -> {function: (worst relative error, calls)}."""
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+
+    sh = _Shadow()
+    with _swap(k5, ln_qkv=sh.wrap("ln_qkv", k5.ln_qkv, k5.ln_qkv_plain),
+               o_residual=sh.wrap("o_residual", k5.o_residual, k5.o_residual_plain),
+               ln_ffn=sh.wrap("ln_ffn", ln_ffn or k5.ln_ffn, k5.ln_ffn_plain)), \
+            _swap(k6, quant_matmul=sh.wrap("quant_matmul", k6.quant_matmul,
+                                           k6.quant_matmul_plain),
+                  quant_gated_mlp=sh.wrap("quant_gated_mlp", k6.quant_gated_mlp,
+                                          k6.quant_gated_mlp_plain)):
+        sl.media = _encode(sl)
+        _prefill(sl, QUERIES[0], quantize_caches=True)
+    torch.cuda.synchronize()
+    return {n: (sh.worst[n], sh.calls[n]) for n in sh.worst}
+
+
+def int8_route_check(sl) -> None:
+    """The step-0 logits and every K5 / K6 call against the plain versions
+    (see above); the planted fault (K5 without its FFN requantize) must fail."""
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+
+    kernel, cache_bytes = _step0_logits(sl)
+    print("  int8 image caches: " + ", ".join(
+        f"{n} {b / 1e9:.3f} GB" for n, b in cache_bytes.items()) + " (codes + scales)")
+    with _swap(k5, ln_qkv=k5.ln_qkv_plain, o_residual=k5.o_residual_plain,
+               ln_ffn=k5.ln_ffn_plain), \
+            _swap(k6, quant_matmul=k6.quant_matmul_plain,
+                  quant_gated_mlp=k6.quant_gated_mlp_plain):
+        plain, _ = _step0_logits(sl)
+
+    fault = "planted fault, K5 without the FFN requantize"
+    logits = {"kernel route": _logit_gap(kernel, plain)}
+    with _swap(k5, ln_ffn=_ffn_no_requant):
+        logits[fault] = _logit_gap(_step0_logits(sl)[0], plain)
+    calls = {"kernel route": _shadowed_calls(sl),
+             fault: _shadowed_calls(sl, ln_ffn=_ffn_no_requant)}
+    passes = {}
+    for name, (rel, cos) in logits.items():
+        worst = max(e for e, _ in calls[name].values())
+        print(f"  int8 {name}: step 0 logits vs plain K5 / K6 max_abs_err = {rel:.3e} of "
+              f"max|logit| (limit {INT8_LOGIT_REL}), cosine {cos:.6f} (limit "
+              f"{INT8_LOGIT_COS}); each call vs its plain version, worst relative error "
+              + ", ".join(f"{n} {e:.3e} ({c} calls)" for n, (e, c) in calls[name].items())
+              + f" (limit {INT8_REL:.1e})")
+        passes[name] = rel <= INT8_LOGIT_REL and cos >= INT8_LOGIT_COS and worst <= INT8_REL
+    if not passes["kernel route"]:
+        raise AssertionError("the int8 kernel and plain routes disagree")
+    if passes[fault]:
+        raise AssertionError("the int8 route limits do not reject the planted fault")
+
+
+def profile_int8(sl) -> None:
+    """torch.profiler over the int8 slice's encode, one prefill and
+    PROFILE_DECODE_STEPS decode steps over int8 caches."""
+    from vidi_tpu_torch.models import decoder
+
+    _region("int8 encode", lambda: _encode(sl))
+    _, caches, lens, emb = _region("int8 prefill (W8A8)",
+                                   lambda: _prefill(sl, QUERIES[0], quantize_caches=True))
+
+    def steps():
+        cur, e = lens.clone(), emb
+        for _ in range(PROFILE_DECODE_STEPS):
+            logits = _decode_step(sl, e, cur, caches, False)
+            e = decoder.embed_tokens(sl.params["text"], logits.argmax(-1)[:, None],
+                                     sl.cfg.text)
+            cur = cur + 1
+        return logits
+    _region(f"int8 decode over int8 caches x{PROFILE_DECODE_STEPS}", steps)
 
 
 # ---------------------------------------------------------------------------
@@ -973,8 +1688,16 @@ def main() -> int:
     kern = kernel_phases(dev)
     print("K4 phase:")
     kern["flash_attention_bwd"] = k4_phase(dev)
+    print("K5 phase (int8 tower layer):")
+    kern.update(k5_phase(dev))
+    print("K6 phase (W8A8 matmuls):")
+    kern.update(k6_phase(dev))
+    print("K7 phase (fused RMSNorm, on no path):")
+    kern.update(k7_phase(dev))
     print("reference check:")
     reference_check(dev)
+    print("int8 reference check:")
+    int8_reference_check(dev)
     print("training reference check:")
     training_reference_check(dev)
     print("slice (Vidi1.5-9B, random weights):")
@@ -989,6 +1712,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    from vidi_tpu_torch.infer import quantize as qz
+    print("int8 slice (Vidi1.5-9B, int8 text + towers, W8A8 prefill from "
+          f"{W8A8_MIN_TOKENS} rows, int8 caches, random weights):")
+    qz.w8a8_min_tokens = W8A8_MIN_TOKENS
+    sl = load_slice(dev, int8=True)
+    serve_int8 = int8_slice_phase(sl)
+    if args.profile:
+        print("int8 profile:")
+        profile_int8(sl)
+    print("int8 routes:")
+    int8_route_check(sl)
+    qz.w8a8_min_tokens = None
+    del sl
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print(f"training slice (Vidi1.5-9B, {TRAIN_LAYERS} text layers, random weights):")
     tr = load_training_slice(dev)
     train = training_phase(tr)
@@ -998,14 +1737,20 @@ def main() -> int:
     print("gradient routes:")
     gradient_route_check(tr)
 
-    # launches: the serving path's count for K1-K3, the training path's for
-    # K4; launches_by_path gives both
+    # launches: the path each kernel serves first (bf16 serving for K1-K3,
+    # training for K4, int8 serving for K5 / K6; K7 is on no path);
+    # launches_by_path gives every path's count
+    paths = {"serve": serve, "serve_int8": serve_int8, "train": train}
+    ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
+           "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": r["src"],
-         "replaces": r["replaces"], "launches": serve.get(name, train.get(name)),
-         "launches_by_path": {"serve": serve.get(name, 0), "train": train.get(name, 0)},
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "cases": r["cases"]}
+        {"name": name, "id": r.get("kernel", ids.get(name)), "route": "cuda",
+         "source": r["src"], "replaces": r["replaces"],
+         "launches": next((p[name] for p in (serve, train, serve_int8) if name in p), 0),
+         "launches_by_path": {k: p.get(name, 0) for k, p in paths.items()},
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"], "cases": r["cases"]}
         for name, r in kern.items()]}))
     print(smi)  # name, power.limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

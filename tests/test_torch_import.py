@@ -1,11 +1,15 @@
-"""The port imports torch and never jax, and builds nothing at import time.
+"""The port imports torch and never jax, nothing of vidi_tpu (it keeps its
+own copies of the host code it shares), and builds nothing at import time.
 
 Each check runs in a fresh interpreter, because this test process has jax
-loaded already (tests/conftest.py).
+and vidi_tpu loaded already (tests/conftest.py and the other tests).
 """
+import dataclasses
 import os
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 
@@ -20,12 +24,21 @@ MODULES = [
     "vidi_tpu_torch.ops.cuda.flash_attention",
     "vidi_tpu_torch.ops.cuda.tower_attention",
     "vidi_tpu_torch.ops.cuda.decode_attention",
+    "vidi_tpu_torch.ops.cuda.quant_matmul",
+    "vidi_tpu_torch.ops.cuda.fused_tower_layer",
+    "vidi_tpu_torch.ops.cuda.fused_rmsnorm",
+    "vidi_tpu_torch.constants",
+    "vidi_tpu_torch.core.config",
+    "vidi_tpu_torch.media.text",
+    "vidi_tpu_torch.media.audio",
+    "vidi_tpu_torch.utils",
     "vidi_tpu_torch.models.siglip",
     "vidi_tpu_torch.models.whisper",
     "vidi_tpu_torch.models.adapters",
     "vidi_tpu_torch.models.decoder",
     "vidi_tpu_torch.models.dattn",
     "vidi_tpu_torch.infer.convert",
+    "vidi_tpu_torch.infer.quantize",
     "vidi_tpu_torch.infer.loader",
     "vidi_tpu_torch.infer.generate",
     "vidi_tpu_torch.infer.pipeline",
@@ -42,6 +55,8 @@ for name in ("DattnConfig", "load_model", "generate", "ask"):
 from vidi_tpu_torch.ops.cuda import _lib
 print(json.dumps({{
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "vidi_tpu": sorted(m for m in sys.modules
+                       if m == "vidi_tpu" or m.startswith("vidi_tpu.")),
     "lib_loaded": _lib._lib is not None,
     "built": _lib.build_seconds is not None,
     "cv2_or_pil": sorted(m for m in ("cv2", "PIL") if m in sys.modules),
@@ -63,14 +78,18 @@ TRAIN_MODULES = [
     "vidi_tpu_torch.train.data",
     "vidi_tpu_torch.train.checkpoint",
     "vidi_tpu_torch.train.train",
+    "vidi_tpu_torch.train.prefetch",
+    "vidi_tpu_torch.media.images",
+    "vidi_tpu_torch.media.video",
 ]
-# the training path imports vidi_tpu.train.data (jax-free, PIL at the top)
+# the training path's data module imports PIL and the video decoders at the top
 TRAIN_PROBE = """
 import importlib, json, sys
 for m in {modules!r}:
     importlib.import_module(m)
 print(json.dumps(sorted(m for m in sys.modules
-                        if m in ("jax", "optax", "orbax") or m.startswith(("jax.", "orbax.")))))
+                        if m in ("jax", "optax", "orbax", "vidi_tpu")
+                        or m.startswith(("jax.", "orbax.", "vidi_tpu.")))))
 """
 
 
@@ -87,7 +106,47 @@ def test_port_never_imports_jax(probe):
     assert probe["jax"] == []
 
 
-def test_training_path_never_imports_jax():
+def test_port_never_imports_vidi_tpu(probe):
+    assert probe["vidi_tpu"] == []
+
+
+def test_chip_smoke_imports_neither_jax_nor_vidi_tpu():
+    """chip_smoke.py's imports (its module body, not main) load no jax and no
+    vidi_tpu module."""
+    code = ("import importlib.util, json, sys\n"
+            "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'vidi_tpu'))))")
+    assert _run(code) == []
+
+
+# `vidi_tpu` as a whole word: `vidi_tpu_torch` does not match
+_IMPORT_RE = re.compile(r"^\s*(from\s+vidi_tpu(\.\w+)*\s+import\b|import\s+vidi_tpu(\.\w+)*\b)",
+                        re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*Path(ROOT, "vidi_tpu_torch").rglob("*.py"),
+                                       Path(ROOT, "chip_smoke.py")]))
+def test_no_source_line_imports_vidi_tpu(path):
+    text = Path(ROOT, path).read_text()
+    assert not _IMPORT_RE.search(text), f"{path} imports vidi_tpu"
+    assert not re.search(r"[\"']vidi_tpu(\.[a-z_.]+)?[\"']", text), \
+        f"{path} names a vidi_tpu module in a string (a lazy import)"
+
+
+@pytest.mark.parametrize("ctor", ["tiny", "vidi15_9b", "bench_1_5b"])
+def test_config_copy_has_not_drifted(ctor):
+    """The port's copy of core/config.py builds the same configurations."""
+    from vidi_tpu.core import config as jcfg
+    from vidi_tpu_torch.core import config as tcfg
+
+    assert dataclasses.asdict(getattr(tcfg.DattnConfig, ctor)()) == \
+        dataclasses.asdict(getattr(jcfg.DattnConfig, ctor)())
+
+
+def test_training_path_never_imports_jax_or_vidi_tpu():
     assert _run(TRAIN_PROBE.format(modules=TRAIN_MODULES)) == []
 
 

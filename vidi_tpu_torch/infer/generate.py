@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from vidi_tpu.core.config import DattnConfig
+from vidi_tpu_torch.core.config import DattnConfig
 from vidi_tpu_torch.models import dattn, decoder
 
 
@@ -47,7 +47,7 @@ def _sync(device: torch.device) -> None:
 
 def _prefill(params, cfg: DattnConfig, prompt_ids, prompt_mask, img, img_mask,
              aud, aud_mask, *, max_new_tokens: int, mm_chunks: int,
-             use_flash: bool):
+             use_flash: bool, quantize_caches: bool = False):
     """Full forward, then the text cache grown by `max_new_tokens` slots.
     -> (hidden [B,T,d], caches, prompt lengths [B])."""
     lens = prompt_mask.sum(dim=1)
@@ -56,7 +56,8 @@ def _prefill(params, cfg: DattnConfig, prompt_ids, prompt_mask, img, img_mask,
     h, caches = dattn.forward(params, cfg, embeds, prompt_mask, positions,
                               img=img, img_mask=img_mask, aud=aud,
                               aud_mask=aud_mask, mm_chunks=mm_chunks,
-                              return_caches=True, use_flash=use_flash)
+                              return_caches=True, use_flash=use_flash,
+                              quantize_caches=quantize_caches)
 
     def grow(c):  # [L,B,Hk,T,D] -> [L,B,Hk,T+max_new,D], new slots zero
         out = c.new_zeros((*c.shape[:3], c.shape[3] + max_new_tokens, c.shape[4]))
@@ -82,18 +83,21 @@ def generate(params, cfg: DattnConfig, prompt_ids, prompt_mask, img=None,
              img_mask=None, aud=None, aud_mask=None, *,
              max_new_tokens: int = 1024, eos_id: int = 107, mm_chunks: int = 1,
              use_flash: bool = False, use_flash_decode: bool = False,
+             quantize_caches: bool = False,
              stop_sequences: tuple = ()) -> GenerateResult:
     """Greedy decode. prompt_ids / prompt_mask [B,T] right-padded (long /
     bool, on the model's device). `use_flash` runs prefill attention on the
     K1 kernel; `use_flash_decode` runs decode attention on the K3 kernel
-    (default off, as in vidi_tpu)."""
+    (default off, as in vidi_tpu); `quantize_caches` keeps the image /
+    audio caches as per-token int8 (their decode reads then skip K3)."""
     tcfg = cfg.text
     dev = prompt_ids.device
     b = prompt_ids.shape[0]
     t0 = time.perf_counter()
     h, caches, lens = _prefill(
         params, cfg, prompt_ids, prompt_mask, img, img_mask, aud, aud_mask,
-        max_new_tokens=max_new_tokens, mm_chunks=mm_chunks, use_flash=use_flash)
+        max_new_tokens=max_new_tokens, mm_chunks=mm_chunks, use_flash=use_flash,
+        quantize_caches=quantize_caches)
     h_last = h[torch.arange(b, device=dev), torch.clamp(lens - 1, min=0)]
     tok = decoder.lm_logits(params["text"], h_last, tcfg).argmax(dim=-1)
     tokens = torch.full((b, max_new_tokens), eos_id, dtype=torch.long, device=dev)

@@ -6,7 +6,9 @@ towers and adapters (device) -> TR prompt -> greedy generate -> parse the
 normalized `a.aaa-b.bbb` ranges -> "HH:MM:SS-HH:MM:SS" spans.
 
     python -m vidi_tpu_torch.infer.pipeline --video-path v.mp4 --query "a red car" \
-        --random-weights 9b|1.5b|tiny --device cuda|cpu --dtype bfloat16|float32
+        --random-weights 9b|1.5b|tiny --device cuda|cpu --dtype bfloat16|float32 \
+        [--load-8bit | --load-4bit] [--load-8bit-towers] [--quantize-kv] \
+        [--w8a8-prefill MIN_TOKENS]
 """
 from __future__ import annotations
 
@@ -17,10 +19,10 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from vidi_tpu.constants import DEFAULT_IMAGE_TOKEN, GEMMA_EOS_TOKEN_ID, IMAGE_TOKEN_INDEX
-from vidi_tpu.core.config import DattnConfig
-from vidi_tpu.media.audio import process_audio
-from vidi_tpu.media.text import preprocess_chat, tokenizer_image_token
+from vidi_tpu_torch.constants import DEFAULT_IMAGE_TOKEN, GEMMA_EOS_TOKEN_ID, IMAGE_TOKEN_INDEX
+from vidi_tpu_torch.core.config import DattnConfig
+from vidi_tpu_torch.media.audio import process_audio
+from vidi_tpu_torch.media.text import preprocess_chat, tokenizer_image_token
 from vidi_tpu_torch.infer.generate import generate, tokenize_stop_keywords
 from vidi_tpu_torch.models import dattn
 from vidi_tpu_torch.models.adapters import budget_hw
@@ -62,8 +64,8 @@ def decode_media_host(vid_path: str, cfg: DattnConfig, *, fps: float = 1.0):
     """Host half of the encode: decode + PIL resize + log-mel -> (uint8
     frames [N,S,S,3], mel windows [W,n_mels,3000], audio_len). The video
     and image modules need libav or cv2, and PIL, so they load here only."""
-    from vidi_tpu.media.images import resize_frames_uint8
-    from vidi_tpu.media.video import load_audio, load_video
+    from vidi_tpu_torch.media.images import resize_frames_uint8
+    from vidi_tpu_torch.media.video import load_audio, load_video
 
     frames = load_video(vid_path, fps=fps)
     pixels = resize_frames_uint8(frames, cfg.vision.image_size)
@@ -120,11 +122,12 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
         task: str = "tr", fps: float = 1.0, max_new_tokens: int = 1024,
         mm_chunks: int = 32, eos_id: Optional[int] = None, pad_to: int = 64,
         use_flash: Optional[bool] = None, use_flash_decode: bool = False,
-        stop_keywords: tuple = ()) -> str:
+        quantize_caches: bool = False, stop_keywords: tuple = ()) -> str:
     """Answer one query about one video -> the task's display string.
     `use_flash=None` means "the parameters are on a CUDA device": the CUDA
-    kernels run there and the reference ops on the CPU."""
-    from vidi_tpu.media.video import get_media_length
+    kernels run there and the reference ops on the CPU. `quantize_caches`
+    keeps the image / audio KV caches as per-token int8."""
+    from vidi_tpu_torch.media.video import get_media_length
 
     dev = params["text"]["embed"].device
     if use_flash is None:
@@ -141,13 +144,13 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
         aud_mask=aud_mask, max_new_tokens=max_new_tokens,
         eos_id=eos_id if eos_id is not None else pick_eos(cfg, tokenizer),
         mm_chunks=mm_chunks, use_flash=use_flash,
-        use_flash_decode=use_flash_decode,
+        use_flash_decode=use_flash_decode, quantize_caches=quantize_caches,
         stop_sequences=tokenize_stop_keywords(stop_keywords, tokenizer))
     n = int(result.lengths[0])
     text = tokenizer.decode(result.tokens[0, :n].cpu().numpy(),
                             skip_special_tokens=True).strip()
     if stop_keywords:
-        from vidi_tpu.media.text import truncate_at_keywords
+        from vidi_tpu_torch.media.text import truncate_at_keywords
         text = truncate_at_keywords(text, stop_keywords).strip()
     return parse_task_output(text, task, length)
 
@@ -187,16 +190,32 @@ def main(argv=None):
     p.add_argument("--fps", type=float, default=1.0)
     p.add_argument("--max-new-tokens", type=int, default=1024)
     p.add_argument("--mm-splits", type=int, default=32)
+    p.add_argument("--load-8bit", action="store_true",
+                   help="int8 weight-only text decoder (bitsandbytes load_in_8bit)")
+    p.add_argument("--load-4bit", action="store_true",
+                   help="group-wise int4 weight-only text decoder (load_4bit)")
+    p.add_argument("--load-8bit-towers", action="store_true",
+                   help="int8 SigLIP / Whisper layers with per-row int8 activations")
+    p.add_argument("--quantize-kv", action="store_true",
+                   help="per-token int8 image / audio KV caches")
+    p.add_argument("--w8a8-prefill", type=int, default=None, metavar="MIN_TOKENS",
+                   help="with --load-8bit: int8 activations for decoder products "
+                        "of at least MIN_TOKENS rows (the modality-stream prefill); "
+                        "decode stays weight-only")
     args = p.parse_args(argv)
 
+    from vidi_tpu_torch.infer import quantize
     from vidi_tpu_torch.infer.loader import load_model
 
+    if args.w8a8_prefill is not None:
+        quantize.w8a8_min_tokens = args.w8a8_prefill
     params, cfg, tokenizer = load_model(
         random_weights=args.random_weights, dtype=getattr(torch, args.dtype),
-        device=args.device, seed=args.seed)
+        device=args.device, seed=args.seed, load_8bit=args.load_8bit,
+        load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit)
     out = ask(args.query, args.video_path, params, cfg, tokenizer,
               task=args.task, fps=args.fps, max_new_tokens=args.max_new_tokens,
-              mm_chunks=args.mm_splits)
+              mm_chunks=args.mm_splits, quantize_caches=args.quantize_kv)
     print(out if out else "(no parsed output)")
 
 

@@ -95,7 +95,15 @@ def parse_highlights(text: str, length: float) -> List[Tuple[float, float]]:
     return [(a * length, b * length) for a, b in parse_time_ranges(text)]
 
 
+def extract_answer(text: str) -> str:
+    m = re.search(r"<answer>\s*(.*?)\s*</answer>", text, re.DOTALL)
+    # bare-text fallback: first char, whitespace included, exactly like the
+    # reference's text[0] (VUE_PLOT/character_eval.py:252) — a leading-space
+    # output scores its space char (wrong answer). [:1] only avoids the
+    # reference's IndexError crash on fully-empty output.
+    return m.group(1).strip() if m else text[:1]
+
+
 def parse_mcq(text: str) -> str:
     """MCQ letter, <answer>-wrapped or bare."""
-    from vidi_tpu.evals.vue_plot import extract_answer
     return extract_answer(text)

@@ -18,7 +18,11 @@ Training position noise comes as explicit standard-normal draws
 layer (`torch.utils.checkpoint`), the counterpart of `jax.checkpoint`.
 `use_flash` routes attention to the CUDA kernels (K1 for prefill T2T and
 stream cross attention, K3 for decode); without it the reference ops of
-`ops/attention.py` run. Caches keep the decode-native [L,B,Hk,S,D] layout.
+`ops/attention.py` run. Caches keep the decode-native [L,B,Hk,S,D] layout;
+with `quantize_caches` the image / audio caches are per-token int8 dicts
+({qi8 [L,B,Hk,S,D], scale [L,B,Hk,S,1]}) that decode reads through
+`quantized_cache_cross_attention`. Layer weights may be int8 / int4 dicts
+(`infer.quantize`); every projection goes through `qdot`.
 All `*_mask` arguments are bool [B,S]; `*_counts` are int [B].
 """
 from __future__ import annotations
@@ -30,9 +34,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from vidi_tpu.core.config import DattnConfig, TextConfig
+from vidi_tpu_torch.core.config import DattnConfig, TextConfig
+from vidi_tpu_torch.infer import quantize as qz
+from vidi_tpu_torch.infer.quantize import qdot
 from vidi_tpu_torch.models import adapters, decoder, siglip, whisper
-from vidi_tpu_torch.ops.attention import cross_attention, self_attention
+from vidi_tpu_torch.ops.attention import (cross_attention,
+                                          quantized_cache_cross_attention,
+                                          self_attention)
 from vidi_tpu_torch.ops.norms import rms_norm, scaled_rms_norm
 from vidi_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -45,7 +53,8 @@ SIGLIP_STD = 0.5
 
 class Caches(NamedTuple):
     """KV caches in the decode-native [L,B,Hk,S,D] layout; img_* / aud_*
-    are None when the modality is absent."""
+    are None when the modality is absent, and int8 dicts (see the module
+    docstring) when quantized."""
 
     text_k: torch.Tensor
     text_v: torch.Tensor
@@ -53,6 +62,13 @@ class Caches(NamedTuple):
     img_v: Optional[torch.Tensor]
     aud_k: Optional[torch.Tensor]
     aud_v: Optional[torch.Tensor]
+
+
+def _layer_slice(cache, i: int):
+    """Layer i of a [L,...] cache or of a quantized cache dict."""
+    if isinstance(cache, dict):
+        return {k: v[i] for k, v in cache.items()}
+    return cache[i]
 
 
 # ---------------------------------------------------------------------------
@@ -262,20 +278,29 @@ def encode_video_audios(params: Params, cfg: DattnConfig, mels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _qkv(lp, x, tcfg: TextConfig):
-    q = decoder.split_heads(x @ lp["q_w"], tcfg.num_heads, tcfg.head_dim)
-    k = decoder.split_heads(x @ lp["k_w"], tcfg.num_kv_heads, tcfg.head_dim)
-    v = decoder.split_heads(x @ lp["v_w"], tcfg.num_kv_heads, tcfg.head_dim)
+    q = decoder.split_heads(qdot(x, lp["q_w"]), tcfg.num_heads, tcfg.head_dim)
+    k = decoder.split_heads(qdot(x, lp["k_w"]), tcfg.num_kv_heads, tcfg.head_dim)
+    v = decoder.split_heads(qdot(x, lp["v_w"]), tcfg.num_kv_heads, tcfg.head_dim)
     return q, k, v
 
 
-def _fold_o_w(o_w: torch.Tensor, tcfg: TextConfig) -> torch.Tensor:
+def _fold_o_w(o_w, tcfg: TextConfig):
     """[H*D, d] o_proj -> [Hk*D, d] with the g GQA row blocks of each KV head
     summed in fp32 and re-rounded once to o_w's dtype (repeat(v, g) @ o_w ==
-    v @ folded o_w)."""
+    v @ folded o_w). A quantized o_w is dequantized to fp32, folded and
+    requantized in its own format."""
     g = tcfg.num_heads // tcfg.num_kv_heads
     hd = tcfg.head_dim
-    wf = o_w.float().reshape(tcfg.num_kv_heads, g, hd, -1).sum(1)
-    return wf.reshape(tcfg.num_kv_heads * hd, -1).to(o_w.dtype)
+
+    def fold(wf):
+        wf = wf.reshape(tcfg.num_kv_heads, g, hd, -1).sum(1)
+        return wf.reshape(tcfg.num_kv_heads * hd, -1)
+
+    if qz.is_quantized(o_w):
+        if qz.QUANT4_KEY in o_w:
+            return qz.quantize_weight4(fold(qz.dequantize_weight4(o_w, torch.float32)))
+        return qz.quantize_weight(fold(qz.dequantize_weight(o_w, torch.float32)))
+    return fold(o_w.float()).to(o_w.dtype)
 
 
 def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
@@ -288,7 +313,13 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
     kv_valid = torch.where(has[:, None], stream_mask, torch.ones_like(stream_mask))
     if kv is not None:
         mk, mv = kv
-        if use_flash:
+        if qz.is_quantized(mk):
+            # int8 per-token caches, read as they are (ahead of K3, which
+            # reads bf16 caches)
+            attn = quantized_cache_cross_attention(q, mk, mv, kv_valid=kv_valid,
+                                                   scale=tcfg.q_scale,
+                                                   softcap=tcfg.attn_softcap)
+        elif use_flash:
             from vidi_tpu_torch.ops.cuda.decode_attention import decode_attention
             attn = decode_attention(q[:, 0], mk, mv, kv_valid, tcfg.q_scale,
                                     tcfg.attn_softcap)[:, None]
@@ -296,12 +327,12 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
             attn = cross_attention(q, mk.transpose(1, 2), mv.transpose(1, 2),
                                    kv_valid=kv_valid, scale=tcfg.q_scale,
                                    softcap=tcfg.attn_softcap)
-        out = (decoder.merge_heads(attn) @ lp["o_w"]) * has[:, None, None]
+        out = qdot(decoder.merge_heads(attn), lp["o_w"]) * has[:, None, None]
         return out, stream, (mk, mv)
 
     sn = decoder.norm(stream, lp["input_ln"], tcfg)
-    mk = decoder.split_heads(sn @ lp["k_w"], tcfg.num_kv_heads, tcfg.head_dim)
-    mv = decoder.split_heads(sn @ lp["v_w"], tcfg.num_kv_heads, tcfg.head_dim)
+    mk = decoder.split_heads(qdot(sn, lp["k_w"]), tcfg.num_kv_heads, tcfg.head_dim)
+    mv = decoder.split_heads(qdot(sn, lp["v_w"]), tcfg.num_kv_heads, tcfg.head_dim)
     if use_flash:
         from vidi_tpu_torch.ops.cuda.flash_attention import flash_attention
         attn = flash_attention(q, mk, mv, kv_valid, tcfg.q_scale, False, None,
@@ -309,14 +340,14 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
     else:
         attn = cross_attention(q, mk, mv, kv_valid=kv_valid, scale=tcfg.q_scale,
                                softcap=tcfg.attn_softcap)
-    out = (decoder.merge_heads(attn) @ lp["o_w"]) * has[:, None, None]
+    out = qdot(decoder.merge_heads(attn), lp["o_w"]) * has[:, None, None]
 
     # diagonal update: o_proj over GQA-repeated values == v @ folded o_w
     g = tcfg.num_heads // tcfg.num_kv_heads
     o_w = _fold_o_w(lp["o_w"], tcfg) if g > 1 else lp["o_w"]
 
     def diag_update(s_chunk, v_chunk):
-        dv = decoder.merge_heads(v_chunk) @ o_w
+        dv = qdot(decoder.merge_heads(v_chunk), o_w)
         if tcfg.double_norms:
             dv = decoder.norm(dv, lp["post_attn_ln"], tcfg)
         return decoder.ffn_block(lp, s_chunk + dv, tcfg)
@@ -387,7 +418,7 @@ def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
         t2t = _self_attn_switch(q_r, k_r, v, q_positions, kv_positions,
                                 text_mask, tcfg, is_sliding, use_flash=use_flash,
                                 segs=text_segs)
-    out = decoder.merge_heads(t2t) @ lp["o_w"]
+    out = qdot(decoder.merge_heads(t2t), lp["o_w"])
 
     img_kv_out = aud_kv_out = None
     if img is not None or img_kv is not None:
@@ -419,23 +450,50 @@ def _is_sliding(layer_idx: int, tcfg: TextConfig) -> bool:
 # Full forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _caches_ys(caches):
+def _caches_ys(caches, quantize: bool = False):
     """One layer's cache outputs in the decode-native [B,Hk,S,D] layout
-    (prefill computes [B,S,Hk,D]; these are transposed views)."""
+    (prefill computes [B,S,Hk,D]; these are transposed views), the image /
+    audio ones quantized per token with `quantize`."""
     (tk, tv), img_kv, aud_kv = caches
     t = lambda x: None if x is None else x.transpose(1, 2)  # noqa: E731
+
+    def mm(x):
+        x = t(x)
+        return qz.quantize_cache(x) if quantize and x is not None else x
+
     ik, iv = img_kv if img_kv is not None else (None, None)
     ak, av = aud_kv if aud_kv is not None else (None, None)
-    return t(tk), t(tv), t(ik), t(iv), t(ak), t(av)
+    return t(tk), t(tv), mm(ik), mm(iv), mm(ak), mm(av)
+
+
+def _cache_buffer(y, n_layers: int):
+    """An empty [L, ...] buffer for one layer's cache output (a dict of
+    buffers for a quantized one)."""
+    if y is None:
+        return None
+    if isinstance(y, dict):
+        return {k: _cache_buffer(v, n_layers) for k, v in y.items()}
+    return torch.empty((n_layers, *y.shape), dtype=y.dtype, device=y.device)
+
+
+def _write_layer(buf, i: int, y) -> None:
+    if isinstance(buf, dict):
+        for k in buf:
+            buf[k][i].copy_(y[k])
+    elif buf is not None:
+        buf[i].copy_(y)
 
 
 def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
             positions, img=None, img_mask=None, aud=None, aud_mask=None, *,
             mm_chunks: int = 1, return_caches: bool = False,
-            use_flash: bool = False, remat: bool = False, text_segs=None):
+            use_flash: bool = False, remat: bool = False, text_segs=None,
+            quantize_caches: bool = False):
     """Run all layers -> (final hidden [B,T,d] pre-lm_head, Caches or None).
     The caches are written layer by layer into preallocated [L,B,Hk,S,D]
-    buffers. `remat=True` recomputes each layer in the backward pass
+    buffers; with `quantize_caches` the image / audio ones are quantized per
+    token layer by layer, so only one layer's full-precision modality KV is
+    ever live. `remat=True` recomputes each layer in the backward pass
     (non-reentrant checkpoint) instead of keeping its activations;
     `text_segs` [B,T] are packing segment ids for the T2T attention."""
     if remat not in (False, True):
@@ -462,14 +520,11 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
         else:
             h, img, aud, caches = layer(h, img, aud)
         if return_caches:
-            ys = _caches_ys(caches)
+            ys = _caches_ys(caches, quantize_caches)
             if bufs is None:
-                bufs = [None if y is None else
-                        torch.empty((len(layers), *y.shape), dtype=y.dtype,
-                                    device=y.device) for y in ys]
+                bufs = [_cache_buffer(y, len(layers)) for y in ys]
             for buf, y in zip(bufs, ys):
-                if buf is not None:
-                    buf[i].copy_(y)
+                _write_layer(buf, i, y)
     h = decoder.norm(h, params["text"]["final_ln"], tcfg)
     return h, (Caches(*bufs) if return_caches else None)
 
@@ -500,8 +555,10 @@ def decode_step(params: Params, cfg: DattnConfig, token_embeds, cur_len,
             q_positions=positions, kv_positions=kv_positions,
             text_mask=text_valid, img_mask=img_mask, aud_mask=aud_mask,
             text_kv=(caches.text_k[i], caches.text_v[i]),
-            img_kv=(caches.img_k[i], caches.img_v[i]) if has_img else None,
-            aud_kv=(caches.aud_k[i], caches.aud_v[i]) if has_aud else None,
+            img_kv=((_layer_slice(caches.img_k, i), _layer_slice(caches.img_v, i))
+                    if has_img else None),
+            aud_kv=((_layer_slice(caches.aud_k, i), _layer_slice(caches.aud_v, i))
+                    if has_aud else None),
             write_at=cur_len, use_flash=use_flash)
     h = decoder.norm(h, params["text"]["final_ln"], tcfg)
     return decoder.lm_logits(params["text"], h[:, 0], tcfg), caches

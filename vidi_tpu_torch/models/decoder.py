@@ -1,15 +1,19 @@
-"""Text-decoder backbone ops, Gemma2 (port of vidi_tpu/models/decoder.py,
-unquantized branch): norms, activation, gated MLP, the FFN block,
-embedding lookup and the tied-embedding logits with the final softcap.
+"""Text-decoder backbone ops, Gemma2 (port of vidi_tpu/models/decoder.py):
+norms, activation, gated MLP, the FFN block, embedding lookup and the
+logits with the final softcap. Weights may be int8 / int4 dicts
+(`infer.quantize`): products go through `qdot`, and a gated MLP with at
+least `w8a8_min_tokens` rows takes K6's `quant_gated_mlp`.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from vidi_tpu.core.config import TextConfig
+from vidi_tpu_torch.core.config import TextConfig
+from vidi_tpu_torch.infer import quantize as qz
 from vidi_tpu_torch.ops.basic import gelu_tanh, matmul_f32
 from vidi_tpu_torch.ops.norms import gemma_rms_norm, mistral_rms_norm
 
@@ -68,7 +72,15 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
-    return (activation(x @ lp["gate_w"], cfg) * (x @ lp["up_w"])) @ lp["down_w"]
+    keys = ("gate_w", "up_w", "down_w")
+    if (qz.w8a8_min_tokens is not None
+            and math.prod(x.shape[:-1]) >= qz.w8a8_min_tokens
+            and all(isinstance(lp[k], dict) and qz.QUANT_KEY in lp[k] for k in keys)):
+        # W8A8 prefill FFN: one shared quantize of x for gate and up
+        from vidi_tpu_torch.ops.cuda.quant_matmul import quant_gated_mlp
+        return quant_gated_mlp(x, *(lp[k] for k in keys), cfg.hidden_act)
+    gate = qz.qdot(x, lp["gate_w"])
+    return qz.qdot(activation(gate, cfg) * qz.qdot(x, lp["up_w"]), lp["down_w"])
 
 
 def ffn_block(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
@@ -83,14 +95,18 @@ def ffn_block(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
 
 
 def embed_tokens(params: Params, ids: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
-    return params["embed"][ids]
+    return qz.embed_lookup(params["embed"], ids)
 
 
 def lm_logits(params: Params, hidden: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
-    """Tied-embedding logits in fp32, then the final softcap."""
-    if not cfg.tie_word_embeddings:
-        raise NotImplementedError("untied lm_head (Mistral / 7B) is not ported")
-    logits = matmul_f32(hidden, params["embed"].T)
+    """Logits in fp32 (tied embedding, or an untied lm_head), then the final
+    softcap."""
+    if cfg.tie_word_embeddings:
+        logits = qz.tied_logits(hidden, params["embed"])
+    elif qz.is_quantized(params["lm_head"]):
+        logits = qz.qdot(hidden, params["lm_head"]).float()
+    else:
+        logits = matmul_f32(hidden, params["lm_head"])
     if cfg.final_softcap is not None:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits

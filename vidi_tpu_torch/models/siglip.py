@@ -2,7 +2,8 @@
 
 Patch embedding as patch-extract + matmul, learned position embeddings,
 pre-norm encoder layers run in a Python loop, tapped at `select_layer`
-(-2: the output of the second-to-last layer). Parameters are a dict whose
+(-2: the output of the second-to-last layer). Layers with int8 weights
+(`infer.quantize.quantize_tower_params`) run K5's fused pieces. Parameters are a dict whose
 keys mirror the JAX tree; `layers` is a list of per-layer dicts.
 """
 from __future__ import annotations
@@ -11,8 +12,10 @@ from typing import Dict
 
 import torch
 
-from vidi_tpu.core.config import VisionConfig
+from vidi_tpu_torch.core.config import VisionConfig
+from vidi_tpu_torch.infer.quantize import is_quantized
 from vidi_tpu_torch.ops.basic import dense, layer_norm, mha, tower_act
+from vidi_tpu_torch.ops.cuda import fused_tower_layer as ftl
 
 Params = Dict
 
@@ -60,6 +63,12 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def _encoder_layer(x, lp, num_heads, eps, hidden_act, use_flash=False):
+    if is_quantized(lp["q_w"]):
+        # int8 tower (load_8bit_towers): K5's three fused pieces
+        q, k, v = ftl.ln_qkv(x, lp, eps)
+        attn = mha(q, k, v, num_heads, use_flash=use_flash)
+        x = ftl.o_residual(attn, x, lp)
+        return ftl.ln_ffn(x, lp, eps, hidden_act)
     res = x
     h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps)
     q = dense(h, lp["q_w"], lp["q_b"])

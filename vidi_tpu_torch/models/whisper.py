@@ -2,7 +2,8 @@
 
 mel [B, n_mels, 3000] -> conv1(k3,s1,p1)+gelu -> conv2(k3,s2,p1)+gelu ->
 + sinusoidal positions -> pre-norm layers (k_proj has no bias) -> final
-layer norm -> [B, 1500, d]. Exact (erf) GELU throughout.
+layer norm -> [B, 1500, d]. Exact (erf) GELU throughout. Layers with int8
+weights run K5's fused pieces.
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vidi_tpu.core.config import AudioConfig
+from vidi_tpu_torch.core.config import AudioConfig
+from vidi_tpu_torch.infer.quantize import is_quantized
 from vidi_tpu_torch.ops.basic import dense, gelu_exact, layer_norm, mha
+from vidi_tpu_torch.ops.cuda import fused_tower_layer as ftl
 
 Params = Dict
 
@@ -69,6 +72,12 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 def _encoder_layer(x, lp, num_heads, use_flash=False):
+    if is_quantized(lp["q_w"]):
+        # int8 tower: K5 (k_proj has no bias: ln_qkv adds zeros)
+        q, k, v = ftl.ln_qkv(x, lp, eps=1e-5)
+        attn = mha(q, k, v, num_heads, use_flash=use_flash)
+        x = ftl.o_residual(attn, x, lp)
+        return ftl.ln_ffn(x, lp, eps=1e-5, hidden_act="gelu")
     res = x
     h = layer_norm(x, lp["ln1_scale"], lp["ln1_bias"], eps=1e-5)
     q = dense(h, lp["q_w"], lp["q_b"])

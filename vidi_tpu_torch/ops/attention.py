@@ -5,6 +5,7 @@ are held against.
 - `self_attention`: causal, optional sliding window + logit softcap (the
   Gemma2 T2T path), masks by positions.
 - `cross_attention`: non-causal, KV-masked (the T2V / T2A path).
+- `quantized_cache_cross_attention`: the same over per-token int8 caches.
 
 GQA groups query heads over KV heads without repeating K/V. Softmax math
 is fp32; probabilities are cast to the value dtype before P @ V, which
@@ -72,3 +73,28 @@ def cross_attention(q, k, v, *, kv_valid, scale: float,
     if kv_valid is not None:
         logits = logits.masked_fill(~kv_valid[:, None, None, None, :], NEG_INF)
     return _attend(logits, v, q.dtype)
+
+
+def quantized_cache_cross_attention(q, kq, vq, *, kv_valid, scale: float,
+                                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Cross attention over per-token int8 KV caches: q [B,T,Hq,D]; kq / vq
+    {qi8 [B,Hk,S,D] int8, scale [B,Hk,S,1] fp32} (decode-native); kv_valid
+    [B,S] bool. The k scale folds into the logits (q . (k s) == (q . k) s)
+    and the v scale into the probabilities, so the int8 values enter the
+    products as they are (int8 -> float is exact). Eager PyTorch converts
+    the int8 cache to fp32 on every call, where XLA fused the convert into
+    the dot's operand read."""
+    ki, ks = kq["qi8"], kq["scale"]
+    vi, vs = vq["qi8"], vq["scale"]
+    b, t, hq, d = q.shape
+    hk = ki.shape[1]
+    qg = q.reshape(b, t, hk, hq // hk, d)
+    logits = torch.einsum("bthgd,bhsd->bhgts", qg.float(), ki.float())
+    logits = _soft_cap(logits * (ks[..., 0][:, :, None, None, :] * scale), softcap)
+    if kv_valid is not None:
+        logits = logits.masked_fill(~kv_valid[:, None, None, None, :], NEG_INF)
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    probs = probs * vs[..., 0][:, :, None, None, :]
+    out = torch.einsum("bhgts,bhsd->bthgd", probs.to(q.dtype).float(), vi.float())
+    return out.reshape(b, t, hq, d).to(q.dtype)

@@ -17,9 +17,12 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (out * scale + bias).to(x.dtype)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x @ w (+ b), w [in, out]."""
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w (+ b), w [in, out], or an int8 dict from infer/quantize.py: then
+    the product is W8A8 (`dynamic_qdense`, K6 on a CUDA tensor)."""
+    if isinstance(w, dict):
+        from vidi_tpu_torch.infer.quantize import dynamic_qdense
+        return dynamic_qdense(x, w, b)
     y = x @ w
     if b is not None:
         y = y + b

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (`vidi_tpu_torch/csrc/*.cu`).
 
 The kernels are plain C entry points compiled by `nvcc` for Hopper
-(`sm_90a`) into one shared library and bound with `ctypes`. The library is
-built at first use from the sources in the checkout, into
+(`sm_90a`), one `nvcc` process per source started together, linked into one
+shared library and bound with `ctypes`. The library is built at first use
+from the sources in the checkout, into
 `vidi_tpu_torch/build/`, under a name that carries a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one loads at once.
 Nothing here runs at import time: a CPU-only machine imports the wrappers
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib = None
 build_seconds = None  # wall time of the build in this process, None if loaded
@@ -52,14 +53,28 @@ def library_path() -> Path:
 def _build(out: Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(f) for f in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
+    jobs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True))
+            for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sorted(CSRC.glob("*.cu")), objs))]
+    failed = []
+    for cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
 
@@ -73,6 +88,12 @@ _SIGNATURES = {
     "vidi_tower_attention": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F, _P],
     "vidi_decode_attention": [_P] * 9 + [_I] * 6 + [_L] * 8
     + [_F, _F, _I, _I, _I, _P],
+    "vidi_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    "vidi_quant_gated": [_P] * 8 + [_I] * 5 + [_P],
+    "vidi_ln_qkv": [_P] * 17 + [_I] * 3 + [_F, _P],
+    "vidi_o_residual": [_P] * 8 + [_I] * 3 + [_P],
+    "vidi_ln_ffn": [_P] * 15 + [_I] * 5 + [_F, _P],
+    "vidi_rms_norm": [_P] * 3 + [_I] * 5 + [_F, _P],
 }
 
 

@@ -7,7 +7,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from vidi_tpu.constants import IGNORE_INDEX
+from vidi_tpu_torch.constants import IGNORE_INDEX
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

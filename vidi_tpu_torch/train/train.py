@@ -67,8 +67,8 @@ def parse_args():
 
 def main():
     args = parse_args()
-    from vidi_tpu.train.prefetch import Prefetcher
-    from vidi_tpu.utils import StepMeter, build_logger
+    from vidi_tpu_torch.train.prefetch import Prefetcher
+    from vidi_tpu_torch.utils import StepMeter, build_logger
     from vidi_tpu_torch.infer.loader import load_model, resolve_device
     from vidi_tpu_torch.models.dattn import draw_pos_noise
     from vidi_tpu_torch.train import data as data_mod

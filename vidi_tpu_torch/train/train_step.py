@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from vidi_tpu.core.config import DattnConfig
+from vidi_tpu_torch.core.config import DattnConfig
 from vidi_tpu_torch.models import dattn, decoder
 from vidi_tpu_torch.models.adapters import budget_hw
 from vidi_tpu_torch.train.losses import shifted_cross_entropy
