@@ -20,8 +20,12 @@
    Each case also runs planted faults (the plain version with the cap, mask,
    window, causality, segments, di, the cap's derivative, a per-row scale,
    the hidden's requantize, a bias, the residual, the zero ff padding or
-   the exact gelu dropped) and fails unless every fault lands outside the
-   limit.
+   the exact gelu dropped; K1 with its GQA groups packed wrong; K2 at D = 72
+   with its depth padding not zeroed, or without the keys past its last
+   whole key tile) and fails unless every fault lands outside the limit.
+   K1 / K2 take bf16 through the sm90 kernel (wgmma, TMA) and fp32 through
+   the SIMT template: one fp32 case each holds the SIMT route. Each K1 / K2
+   case prints its TFLOP/s and its share of the bound.
 3. Checks small fp32 models end to end, the card (kernels) against the CPU
    (plain PyTorch): a prefill + greedy decode in bf16-layout fp32 and on
    the int8 route, and two training steps.
@@ -84,7 +88,6 @@ LSE_ATOL = 1e-3
 # Query scale-up for the kernel cases: logits of standard deviation ~12, so
 # softmax rows are peaked and the softcap of 50 bends the largest logits.
 Q_GAIN = 12.0
-KV_TILE = 64  # keys per tile in csrc/*.cu: K2's ragged-edge fault drops the last partial one
 
 # Ragged masks of the kernel cases: the last 24 frames of the image cache
 # and the last Whisper window of the audio cache are padding, as for a 96 s
@@ -103,8 +106,28 @@ QUERIES = ("a red car driving past", "someone opens a door",
 PROFILE_DECODE_STEPS = 8
 
 
-def _time_ms(fn, reps: int = 10) -> float:
-    """Median device time of `fn` in ms over `reps` runs (CUDA events)."""
+def _time_ms(fn, reps: int = 20) -> float:
+    """Time of one call of `fn` in ms: CUDA events around `reps` calls
+    launched back to back after a warm-up call, over `reps`. The card
+    queues a call's kernels while the host prepares the next, so this reads
+    the device time of a call, or its host time where that is longer."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _call_ms(fn, reps: int = 10) -> float:
+    """Median time in ms of one call of `fn` from an idle card, host launch
+    work included (CUDA events around each call): how the kernel table was
+    timed before the back-to-back `_time_ms`, kept for K1 / K2 so that their
+    rows compare like for like with the earlier times."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -173,9 +196,11 @@ def _randn(gen, shape, dev, gain: float = 1.0, dtype=torch.bfloat16):
     return (gain * x).to(dtype)
 
 
-def _kv_mask(s: int, n_valid: int, dev):
-    mask = torch.ones((1, s), dtype=torch.bool, device=dev)
-    mask[:, n_valid:] = False
+def _kv_mask(s: int, n_valid, dev):
+    """[1, s] bool: keys [0, n_valid) valid, or [first, end) for a pair."""
+    first, end = n_valid if isinstance(n_valid, tuple) else (0, n_valid)
+    mask = torch.zeros((1, s), dtype=torch.bool, device=dev)
+    mask[:, first:end] = True
     return mask
 
 
@@ -192,6 +217,35 @@ def _faults(plain, args: dict, names) -> dict:
         label, kw = drop[n]
         res = plain(**{**args, **kw})
         out[label] = res[0] if isinstance(res, tuple) else res
+    return out
+
+
+def _gqa_wrong(plain, args: dict):
+    """The plain K1 with the GQA groups packed wrong: query head h reads KV
+    head h % Hk instead of h // (Hq / Hk)."""
+    hq, hk = args["q"].shape[2], args["k"].shape[2]
+    heads = torch.arange(hq, device=args["k"].device) % hk
+    return plain(**{**args, "k": args["k"][:, :, heads], "v": args["v"][:, :, heads]})[0]
+
+
+def _pad_not_zeroed(q, k, v, scale):
+    """The plain K2 at D = 72 whose scores also take the next head's first 8
+    columns (zeros after the last head): the sm90 kernel's depth padding
+    72..79 loaded instead of zeroed."""
+    def widen(x):
+        nxt = torch.zeros_like(x[..., :8])
+        nxt[:, :, :-1] = x[:, :, 1:, :8]
+        return torch.cat((x, nxt), dim=-1).float()
+    logits = torch.einsum("bthd,bshd->bhts", widen(q), widen(k)) * scale
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(q.dtype)
+
+
+def _rate(label: str, ops: float, ms: float, bound: dict) -> dict:
+    """TFLOP/s and share of the bound of one timed case, printed and kept."""
+    out = {"tflops": ops / ms / 1e9, "bound_share": bound["bound_ms"] / ms}
+    print(f"  {label}: {out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
+          f"{bound['bound_by']} bound")
     return out
 
 
@@ -220,77 +274,103 @@ def kernel_phases(dev) -> dict:
     n_real, t = _prompt_lengths()
 
     # K1: T2T prefill (causal, window, cap; right-padded prompt) and the
-    # T2V / T2A cross attention (ragged kv_mask)
+    # T2V / T2A cross attention (ragged kv_mask); bf16 takes the sm90 kernel,
+    # the fp32 case the SIMT template
     errs, cases = [], []
-    for label, hq, hk, d, s, causal, window, cap, n_valid, faults in (
+    for label, hq, hk, d, s, causal, window, cap, n_valid, faults, dtype in (
             (f"9b t2t T=S={t} causal window=4096 cap=50", 16, 8, 256, t, True,
-             4096, 50.0, n_real, ("causal", "mask", "cap")),
+             4096, 50.0, n_real, ("causal", "mask", "cap", "gqa"), torch.bfloat16),
             (f"9b t2t T=S={t} causal window=48 cap=50", 16, 8, 256, t, True,
-             48, 50.0, n_real, ("window", "cap")),
+             48, 50.0, n_real, ("window", "cap"), torch.bfloat16),
+            # keys 0..7 masked: causal rows 0..7 see no key (zeros, sentinel lse)
+            (f"9b t2t T=S={t} causal keys 8.. cap=50, 8 empty rows", 16, 8, 256, t,
+             True, 4096, 50.0, (8, n_real), ("mask", "cap"), torch.bfloat16),
             (f"9b t2v T={t} S={IMG_S} mask cap=50", 16, 8, 256, IMG_S, False,
-             None, 50.0, IMG_VALID, ("mask", "cap")),
+             None, 50.0, IMG_VALID, ("mask", "cap", "gqa"), torch.bfloat16),
             (f"9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
-             None, 50.0, AUD_VALID, ("mask", "cap")),
+             None, 50.0, AUD_VALID, ("mask", "cap"), torch.bfloat16),
             (f"9b t2a T={t} S={AUD_S} mask no cap", 16, 8, 256, AUD_S, False,
-             None, None, AUD_VALID, ("mask", "cap")),
+             None, None, AUD_VALID, ("mask", "cap"), torch.bfloat16),
             (f"1.5b t2t T=S={t} causal window=4096 cap=50", 12, 6, 128, t, True,
-             4096, 50.0, n_real, ("causal", "cap")),
+             4096, 50.0, n_real, ("causal", "cap"), torch.bfloat16),
             (f"1.5b t2v T={t} S={IMG_S} mask cap=50", 12, 6, 128, IMG_S, False,
-             None, 50.0, IMG_VALID, ("mask", "cap"))):
-        args = dict(q=_randn(gen, (1, t, hq, d), dev, Q_GAIN),
-                    k=_randn(gen, (1, s, hk, d), dev),
-                    v=_randn(gen, (1, s, hk, d), dev),
+             None, 50.0, IMG_VALID, ("mask", "cap"), torch.bfloat16),
+            (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
+             None, 50.0, AUD_VALID, ("mask", "cap"), torch.float32)):
+        args = dict(q=_randn(gen, (1, t, hq, d), dev, Q_GAIN, dtype),
+                    k=_randn(gen, (1, s, hk, d), dev, dtype=dtype),
+                    v=_randn(gen, (1, s, hk, d), dev, dtype=dtype),
                     kv_mask=_kv_mask(s, n_valid, dev), sm_scale=d**-0.5,
                     causal=causal, window=window, softcap=cap)
         out, lse = k1.flash_attention(**args)
         ref, ref_lse = k1.flash_attention_plain(**args)
-        errs.append(_check(f"K1 {label}", out, ref,
-                           _faults(k1.flash_attention_plain, args, faults)))
-        live = ref_lse < k1.EMPTY_ROW_LSE
+        planted = _faults(k1.flash_attention_plain, args, [f for f in faults if f != "gqa"])
+        if "gqa" in faults:
+            planted["GQA heads packed wrong"] = _gqa_wrong(k1.flash_attention_plain, args)
+        errs.append(_check(f"K1 {label}", out, ref, planted))
+        live = ref_lse < k1.EMPTY_ROW_LSE  # [B, Hq, T]; empty rows: zeros, sentinel lse
         lse_err = float((lse[live] - ref_lse[live]).abs().max())
-        print(f"  K1 {label} lse: max_abs_err={lse_err:.3e} (limit {LSE_ATOL})")
-        if not (lse_err <= LSE_ATOL and torch.equal(lse[~live], ref_lse[~live])):
-            raise AssertionError(f"K1 {label}: lse disagrees")
+        empty_equal = (torch.equal(lse[~live], ref_lse[~live]) and
+                       torch.equal(out.transpose(1, 2)[~live], ref.transpose(1, 2)[~live]))
+        print(f"  K1 {label} lse: max_abs_err={lse_err:.3e} (limit {LSE_ATOL}); "
+              f"{int((~live).sum())} empty rows {'bit-equal' if empty_equal else 'DIFFER'}")
+        if not (lse_err <= LSE_ATOL and empty_equal):
+            raise AssertionError(f"K1 {label}: lse or empty rows disagree")
         ms = _time_ms(lambda: k1.flash_attention(**args))
         plain_ms = _time_ms(lambda: k1.flash_attention_plain(**args))
         pairs = int(k1.visible_mask(1, t, s, args["kv_mask"], causal, window, None, None,
                                     dev).sum())
-        bound = _bound(4 * hq * d * pairs, _nbytes(args["q"], args["k"], args["v"], out, lse,
-                                                   args["kv_mask"]), "bf16")
+        ops = 4 * hq * d * pairs
+        bound = _bound(ops, _nbytes(args["q"], args["k"], args["v"], out, lse,
+                                    args["kv_mask"]), "bf16" if dtype == torch.bfloat16 else "fp32")
         lib_ms = None
         if cap is None:  # one PyTorch call computes the capless function
             lib_ms = _time_ms(lambda: _sdpa(args["q"], args["k"], args["v"], d**-0.5,
                                             args["kv_mask"]))
-        print(f"  K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), library {lib_ms} ms")
-        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
-                      "library_ms": lib_ms})
+        call_ms = _call_ms(lambda: k1.flash_attention(**args))
+        print(f"  K1 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), library {lib_ms} ms")
+        cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": lib_ms, **_rate(f"K1 {label}", ops, ms, bound)})
     # the summary time is the 9B T2V case's, most of K1's time in the slice
     res["flash_attention"] = dict(
         src=K1_SRC, replaces="vidi_tpu/ops/pallas/flash_attention.py:396",
         max_abs_err=max(errs), cases=cases, **_times(cases, "9b t2v"))
 
-    # K2: SigLIP (4 frames per encode chunk) and Whisper (1 window per chunk)
+    # K2: SigLIP (4 frames per encode chunk) and Whisper (1 window per chunk);
+    # the ragged-edge fault drops the keys past the last whole tile of the
+    # route's kernel (sm90 for bf16, SIMT for fp32)
     errs, cases = [], []
-    for label, b, n, h, dh in (("siglip B=4 T=729 H=16 D=72", 4, 729, 16, 72),
-                               ("whisper B=1 T=1500 H=20 D=64", 1, 1500, 20, 64)):
-        q = _randn(gen, (b, n, h, dh), dev, Q_GAIN)
-        k, v = _randn(gen, (b, n, h, dh), dev), _randn(gen, (b, n, h, dh), dev)
+    for label, b, n, h, dh, dtype in (
+            ("siglip B=4 T=729 H=16 D=72", 4, 729, 16, 72, torch.bfloat16),
+            ("whisper B=1 T=1500 H=20 D=64", 1, 1500, 20, 64, torch.bfloat16),
+            ("fp32 whisper B=1 T=1500 H=20 D=64", 1, 1500, 20, 64, torch.float32)):
+        q = _randn(gen, (b, n, h, dh), dev, Q_GAIN, dtype)
+        k = _randn(gen, (b, n, h, dh), dev, dtype=dtype)
+        v = _randn(gen, (b, n, h, dh), dev, dtype=dtype)
         scale = dh**-0.5
         out = k2.tower_attention(q, k, v, scale)
         ref = k2.tower_attention_plain(q, k, v, scale)
-        keep = n // KV_TILE * KV_TILE
-        errs.append(_check(f"K2 {label}", out, ref, {
-            f"keys past {keep} dropped": k2.tower_attention_plain(
-                q, k[:, :keep], v[:, :keep], scale)}))
+        tile = k1.SM90_KEY_TILE[dh] if dtype == torch.bfloat16 else k1.KV_TILE
+        keep = n // tile * tile
+        planted = {f"keys past {keep} dropped": k2.tower_attention_plain(
+            q, k[:, :keep], v[:, :keep], scale)}
+        if dh % 16:
+            planted["padding columns not zeroed"] = _pad_not_zeroed(q, k, v, scale)
+        errs.append(_check(f"K2 {label}", out, ref, planted))
         ms = _time_ms(lambda: k2.tower_attention(q, k, v, scale))
         plain_ms = _time_ms(lambda: k2.tower_attention_plain(q, k, v, scale))
-        bound = _bound(4 * b * h * n * n * dh, _nbytes(q, k, v, out), "bf16")
+        ops = 4 * b * h * n * n * dh
+        bound = _bound(ops, _nbytes(q, k, v, out),
+                       "bf16" if dtype == torch.bfloat16 else "fp32")
         lib_ms = _time_ms(lambda: _sdpa(q, k, v, scale, None))
-        print(f"  K2 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), SDPA {lib_ms:.4f} ms")
-        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
-                      "library_ms": lib_ms})
+        call_ms = _call_ms(lambda: k2.tower_attention(q, k, v, scale))
+        print(f"  K2 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), SDPA {lib_ms:.4f} ms")
+        cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, **bound,
+                      "library_ms": lib_ms, **_rate(f"K2 {label}", ops, ms, bound)})
     res["tower_attention"] = dict(
         src=K2_SRC, replaces="vidi_tpu/ops/pallas/tower_attention.py:179",
         max_abs_err=max(errs), cases=cases, **_times(cases, "siglip"))
@@ -979,7 +1059,8 @@ def _region(name, fn, top: int = 12):
     """Run `fn` once to warm up, once timed with the profiler off (wall
     time) and once under torch.profiler (device time summed over kernels);
     the idle share is 1 - device time / wall time (one stream, kernels run
-    one at a time)."""
+    one at a time). Prints the `top` kernels by device time and every
+    kernel of the port (K1-K7) below them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -998,7 +1079,8 @@ def _region(name, fn, top: int = 12):
     print(f"  == {name}: wall {wall * 1e3:.1f} ms, device {dev_us / 1e3:.1f} ms, "
           f"idle share {1 - dev_us / 1e6 / wall:.3f}")
     events.sort(key=lambda e: -e.self_device_time_total)
-    for e in events[:top]:
+    # the top kernels, then every kernel of the port's own below them
+    for e in events[:top] + [e for e in events[top:] if "vidi" in e.key]:
         us = e.self_device_time_total
         print(f"     {us / 1e3:9.2f} ms {100 * us / max(dev_us, 1):5.1f}%  "
               f"x{e.count:<6d} {e.key[:90]}")

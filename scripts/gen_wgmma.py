@@ -1,0 +1,82 @@
+"""Write vidi_tpu_torch/csrc/wgmma.cuh: the Hopper warpgroup products that
+the sm_90a attention kernel issues, one inline-PTX function per shape.
+
+    python scripts/gen_wgmma.py
+
+A `wgmma.mma_async` names every accumulator register of the warpgroup's
+64 x N tile (N / 2 per thread), so each shape is spelled out here instead
+of by hand. Overloads are picked by the accumulator array's length:
+
+  wgmma_ss(d[N/2], desc_a, desc_b, scale_d)  A and B in shared memory,
+                                             both K-major (S = Q K^T)
+  wgmma_rs(d[N/2], a[4], desc_b)             A in registers, B MN-major
+                                             (O += P V), accumulating
+"""
+from pathlib import Path
+
+OUT = Path(__file__).resolve().parents[1] / "vidi_tpu_torch" / "csrc" / "wgmma.cuh"
+SS_N = (64, 128)           # S tiles: keys per tile
+RS_N = (64, 72, 128, 256)  # O tiles: head dims
+
+
+def _regs(n_acc: int, first: int = 0) -> str:
+    return ", ".join(f"%{first + i}" for i in range(n_acc))
+
+
+def _outs(n_acc: int) -> str:
+    items = [f'"+f"(d[{i}])' for i in range(n_acc)]
+    return ",\n        ".join(", ".join(items[i:i + 8]) for i in range(0, n_acc, 8))
+
+
+def ss(n: int) -> str:
+    a = n // 2
+    return f"""
+__device__ __forceinline__ void wgmma_ss(float (&d)[{a}], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{a + 2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{_regs(a)}}}, %{a}, %{a + 1}, p, 1, 1, 0, 0;\\n}}\\n"
+      : {_outs(a)}
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}}
+"""
+
+
+def rs(n: int) -> str:
+    a = n // 2
+    return f"""
+__device__ __forceinline__ void wgmma_rs(float (&d)[{a}], const uint32_t (&x)[4],
+                                         uint64_t desc_b) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{a + 5}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{_regs(a)}}}, {{{_regs(4, a)}}}, %{a + 4}, p, 1, 1, 1;\\n}}\\n"
+      : {_outs(a)}
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "l"(desc_b), "r"(1));
+}}
+"""
+
+
+def main() -> None:
+    body = "".join(ss(n) for n in SS_N) + "".join(rs(n) for n in RS_N)
+    OUT.write_text(f"""// Generated by scripts/gen_wgmma.py; edit that script, not this file.
+//
+// Hopper warpgroup products (wgmma.mma_async, sm_90a), bf16 in, fp32
+// accumulate, 64 x N tiles. wgmma_ss: A and B from shared memory, both
+// K-major; scale_d = 0 overwrites the accumulator. wgmma_rs: A from
+// registers (the m16n8k16 A-fragment layout per warp), B MN-major
+// (imm-trans-b = 1), accumulating. The caller fences (wgmma.fence), commits
+// and waits.
+#pragma once
+
+#include <cstdint>
+
+namespace vidi {{
+{body}
+}}  // namespace vidi
+""")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,13 @@
 // Shared device code for the attention kernels of vidi_tpu_torch.
 //
-// `flash_forward` is the blocked online-softmax attention that both K1
-// (flash_attention.cu) and K2 (tower_attention.cu) launch; each keeps its own
-// C entry point. Plain SIMT arithmetic in fp32: tiles are staged in shared
-// memory and every product is an FMA on the CUDA cores. As in the Pallas
-// kernels, the unnormalised probabilities are rounded to the input dtype
-// before P @ V and the row sums are kept in fp32. Tensor-core (wgmma) tiles
-// and TMA loads are later work.
+// `flash_forward` is the blocked online-softmax attention that K1
+// (flash_attention.cu) and K2 (tower_attention.cu) launch for fp32 operands;
+// each keeps its own C entry point. Plain SIMT arithmetic in fp32: tiles are
+// staged in shared memory and every product is an FMA on the CUDA cores. As
+// in the Pallas kernels, the unnormalised probabilities are rounded to the
+// input dtype before P @ V and the row sums are kept in fp32. bf16 operands
+// take the Hopper kernel of flash_forward_sm90.cuh, which reuses
+// FlashParams and flash_combine from here.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,7 +70,7 @@ struct FlashParams {
   const void* q;        // [B, T, Hq, D] strided, last dim contiguous
   const void* k;        // [B, S, Hk, D] strided, last dim contiguous
   const void* v;
-  const int* kv_mask;   // [B, S] contiguous, nullptr = all valid
+  const unsigned char* kv_mask;  // [B, S] bool bytes, contiguous, nullptr = all valid
   const int* q_segs;    // [B, T] contiguous, nullptr = no packing
   const int* kv_segs;   // [B, S]
   void* out;            // [B, T, Hq, D] contiguous

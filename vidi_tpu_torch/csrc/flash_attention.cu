@@ -4,51 +4,40 @@
 // (`flash_attention` -> `_flash_forward` -> `_fwd_kernel`): blocked
 // online-softmax attention of q [B,T,Hq,D] against k/v [B,S,Hk,D] with GQA
 // (query head h reads KV head h // (Hq/Hk), no repeated KV), causal masking,
-// the Gemma2 sliding window by absolute index, logit softcap, an int32
+// the Gemma2 sliding window by absolute index, logit softcap, a bool
 // kv_mask and packing segment ids (masking only). It returns the output and
 // the logsumexp [B,Hq,T]; rows with no visible key give zeros and the
 // sentinel lse 0.7 * FLT_MAX, as the Pallas kernel does.
 //
-// What bounds it on an H100: at the slice's shapes (T = 128 text rows
-// against S = 23,520 video keys, D = 256) the work is 2*T*S*D FMAs per head
-// while the K/V bytes are read once per query tile, so it is compute-bound;
-// written in SIMT fp32 FMAs it runs far below the tensor cores' rate. The
-// design keeps the score matrix out of device memory (one BK-key tile at a
-// time in shared memory), reuses each staged K/V element for a whole query
-// tile, and skips tiles outside the causal/window band. One block per
-// (b, h, 16-row query tile) gives only 128 blocks at T = 128 on 132 SMs, so
-// when that would leave the SMs idle the wrapper also splits S across
-// blocks and a merge pass combines their partial (m, l, acc) states. Moving
-// the two products to wgmma is the next step.
+// What bounds it on an H100: the cross attention of 128 text rows against
+// 23,520 video keys (D = 256, 16 query / 8 KV heads) moves 192 MB of K/V for
+// 4.0e10 operations, so it is bound by bytes (0.058 ms at 3.35 TB/s); the
+// text self attention (T = S = 128) is bound by its launch.
+//
+// Two routes, chosen by dtype in ops/cuda/flash_attention.py:
+// - bf16: `vidi_flash_attention_fwd_sm90`, the Hopper kernel of
+//   flash_forward_sm90.cuh. Both products run on wgmma; the g = Hq / Hk
+//   query heads of a KV head share one block's 128 rows, so each K/V tile
+//   crosses shared memory once for all of them (and the 9B's 8 KV heads x
+//   256 rows give 16 blocks); TMA loads K/V into a two-stage ring ahead of
+//   the products. Too few blocks for 132 SMs: the wrapper splits S so that
+//   one wave fills the card, and flash_combine merges the partial states.
+// - fp32: `vidi_flash_attention_fwd`, the SIMT template of
+//   attention_common.cuh (fp32 FMAs, 16-row tiles), for the fp32 checks that
+//   hold the card against the CPU at 1e-3 and finer, which TF32 would miss.
 #include "attention_common.cuh"
+#include "flash_forward_sm90.cuh"
 
 namespace {
 
-template <typename T>
-cudaError_t dispatch(const vidi::FlashParams& p, int D, cudaStream_t s) {
-  // BQ = 16 query rows per block: the text side has T = 128 (a TR prompt
-  // padded to 64), so wider tiles would leave most of the 132 SMs idle.
-  // Head dims: 256 (Vidi1.5-9B) and
-  // 128 (the 1.5B configuration).
-  switch (D) {
-    case 128: return vidi::launch_flash_forward<T, 128, 16, 64, 128>(p, s);
-    case 256: return vidi::launch_flash_forward<T, 256, 16, 64, 128>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-extern "C" int vidi_flash_attention_fwd(
-    const void* q, const void* k, const void* v, const int* kv_mask,
-    const int* q_segs, const int* kv_segs, void* out, float* lse,
-    int B, int T, int S, int Hq, int Hk, int D, int is_bf16,
-    long long q_sb, long long q_st, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    float scale, int causal, int window, float softcap,
-    int n_split, int kv_split, float* part_m, float* part_l, float* part_acc,
-    void* stream) {
+vidi::FlashParams params(const void* q, const void* k, const void* v,
+                         const unsigned char* kv_mask,
+                         const int* q_segs, const int* kv_segs, void* out, float* lse, int B,
+                         int T, int S, int Hq, int Hk, long long q_sb, long long q_st,
+                         long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+                         long long v_sb, long long v_ss, long long v_sh, float scale,
+                         int causal, int window, float softcap, int n_split, int kv_split,
+                         float* part_m, float* part_l, float* part_acc) {
   vidi::FlashParams p;
   p.q = q; p.k = k; p.v = v;
   p.kv_mask = kv_mask; p.q_segs = q_segs; p.kv_segs = kv_segs;
@@ -60,7 +49,44 @@ extern "C" int vidi_flash_attention_fwd(
   p.scale = scale; p.causal = causal; p.window = window; p.softcap = softcap;
   p.n_split = n_split; p.kv_split = kv_split;
   p.part_m = part_m; p.part_l = part_l; p.part_acc = part_acc;
+  return p;
+}
+
+}  // namespace
+
+#define VIDI_K1_ARGS                                                                    \
+  const void *q, const void *k, const void *v, const unsigned char *kv_mask,           \
+      const int *q_segs,                                                              \
+      const int *kv_segs, void *out, float *lse, int B, int T, int S, int Hq, int Hk,  \
+      int D, long long q_sb, long long q_st, long long q_sh, long long k_sb,           \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,  \
+      float scale, int causal, int window, float softcap, int n_split, int kv_split,   \
+      float *part_m, float *part_l, float *part_acc, void *stream
+#define VIDI_K1_PARAMS                                                                  \
+  params(q, k, v, kv_mask, q_segs, kv_segs, out, lse, B, T, S, Hq, Hk, q_sb, q_st, q_sh, \
+         k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, window, softcap, n_split,   \
+         kv_split, part_m, part_l, part_acc)
+
+// fp32 operands: the SIMT template. BQ = 16 query rows per block: the text
+// side has T = 128, so wider tiles would leave most of the 132 SMs idle.
+extern "C" int vidi_flash_attention_fwd(VIDI_K1_ARGS) {
+  const vidi::FlashParams p = VIDI_K1_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, D, s) : dispatch<float>(p, D, s);
-  return static_cast<int>(err);
+  switch (D) {
+    case 128: return static_cast<int>(vidi::launch_flash_forward<float, 128, 16, 64, 128>(p, s));
+    case 256: return static_cast<int>(vidi::launch_flash_forward<float, 256, 16, 64, 128>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 operands: the Hopper kernel. Head dims 256 (Vidi1.5-9B) and 128 (the
+// 1.5B configuration).
+extern "C" int vidi_flash_attention_fwd_sm90(VIDI_K1_ARGS) {
+  const vidi::FlashParams p = VIDI_K1_PARAMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128: return static_cast<int>(vidi::sm90::launch<128>(p, s));
+    case 256: return static_cast<int>(vidi::sm90::launch<256>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

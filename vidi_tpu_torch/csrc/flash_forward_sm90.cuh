@@ -1,0 +1,516 @@
+// Forward attention for Hopper (sm_90a), bf16 in, fp32 sums: the bf16 route
+// of K1 (flash_attention.cu, D = 128 / 256) and K2 (tower_attention.cu,
+// D = 64 / 72). fp32 operands stay on the SIMT template of
+// attention_common.cuh.
+//
+// One block computes 128 query rows of one (batch, KV head) against a range
+// of keys. Rows are packed GQA groups: row r is query t0 + r / g of head
+// hk * g + r % g (g = Hq / Hk, 1 for the towers), so every query head that
+// reads a K/V tile shares it, and the tile crosses shared memory once per
+// block. Causal, window and segment tests compare against the row's t.
+//
+// Warp roles (384 threads): warpgroups 0 and 1 are consumers of 64 rows
+// each; warpgroup 2 is the producer, one thread of which issues every TMA
+// load. The producer gives its registers to the consumers (setmaxnreg 24 /
+// 240): at D = 256 a consumer thread holds the 64 x 256 fp32 output tile
+// (128 registers), a 64 x 64 score tile (32) and its bf16 copy (16). ptxas
+// honours setmaxnreg only while the two roles' code paths never meet again;
+// a trap (which ptxas gives one shared exit) makes it hold the consumers to
+// 168 registers, spill and serialise the wgmma.
+//
+// Per key tile: the producer loads K and V into a ring of kStages stages,
+// each on its own "full" mbarrier, after the consumers released the stage
+// on its "empty" barrier. A consumer computes S = Q K^T with wgmma (Q and K
+// from shared memory, K-major), masks and softmaxes S in registers (row max
+// and sum by shuffles among the four lanes of a row; exp2 with log2(e)
+// folded into the scale), rescales its output tile, rounds P to bf16 in
+// registers (the Pallas kernels' `p.astype(v.dtype)`; the row sum stays
+// fp32) and accumulates O += P V with wgmma (P from registers, V from shared
+// memory, MN-major). No score tile is written to shared memory.
+//
+// Layouts: D = 64, 128, 256 load 64-column TMA boxes with the 128-byte
+// swizzle (the canonical wgmma layout). SigLIP's D = 72 has 144-byte rows,
+// which no 128-byte box holds: it loads 8-column boxes into the unswizzled
+// core-matrix layout, and Q K^T runs to depth 80 over columns 72..79 that are
+// zeroed once in shared memory and never loaded (the next head's columns
+// would otherwise enter the scores). P V's N = 72 is a legal wgmma width.
+//
+// Ragged edges: TMA fills rows past T or S with zeros, but a zero key
+// scores 0, not "absent", so keys past the block's range are masked to
+// -inf; rows past T are computed and not stored.
+//
+// The softcap's tanh is 1 - 2 / (2^(2 x log2 e) + 1) from the exp2 and
+// reciprocal units (absolute error ~1e-7, ~1e-5 on a logit capped at 50),
+// not tanh.approx.f32 (relative error 2^-11, up to 0.02 on such a logit),
+// and six instructions where the accurate tanhf takes about twenty: at
+// D = 256 one tanh per score weighs as much as the two products.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
+
+#include "attention_common.cuh"
+#include "wgmma.cuh"
+
+namespace vidi {
+namespace sm90 {
+
+constexpr int kRows = 128;      // query rows per block
+constexpr int kConsumers = 2;   // warpgroups of 64 rows
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kStages = 2;      // K/V ring depth
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+struct Cfg {
+  static constexpr bool kSwizzle = D % 64 == 0;
+  static constexpr int kChunk = kSwizzle ? 64 : 8;    // columns per TMA box
+  static constexpr int kChunkBytes = 2 * kChunk;      // bytes of one row of a box
+  static constexpr int kDepth = (D + 15) / 16 * 16;   // Q K^T depth (72 -> 80)
+  static constexpr int kLoaded = D / kChunk;          // chunks TMA fills
+  static constexpr int kChunks = kDepth / kChunk;     // chunks Q K^T reads
+  static constexpr int kKeys = D == 256 ? 64 : 128;   // keys per tile
+  static constexpr int kQChunk = kRows * kChunkBytes;  // one chunk of the Q tile
+  static constexpr int kKVChunk = kKeys * kChunkBytes; // one chunk of a K or V tile
+  static constexpr int kKVTile = kChunks * kKVChunk;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kChunks * kQChunk;
+  static constexpr int kV = kK + kStages * kKVTile;
+  static constexpr int kBar = kV + kStages * kKVTile;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr uint32_t kQLoad = kRows * D * 2;   // bytes TMA brings per Q tile
+  static constexpr uint32_t kKVLoad = kKeys * D * 2;  // per K (or V) tile
+  static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
+  static_assert(kQ % 1024 == 0 && kK % 1024 == 0 && kKVTile % 1024 == 0,
+                "swizzle atoms are 1024-byte aligned");
+};
+
+// ---- PTX wrappers -------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait for the phase of parity `parity` to complete. A wait that never ends
+// (a fault in the pipeline) gives up and exits instead of hanging the card,
+// leaving an output that the checks reject. (Not a trap: see the warp roles.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (long long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1ll << 26)) asm volatile("exit;");
+  }
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+        "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n"
+               ::: "memory");
+}
+// Orders the compiler's own reads and writes of accumulator registers
+// against the asynchronous products (CUTLASS's warpgroup_fence_operand).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets (16-byte units), layout (1 = 128-byte swizzle, 0 = none).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              bool swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(swizzle ? 1 : 0) << 62;
+}
+// K-major operand (Q rows, K keys) of depth step ks (16 columns) from a
+// tile stored as column chunks of `chunk_bytes` bytes each.
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, uint32_t chunk_bytes, int ks) {
+  using C = Cfg<D>;
+  if constexpr (C::kSwizzle) {  // 128-byte rows, 8-row atoms of 1024 bytes
+    return smem_desc(tile + (ks / 4) * chunk_bytes + (ks % 4) * 32, 16, 1024, true);
+  } else {  // core matrices of 8 rows x 16 bytes; next 8 columns one chunk on
+    return smem_desc(tile + 2 * ks * chunk_bytes, chunk_bytes, 128, false);
+  }
+}
+// MN-major V operand (keys along K, head dim along N) of key step kk.
+template <int D>
+__device__ __forceinline__ uint64_t vmajor_desc(uint32_t tile, int kk) {
+  using C = Cfg<D>;
+  if constexpr (C::kSwizzle) {  // next 64 columns one chunk on, next 8 keys 1024 bytes on
+    return smem_desc(tile + kk * 16 * 128, C::kKVChunk, 1024, true);
+  } else {  // next 8 keys 128 bytes on, next 8 columns one chunk on
+    return smem_desc(tile + kk * 16 * 16, 128, C::kKVChunk, false);
+  }
+}
+
+// tanh(x) = 1 - 2 / (e^2x + 1) on the exp2 and reciprocal units: exact
+// limits at +-inf, absolute error ~1e-7 near 0 (where the plain tanhf is
+// relative).
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, exp2f(2.f * kLog2e * x) + 1.f);
+}
+
+// Scores of one key tile into log2 units, in place: x * scale (with a cap,
+// cap * tanh(x * scale / cap)) * log2(e), and -inf where the key is not
+// visible from the row (kMask; a tile inside the range of an unmasked call
+// skips the tests). The score of 8-key group n sits in sc[4n + 2i + e]: row
+// ra + 8i, key 8n + 2 quad + e. The cap and the tests are template
+// arguments because, left as branches inside the element loop, the compiler
+// predicates the whole tanh onto every score whether or not a cap is set.
+template <bool kCap, bool kMask, int N>
+__device__ __forceinline__ void score_tile(float (&sc)[N], const FlashParams& p, int b, int s0,
+                                           int kv_end, int quad, const int (&t_row)[2],
+                                           const int (&q_seg)[2]) {
+  const float scale = kCap ? p.scale / p.softcap : p.scale * kLog2e;
+  const float cap = p.softcap * kLog2e;
+#pragma unroll
+  for (int n = 0; n < N / 4; ++n) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = s0 + 8 * n + 2 * quad + e;
+      bool key_ok = true;
+      int k_seg = 0;
+      if constexpr (kMask) {
+        key_ok = key < kv_end && (p.kv_mask == nullptr || p.kv_mask[(long long)b * p.S + key]);
+        if (key_ok && p.kv_segs != nullptr) k_seg = p.kv_segs[b * p.S + key];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float x = sc[4 * n + 2 * i + e] * scale;
+        if constexpr (kCap) x = cap * tanh_fast(x);
+        if constexpr (kMask) {
+          bool ok = key_ok;
+          if (p.causal) ok = ok && key <= t_row[i];
+          if (p.window > 0) ok = ok && t_row[i] - key < p.window;
+          if (p.q_segs != nullptr) ok = ok && q_seg[i] == k_seg;
+          if (!ok) x = -INFINITY;
+        }
+        sc[4 * n + 2 * i + e] = x;
+      }
+    }
+  }
+}
+
+// ---- the kernel ---------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const FlashParams p) {
+  using C = Cfg<D>;
+  constexpr int kSc = C::kKeys / 2;  // score registers per thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sQ = base + C::kQ, sK = base + C::kK, sV = base + C::kV;
+  const uint32_t q_full = base + C::kBar;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+
+  const int g = p.Hq / p.Hk;  // query heads per KV head: rows per t
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z / p.n_split, split = blockIdx.z % p.n_split;
+  const int t0 = blockIdx.x * (kRows / g);
+  // keys any row of the block can see: the causal and window bounds skip
+  // whole tiles; each score is still tested against its own row
+  int kv_begin = split * p.kv_split, kv_end = min(p.S, kv_begin + p.kv_split);
+  if (p.causal) kv_end = min(kv_end, min(p.T, t0 + kRows / g));
+  if (p.window > 0) kv_begin = max(kv_begin, t0 - p.window + 1);
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + C::kKeys - 1) / C::kKeys : 0;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (C::kChunks > C::kLoaded) {  // zero the depth padding of Q and K
+    constexpr int kPad = (C::kChunks - C::kLoaded) * C::kQChunk / 16;
+    constexpr int kPadKV = (C::kChunks - C::kLoaded) * C::kKVChunk / 16;
+    for (int i = tid; i < kPad; i += kThreads)
+      reinterpret_cast<uint4*>(smem + C::kQ + C::kLoaded * C::kQChunk)[i] = make_uint4(0, 0, 0, 0);
+    for (int s = 0; s < kStages; ++s)
+      for (int i = tid; i < kPadKV; i += kThreads)
+        reinterpret_cast<uint4*>(smem + C::kK + s * C::kKVTile + C::kLoaded * C::kKVChunk)[i] =
+            make_uint4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == kConsumers) {
+    // ---- producer ----
+    setmaxnreg_dec<24>();
+    if (tid == 128 * kConsumers) {
+      mbar_expect_tx(q_full, C::kQLoad);
+      for (int c = 0; c < C::kLoaded; ++c)
+        tma_load(sQ + c * C::kQChunk, &map_q, q_full, c * C::kChunk, hk * g, t0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages, s0 = kv_begin + it * C::kKeys;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), C::kKVLoad);
+        for (int c = 0; c < C::kLoaded; ++c)
+          tma_load(sK + s * C::kKVTile + c * C::kKVChunk, &map_k, k_full(s), c * C::kChunk,
+                   hk, s0, b);
+        mbar_expect_tx(v_full(s), C::kKVLoad);
+        for (int c = 0; c < C::kLoaded; ++c)
+          tma_load(sV + s * C::kKVTile + c * C::kKVChunk, &map_v, v_full(s), c * C::kChunk,
+                   hk, s0, b);
+      }
+    }
+  } else {
+    // ---- consumers: rows ra and ra + 8 of warpgroup wg, per thread ----
+    setmaxnreg_inc<240>();
+    const int lane = tid % 32, quad = lane % 4;
+    const int ra = wg * 64 + (tid % 128) / 32 * 16 + lane / 4;
+    int t_row[2], h_row[2], q_seg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = ra + 8 * i;
+      t_row[i] = t0 + r / g;
+      h_row[i] = hk * g + r % g;
+      q_seg[i] = (p.q_segs != nullptr && t_row[i] < p.T) ? p.q_segs[b * p.T + t_row[i]] : 0;
+    }
+    const bool unmasked = p.kv_mask == nullptr && p.q_segs == nullptr && !p.causal &&
+                          p.window == 0;
+    const uint32_t q_rows = sQ + wg * 64 * C::kChunkBytes;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages, s0 = kv_begin + it * C::kKeys;
+      const uint32_t phase = (it / kStages) & 1;
+
+      // S = Q K^T
+      float sc[kSc];
+      mbar_wait(k_full(s), phase);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::kDepth / 16; ++ks)
+        wgmma_ss(sc, kmajor_desc<D>(q_rows, C::kQChunk, ks),
+                 kmajor_desc<D>(sK + s * C::kKVTile, C::kKVChunk, ks), ks > 0);
+      wgmma_commit_wait();
+      fence_regs(sc);
+
+      const bool whole = unmasked && s0 + C::kKeys <= kv_end;
+      if (p.softcap > 0.f) {
+        if (whole) score_tile<true, false>(sc, p, b, s0, kv_end, quad, t_row, q_seg);
+        else score_tile<true, true>(sc, p, b, s0, kv_end, quad, t_row, q_seg);
+      } else {
+        if (whole) score_tile<false, false>(sc, p, b, s0, kv_end, quad, t_row, q_seg);
+        else score_tile<false, true>(sc, p, b, s0, kv_end, quad, t_row, q_seg);
+      }
+
+      // online softmax in log2 units; the four lanes of a quad share a row
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = m[i];
+#pragma unroll
+        for (int n = 0; n < C::kKeys / 8; ++n)
+          mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * i], sc[4 * n + 2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mu = mx == -INFINITY ? 0.f : mx;
+        const float alpha = exp2f(m[i] - mu);
+        m[i] = mx;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < C::kKeys / 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float pe = exp2f(sc[4 * n + 2 * i + e] - mu);
+            sc[4 * n + 2 * i + e] = pe;
+            sum += pe;
+          }
+        }
+        l[i] = l[i] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n + 2 * i] *= alpha;
+          o[4 * n + 2 * i + 1] *= alpha;
+        }
+      }
+      // P in bf16 as the A fragments of P V: keys 16kk..16kk+15
+      uint32_t pa[C::kKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C::kKeys / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pa[kk][x] = pack_bf16(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+      }
+
+      // O += P V
+      mbar_wait(v_full(s), phase);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::kKeys / 16; ++kk)
+        wgmma_rs(o, pa[kk], vmajor_desc<D>(sV + s * C::kKVTile, kk));
+      wgmma_commit_wait();
+      fence_regs(o);
+      mbar_arrive(empty(s));
+    }
+
+    // epilogue: the quad's partial row sums, then out = O / l (or the
+    // unnormalised partial state for flash_combine)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int t = t_row[i], h = h_row[i];
+      if (t >= p.T) continue;
+      const long long row = ((long long)b * p.Hq + h) * p.T + t;
+      if (p.n_split > 1) {
+        const long long prow = row * p.n_split + split;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          store2(p.part_acc + prow * D + 8 * n + 2 * quad, o[4 * n + 2 * i], o[4 * n + 2 * i + 1]);
+        if (quad == 0) {
+          p.part_m[prow] = m[i] == -INFINITY ? -INFINITY : m[i] * kLn2;
+          p.part_l[prow] = l[i];
+        }
+      } else {
+        const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+        __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) +
+                             ((long long)(b * p.T + t) * p.Hq + h) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          store2(out + 8 * n + 2 * quad, o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+        if (quad == 0 && p.lse != nullptr)
+          p.lse[row] = l[i] == 0.f ? kEmptyRowLse : m[i] * kLn2 + logf(l[i]);
+      }
+    }
+  }
+}
+
+// ---- host side ----------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda link.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A bf16 [batch, len, heads, D] operand as a 4-D tensor map (innermost
+// first: D, heads, len, batch; strides in elements, each a multiple of 8),
+// read in boxes of box_cols x box_heads x box_rows.
+inline bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int len, int batch,
+                     long long s_head, long long s_len, long long s_batch, int box_cols,
+                     int box_heads, int box_rows, bool swizzle) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)len,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_head * 2, (cuuint64_t)s_len * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)box_heads,
+                             (cuuint32_t)box_rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Encodes the three tensor maps, launches on `stream` and merges the KV
+// splits with flash_combine when there are several.
+template <int D>
+cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_forward_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  if (p.Hk < 1 || p.Hq % p.Hk || kRows % (p.Hq / p.Hk) || p.n_split < 1 ||
+      p.B * p.n_split > 65535 || (p.n_split > 1 && p.kv_split % C::kKeys))
+    return cudaErrorInvalidValue;
+  const int g = p.Hq / p.Hk;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, p.q, D, p.Hq, p.T, p.B, p.q_sh, p.q_st, p.q_sb, C::kChunk, g, kRows / g,
+                C::kSwizzle) ||
+      !make_map(&mk, p.k, D, p.Hk, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, C::kChunk, 1, C::kKeys,
+                C::kSwizzle) ||
+      !make_map(&mv, p.v, D, p.Hk, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, C::kChunk, 1, C::kKeys,
+                C::kSwizzle))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.T + kRows / g - 1) / (kRows / g), p.Hk, p.B * p.n_split);
+  flash_forward_sm90<D><<<grid, kThreads, C::kBytes, stream>>>(mq, mk, mv, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  flash_combine<__nv_bfloat16, D>
+      <<<(unsigned)((long long)p.B * p.Hq * p.T), D / 2, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace vidi

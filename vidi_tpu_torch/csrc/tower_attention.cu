@@ -7,36 +7,31 @@
 // D in {64, 72} (SigLIP-so400m: T = 729, 16 heads x 72; Whisper-large-v3:
 // T = 1500, 20 heads x 64).
 //
-// What bounds it on an H100: 2*T*T*D FMAs per (batch, head) against
-// 3*T*D bf16 reads, so it is compute-bound. The TPU kernel holds a whole
-// T x T fp32 score block in VMEM; at T = 1500 that is 9 MB against a block's
-// 227 KB of shared memory, so this kernel streams K/V tiles with an online
-// softmax instead (the flash_forward template it shares with K1, with no
-// mask and no cap). SIMT fp32 FMAs: tensor-core tiles are later work.
+// What bounds it on an H100: 4*T*T*D operations per (batch, head) against
+// 4*T*D bytes of q, k, v and out, so it is bound by operations (SigLIP's
+// 4 frames: 1.0e10 operations, 0.010 ms at the bf16 tensor-core peak). The
+// TPU kernel holds a whole T x T fp32 score block in VMEM; at T = 1500 that
+// is 9 MB against a block's 227 KB of shared memory, so the kernels here
+// stream K/V tiles with an online softmax instead.
+//
+// Two routes, chosen by dtype in ops/cuda/tower_attention.py:
+// - bf16: `vidi_tower_attention_sm90`, the Hopper kernel of
+//   flash_forward_sm90.cuh: both products on wgmma (tensor cores, the
+//   operations that bound it), 128 query rows per block, K/V tiles of 128
+//   keys loaded by TMA into a two-stage ring ahead of the products. SigLIP's
+//   72-column heads load in 8-column boxes and pad Q K^T's depth to 80 with
+//   zeros in shared memory.
+// - fp32: `vidi_tower_attention`, the SIMT template of attention_common.cuh
+//   (fp32 FMAs), for the fp32 card-vs-CPU checks.
 #include "attention_common.cuh"
+#include "flash_forward_sm90.cuh"
 
 namespace {
 
-template <typename T>
-cudaError_t dispatch(const vidi::FlashParams& p, int D, cudaStream_t s) {
-  // BQ = 32 rows per block: T is long here, and wider tiles read each
-  // staged K/V element for more rows.
-  switch (D) {
-    case 64: return vidi::launch_flash_forward<T, 64, 32, 64, 128>(p, s);
-    case 72: return vidi::launch_flash_forward<T, 72, 32, 64, 128>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-extern "C" int vidi_tower_attention(
-    const void* q, const void* k, const void* v, void* out,
-    int B, int T, int S, int H, int D, int is_bf16,
-    long long q_sb, long long q_st, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    float scale, void* stream) {
+vidi::FlashParams params(const void* q, const void* k, const void* v, void* out, int B, int T,
+                         int S, int H, long long q_sb, long long q_st, long long q_sh,
+                         long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                         long long v_ss, long long v_sh, float scale) {
   vidi::FlashParams p;
   p.q = q; p.k = k; p.v = v;
   p.kv_mask = nullptr; p.q_segs = nullptr; p.kv_segs = nullptr;
@@ -48,7 +43,37 @@ extern "C" int vidi_tower_attention(
   p.scale = scale; p.causal = 0; p.window = 0; p.softcap = 0.f;
   p.n_split = 1; p.kv_split = S;  // frames x heads x row tiles fill the SMs
   p.part_m = p.part_l = p.part_acc = nullptr;
+  return p;
+}
+
+}  // namespace
+
+#define VIDI_K2_ARGS                                                                   \
+  const void *q, const void *k, const void *v, void *out, int B, int T, int S, int H, \
+      int D, long long q_sb, long long q_st, long long q_sh, long long k_sb,          \
+      long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, \
+      float scale, void *stream
+#define VIDI_K2_PARAMS \
+  params(q, k, v, out, B, T, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale)
+
+// fp32 operands: the SIMT template, 32 rows per block.
+extern "C" int vidi_tower_attention(VIDI_K2_ARGS) {
+  const vidi::FlashParams p = VIDI_K2_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, D, s) : dispatch<float>(p, D, s);
-  return static_cast<int>(err);
+  switch (D) {
+    case 64: return static_cast<int>(vidi::launch_flash_forward<float, 64, 32, 64, 128>(p, s));
+    case 72: return static_cast<int>(vidi::launch_flash_forward<float, 72, 32, 64, 128>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 operands: the Hopper kernel.
+extern "C" int vidi_tower_attention_sm90(VIDI_K2_ARGS) {
+  const vidi::FlashParams p = VIDI_K2_PARAMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return static_cast<int>(vidi::sm90::launch<64>(p, s));
+    case 72: return static_cast<int>(vidi::sm90::launch<72>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -12,6 +12,7 @@ and never reaches this module's build.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -80,12 +81,16 @@ def _build(out: Path) -> None:
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# K1 / K2 forward: the SIMT (fp32) and sm90 (bf16) entries take the same arguments
+_K1_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _I, _F, _I, _I, _P, _P, _P, _P]
+_K2_ARGS = [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _P]
 _SIGNATURES = {
-    "vidi_flash_attention_fwd": [_P] * 8 + [_I] * 7 + [_L] * 9
-    + [_F, _I, _I, _F, _I, _I, _P, _P, _P, _P],
+    "vidi_flash_attention_fwd": _K1_ARGS,
+    "vidi_flash_attention_fwd_sm90": _K1_ARGS,
     "vidi_flash_attention_bwd": [_P] * 13 + [_I] * 7 + [_L] * 9
     + [_F, _I, _I, _F, _I, _I, _P],
-    "vidi_tower_attention": [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F, _P],
+    "vidi_tower_attention": _K2_ARGS,
+    "vidi_tower_attention_sm90": _K2_ARGS,
     "vidi_decode_attention": [_P] * 9 + [_I] * 6 + [_L] * 8
     + [_F, _F, _I, _I, _I, _P],
     "vidi_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
@@ -113,6 +118,14 @@ def library() -> ctypes.CDLL:
         lib.vidi_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once per device)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_operand(t, name: str, ndim: int, dtype=None) -> None:

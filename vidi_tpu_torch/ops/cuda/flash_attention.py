@@ -18,6 +18,12 @@ JAX `custom_vjp`): the forward saves q, k, v, the masks, the output and lse,
 and the backward is K4 (`flash_attention_bwd`). On a CPU tensor the
 Function runs `flash_attention_plain` forward and `flash_attention_bwd_plain`
 backward; on a CUDA tensor it launches the kernels or raises.
+
+Two routes on the card, by dtype (`route`): bf16 takes the Hopper kernel
+(csrc/flash_forward_sm90.cuh: wgmma products, TMA loads, GQA groups packed
+into 128-row query tiles), which needs 16-byte aligned rows
+(`tma_strides`) and raises otherwise; fp32 takes the SIMT template, which
+computes in full fp32 for the card-vs-CPU checks.
 """
 from __future__ import annotations
 
@@ -28,9 +34,15 @@ import torch
 from vidi_tpu_torch.ops.cuda import _lib
 
 EMPTY_ROW_LSE = 0.7 * torch.finfo(torch.float32).max
-Q_TILE, KV_TILE = 16, 64  # the kernel's block tile (csrc/flash_attention.cu)
-MIN_SPLIT_KEYS = 512      # fewest keys worth one block of a KV split
+Q_TILE, KV_TILE = 16, 64  # the SIMT kernel's block tile (csrc/attention_common.cuh)
+MIN_SPLIT_KEYS = 512      # fewest keys worth one SIMT block of a KV split
 HEAD_DIMS = (128, 256)    # the instantiations in csrc/flash_attention.cu
+# the sm90 kernel (csrc/flash_forward_sm90.cuh): query rows per block, keys
+# per K/V tile by head dim, fewest keys worth one block of a KV split
+SM90_ROWS = 128
+SM90_KEY_TILE = {64: 128, 72: 128, 128: 128, 256: 64}
+SM90_MIN_SPLIT_KEYS = 256
+TMA_ALIGN = 16  # bytes: TMA wants 16-byte aligned row starts and strides
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
 
 
@@ -135,6 +147,75 @@ def _kv_split(b, t, s, hq, device):
     return -(-s // kv_split), kv_split
 
 
+def route(dtype: torch.dtype) -> str:
+    """The C entry K1 launches for operands of `dtype`: bf16 -> the sm90
+    kernel, fp32 -> the SIMT template. Nothing else is taken."""
+    if dtype == torch.bfloat16:
+        return "vidi_flash_attention_fwd_sm90"
+    if dtype == torch.float32:
+        return "vidi_flash_attention_fwd"
+    raise TypeError(f"flash_attention: no kernel for {dtype}")
+
+
+def sm90_blocks(b: int, t: int, hq: int, hk: int) -> int:
+    """(batch, KV head, 128-row tile) blocks of the sm90 kernel before any
+    split of S: a KV head's g = hq // hk query heads share its rows."""
+    return b * hk * -(-t * (hq // hk) // SM90_ROWS)
+
+
+def sm90_plan(b: int, t: int, s: int, hq: int, hk: int, d: int, sms: int):
+    """(n_split, keys per split) of the sm90 kernel: as many splits of S as
+    fit in one wave of one block per SM (`sms` SMs), none below
+    SM90_MIN_SPLIT_KEYS keys, each split a whole number of key tiles. The
+    9B's T2V cross attention (16 blocks) splits 8 ways on 132 SMs."""
+    n_split = max(1, min(sms // sm90_blocks(b, t, hq, hk), s // SM90_MIN_SPLIT_KEYS))
+    tile = SM90_KEY_TILE[d]
+    kv_split = -(-(-(-s // n_split)) // tile) * tile
+    return -(-s // kv_split), kv_split
+
+
+def sm90_group(hq: int, hk: int) -> int:
+    """g = hq // hk query heads per KV head, whose rows share a tile: raises
+    unless g divides the 128-row tile."""
+    g = hq // hk
+    if SM90_ROWS % g:
+        raise ValueError(f"flash_attention: {g} query heads per KV head do not "
+                         f"divide the {SM90_ROWS}-row tile")
+    return g
+
+
+def sm90_rows(t: int, hq: int, hk: int) -> torch.Tensor:
+    """[tiles, 128, 2] (t, query head offset within the KV head's group) of
+    each row of each query tile, as the sm90 kernel reads them: row r of
+    tile x is query x * (128 // g) + r // g of head r % g (g = hq // hk).
+    Rows with t >= T are computed and not stored."""
+    g = sm90_group(hq, hk)
+    r = torch.arange(SM90_ROWS)
+    tiles = torch.arange(-(-t * g // SM90_ROWS))[:, None]
+    return torch.stack((tiles * (SM90_ROWS // g) + r // g,
+                        (r % g).expand(tiles.shape[0], -1)), dim=-1)
+
+
+def tma_strides(name: str, shape, strides, ptr: int, elem_size: int) -> tuple:
+    """The element strides a TMA tensor map is given for an operand of
+    `shape` / `strides` at address `ptr`: raises unless its last dim is
+    contiguous and its start and every stride of a dim longer than one are
+    multiples of 16 bytes. A dim of length one is never stepped along, so it
+    gets the stride of a contiguous tensor."""
+    if strides[-1] != 1:
+        raise ValueError(f"{name}: last dim not contiguous (strides {tuple(strides)})")
+    if ptr % TMA_ALIGN:
+        raise ValueError(f"{name}: data pointer {ptr:#x} not {TMA_ALIGN}-byte aligned")
+    out = list(strides)
+    for i in range(len(shape) - 2, -1, -1):
+        if shape[i] == 1:
+            out[i] = out[i + 1] * shape[i + 1]
+        if out[i] * elem_size % TMA_ALIGN:
+            raise ValueError(f"{name}: stride {strides[i]} of dim {i} is not a "
+                             f"multiple of {TMA_ALIGN} bytes (shape {tuple(shape)})")
+    return tuple(out)
+
+
 def int32_rows(x, shape, device, name: str):
     """A [B,T] / [B,S] mask or segment-id tensor as the contiguous int32
     rows the kernels read (None stays None)."""
@@ -143,6 +224,19 @@ def int32_rows(x, shape, device, name: str):
     if tuple(x.shape) != shape:
         raise ValueError(f"{name}: expected {shape}, got {tuple(x.shape)}")
     return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def mask_bytes(kv_mask, shape, device, name: str):
+    """A [B,S] kv_mask as the contiguous bool bytes the forward kernels read
+    (None stays None); a contiguous bool mask on the device passes as it is,
+    with no copy or launch."""
+    if kv_mask is None:
+        return None
+    if tuple(kv_mask.shape) != shape:
+        raise ValueError(f"{name}: kv_mask expected {shape}, got {tuple(kv_mask.shape)}")
+    if kv_mask.dtype != torch.bool:
+        kv_mask = kv_mask != 0
+    return kv_mask.to(device).contiguous()
 
 
 def check_qkv(q, k, v, window, name: str):
@@ -168,12 +262,21 @@ def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
     b, t, hq, d = q.shape
     s, hk = k.shape[1], k.shape[2]
 
-    mask = int32_rows(kv_mask, (b, s), q.device, "flash_attention")
+    mask = mask_bytes(kv_mask, (b, s), q.device, "flash_attention")
     qs = int32_rows(q_segs, (b, t), q.device, "flash_attention")
     ks = int32_rows(kv_segs, (b, s), q.device, "flash_attention")
+    entry = route(q.dtype)
     out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
-    n_split, kv_split = _kv_split(b, t, s, hq, q.device)
+    strides = [x.stride()[:3] for x in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        strides = [tma_strides(f"flash_attention {label}", x.shape, x.stride(),
+                               x.data_ptr(), x.element_size())[:3]
+                   for label, x in (("q", q), ("k", k), ("v", v))]
+        sm90_group(hq, hk)
+        n_split, kv_split = sm90_plan(b, t, s, hq, hk, d, _lib.sm_count(q.device))
+    else:
+        n_split, kv_split = _kv_split(b, t, s, hq, q.device)
     part = [None, None, None]
     if n_split > 1:
         f32 = dict(dtype=torch.float32, device=q.device)
@@ -183,13 +286,10 @@ def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib = _lib.library()
     with torch.cuda.device(q.device):
-        err = lib.vidi_flash_attention_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(qs), ptr(ks),
             out.data_ptr(), lse.data_ptr(), b, t, s, hq, hk, d,
-            int(q.dtype == torch.bfloat16),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            *strides[0], *strides[1], *strides[2],
             float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0),
             n_split, kv_split, *map(ptr, part),
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -11,13 +11,16 @@ True)` for SigLIP (T=729, D=72) and Whisper (T=1500, D=64).
 the attention with `tower_attention_plain` under autograd, as the JAX
 custom_vjp's `_ta_bwd` does: there is no backward kernel to port. On a CPU
 tensor the forward runs `tower_attention_plain`; on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises: bf16 the Hopper kernel of
+csrc/flash_forward_sm90.cuh (16-byte aligned rows, `tma_strides`), fp32
+the SIMT template (`route`).
 """
 from __future__ import annotations
 
 import torch
 
 from vidi_tpu_torch.ops.cuda import _lib
+from vidi_tpu_torch.ops.cuda.flash_attention import tma_strides
 
 HEAD_DIMS = (64, 72)  # Whisper, SigLIP: the instantiations in csrc/tower_attention.cu
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
@@ -55,6 +58,16 @@ def tower_attention_plain(q, k, v, scale: float):
     return out.to(q.dtype)
 
 
+def route(dtype: torch.dtype) -> str:
+    """The C entry K2 launches for operands of `dtype`: bf16 -> the sm90
+    kernel, fp32 -> the SIMT template. Nothing else is taken."""
+    if dtype == torch.bfloat16:
+        return "vidi_tower_attention_sm90"
+    if dtype == torch.float32:
+        return "vidi_tower_attention"
+    raise TypeError(f"tower_attention: no kernel for {dtype}")
+
+
 def _launch(q, k, v, scale):
     global launches
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -67,15 +80,18 @@ def _launch(q, k, v, scale):
     if d not in HEAD_DIMS:
         raise ValueError(f"tower_attention: the kernel is built for head dims "
                          f"{HEAD_DIMS}, got {d}")
+    entry = route(q.dtype)
+    strides = [x.stride()[:3] for x in (q, k, v)]
+    if q.dtype == torch.bfloat16:
+        strides = [tma_strides(f"tower_attention {name}", x.shape, x.stride(),
+                               x.data_ptr(), x.element_size())[:3]
+                   for name, x in (("q", q), ("k", k), ("v", v))]
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lib = _lib.library()
     with torch.cuda.device(q.device):
-        err = lib.vidi_tower_attention(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, d, int(q.dtype == torch.bfloat16),
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            b, t, s, h, d, *strides[0], *strides[1], *strides[2],
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _lib.check(err, "tower_attention")
     launches += 1
