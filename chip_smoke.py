@@ -5,8 +5,9 @@
 1. Builds the hand-written CUDA kernels (K1 flash_attention, K2
    tower_attention, K3 decode_attention, K4 flash_attention_bwd, K5 the
    int8 tower layer's ln_qkv / o_residual / ln_ffn, K6 quant_matmul and
-   quant_gated_mlp, K7 fused_rms_norm) from vidi_tpu_torch/csrc with one
-   nvcc per source, all started together.
+   quant_gated_mlp with the byte transpose behind their K-major weight
+   copies, K7 fused_rms_norm) from vidi_tpu_torch/csrc with one nvcc per
+   source, all started together.
 2. Runs each kernel at the shapes the Vidi1.5-9B slices give it (and K1 /
    K3 / K4 at the 1.5B configuration's head dim 128) against its plain
    PyTorch version on the same inputs, and times both with CUDA events,
@@ -15,12 +16,23 @@
    computes the same function, that call's time. For K1-K4 queries are
    scaled up so that logits reach tens and the softcap of 50 binds; a bf16
    output must lie within ULPS bf16 ulps of the plain output's largest
-   magnitude. K5 / K6 must lie within INT8_REL relative error of their plain
-   versions (the int8 codes agree; see INT8_REL). K7 is held like K1-K4.
+   magnitude. K5 must lie within INT8_REL relative error of its plain
+   versions (the int8 codes agree; see INT8_REL); K6 must equal its plain
+   versions bit for bit (exact int32 sums, the same roundings), at the
+   prefill's shapes, a ragged one in bf16 and fp32 and a row too long for
+   the vector row pass, and prints TOP/s, its share of the bound, its time
+   with the K-major cache cold, and torch._int_mm's time for the product
+   alone. K7 is held like K1-K4, on its vector pass (bf16, fp32, a width
+   that is not a whole number of vectors a lane) and its scalar pass (an
+   unaligned width, an unaligned view), with its device time and the
+   wrapper's host time beside torch's rms_norm.
    Each case also runs planted faults (the plain version with the cap, mask,
    window, causality, segments, di, the cap's derivative, a per-row scale,
-   the hidden's requantize, a bias, the residual, the zero ff padding or
-   the exact gelu dropped; K1 with its GQA groups packed wrong; K2 at D = 72
+   the hidden's requantize, a bias, the residual, the zero ff padding, the
+   exact gelu or a product's last k-step dropped; gate and up swapped; a
+   stale K-major copy served after the weight was edited in place, or after
+   it was freed and another took its place; K1 with its GQA groups packed
+   wrong; K2 at D = 72
    with its depth padding not zeroed, or without the keys past its last
    whole key tile) and fails unless every fault lands outside the limit.
    K1 / K2 take bf16 through the sm90 kernel (wgmma, TMA) and fp32 through
@@ -39,8 +51,9 @@
 5. Frees it and drives the int8 serving slice: the same model loaded with
    load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
    prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
-   three TR queries (K1, K6), launch counts held to the ones reckoned from
-   the code, then the step-0 logits with K5 / K6 against their plain
+   three TR queries (K1, K6), launch counts (the K-major copies among
+   them) held to the ones reckoned from the code, then the step-0 logits
+   with K5 / K6 against their plain
    versions, and every K5 / K6 call of one encode and prefill against its
    plain version on the same inputs, each with a planted fault (K5 without
    the FFN requantize) that the per-call limit must reject.
@@ -241,10 +254,11 @@ def _pad_not_zeroed(q, k, v, scale):
     return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(q.dtype)
 
 
-def _rate(label: str, ops: float, ms: float, bound: dict) -> dict:
-    """TFLOP/s and share of the bound of one timed case, printed and kept."""
+def _rate(label: str, ops: float, ms: float, bound: dict, unit: str = "TFLOP/s") -> dict:
+    """10^12 operations a second (`unit`: TFLOP/s, or TOP/s for int8) and
+    share of the bound of one timed case, printed and kept."""
     out = {"tflops": ops / ms / 1e9, "bound_share": bound["bound_ms"] / ms}
-    print(f"  {label}: {out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
+    print(f"  {label}: {out['tflops']:.1f} {unit}, {out['bound_share']:.3f} of the "
           f"{bound['bound_by']} bound")
     return out
 
@@ -548,10 +562,11 @@ def _flat(out):
         else out.float().flatten()
 
 
-def _check_rel(name: str, got, want, faults: dict, limit: float = INT8_REL) -> tuple:
-    """got vs want within `limit` relative (Frobenius) error; every planted
-    fault (label -> the output of a known wrong kernel) must land outside.
-    -> (relative error, max abs error)."""
+def _check_rel(name: str, got, want, faults: dict, limit: float = INT8_REL,
+               exact: bool = False) -> tuple:
+    """got vs want within `limit` relative (Frobenius) error, or with `exact`
+    bit for bit; every planted fault (label -> the output of a known wrong
+    kernel) must land outside `limit`. -> (relative error, max abs error)."""
     torch.cuda.synchronize()
     got, want = _flat(got), _flat(want)
     if got.shape != want.shape or not torch.isfinite(got).all():
@@ -560,12 +575,14 @@ def _check_rel(name: str, got, want, faults: dict, limit: float = INT8_REL) -> t
     norm = float(want.norm())
     err = float((got - want).norm()) / norm
     seen = {lab: float((_flat(f) - want).norm()) / norm for lab, f in faults.items()}
-    print(f"  {name}: relative error {err:.3e} (limit {limit:.1e}) "
+    print(f"  {name}: relative error {err:.3e} (limit {'bit-equal' if exact else f'{limit:.1e}'}) "
           f"{'ok' if err <= limit else 'FAIL'}, max_abs_err "
           f"{float((got - want).abs().max()):.3e}; planted faults: "
           + ", ".join(f"{lab} {e:.3e}" for lab, e in seen.items()))
     if not err <= limit:
         raise AssertionError(f"{name}: relative error {err:.3e} over {limit:.1e}")
+    if exact and not torch.equal(got, want):
+        raise AssertionError(f"{name}: not bit-equal to the plain version")
     blind = [lab for lab, e in seen.items() if not e > limit]
     if blind:
         raise AssertionError(f"{name}: the limit does not reject the planted faults {blind}")
@@ -626,15 +643,15 @@ def _rows(gen, shape, dev):
     return (_randn(gen, shape, dev, 1.0, torch.float32) * gains).to(torch.bfloat16)
 
 
-def _int8_case(name, run, plain, faults, ops, nbytes, kind="int8", library=None):
-    err, abs_err = _check_rel(name, run(), plain(), {k: f() for k, f in faults.items()})
+def _int8_case(name, run, plain, faults, ops, nbytes, kind="int8", exact=False):
+    err, abs_err = _check_rel(name, run(), plain(), {k: f() for k, f in faults.items()},
+                              exact=exact)
     ms, plain_ms = _time_ms(run), _time_ms(plain)
     bound = _bound(ops, nbytes, kind)
-    lib_ms = None if library is None else _time_ms(library)
     print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-    return {"shape": name, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": lib_ms,
-            "rel_err": err, "max_abs_err": abs_err}
+    return {"shape": name, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "rel_err": err, "max_abs_err": abs_err, **_rate(name, ops, ms, bound, "TOP/s")}
 
 
 def _qbytes(w) -> int:
@@ -731,11 +748,94 @@ def _with(mod, **attrs):
     return run
 
 
+def _int_mm_ms(x, w) -> tuple:
+    """(ms, None) of torch._int_mm on x's int8 codes and the weight, the
+    product alone (no quantize, rescale or epilogue): a yardstick that the
+    port never calls; (None, why) where that private call refuses the shape."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    xq = qz.quantize_act(x)[0]
+    try:
+        torch._int_mm(xq, w["qi8"])
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return _time_ms(lambda: torch._int_mm(xq, w["qi8"])), None
+
+
+def _cold(k6, fn):
+    """fn with the K-major cache emptied first: every call makes its copies."""
+    def run():
+        k6.KMAJOR.clear()
+        return fn()
+    return run
+
+
+def _last_step_dropped(k6, x, w):
+    """The planted 'last k-step dropped' fault: quant_matmul whose product
+    stops one 128-wide k-step short (a ring that loses its last stage)."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    xq, sx = qz.quantize_act(x)
+    k = x.shape[-1]
+    k -= k % 128 or 128
+    y = k6.int8_dot(xq[..., :k], w["qi8"][:k]) * sx * w["scale"].reshape(-1).float()
+    return y.to(x.dtype)
+
+
+def _kmajor_faults(k6, x, make_weight) -> None:
+    """The K-major cache's two traps, each against the fault it must not
+    show. (1) A weight edited in place after its copy was cached: the cache
+    sees the new `_version` and copies anew; with the invalidation bypassed
+    the kernel reads the stale copy. (2) A temporary weight (the folded
+    o_proj of every `_xattn_block` call) freed, and its address taken by the
+    next one: the cache holds a reference to each weight it has a copy of, so
+    that cannot happen while the entry lives; once the entry is gone, a cache
+    keyed by the address alone would serve the first weight's copy to the
+    second."""
+    w = make_weight()
+    k6.quant_matmul(x, w["qi8"], w["scale"])
+    stale = k6.KMAJOR.entries[id(w["qi8"])][2]
+    w["qi8"].neg_()
+    _check_rel("K6 K-major cache, weight edited in place",
+               k6.quant_matmul(x, w["qi8"], w["scale"]),
+               k6.quant_matmul_plain(x, w["qi8"], w["scale"]),
+               {"stale copy served": k6._launch_matmul(x, w["qi8"], w["scale"], wt=stale)},
+               exact=True)
+
+    first = make_weight()
+    held = first["qi8"].data_ptr()
+    k6.quant_matmul(x, first["qi8"], first["scale"])
+    del first
+    second = make_weight()  # the entry still holds `first`: its address is taken
+    if second["qi8"].data_ptr() == held:
+        raise AssertionError("the K-major cache let a weight it holds a copy of be freed")
+    del second
+    first = make_weight()
+    ptr = first["qi8"].data_ptr()
+    k6.quant_matmul(x, first["qi8"], first["scale"])
+    key = id(first["qi8"])
+    old_copy = k6.KMAJOR.entries[key][2]
+    k6.KMAJOR._drop(key)
+    del first
+    second = make_weight()
+    reused = second["qi8"].data_ptr() == ptr
+    print(f"  K6 K-major cache: entry dropped and weight freed, the next weight "
+          f"{'took its address' if reused else 'got another address'}")
+    _check_rel("K6 K-major cache, temporary weight freed and replaced",
+               k6.quant_matmul(x, second["qi8"], second["scale"]),
+               k6.quant_matmul_plain(x, second["qi8"], second["scale"]),
+               {"the freed weight's copy served": k6._launch_matmul(
+                   x, second["qi8"], second["scale"], wt=old_copy)}, exact=True)
+
+
 def k6_phase(dev) -> dict:
     """K6 at the int8 prefill's W8A8 shapes (Gemma2-9B: the image stream's
     k / v projection, one diagonal-update chunk's folded o, and its gated
-    MLP, whose down projection is a quant_matmul call) against the plain
-    versions, with planted faults."""
+    MLP, whose down projection is a quant_matmul call), a ragged shape (no
+    dimension a multiple of the tile) in bf16 and fp32, and a row longer
+    than the vector row pass holds, each bit-equal to its plain version,
+    with planted faults; times with the K-major cache warm and cold, and
+    torch._int_mm's for the product alone."""
     from vidi_tpu_torch.infer import quantize as qz
     from vidi_tpu_torch.ops.cuda import quant_matmul as k6
 
@@ -745,44 +845,69 @@ def k6_phase(dev) -> dict:
         return qz.quantize_weight(_randn(gen, (k, n), dev, k ** -0.5, torch.float32))
 
     res = {"quant_matmul": {"cases": []}, "quant_gated_mlp": {"cases": []}}
-    for label, m, k, n in ((f"k/v [{IMG_S}, 3584] . [3584, 2048]", IMG_S, 3584, 2048),
-                           (f"folded o [{IMG_CHUNK_ROWS}, 2048] . [2048, 3584]",
-                            IMG_CHUNK_ROWS, 2048, 3584),
-                           (f"down [{IMG_CHUNK_ROWS}, 14336] . [14336, 3584]",
-                            IMG_CHUNK_ROWS, 14336, 3584)):
+    for label, m, k, n, dtype in (
+            (f"k/v [{IMG_S}, 3584] . [3584, 2048]", IMG_S, 3584, 2048, torch.bfloat16),
+            (f"folded o [{IMG_CHUNK_ROWS}, 2048] . [2048, 3584]", IMG_CHUNK_ROWS, 2048, 3584,
+             torch.bfloat16),
+            (f"down [{IMG_CHUNK_ROWS}, 14336] . [14336, 3584]", IMG_CHUNK_ROWS, 14336, 3584,
+             torch.bfloat16),
+            ("ragged [300, 1200] . [1200, 1008]", 300, 1200, 1008, torch.bfloat16),
+            ("fp32 ragged [300, 1200] . [1200, 1008]", 300, 1200, 1008, torch.float32),
+            ("long row [64, 16384] . [16384, 64] (scalar row pass)", 64, 16384, 64,
+             torch.bfloat16)):
         w = wq(k, n)
-        x = _rows(gen, (m, k), dev)
+        x = _rows(gen, (m, k), dev).to(dtype)
         args = (x, w["qi8"], w["scale"])
-        res["quant_matmul"]["cases"].append(_int8_case(
+        plan = k6.gemm_plan(m, n, k)
+        case = _int8_case(
             f"K6 quant_matmul {label}", lambda: k6.quant_matmul(*args),
             lambda: k6.quant_matmul_plain(*args),
             {"per-tensor scale": lambda: _with(k6, quantize_act=_per_tensor_act)(
                 lambda: k6.quant_matmul_plain(*args)),
              "activations not quantized": lambda: (
-                 x.float() @ qz.dequantize_weight(w, torch.float32)).to(x.dtype)},
-            2 * m * k * n, _nbytes(x) + _qbytes(w) + m * n * 2))
+                 x.float() @ qz.dequantize_weight(w, torch.float32)).to(x.dtype),
+             "last k-step dropped": lambda: _last_step_dropped(k6, x, w)},
+            2 * m * k * n, _nbytes(x) + _qbytes(w) + m * n * x.element_size(), exact=True)
+        case["cold_ms"] = _time_ms(_cold(k6, lambda: k6.quant_matmul(*args)))
+        case["int_mm_ms"], why = _int_mm_ms(x, w)
+        print(f"  K6 quant_matmul {label}: {plan.tiles_m} x {plan.tiles_n} tiles on a grid of "
+              f"{plan.grid}, {plan.steps} k-steps; K-major cache cold {case['cold_ms']:.4f} ms; "
+              f"torch._int_mm (product only) "
+              + (f"{case['int_mm_ms']:.4f} ms" if why is None else f"none ({why})"))
+        res["quant_matmul"]["cases"].append(case)
+    _kmajor_faults(k6, _rows(gen, (IMG_CHUNK_ROWS, 2048), dev), lambda: wq(2048, 3584))
+
     d, ff = 3584, 14336
     gate, up, down = wq(d, ff), wq(d, ff), wq(ff, d)
-    x = _rows(gen, (IMG_CHUNK_ROWS, d), dev)
-    for act in ("gelu_tanh", "silu"):
+    for act, dtype in (("gelu_tanh", torch.bfloat16), ("silu", torch.bfloat16),
+                       ("gelu_tanh", torch.float32)):
         other = "silu" if act == "gelu_tanh" else "gelu_tanh"
+        x = _rows(gen, (IMG_CHUNK_ROWS, d), dev).to(dtype)
 
-        def no_requant(act=act):
+        def no_requant(act=act, x=x):
             g = k6.quant_matmul_plain(x, gate["qi8"], gate["scale"])
             u = k6.quant_matmul_plain(x, up["qi8"], up["scale"])
             h = k6._act(g, act) * u
             return (h.float() @ qz.dequantize_weight(down, torch.float32)).to(x.dtype)
 
-        res["quant_gated_mlp"]["cases"].append(_int8_case(
-            f"K6 quant_gated_mlp [{IMG_CHUNK_ROWS}, 3584] ff 14336 {act}",
-            lambda act=act: k6.quant_gated_mlp(x, gate, up, down, act),
-            lambda act=act: k6.quant_gated_mlp_plain(x, gate, up, down, act),
-            {"per-tensor scale": lambda act=act: _with(k6, quantize_act=_per_tensor_act)(
+        run = lambda act=act, x=x: k6.quant_gated_mlp(x, gate, up, down, act)  # noqa: E731
+        name = (f"K6 quant_gated_mlp {'fp32 ' if dtype == torch.float32 else ''}"
+                f"[{IMG_CHUNK_ROWS}, 3584] ff 14336 {act}")
+        case = _int8_case(
+            name, run,
+            lambda act=act, x=x: k6.quant_gated_mlp_plain(x, gate, up, down, act),
+            {"per-tensor scale": lambda act=act, x=x: _with(k6, quantize_act=_per_tensor_act)(
                 lambda: k6.quant_gated_mlp_plain(x, gate, up, down, act)),
-             f"{other} for {act}": lambda: k6.quant_gated_mlp_plain(x, gate, up, down, other),
+             f"{other} for {act}": lambda x=x: k6.quant_gated_mlp_plain(x, gate, up, down, other),
+             "gate and up swapped": lambda act=act, x=x: k6.quant_gated_mlp_plain(
+                 x, up, gate, down, act),
              "no requantize of the hidden": no_requant},
             3 * 2 * IMG_CHUNK_ROWS * d * ff,
-            2 * _nbytes(x) + _qbytes(gate) + _qbytes(up) + _qbytes(down)))
+            2 * _nbytes(x) + _qbytes(gate) + _qbytes(up) + _qbytes(down), exact=True)
+        case["cold_ms"] = _time_ms(_cold(k6, run))
+        print(f"  {name}: K-major cache cold {case['cold_ms']:.4f} ms (three copies of 51 MB)")
+        res["quant_gated_mlp"]["cases"].append(case)
+    k6.KMAJOR.clear()
     res["quant_matmul"].update(src=K6_SRC, kernel="K6",
                                replaces="vidi_tpu/ops/pallas/quant_matmul.py:145",
                                **_times(res["quant_matmul"]["cases"], "K6 quant_matmul k/v"))
@@ -795,31 +920,83 @@ def k6_phase(dev) -> dict:
     return res
 
 
+def _host_us(fn, reps: int = 200) -> float:
+    """Host time of one call of `fn` in microseconds: the host clock around
+    `reps` calls that only enqueue work (no synchronise in between)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
+
+
+def _device_us(fn, reps: int = 10) -> float:
+    """Device time of one call of `fn` in microseconds: torch.profiler's
+    kernel times summed over `reps` calls, over `reps`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / reps
+
+
 def k7_phase(dev) -> dict:
     """K7 (off every path) at the decoder's norm shapes, the image stream's
-    [23,520, 3584] and a 128-token prompt's [128, 3584], bf16, against its
-    plain version (ULPS bf16 ulps), with torch's rms_norm as the library
-    yardstick and a planted fault (the + 1 dropped)."""
+    [23,520, 3584] and a 128-token prompt's [128, 3584] in bf16, at
+    Gemma2-2B's width 2304 (not a whole number of vectors a lane), in fp32,
+    and on the scalar pass (a width that is not a multiple of 8, and a view
+    that starts off a 16-byte boundary), against its plain version (ULPS
+    bf16 ulps), with torch's rms_norm as the library yardstick and a planted
+    fault (the + 1 dropped). Each case reads its time back to back, its
+    device time (profiler) and the wrapper's host time a call."""
     from vidi_tpu_torch.ops.cuda import fused_rmsnorm as k7
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     cases, errs = [], []
-    w = _randn(gen, (3584,), dev, 0.1)
-    w1 = (w.float() + 1.0).to(torch.bfloat16)
-    for rows in (IMG_S, 128):
-        x = _randn(gen, (rows, 3584), dev)
-        label = f"K7 fused_rms_norm [{rows}, 3584] bf16"
-        errs.append(_check(label, k7.fused_rms_norm(x, w, 1e-6),
-                           k7.fused_rms_norm_plain(x, w, 1e-6),
+    for rows, d, dtype, wdtype, offset in (
+            (IMG_S, 3584, torch.bfloat16, torch.bfloat16, 0),
+            (128, 3584, torch.bfloat16, torch.bfloat16, 0),
+            (IMG_S, 2304, torch.bfloat16, torch.bfloat16, 0),
+            (4096, 3584, torch.float32, torch.float32, 0),
+            (4096, 3584, torch.bfloat16, torch.float32, 0),
+            (4096, 3580, torch.bfloat16, torch.bfloat16, 0),
+            (4096, 3584, torch.bfloat16, torch.bfloat16, 4)):
+        w = _randn(gen, (d,), dev, 0.1, wdtype)
+        w1 = (w.float() + 1.0).to(dtype)
+        # `offset` elements into a larger buffer: a contiguous view that is
+        # not 16-byte aligned
+        x = _randn(gen, (rows * d + offset,), dev, dtype=dtype)[offset:].reshape(rows, d)
+        route = k7.route(d, x.element_size(), w.element_size(), x.data_ptr(), w.data_ptr(), 0)
+        label = (f"K7 fused_rms_norm [{rows}, {d}] {str(dtype).split('.')[1]}"
+                 + (f" w {str(wdtype).split('.')[1]}" if wdtype != dtype else "")
+                 + (f" offset {offset}" if offset else "") + f" ({route} pass)")
+        if route != ("scalar" if d % 8 or offset else "vec"):
+            raise AssertionError(f"{label}: unexpected route")
+        run = lambda: k7.fused_rms_norm(x, w, 1e-6)  # noqa: E731
+        lib = lambda: torch.nn.functional.rms_norm(x, (d,), w1, 1e-6)  # noqa: E731
+        errs.append(_check(label, run(), k7.fused_rms_norm_plain(x, w, 1e-6),
                            {"plus_one dropped": k7.fused_rms_norm_plain(x, w, 1e-6, False)}))
-        ms = _time_ms(lambda: k7.fused_rms_norm(x, w, 1e-6))
-        plain_ms = _time_ms(lambda: k7.fused_rms_norm_plain(x, w, 1e-6))
-        lib_ms = _time_ms(lambda: torch.nn.functional.rms_norm(x, (3584,), w1, 1e-6))
+        ms, plain_ms = _time_ms(run), _time_ms(lambda: k7.fused_rms_norm_plain(x, w, 1e-6))
+        lib_ms = _time_ms(lib)
         bound = _bound(3 * x.numel(), 2 * _nbytes(x) + _nbytes(w), "fp32")
+        extra = {"device_us": _device_us(run), "library_device_us": _device_us(lib),
+                 "host_us": _host_us(run), "library_host_us": _host_us(lib)}
         print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), rms_norm {lib_ms:.4f} ms")
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), rms_norm {lib_ms:.4f} ms; "
+              f"device time {extra['device_us']:.1f} us (rms_norm "
+              f"{extra['library_device_us']:.1f}), host time a call {extra['host_us']:.1f} us "
+              f"(rms_norm {extra['library_host_us']:.1f}); {bound['bound_ms'] / ms:.3f} of the "
+              "bound")
         cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
-                      "library_ms": lib_ms})
+                      "library_ms": lib_ms, **extra})
     return {"fused_rms_norm": dict(
         src=K7_SRC, kernel="K7", replaces="vidi_tpu/ops/pallas/fused_rmsnorm.py:33",
         max_abs_err=max(errs), cases=cases, **_times(cases, f"K7 fused_rms_norm [{IMG_S}"))}
@@ -1255,6 +1432,54 @@ def _map_chunks(n: int, chunks: int) -> int:
     return -(-n // size)
 
 
+def reckon_kmajor_copies(params, cfg, n_frames: int, n_windows: int, streams,
+                         n_queries: int, w8a8: int, limit: int, mm_chunks: int = 32) -> int:
+    """K-major copies (byte transposes) in one encode and n_queries prefills:
+    the weights the code hands K5 and K6, in its order, replayed through the
+    cache's rule (a copy per weight not held; least recently used out once
+    the copies' bytes pass `limit`). Each tower walks all its layers once per
+    frame / window chunk; each decoder layer hands K6 its k / v weights per
+    W8A8 stream and, per W8A8 update chunk, a folded o_proj made anew by
+    every `_xattn_block` call, then gate, up and down."""
+    import collections
+
+    def size(w):
+        return w["qi8"].numel()
+
+    seq = []
+    vis_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
+    for tower, layers, chunks in (
+            ("vision", params["vision"]["layers"][:vis_layers], _map_chunks(n_frames, mm_chunks)),
+            ("audio", params["audio"]["layers"], _map_chunks(n_windows, mm_chunks))):
+        for _ in range(chunks):
+            for i, lp in enumerate(layers):
+                seq += [((tower, i, k), size(lp[k]))
+                        for k in ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")]
+    g = cfg.text.num_heads // cfg.text.num_kv_heads
+    for q in range(n_queries):
+        for i, lp in enumerate(params["text"]["layers"]):
+            for s, rows in enumerate(streams):
+                if rows >= w8a8:
+                    seq += [(("text", i, k), size(lp[k])) for k in ("k_w", "v_w")]
+                for c in _chunk_rows(rows, mm_chunks):
+                    if c >= w8a8:
+                        seq.append((("folded o", q, i, s), size(lp["o_w"]) // g))
+                        seq += [(("text", i, k), size(lp[k]))
+                                for k in ("gate_w", "up_w", "down_w")]
+    held, used, copies = collections.OrderedDict(), 0, 0
+    for key, nbytes in seq:
+        if key in held:
+            held.move_to_end(key)
+            continue
+        copies += 1
+        if nbytes <= limit:
+            held[key] = nbytes
+            used += nbytes
+            while used > limit:
+                used -= held.popitem(last=False)[1]
+    return copies
+
+
 def reckon_int8_launches(cfg, n_frames: int, n_windows: int, streams, prompt_rows: int,
                          n_queries: int, w8a8: int, mm_chunks: int = 32) -> dict:
     """Each kernel's launches in one encode and n_queries prefills, from the
@@ -1301,11 +1526,13 @@ def int8_slice_phase(sl) -> dict:
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer import quantize as qz
     from vidi_tpu_torch.infer.generate import generate
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
 
     cfg, tok, dev, seconds = sl.cfg, sl.tok, sl.dev, sl.seconds
     eos = P.pick_eos(cfg, tok)
     sizes = _param_bytes(sl.params)
     print("  parameter bytes: " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sizes.items()))
+    k6.KMAJOR.clear()
     _reset_int8_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1337,9 +1564,15 @@ def int8_slice_phase(sl) -> dict:
               f"steps {res.decode_s:.3f} s = {rates[-1]:.2f} tok/s, answer {answer!r}")
     torch.cuda.synchronize()
     launches = _read_int8_counts()
-    want = reckon_int8_launches(cfg, len(sl.frames), sl.mels.shape[0],
-                                (img.shape[1], aud.shape[1]), prompt_rows, len(QUERIES),
-                                qz.w8a8_min_tokens)
+    streams = (img.shape[1], aud.shape[1])
+    want = reckon_int8_launches(cfg, len(sl.frames), sl.mels.shape[0], streams, prompt_rows,
+                                len(QUERIES), qz.w8a8_min_tokens)
+    want["kmajor_copy"] = reckon_kmajor_copies(
+        sl.params, cfg, len(sl.frames), sl.mels.shape[0], streams, len(QUERIES),
+        qz.w8a8_min_tokens, k6.KMAJOR.limit_bytes)
+    print(f"  K-major cache: {k6.KMAJOR.hits} hits, {k6.KMAJOR.misses} misses, "
+          f"{k6.KMAJOR.bytes / 2**20:.1f} MiB of copies held (limit "
+          f"{k6.KMAJOR.limit_bytes / 2**20:.0f} MiB)")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  kernel launches: {launches}; reckoned from the code: {want}")
     print(f"  encode {encode_s:.3f} s, prefill {statistics.mean(prefill):.3f} s a query, "
@@ -1806,6 +2039,8 @@ def main() -> int:
     print("int8 routes:")
     int8_route_check(sl)
     qz.w8a8_min_tokens = None
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+    k6.KMAJOR.clear()  # it holds the weights it has copies of
     del sl
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,5 +1,6 @@
 """Write vidi_tpu_torch/csrc/wgmma.cuh: the Hopper warpgroup products that
-the sm_90a attention kernel issues, one inline-PTX function per shape.
+the sm_90a attention kernel and the int8 GEMM core use, one inline-PTX
+function per shape.
 
     python scripts/gen_wgmma.py
 
@@ -11,20 +12,25 @@ of by hand. Overloads are picked by the accumulator array's length:
                                              both K-major (S = Q K^T)
   wgmma_rs(d[N/2], a[4], desc_b)             A in registers, B MN-major
                                              (O += P V), accumulating
+  wgmma_s8(d[N/2], desc_a, desc_b, scale_d)  int8 A and B in shared memory,
+                                             both K-major, int32 sums, depth
+                                             32 (the integer form has no
+                                             scale or transpose immediates)
 """
 from pathlib import Path
 
 OUT = Path(__file__).resolve().parents[1] / "vidi_tpu_torch" / "csrc" / "wgmma.cuh"
 SS_N = (64, 128)           # S tiles: keys per tile
 RS_N = (64, 72, 128, 256)  # O tiles: head dims
+S8_N = (256,)              # int8 GEMM tiles: output columns per warpgroup product
 
 
 def _regs(n_acc: int, first: int = 0) -> str:
     return ", ".join(f"%{first + i}" for i in range(n_acc))
 
 
-def _outs(n_acc: int) -> str:
-    items = [f'"+f"(d[{i}])' for i in range(n_acc)]
+def _outs(n_acc: int, kind: str = "f") -> str:
+    items = [f'"+{kind}"(d[{i}])' for i in range(n_acc)]
     return ",\n        ".join(", ".join(items[i:i + 8]) for i in range(0, n_acc, 8))
 
 
@@ -58,16 +64,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[{a}], const uint32_t (&x)[4]
 """
 
 
-def main() -> None:
-    body = "".join(ss(n) for n in SS_N) + "".join(rs(n) for n in RS_N)
-    OUT.write_text(f"""// Generated by scripts/gen_wgmma.py; edit that script, not this file.
+def s8(n: int) -> str:
+    a = n // 2
+    return f"""
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[{a}], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{a + 2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k32.s32.s8.s8 "
+      "{{{_regs(a)}}}, %{a}, %{a + 1}, p;\\n}}\\n"
+      : {_outs(a, "r")}
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}}
+"""
+
+
+def render() -> str:
+    body = ("".join(ss(n) for n in SS_N) + "".join(rs(n) for n in RS_N)
+            + "".join(s8(n) for n in S8_N))
+    return f"""// Generated by scripts/gen_wgmma.py; edit that script, not this file.
 //
 // Hopper warpgroup products (wgmma.mma_async, sm_90a), bf16 in, fp32
 // accumulate, 64 x N tiles. wgmma_ss: A and B from shared memory, both
 // K-major; scale_d = 0 overwrites the accumulator. wgmma_rs: A from
 // registers (the m16n8k16 A-fragment layout per warp), B MN-major
-// (imm-trans-b = 1), accumulating. The caller fences (wgmma.fence), commits
-// and waits.
+// (imm-trans-b = 1), accumulating. wgmma_s8: int8 A and B from shared
+// memory, both K-major, int32 accumulate, depth 32. The caller fences
+// (wgmma.fence), commits and waits.
 #pragma once
 
 #include <cstdint>
@@ -75,7 +98,11 @@ def main() -> None:
 namespace vidi {{
 {body}
 }}  // namespace vidi
-""")
+"""
+
+
+def main() -> None:
+    OUT.write_text(render())
 
 
 if __name__ == "__main__":

@@ -17,13 +17,17 @@
 // bound, 1,979 TOP/s. The TPU kernel kept the weights resident in VMEM and
 // pipelined whole row blocks; a block here has 227 KB of shared memory, so
 // the layer piece is a row pass (LayerNorm and quantize; fp32 statistics,
-// the same rounding points) plus the shared int8 GEMM of csrc/int8_gemm.cuh,
-// whose epilogue applies the rescale, bias, activation and residual on the
-// accumulators, so only int8 rows, scales and the T outputs cross device
-// memory. ln_ffn's hidden row is written once in T and requantized by a
-// second row pass, since its amax spans the whole ff row across tiles.
-// Exact gelu uses erff (the Pallas kernel's polynomial existed only because
-// Mosaic lacks erf). A simple kernel: one stage, mma.sync, no wgmma / TMA.
+// the same rounding points; the row read once and held in registers) plus
+// the shared int8 GEMM of csrc/int8_gemm.cuh (wgmma s8 from a TMA-fed
+// four-stage ring), whose epilogue applies the rescale, bias, activation
+// and residual on the accumulators, so only int8 rows, scales and the T
+// outputs cross device memory. Every weight comes as its K-major copy
+// [N, K] from the wrapper. ln_ffn's hidden row is written once in T and
+// requantized by a second row pass, since its amax spans the whole ff row
+// across tiles. Exact gelu uses erff (the Pallas kernel's polynomial
+// existed only because Mosaic lacks erf). The pieces ride K6's core as they
+// are: LayerNorm and the quantize fused into the GEMM's producer, and the
+// hidden requantized without a trip through device memory, are later work.
 #include "int8_gemm.cuh"
 
 namespace {
@@ -41,7 +45,7 @@ cudaError_t ln_qkv(const void* x, const float* ln_s, const float* ln_b, float ep
   for (int i = 0; i < 3; ++i) {
     p.b[i] = w[i]; p.sb[i] = sw[i]; p.bias[i] = bias[i]; p.out[i] = out[i];
   }
-  return vidi_int8::gemm<T>(p, vidi_int8::EPI_BIAS, 3, s);
+  return vidi_int8::gemm<T, vidi_int8::EPI_BIAS>(p, 3, s);
 }
 
 template <typename T>
@@ -53,7 +57,7 @@ cudaError_t o_residual(const void* attn, const void* res, int8_t* xq, float* sx,
   if (err != cudaSuccess) return err;
   GemmArgs p = vidi_int8::gemm_args(xq, sx, M, d, d);
   p.b[0] = w; p.sb[0] = sw; p.bias[0] = bias; p.out[0] = out; p.res = res;
-  return vidi_int8::gemm<T>(p, vidi_int8::EPI_BIAS_RES, 1, s);
+  return vidi_int8::gemm<T, vidi_int8::EPI_BIAS_RES>(p, 1, s);
 }
 
 template <typename T>
@@ -67,19 +71,20 @@ cudaError_t ln_ffn(const void* x, const float* ln_s, const float* ln_b, float ep
   if (err != cudaSuccess) return err;
   GemmArgs p1 = vidi_int8::gemm_args(xq, sx, M, ff, d);
   p1.b[0] = w1; p1.sb[0] = s1; p1.bias[0] = b1; p1.out[0] = hidden; p1.act = act;
-  err = vidi_int8::gemm<T>(p1, vidi_int8::EPI_BIAS_ACT, 1, s);
+  err = vidi_int8::gemm<T, vidi_int8::EPI_BIAS_ACT>(p1, 1, s);
   if (err != cudaSuccess) return err;
   err = vidi_int8::quantize_rows<T>(static_cast<const T*>(hidden), M, ff, nullptr, nullptr,
                                     0.0f, hq, hsx, s);
   if (err != cudaSuccess) return err;
   GemmArgs p2 = vidi_int8::gemm_args(hq, hsx, M, d, ff);
   p2.b[0] = w2; p2.sb[0] = s2; p2.bias[0] = b2; p2.out[0] = out; p2.res = x;
-  return vidi_int8::gemm<T>(p2, vidi_int8::EPI_BIAS_RES, 1, s);
+  return vidi_int8::gemm<T, vidi_int8::EPI_BIAS_RES>(p2, 1, s);
 }
 
 }  // namespace
 
 // q, k, v [M, d] = cast(int8(LN1(x)) . w{q,k,v} * sx * sw + b); xq / sx scratch.
+// Here and below every weight pointer is the K-major copy [N, K] of its matrix.
 extern "C" int vidi_ln_qkv(const void* x, const void* ln_s, const void* ln_b, void* xq,
                            void* sx, const void* wq, const void* wk, const void* wv,
                            const void* sq, const void* sk, const void* sv, const void* bq,

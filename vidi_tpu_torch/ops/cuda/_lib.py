@@ -98,7 +98,8 @@ _SIGNATURES = {
     "vidi_ln_qkv": [_P] * 17 + [_I] * 3 + [_F, _P],
     "vidi_o_residual": [_P] * 8 + [_I] * 3 + [_P],
     "vidi_ln_ffn": [_P] * 15 + [_I] * 5 + [_F, _P],
-    "vidi_rms_norm": [_P] * 3 + [_I] * 5 + [_F, _P],
+    "vidi_int8_transpose": [_P, _P, _I, _I, _P],
+    "vidi_rms_norm": [_P] * 3 + [_I] * 6 + [_F, _P],
 }
 
 
@@ -148,6 +149,24 @@ def check_operand(t, name: str, ndim: int, dtype=None) -> None:
                          f"and size, got shape {tuple(t.shape)} strides {t.stride()}")
     if t.data_ptr() % (2 * t.element_size()):
         raise ValueError(f"{name}: data pointer not aligned to an element pair")
+
+
+def call(name: str, device, *args) -> None:
+    """Call the C entry `name` with `args` and, last, `device`'s current
+    stream; raise on a non-zero cudaError_t. The device is switched to only
+    when it is not the current one (the common case costs no context)."""
+    import torch
+
+    fn = getattr(library(), name)
+    # torch.cuda.current_stream() spends ~10 us a call on device look-ups;
+    # the raw-stream getter is the same answer as an int
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err:
+        check(err, name)
 
 
 def check(err: int, name: str) -> None:

@@ -17,7 +17,8 @@ gelu is `erf`'s. The plain versions repeat them in PyTorch with exact
 float64 int8 products. Each wrapper takes its plain version for a CPU
 tensor and launches the kernel, or raises, for a CUDA tensor; `launches`
 counts the calls that launched, per function. No environment switch and
-no lane rule: on the card every int8 tower layer runs here.
+no lane rule: on the card every int8 tower layer runs here. The kernels
+read each weight through its K-major copy (`quant_matmul.kmajor`).
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from vidi_tpu_torch.infer.quantize import QUANT_KEY, quantize_act
 from vidi_tpu_torch.ops.basic import layer_norm, tower_act
 from vidi_tpu_torch.ops.cuda import _lib
 from vidi_tpu_torch.ops.cuda.quant_matmul import (ACTIVATIONS, check_int8_weight,
-                                                  int8_dot, rows, scratch)
+                                                  int8_dot, kmajor, rows, scratch)
 
 launches = {"ln_qkv": 0, "o_residual": 0, "ln_ffn": 0}
 
@@ -89,13 +90,10 @@ def _f32(t):
 
 
 def _weight(lp, key, k):
+    """-> (the K-major copy [N, k] of lp[key]'s int8 matrix, its scales, N)."""
     w = lp[key]
     n = check_int8_weight(w[QUANT_KEY], w["scale"], k, f"fused_tower_layer {key}")
-    return w[QUANT_KEY], w["scale"], n
-
-
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return kmajor(w[QUANT_KEY]), w["scale"], n
 
 
 def _launch_ln_qkv(x, lp, eps):
@@ -108,13 +106,10 @@ def _launch_ln_qkv(x, lp, eps):
     ln_s, ln_b = _f32(lp["ln1_scale"]), _f32(lp["ln1_bias"])
     xq, sx = scratch(m, d, x.device)
     outs = [torch.empty((m, d), dtype=x.dtype, device=x.device) for _ in range(3)]
-    with torch.cuda.device(x.device):
-        err = _lib.library().vidi_ln_qkv(
-            x2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-            *(w.data_ptr() for w, _, _ in ws), *(s.data_ptr() for _, s, _ in ws),
-            *(b.data_ptr() for b in biases), *(o.data_ptr() for o in outs),
-            m, d, int(x.dtype == torch.bfloat16), float(eps), _stream(x))
-    _lib.check(err, "ln_qkv")
+    _lib.call("vidi_ln_qkv", x.device, x2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+              xq.data_ptr(), sx.data_ptr(), *(w.data_ptr() for w, _, _ in ws),
+              *(s.data_ptr() for _, s, _ in ws), *(b.data_ptr() for b in biases),
+              *(o.data_ptr() for o in outs), m, d, x.dtype == torch.bfloat16, float(eps))
     launches["ln_qkv"] += 1
     return tuple(o.reshape(x.shape) for o in outs)
 
@@ -132,12 +127,9 @@ def _launch_o_residual(attn, residual, lp):
     bias = _f32(lp["o_b"])
     xq, sx = scratch(m, d, attn.device)
     out = torch.empty((m, d), dtype=attn.dtype, device=attn.device)
-    with torch.cuda.device(attn.device):
-        err = _lib.library().vidi_o_residual(
-            a2.data_ptr(), res2.data_ptr(), xq.data_ptr(), sx.data_ptr(), w.data_ptr(),
-            s.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d,
-            int(attn.dtype == torch.bfloat16), _stream(attn))
-    _lib.check(err, "o_residual")
+    _lib.call("vidi_o_residual", attn.device, a2.data_ptr(), res2.data_ptr(), xq.data_ptr(),
+              sx.data_ptr(), w.data_ptr(), s.data_ptr(), bias.data_ptr(), out.data_ptr(), m, d,
+              attn.dtype == torch.bfloat16)
     launches["o_residual"] += 1
     return out.reshape(attn.shape)
 
@@ -149,20 +141,17 @@ def _launch_ln_ffn(x, lp, eps, hidden_act):
     w2, s2, n2 = _weight(lp, "fc2_w", ff)
     if n2 != d or ff % 16:
         raise ValueError(f"ln_ffn: fc1 [d, ff] / fc2 [ff, d] with ff % 16 == 0, got "
-                         f"{tuple(w1.shape)} / {tuple(w2.shape)}")
+                         f"ff = {ff} and fc2's width {n2} for d = {d}")
     b1, b2 = _f32(lp["fc1_b"]), _f32(lp["fc2_b"])
     ln_s, ln_b = _f32(lp["ln2_scale"]), _f32(lp["ln2_bias"])
     xq, sx = scratch(m, d, x.device)
     hq, hsx = scratch(m, ff, x.device)
     hidden = torch.empty((m, ff), dtype=x.dtype, device=x.device)
     out = torch.empty((m, d), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib.library().vidi_ln_ffn(
-            x2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-            w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), hidden.data_ptr(), hq.data_ptr(),
-            hsx.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            m, d, ff, ACTIVATIONS[hidden_act], int(x.dtype == torch.bfloat16), float(eps),
-            _stream(x))
-    _lib.check(err, "ln_ffn")
+    _lib.call("vidi_ln_ffn", x.device, x2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+              xq.data_ptr(), sx.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+              hidden.data_ptr(), hq.data_ptr(), hsx.data_ptr(), w2.data_ptr(), s2.data_ptr(),
+              b2.data_ptr(), out.data_ptr(), m, d, ff, ACTIVATIONS[hidden_act],
+              x.dtype == torch.bfloat16, float(eps))
     launches["ln_ffn"] += 1
     return out.reshape(x.shape)

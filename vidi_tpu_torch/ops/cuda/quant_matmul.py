@@ -19,8 +19,22 @@ sums reach 2.3e8 at K = 14,336, past fp32's 2^24), then round to fp32 as
 the int32 -> fp32 convert does. Each wrapper takes its plain version for a
 CPU tensor and launches the kernel, or raises, for a CUDA tensor; `launches`
 counts the calls that launched, per function.
+
+On the card the products run on Hopper's 8-bit `wgmma`, which reads both
+operands k-contiguous. The weights stay [K, N] with N contiguous (the
+layout of the JAX tree, of `infer/quantize.py` and of every plain version);
+`kmajor` hands the kernel a K-major copy [N, K], made once per weight by a
+byte-transpose kernel (`launches["kmajor_copy"]` counts them) and kept in
+`KMAJOR`, a least-recently-used cache bounded by `KMAJOR_LIMIT_BYTES` of
+copies: the 735-row chunks of one layer's diagonal update call o, gate, up
+and down 32 times each with the same weight, so a copy is paid once in 32,
+while a second resident copy of every int8 weight would undo what int8
+loading is for. `gemm_plan` says how a product is cut into blocks.
 """
 from __future__ import annotations
+
+import collections
+from typing import NamedTuple
 
 import torch
 
@@ -28,8 +42,117 @@ from vidi_tpu_torch.infer.quantize import QUANT_KEY, quantize_act
 from vidi_tpu_torch.ops.basic import gelu_tanh
 from vidi_tpu_torch.ops.cuda import _lib
 
-launches = {"quant_matmul": 0, "quant_gated_mlp": 0}
+launches = {"quant_matmul": 0, "quant_gated_mlp": 0, "kmajor_copy": 0}
 ACTIVATIONS = {"gelu_tanh": 0, "gelu": 1, "quick_gelu": 2, "silu": 3}  # csrc/int8_gemm.cuh
+# the GEMM's tile and cluster (csrc/int8_gemm.cuh): rows, staged columns, k
+# values a step; tiles of a cluster (along M)
+TILE_M, TILE_N, TILE_K = 128, 256, 128
+CLUSTER_M = 2
+KMAJOR_LIMIT_BYTES = 256 * 2**20
+
+
+class GemmPlan(NamedTuple):
+    """How the int8 GEMM cuts [m, k] . [k, n] into blocks: `tiles_m` x
+    `tiles_n` output tiles of TILE_M rows x `cols` columns, `steps` k-steps
+    of TILE_K, on a grid of whole clusters along M (`grid_m` x `tiles_n`
+    blocks: one past the last tile only feeds its cluster), numbered along M
+    first when `m_fast`."""
+    tiles_m: int
+    tiles_n: int
+    cols: int
+    steps: int
+    grid_m: int
+    m_fast: bool
+
+    @property
+    def grid(self) -> tuple:
+        """(blocks along x, blocks along y) of one matrix."""
+        return (self.grid_m, self.tiles_n) if self.m_fast else (self.tiles_n, self.grid_m)
+
+    def origin(self, bx: int, by: int) -> tuple:
+        """(first row, first column) of the tile block (bx, by) computes."""
+        tile_m, tile_n = (bx, by) if self.m_fast else (by, bx)
+        return tile_m * TILE_M, tile_n * self.cols
+
+
+def gemm_plan(m: int, n: int, k: int, gated: bool = False) -> GemmPlan:
+    """The blocks of one product, as `vidi_int8::gemm` lays them out. A gated
+    tile holds 128 columns of gate and the same 128 of up. Blocks are
+    numbered along the dimension with fewer tiles first, so those that run
+    together share the other operand in L2. K is never split: parts of K
+    through an int32 workspace measured level or slower at the one shape
+    with fewer tiles than SMs and a long K (the 9B's down projection)."""
+    cols = TILE_N // 2 if gated else TILE_N
+    tiles_m, tiles_n, steps = -(-m // TILE_M), -(-n // cols), -(-k // TILE_K)
+    grid_m = -(-tiles_m // CLUSTER_M) * CLUSTER_M
+    return GemmPlan(tiles_m, tiles_n, cols, steps, grid_m, grid_m < tiles_n)
+
+
+class KMajorCache:
+    """K-major copies [N, K] of int8 weights [K, N], least recently used
+    first out, bounded by the bytes of the copies it holds.
+
+    An entry is keyed by the weight tensor object and holds a reference to
+    it, so the weight's memory cannot be handed to another tensor while the
+    entry lives: a temporary weight (the folded o_proj of each
+    `_xattn_block` call) that is freed and whose address the next layer's
+    temporary takes can never be served the old copy. An in-place edit of
+    the weight bumps its `_version`, which the entry records: the next call
+    copies anew.
+    """
+
+    def __init__(self, limit_bytes: int = KMAJOR_LIMIT_BYTES):
+        self.limit_bytes = limit_bytes
+        self.entries = collections.OrderedDict()  # id(w) -> (w, version, copy)
+        self.bytes = 0
+        self.hits = self.misses = 0
+
+    def get(self, w: torch.Tensor) -> torch.Tensor:
+        entry = self.entries.get(id(w))
+        if entry is not None and entry[0] is w and entry[1] == w._version:
+            self.entries.move_to_end(id(w))
+            self.hits += 1
+            return entry[2]
+        self.misses += 1
+        self._drop(id(w))
+        copy = transpose_int8(w)
+        size = copy.numel()
+        if size <= self.limit_bytes:
+            self.entries[id(w)] = (w, w._version, copy)
+            self.bytes += size
+            while self.bytes > self.limit_bytes:
+                self._drop(next(iter(self.entries)))
+        return copy
+
+    def _drop(self, key) -> None:
+        entry = self.entries.pop(key, None)
+        if entry is not None:
+            self.bytes -= entry[2].numel()
+
+    def clear(self) -> None:
+        self.entries.clear()
+        self.bytes = 0
+        self.hits = self.misses = 0
+
+
+KMAJOR = KMajorCache()
+
+
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """The K-major copy [N, K] of an int8 weight [K, N], from `KMAJOR`."""
+    return KMAJOR.get(w)
+
+
+def transpose_int8(w: torch.Tensor) -> torch.Tensor:
+    """w [K, N] int8 -> a contiguous [N, K]: plain PyTorch on the CPU, the
+    byte-transpose kernel on the card."""
+    if w.device.type == "cpu":
+        return w.t().contiguous()
+    k, n = w.shape
+    wt = torch.empty((n, k), dtype=torch.int8, device=w.device)
+    _lib.call("vidi_int8_transpose", w.device, w.data_ptr(), wt.data_ptr(), k, n)
+    launches["kmajor_copy"] += 1
+    return wt
 
 
 def int8_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -76,33 +199,38 @@ def quant_gated_mlp_plain(x, gate_w, up_w, down_w, hidden_act: str):
 
 
 def check_int8_weight(w, scale, k: int, name: str) -> int:
-    """Raise unless w is a contiguous CUDA int8 [k, N] with N % 4 == 0 and
-    scale holds N fp32 values; -> N."""
-    if not (w.is_cuda and w.dtype == torch.int8 and w.dim() == 2 and w.is_contiguous()):
-        raise TypeError(f"{name}: expected a contiguous CUDA int8 matrix, got "
-                        f"{w.dtype} {tuple(w.shape)} on {w.device}")
+    """Raise unless w is a contiguous CUDA int8 [k, N] with N % 16 == 0 (the
+    GEMM stores its output 16 bytes at a time) and scale holds N fp32
+    values; -> N."""
+    if not (w.dtype == torch.int8 and w.dim() == 2 and w.is_contiguous()):
+        raise TypeError(f"{name}: expected a contiguous int8 matrix, got "
+                        f"{w.dtype} {tuple(w.shape)}")
     n = w.shape[1]
-    if w.shape[0] != k or n % 4:
-        raise ValueError(f"{name}: expected [{k}, N] with N % 4 == 0, got {tuple(w.shape)}")
+    if w.shape[0] != k or n % 16:
+        raise ValueError(f"{name}: expected [{k}, N] with N % 16 == 0, got {tuple(w.shape)}")
     if scale.dtype != torch.float32 or scale.numel() != n or not scale.is_contiguous():
         raise ValueError(f"{name}: scale must hold {n} contiguous fp32 values, got "
                          f"{scale.dtype} {tuple(scale.shape)}")
+    if not (w.is_cuda and scale.device == w.device):
+        raise TypeError(f"{name}: expected CUDA tensors on one device, got {w.device} "
+                        f"and {scale.device}")
     return n
 
 
 def rows(x, name: str):
     """x [..., K] on the card -> (contiguous [M, K], K); the kernels take
-    bf16 or fp32 with K % 16 == 0 (16-byte int8 row loads)."""
-    if not x.is_cuda or x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"{name}: expected a CUDA bf16 / fp32 tensor, got "
-                        f"{x.dtype} on {x.device}")
+    bf16 or fp32 with K % 16 == 0 (TMA reads int8 rows whose starts are
+    16-byte aligned)."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: expected a bf16 / fp32 tensor, got {x.dtype}")
     k = x.shape[-1]
     if k % 16:
         raise ValueError(f"{name}: the contraction dim must be a multiple of 16, got {k}")
-    x2 = x.reshape(-1, k).contiguous()
-    if x2.shape[0] == 0:
+    if x.numel() == 0:
         raise ValueError(f"{name}: no rows")
-    return x2, k
+    if not x.is_cuda:
+        raise TypeError(f"{name}: expected a CUDA tensor, got {x.device}")
+    return x.reshape(-1, k).contiguous(), k
 
 
 def scratch(m: int, k: int, device):
@@ -111,18 +239,18 @@ def scratch(m: int, k: int, device):
             torch.empty((m,), dtype=torch.float32, device=device))
 
 
-def _launch_matmul(x, wq, wscale):
+def _launch_matmul(x, wq, wscale, wt=None):
+    """`wt`: the K-major copy to read instead of `kmajor(wq)`."""
     x2, k = rows(x, "quant_matmul x")
     n = check_int8_weight(wq, wscale, k, "quant_matmul wq")
     m = x2.shape[0]
+    if wt is None:
+        wt = kmajor(wq)
     xq, sx = scratch(m, k, x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib.library().vidi_quant_matmul(
-            x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), wq.data_ptr(),
-            wscale.data_ptr(), out.data_ptr(), m, n, k, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _lib.check(err, "quant_matmul")
+    _lib.call("vidi_quant_matmul", x.device, x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+              wt.data_ptr(), wscale.data_ptr(), out.data_ptr(), m, n, k,
+              x.dtype == torch.bfloat16)
     launches["quant_matmul"] += 1
     return out.reshape(*x.shape[:-1], n)
 
@@ -133,15 +261,12 @@ def _launch_gated(x, gate_w, up_w, hidden_act):
     if check_int8_weight(up_w[QUANT_KEY], up_w["scale"], k, "quant_gated_mlp up_w") != n:
         raise ValueError("quant_gated_mlp: gate and up widths differ")
     m = x2.shape[0]
+    gt, ut = kmajor(gate_w[QUANT_KEY]), kmajor(up_w[QUANT_KEY])
     xq, sx = scratch(m, k, x.device)
     h = torch.empty((m, n), dtype=x.dtype, device=x.device)
     act = ACTIVATIONS["gelu_tanh" if hidden_act == "gelu_tanh" else "silu"]
-    with torch.cuda.device(x.device):
-        err = _lib.library().vidi_quant_gated(
-            x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), gate_w[QUANT_KEY].data_ptr(),
-            gate_w["scale"].data_ptr(), up_w[QUANT_KEY].data_ptr(), up_w["scale"].data_ptr(),
-            h.data_ptr(), m, n, k, act, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _lib.check(err, "quant_gated_mlp")
+    _lib.call("vidi_quant_gated", x.device, x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+              gt.data_ptr(), gate_w["scale"].data_ptr(), ut.data_ptr(),
+              up_w["scale"].data_ptr(), h.data_ptr(), m, n, k, act, x.dtype == torch.bfloat16)
     launches["quant_gated_mlp"] += 1
     return h.reshape(*x.shape[:-1], n)
