@@ -34,10 +34,14 @@
    it was freed and another took its place; K1 with its GQA groups packed
    wrong; K2 at D = 72
    with its depth padding not zeroed, or without the keys past its last
-   whole key tile) and fails unless every fault lands outside the limit.
-   K1 / K2 take bf16 through the sm90 kernel (wgmma, TMA) and fp32 through
-   the SIMT template: one fp32 case each holds the SIMT route. Each K1 / K2
-   case prints its TFLOP/s and its share of the bound.
+   whole key tile; K4 with each GQA row's lse and di taken from the other
+   head, one dq split dropped, or the band's tile skip off by one tile)
+   and fails unless every fault lands outside the limit.
+   K1 / K2 / K4 take bf16 through the sm90 kernels (wgmma, TMA) and fp32
+   through the SIMT templates: one fp32 case each holds the SIMT route.
+   Each K1 / K2 / K4 case prints its TFLOP/s and its share of the bound;
+   K4's two runs must be bit-equal, and its capless T2A case is timed
+   against SDPA's backward.
 3. Checks small fp32 models end to end, the card (kernels) against the CPU
    (plain PyTorch): a prefill + greedy decode in bf16-layout fp32 and on
    the int8 route, and two training steps.
@@ -435,30 +439,75 @@ def kernel_phases(dev) -> dict:
 def _k4_faults(k4, args: dict, names) -> dict:
     """(dq, dk, dv) of the plain backward with one step dropped each: the
     readings of a K4 that forgot it."""
+    from vidi_tpu_torch.ops.cuda.flash_attention import visible_mask
+
+    b, t, hq, d = args["q"].shape
+    s, hk = args["k"].shape[1], args["k"].shape[2]
+    g = hq // hk
+    vis = visible_mask(b, t, s, args["kv_mask"], args["causal"], args["window"],
+                       args["q_segs"], args["kv_segs"], args["q"].device)
+    di = (args["out"].float() * args["do"].float()).sum(-1).transpose(1, 2)  # [B,Hq,T]
+
+    def masked(mask, lse=None, di_=None):
+        return k4.backward_with_mask(args["q"], args["k"], args["v"], args["do"],
+                                     args["lse"] if lse is None else lse,
+                                     di if di_ is None else di_, mask, args["sm_scale"],
+                                     args["softcap"])
+
     def no_cap_derivative():
         # the plain formulas with dz = p (dp - di), the (1 - tanh^2) factor gone
         q, k, v, do = (args[n].float() for n in ("q", "k", "v", "do"))
-        b, t, hq, d = q.shape
-        hk = k.shape[2]
-        g = hq // hk
         qg, dog = q.reshape(b, t, hk, g, d), do.reshape(b, t, hk, g, d)
         raw = torch.einsum("bthgd,bshd->bhgts", qg, k) * args["sm_scale"]
         z = torch.tanh(raw / args["softcap"]) * args["softcap"]
-        mask = k1_visible(args)[:, None, None]
+        mask = vis[:, None, None]
         p = torch.where(mask, torch.exp(z - args["lse"].reshape(b, hk, g, t, 1)), 0.0)
-        di = (args["out"].float() * do).sum(-1).reshape(b, t, hk, g)
         dp = torch.einsum("bthgd,bshd->bhgts", dog, v)
-        dz = torch.where(mask, p * (dp - di.permute(0, 2, 3, 1)[..., None]), 0.0)
+        dz = torch.where(mask, p * (dp - di.reshape(b, hk, g, t, 1)), 0.0)
         scale = args["sm_scale"]
         return (torch.einsum("bhgts,bshd->bthgd", dz, k).reshape(b, t, hq, d) * scale,
                 torch.einsum("bhgts,bthgd->bshd", dz, qg) * scale,
                 torch.einsum("bhgts,bthgd->bshd", p, dog))
 
-    def k1_visible(a):
-        from vidi_tpu_torch.ops.cuda.flash_attention import visible_mask
-        b, t = a["q"].shape[:2]
-        return visible_mask(b, t, a["k"].shape[1], a["kv_mask"], a["causal"],
-                            a["window"], a["q_segs"], a["kv_segs"], a["q"].device)
+    def gqa_wrong():
+        # each packed row gathers lse and di of the other head of its group
+        heads = torch.arange(hq, device=vis.device)
+        other = heads // g * g + (heads % g + 1) % g
+        return masked(vis, args["lse"][:, other], di[:, other])
+
+    def without(regions):
+        mask = vis.clone()
+        for bi, t0, t1, s0, s1 in regions:
+            mask[bi, t0:t1, s0:s1] = False
+        return mask
+
+    def split_dropped():
+        # the dq kernel's split 1 (key tiles 1, 1 + n_split, ...) never summed
+        n_split = k4.sm90_bwd_plan(b, t, s, hq, hk, torch.cuda.get_device_properties(
+            args["q"].device).multi_processor_count)
+        tiles = k4.sm90_bwd_dq_tiles(b, t, s, hq, hk, d, n_split, args["causal"],
+                                     args["window"], args["kv_mask"], args["q_segs"],
+                                     args["kv_segs"])
+        dq = masked(without({(x[0], *x[3:]) for x in tiles if x[2] == 1 % n_split}))[0]
+        return dq, None, None
+
+    def band_off_by_one():
+        # dq: each row block's last key tile of the band skipped; dk / dv:
+        # each key block's first query tile of the band skipped
+        tiles = k4.sm90_bwd_dq_tiles(b, t, s, hq, hk, d, 1, args["causal"], args["window"],
+                                     args["kv_mask"], args["q_segs"], args["kv_segs"])
+        last = {}
+        for bi, _, _, t0, t1, s0, s1 in tiles:
+            last[(bi, t0)] = max(last.get((bi, t0), (0, 0, 0)), (s0, s1, t1))
+        dq = masked(without({(bi, t0, t1, s0, s1) for (bi, t0), (s0, s1, t1) in last.items()}))[0]
+        first = {}
+        for bi, _, t0, t1, k0, k1 in k4.sm90_bwd_dkv_tiles(
+                b, t, s, hq, hk, args["causal"], args["window"], args["kv_mask"],
+                args["q_segs"], args["kv_segs"]):
+            first.setdefault((bi, k0, k1), (t0, t1))
+        _, dk, dv = masked(without({(bi, t0, t1, k0, k1)
+                                    for (bi, k0, k1), (t0, t1) in first.items()}))
+        return dq, dk, dv
 
     plain = k4.flash_attention_bwd_plain
     drop = {
@@ -470,8 +519,48 @@ def _k4_faults(k4, args: dict, names) -> dict:
         "window": ("no window", lambda: plain(**{**args, "window": None})),
         "segs": ("segments ignored", lambda: plain(**{**args, "q_segs": None,
                                                       "kv_segs": None})),
+        "gqa": ("GQA rows gathered with the other head's lse and di", gqa_wrong),
+        "split": ("a dq split's partial dropped", split_dropped),
+        "band": ("the band's tile skip off by one tile", band_off_by_one),
     }
     return {drop[n][0]: drop[n][1]() for n in names}
+
+
+# Planted faults a gradient does not depend on: dv = p^T dO needs neither di
+# nor the cap's derivative, and the dq splits do not touch dk / dv.
+K4_BLIND = {"dv": ("di dropped", "no softcap derivative", "a dq split's partial dropped"),
+            "dk": ("a dq split's partial dropped",), "dq": ()}
+
+
+def _past_s_unmasked(k4, args: dict):
+    """The plain backward of a K4 that let the keys past S through, as TMA
+    reads them: zero K / V rows, visible to every row. Their scores are 0,
+    but dz . 0 adds nothing to dq and no dk / dv row past S is stored, so
+    this fault changes no output: it is shown to lie within the limit, not
+    planted."""
+    s = args["k"].shape[1]
+    pad = -s % k4.SM90_BWD_KV_KEYS
+    zeros = torch.zeros_like(args["k"][:, :pad])
+    mask = args["kv_mask"]
+    mask = torch.cat((mask, torch.ones_like(mask[:, :pad])), dim=1)
+    dq, dk, dv = k4.flash_attention_bwd_plain(**{
+        **args, "k": torch.cat((args["k"], zeros), 1), "v": torch.cat((args["v"], zeros), 1),
+        "kv_mask": mask, "kv_segs": None if args["kv_segs"] is None else torch.cat(
+            (args["kv_segs"], args["kv_segs"][:, -1:].expand(-1, pad)), 1)})
+    return dq, dk[:, :s], dv[:, :s]
+
+
+def _sdpa_bwd_ms(args: dict):
+    """Time of torch's scaled_dot_product_attention backward (autograd
+    through one call with the kv_mask and enable_gqa) on the case's inputs:
+    the one library call that computes K4's function when there is no cap
+    and every row sees a key. The port never calls it."""
+    q, k, v = (args[n].detach().transpose(1, 2).requires_grad_(True) for n in ("q", "k", "v"))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=args["kv_mask"][:, None, None, :], scale=args["sm_scale"],
+        enable_gqa=True)
+    do = args["do"].transpose(1, 2)
+    return _time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True))
 
 
 def k4_phase(dev) -> dict:
@@ -481,7 +570,9 @@ def k4_phase(dev) -> dict:
     head dim 128). q is scaled by Q_GAIN so the cap binds, dO ~ N(0, 1) on
     valid rows and 0 on padded ones; out and lse come from K1. dq, dk and
     dv must each lie within ULPS bf16 ulps of the plain output's largest
-    magnitude, and every planted fault outside."""
+    magnitude, and every planted fault outside; two runs must be bit-equal.
+    bf16 cases take the sm90 kernels, the fp32 case the SIMT template; each
+    case's launches are read per route."""
     from vidi_tpu_torch.ops.cuda import flash_attention as k1
     from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
 
@@ -490,50 +581,76 @@ def k4_phase(dev) -> dict:
     packed = torch.zeros((1, t), dtype=torch.int32, device=dev)
     packed[0, :90], packed[0, 90:170], packed[0, 170:n_valid] = 1, 2, 3
     errs, cases = [], []
-    for label, hq, hk, d, s, causal, window, n_keys, segs, faults in (
+    bf16, f32 = torch.bfloat16, torch.float32
+    for label, hq, hk, d, s, causal, window, cap, n_keys, segs, faults, dtype in (
             (f"9b t2t T=S={t} causal window=4096 cap=50", 16, 8, 256, t, True,
-             4096, n_valid, None, ("causal", "di", "cap")),
+             4096, 50.0, n_valid, None, ("causal", "di", "cap", "band"), bf16),
             (f"9b t2t T=S={t} causal window=48 cap=50", 16, 8, 256, t, True,
-             48, n_valid, None, ("window", "di", "cap")),
+             48, 50.0, n_valid, None, ("window", "di", "cap"), bf16),
             (f"9b t2v T={t} S={IMG_S} mask cap=50", 16, 8, 256, IMG_S, False,
-             None, IMG_VALID, None, ("mask", "di", "cap")),
+             None, 50.0, IMG_VALID, None, ("mask", "di", "cap", "gqa", "split"), bf16),
             (f"9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
-             None, AUD_VALID, None, ("mask", "di", "cap")),
+             None, 50.0, AUD_VALID, None, ("mask", "di", "cap", "gqa", "split"), bf16),
+            (f"9b t2a T={t} S={AUD_S} mask no cap", 16, 8, 256, AUD_S, False,
+             None, None, AUD_VALID, None, ("mask", "di"), bf16),
             (f"9b packed t2t T=S={t} 3 segments cap=50", 16, 8, 256, t, True,
-             4096, n_valid, packed, ("segs", "di", "cap")),
+             4096, 50.0, n_valid, packed, ("segs", "di", "cap", "band"), bf16),
             (f"1.5b t2v T={t} S={IMG_S} mask cap=50", 12, 6, 128, IMG_S, False,
-             None, IMG_VALID, None, ("mask", "di", "cap"))):
-        q = _randn(gen, (1, t, hq, d), dev, Q_GAIN)
-        k, v = _randn(gen, (1, s, hk, d), dev), _randn(gen, (1, s, hk, d), dev)
+             None, 50.0, IMG_VALID, None, ("mask", "di", "cap", "gqa", "split"), bf16),
+            (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
+             None, 50.0, AUD_VALID, None, ("mask", "di", "cap"), f32)):
+        q = _randn(gen, (1, t, hq, d), dev, Q_GAIN, dtype)
+        k = _randn(gen, (1, s, hk, d), dev, dtype=dtype)
+        v = _randn(gen, (1, s, hk, d), dev, dtype=dtype)
         kv_mask = _kv_mask(s, n_keys, dev)
-        fwd = dict(sm_scale=d**-0.5, causal=causal, window=window, softcap=50.0,
+        fwd = dict(sm_scale=d**-0.5, causal=causal, window=window, softcap=cap,
                    q_segs=segs, kv_segs=segs)
         out, lse = k1.flash_attention(q, k, v, kv_mask, **fwd)
         rows = n_valid if causal else t  # T2T rows past the prompt are padding
-        do = _randn(gen, (1, t, hq, d), dev)
+        do = _randn(gen, (1, t, hq, d), dev, dtype=dtype)
         do[:, rows:] = 0
         args = dict(q=q, k=k, v=v, kv_mask=kv_mask, out=out, lse=lse, do=do, **fwd)
+        route = k4.route(dtype)
+        before = dict(k4.route_launches)
         got = k4.flash_attention_bwd(**args)
+        again = k4.flash_attention_bwd(**args)
+        ran = {r: k4.route_launches[r] - before[r] for r in before}
+        if ran != {r: 2 * (r == route) for r in ran}:
+            raise AssertionError(f"K4 {label}: launches by route {ran}, expected {route}")
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"  K4 {label}: route {route}, two runs {'bit-equal' if equal else 'DIFFER'}")
+        if not equal:
+            raise AssertionError(f"K4 {label}: two runs differ")
         want = k4.flash_attention_bwd_plain(**args)
         bad = _k4_faults(k4, args, faults)
+        past = _past_s_unmasked(k4, args) if s % 64 and dtype == bf16 else None
         for i, name in enumerate(("dq", "dk", "dv")):
-            # dv = p^T dO depends on neither di nor the softcap derivative
             errs.append(_check(f"K4 {label} {name}", got[i], want[i], {
                 lab: f[i] for lab, f in bad.items()
-                if name != "dv" or lab not in ("di dropped", "no softcap derivative")}))
-        del bad
+                if lab not in K4_BLIND[name] and f[i] is not None}))
+            if past is not None:
+                gap = float((past[i].float() - want[i].float()).abs().max())
+                print(f"    keys past S unmasked (TMA's zero rows) would read {gap:.3e}: "
+                      "no change, not a plantable fault")
+        del bad, past
         ms = _time_ms(lambda: k4.flash_attention_bwd(**args))
         plain_ms = _time_ms(lambda: k4.flash_attention_bwd_plain(**args))
         # five D-long products per visible (row, key) pair: the recomputed
         # scores, dP, dq, dk and dv
         pairs = int(k1.visible_mask(1, t, s, kv_mask, causal, window, segs, segs,
                                     dev).sum())
-        bound = _bound(10 * hq * d * pairs,
-                       _nbytes(q, k, v, kv_mask, out, lse, do, *got), "bf16")
+        ops = 10 * hq * d * pairs
+        bound = _bound(ops, _nbytes(q, k, v, kv_mask, out, lse, do, *got),
+                       "bf16" if dtype == bf16 else "fp32")
+        lib_ms = _sdpa_bwd_ms(args) if cap is None else None
         print(f"  K4 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), SDPA backward {lib_ms} ms")
         cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
-                      "library_ms": None})
+                      "library_ms": lib_ms, **_rate(f"K4 {label}", ops, ms, bound)})
+        if dtype == bf16 and not ms < plain_ms:
+            raise AssertionError(f"K4 {label}: kernel {ms:.4f} ms not faster than plain "
+                                 f"{plain_ms:.4f} ms")
     return dict(src=K4_SRC, replaces="vidi_tpu/ops/pallas/flash_attention.py:420",
                 max_abs_err=max(errs), cases=cases, **_times(cases, "9b t2v"))
 
@@ -767,7 +884,7 @@ def _cold(k6, fn):
     def run():
         k6.KMAJOR.clear()
         return fn()
-    return run
+    return run  # (the cold timing's clear; no model is dropped through it)
 
 
 def _last_step_dropped(k6, x, w):
@@ -788,10 +905,9 @@ def _kmajor_faults(k6, x, make_weight) -> None:
     sees the new `_version` and copies anew; with the invalidation bypassed
     the kernel reads the stale copy. (2) A temporary weight (the folded
     o_proj of every `_xattn_block` call) freed, and its address taken by the
-    next one: the cache holds a reference to each weight it has a copy of, so
-    that cannot happen while the entry lives; once the entry is gone, a cache
-    keyed by the address alone would serve the first weight's copy to the
-    second."""
+    next one: the cache refers to its weights weakly, so the freed weight's
+    entry leaves with it and the next weight is copied anew; a cache keyed by
+    the address alone would serve the first weight's copy to the second."""
     w = make_weight()
     k6.quant_matmul(x, w["qi8"], w["scale"])
     stale = k6.KMAJOR.entries[id(w["qi8"])][2]
@@ -803,23 +919,18 @@ def _kmajor_faults(k6, x, make_weight) -> None:
                exact=True)
 
     first = make_weight()
-    held = first["qi8"].data_ptr()
-    k6.quant_matmul(x, first["qi8"], first["scale"])
-    del first
-    second = make_weight()  # the entry still holds `first`: its address is taken
-    if second["qi8"].data_ptr() == held:
-        raise AssertionError("the K-major cache let a weight it holds a copy of be freed")
-    del second
-    first = make_weight()
     ptr = first["qi8"].data_ptr()
     k6.quant_matmul(x, first["qi8"], first["scale"])
     key = id(first["qi8"])
     old_copy = k6.KMAJOR.entries[key][2]
-    k6.KMAJOR._drop(key)
-    del first
+    held = k6.KMAJOR.bytes
+    del first  # no clear(): the entry and its bytes must leave with the weight
+    if key in k6.KMAJOR.entries or k6.KMAJOR.bytes != held - old_copy.numel():
+        raise AssertionError("the K-major cache kept a freed weight's entry")
     second = make_weight()
     reused = second["qi8"].data_ptr() == ptr
-    print(f"  K6 K-major cache: entry dropped and weight freed, the next weight "
+    print(f"  K6 K-major cache: weight freed, its entry left with it ({held} -> "
+          f"{k6.KMAJOR.bytes} bytes of copies); the next weight "
           f"{'took its address' if reused else 'got another address'}")
     _check_rel("K6 K-major cache, temporary weight freed and replaced",
                k6.quant_matmul(x, second["qi8"], second["scale"]),
@@ -907,7 +1018,6 @@ def k6_phase(dev) -> dict:
         case["cold_ms"] = _time_ms(_cold(k6, run))
         print(f"  {name}: K-major cache cold {case['cold_ms']:.4f} ms (three copies of 51 MB)")
         res["quant_gated_mlp"]["cases"].append(case)
-    k6.KMAJOR.clear()
     res["quant_matmul"].update(src=K6_SRC, kernel="K6",
                                replaces="vidi_tpu/ops/pallas/quant_matmul.py:145",
                                **_times(res["quant_matmul"]["cases"], "K6 quant_matmul k/v"))
@@ -1437,10 +1547,11 @@ def reckon_kmajor_copies(params, cfg, n_frames: int, n_windows: int, streams,
     """K-major copies (byte transposes) in one encode and n_queries prefills:
     the weights the code hands K5 and K6, in its order, replayed through the
     cache's rule (a copy per weight not held; least recently used out once
-    the copies' bytes pass `limit`). Each tower walks all its layers once per
-    frame / window chunk; each decoder layer hands K6 its k / v weights per
-    W8A8 stream and, per W8A8 update chunk, a folded o_proj made anew by
-    every `_xattn_block` call, then gate, up and down."""
+    the copies' bytes pass `limit`; an entry leaves when its weight dies).
+    Each tower walks all its layers once per frame / window chunk; each
+    decoder layer hands K6 its k / v weights per W8A8 stream and, per W8A8
+    update chunk, a folded o_proj made anew by every `_xattn_block` call,
+    then gate, up and down; the folded o_proj dies when the call returns."""
     import collections
 
     def size(w):
@@ -1466,8 +1577,12 @@ def reckon_kmajor_copies(params, cfg, n_frames: int, n_windows: int, streams,
                         seq.append((("folded o", q, i, s), size(lp["o_w"]) // g))
                         seq += [(("text", i, k), size(lp[k]))
                                 for k in ("gate_w", "up_w", "down_w")]
+                seq.append((("folded o", q, i, s), None))  # freed: its entry goes
     held, used, copies = collections.OrderedDict(), 0, 0
     for key, nbytes in seq:
+        if nbytes is None:
+            used -= held.pop(key, 0)
+            continue
         if key in held:
             held.move_to_end(key)
             continue
@@ -2040,9 +2155,16 @@ def main() -> int:
     int8_route_check(sl)
     qz.w8a8_min_tokens = None
     from vidi_tpu_torch.ops.cuda import quant_matmul as k6
-    k6.KMAJOR.clear()  # it holds the weights it has copies of
+    held = (len(k6.KMAJOR.entries), k6.KMAJOR.bytes)
+    before = torch.cuda.memory_allocated()
     del sl
     gc.collect()
+    after = torch.cuda.memory_allocated()
+    print(f"  int8 slice dropped: memory_allocated {before / 2**30:.2f} -> {after / 2**30:.2f} "
+          f"GiB; K-major cache {held[0]} entries / {held[1] / 2**20:.1f} MiB -> "
+          f"{len(k6.KMAJOR.entries)} / {k6.KMAJOR.bytes / 2**20:.1f} MiB, no clear()")
+    if k6.KMAJOR.entries or k6.KMAJOR.bytes:
+        raise AssertionError("the K-major cache kept copies of a dropped model's weights")
     torch.cuda.empty_cache()
 
     print(f"training slice (Vidi1.5-9B, {TRAIN_LAYERS} text layers, random weights):")

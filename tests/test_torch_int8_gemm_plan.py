@@ -10,7 +10,9 @@ o [2048 x 3584], gate / up [3584 x 14336], down [14336 x 3584]),
 SigLIP-so400m's layer (2,916 rows, d 1152, ff 4352) and Whisper-large-v3's
 (1,500 rows, d 1280, ff 5120).
 """
+import gc
 import importlib.util
+import weakref
 from pathlib import Path
 
 import pytest
@@ -157,14 +159,77 @@ def test_kmajor_cache_misses_after_an_in_place_edit():
 
 
 def test_kmajor_cache_holds_its_weight_so_its_memory_is_not_reused():
+    """The cache holds its weights weakly: a freed weight's entry goes with
+    it, so a tensor that takes its memory (or its id) is copied anew."""
     cache = k6.KMajorCache()
     w = _codes(48, 32, 2)
-    ptr = w.data_ptr()
     cache.get(w)
     del w
-    others = [_codes(48, 32, 10 + i) for i in range(8)]  # would take a freed block
-    assert all(o.data_ptr() != ptr for o in others)
+    assert not cache.entries and cache.bytes == 0
+    others = [_codes(48, 32, 10 + i) for i in range(8)]  # may take the freed block
     assert all(torch.equal(cache.get(o), o.t()) for o in others)
+    assert cache.misses == 9 and cache.hits == 0
+
+
+def test_kmajor_cache_drops_a_deleted_weights_entry_and_bytes():
+    """No clear(): deleting a weight frees its entry and its copy's bytes,
+    and leaves the other entries as they were."""
+    cache = k6.KMajorCache()
+    keep, gone = _codes(64, 16, 40), _codes(64, 32, 41)
+    cache.get(keep)
+    copy = cache.get(gone)
+    assert cache.bytes == keep.numel() + gone.numel()
+    ref = weakref.ref(copy)
+    del gone, copy
+    assert list(cache.entries) == [id(keep)] and cache.bytes == keep.numel()
+    assert ref() is None  # the copy itself is freed
+    assert cache.get(keep) is cache.entries[id(keep)][2] and cache.hits == 1
+
+
+def test_kmajor_cache_in_place_edit_still_invalidates_under_the_weak_rule():
+    cache = k6.KMajorCache()
+    w = _codes(48, 32, 42)
+    first = cache.get(w)
+    w.add_(1)
+    second = cache.get(w)
+    assert second is not first and torch.equal(second, w.t())
+    assert len(cache.entries) == 1 and cache.bytes == w.numel()
+    del w  # the finalizer of the replaced entry was detached: one drop, no error
+    assert not cache.entries and cache.bytes == 0
+
+
+def test_kmajor_cache_is_empty_after_a_tiny_int8_model_is_dropped(monkeypatch):
+    """A tiny int8 model (text and towers) loaded, every int8 weight put
+    through the K-major copy the card's route reads, then dropped: the cache
+    is empty without clear()."""
+    from vidi_tpu_torch.infer.loader import load_model
+
+    cache = k6.KMajorCache()
+    monkeypatch.setattr(k6, "KMAJOR", cache)
+    params, _, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
+                              load_8bit=True, load_8bit_towers=True)
+
+    def int8_weights(tree):
+        if isinstance(tree, dict):
+            if isinstance(tree.get("qi8"), torch.Tensor):
+                yield tree["qi8"]
+            else:
+                for v in tree.values():
+                    yield from int8_weights(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                yield from int8_weights(v)
+
+    n = 0
+    for w in int8_weights(params):
+        assert torch.equal(k6.kmajor(w), w.t())
+        assert k6.kmajor(w) is cache.entries[id(w)][2]  # used twice: one copy
+        n += 1
+    del w
+    assert n > 0 and len(cache.entries) == n and cache.hits == n
+    del params
+    gc.collect()
+    assert not cache.entries and cache.bytes == 0
 
 
 def test_kmajor_cache_never_serves_another_tensors_copy():

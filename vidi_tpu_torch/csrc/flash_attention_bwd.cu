@@ -3,63 +3,37 @@
 // Replaces the Pallas backward of vidi_tpu/ops/pallas/flash_attention.py
 // (`_bwd_rule`: `_dq_kernel` and `_dkv_kernel`). Given q [B,T,Hq,D], k/v
 // [B,S,Hk,D] (strided, last dim contiguous), the upstream gradient dO
-// [B,T,Hq,D] (contiguous), the forward's lse [B,Hq,T] and di = sum(o * dO)
-// [B,Hq,T] (one reduction in the wrapper, as JAX computes it outside
-// Pallas), it recomputes p = exp(z - lse) tile by tile and returns
+// [B,T,Hq,D], the forward's lse [B,Hq,T] and di = sum(o * dO) [B,Hq,T] (one
+// reduction in the wrapper, as JAX computes it outside Pallas), it
+// recomputes p = exp(z - lse) tile by tile and returns
 //   dv = p^T dO,  dz = p (dO v^T - di) (1 - tanh^2 under the softcap),
 //   dq = dz k * scale,  dk = dz^T q * scale,
 // with the forward's masks (kv_mask, causal and sliding window by absolute
-// index, packing segment ids) zeroing p and dz. All products and sums are
-// fp32 and p is not rounded (unlike the forward); outputs are in the input
-// dtype. Rows with no visible key carry the sentinel lse, so every p of
-// theirs is zero.
+// index, packing segment ids) zeroing p and dz. Rows with no visible key
+// carry the sentinel lse, so every p of theirs is zero.
 //
-// What bounds it on an H100: at the slice's T2V shape (T = 256 text rows,
-// S = 23,520 video keys, D = 256) each (row, key) pair costs 3 D FMAs in
-// the dq pass and 4 D in the dk/dv pass against K/V/Q/dO tiles that are
-// staged once per block, so it is compute-bound; in SIMT fp32 FMAs it runs
-// far below the tensor cores' rate. The design keeps p and dz out of device
-// memory and avoids atomics, so results do not vary from run to run:
+// Two routes, chosen by dtype in ops/cuda/flash_attention_bwd.py:
+// - bf16: `vidi_flash_attention_bwd_sm90`, the two Hopper kernels of
+//   flash_backward_sm90.cuh (wgmma products fed by TMA; p and dz rounded to
+//   bf16 as the operands of the gradient products, as the sm90 forward
+//   rounds P).
+// - fp32: `vidi_flash_attention_bwd`, the SIMT template below, for the fp32
+//   checks that hold the card against the CPU at 1e-4 and finer. Every
+//   product and sum is fp32 and p is not rounded. It is bound by its fp32
+//   FMAs (~13.6 TFLOP/s on an H100) and serves no bf16 path:
 //   - dq: one block per (b, q head, 16-row tile) walks the visible KV tiles
-//     (the loop takes the place of the TPU grid's "arbitrary" S axis). At
-//     T2V that is only 256 blocks on 132 SMs, so the wrapper splits S across
-//     blocks; each split writes an fp32 partial and a second pass sums them.
+//     (the loop takes the place of the TPU grid's "arbitrary" S axis); the
+//     wrapper splits S across blocks, each split writes an fp32 partial and
+//     flash_bwd_dq_sum adds them;
 //   - dk/dv: one block per (b, KV head, 32-key tile) walks the G query heads
 //     of its group and the visible 16-row q tiles (the Pallas grid's (G, T)
-//     axes), holding the 32 x D fp32 dk and dv sums in registers (64 floats
-//     a thread at D = 256): in shared memory they would take 64 KB beside
-//     the staged tiles.
-// Both passes stage their tiles in dynamic shared memory (over the 48 KB
-// static limit at D = 256). Moving the products to wgmma is later work.
+//     axes), holding the 32 x D fp32 dk and dv sums in registers.
+//   Both passes stage their tiles in dynamic shared memory. No atomics:
+//   results do not vary from run to run on either route.
 #include "attention_common.cuh"
+#include "flash_backward_sm90.cuh"
 
 namespace vidi {
-
-struct FlashBwdParams {
-  const void* q;        // [B, T, Hq, D] strided, last dim contiguous
-  const void* k;        // [B, S, Hk, D] strided, last dim contiguous
-  const void* v;
-  const void* dout;     // [B, T, Hq, D] contiguous
-  const float* lse;     // [B, Hq, T] contiguous
-  const float* di;      // [B, Hq, T] contiguous
-  const int* kv_mask;   // [B, S] contiguous, nullptr = all valid
-  const int* q_segs;    // [B, T] contiguous, nullptr = no packing
-  const int* kv_segs;   // [B, S]
-  void* dq;             // [B, T, Hq, D] contiguous
-  float* dq_part;       // [n_split, B, T, Hq, D] fp32 when n_split > 1
-  void* dk;             // [B, S, Hk, D] contiguous
-  void* dv;
-  int B, T, S, Hq, Hk;
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  float scale;
-  int causal;
-  int window;           // 0 = no sliding window
-  float softcap;        // 0 = no softcap
-  int n_split;          // splits of the KV axis in the dq pass
-  int kv_split;         // keys per split
-};
 
 // dz of one (row, key) entry: p (dp - di) times the softcap derivative, or
 // 0 for a masked entry. Writes p through `prob`.
@@ -261,22 +235,6 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(FlashBwdParams p) {
       }
     }
   }
-}
-
-// Sum of the n_split fp32 dq partials of one (b, t, h) row (one block per
-// row, one thread per column pair), cast to the output dtype.
-template <typename T, int D>
-__global__ void __launch_bounds__(D / 2) flash_bwd_dq_sum(FlashBwdParams p) {
-  const long long row = blockIdx.x;  // (b * T + t) * Hq + h
-  const long long rows = (long long)p.B * p.T * p.Hq;
-  const int c = 2 * threadIdx.x;
-  float ax = 0.f, ay = 0.f;
-  for (int i = 0; i < p.n_split; ++i) {
-    const float2 a = load2(p.dq_part + (i * rows + row) * D + c);
-    ax += a.x;
-    ay += a.y;
-  }
-  store2(static_cast<T*>(p.dq) + row * D + c, ax, ay);
 }
 
 // ---------------------------------------------------------------------------
@@ -493,31 +451,17 @@ cudaError_t launch_flash_backward(const FlashBwdParams& p, cudaStream_t stream) 
 
 namespace {
 
-template <typename T>
-cudaError_t dispatch_bwd(const vidi::FlashBwdParams& p, int D, cudaStream_t s) {
-  // the head dims K1 is built for: 256 (Vidi1.5-9B) and 128 (1.5B)
-  switch (D) {
-    case 128: return vidi::launch_flash_backward<T, 128>(p, s);
-    case 256: return vidi::launch_flash_backward<T, 256>(p, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-}  // namespace
-
-extern "C" int vidi_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* di, const int* kv_mask, const int* q_segs,
-    const int* kv_segs, void* dq, float* dq_part, void* dk, void* dv,
-    int B, int T, int S, int Hq, int Hk, int D, int is_bf16,
-    long long q_sb, long long q_st, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    float scale, int causal, int window, float softcap,
-    int n_split, int kv_split, void* stream) {
-  vidi::FlashBwdParams p;
+vidi::FlashBwdParams bwd_params(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* di, const int* q_segs,
+                                const int* kv_segs, void* dq, float* dq_part, void* dk, void* dv,
+                                int B, int T, int S, int Hq, int Hk, long long q_sb,
+                                long long q_st, long long q_sh, long long k_sb, long long k_ss,
+                                long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                                float scale, int causal, int window, float softcap, int n_split,
+                                int kv_split) {
+  vidi::FlashBwdParams p = {};
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.di = di;
-  p.kv_mask = kv_mask; p.q_segs = q_segs; p.kv_segs = kv_segs;
+  p.q_segs = q_segs; p.kv_segs = kv_segs;
   p.dq = dq; p.dq_part = dq_part; p.dk = dk; p.dv = dv;
   p.B = B; p.T = T; p.S = S; p.Hq = Hq; p.Hk = Hk;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
@@ -525,8 +469,58 @@ extern "C" int vidi_flash_attention_bwd(
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.scale = scale; p.causal = causal; p.window = window; p.softcap = softcap;
   p.n_split = n_split; p.kv_split = kv_split;
+  return p;
+}
+
+}  // namespace
+
+// fp32 operands: the SIMT template; dO contiguous. Head dims 256
+// (Vidi1.5-9B) and 128 (the 1.5B configuration).
+extern "C" int vidi_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, const int* kv_mask, const int* q_segs,
+    const int* kv_segs, void* dq, float* dq_part, void* dk, void* dv,
+    int B, int T, int S, int Hq, int Hk, int D,
+    long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    float scale, int causal, int window, float softcap,
+    int n_split, int kv_split, void* stream) {
+  vidi::FlashBwdParams p = bwd_params(q, k, v, dout, lse, di, q_segs, kv_segs, dq, dq_part, dk,
+                                      dv, B, T, S, Hq, Hk, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
+                                      v_sb, v_ss, v_sh, scale, causal, window, softcap, n_split,
+                                      kv_split);
+  p.kv_mask = kv_mask;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? dispatch_bwd<__nv_bfloat16>(p, D, s)
-                            : dispatch_bwd<float>(p, D, s);
-  return static_cast<int>(err);
+  switch (D) {
+    case 128: return static_cast<int>(vidi::launch_flash_backward<float, 128>(p, s));
+    case 256: return static_cast<int>(vidi::launch_flash_backward<float, 256>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 operands: the Hopper kernels; kv_mask as bool bytes, dO strided.
+extern "C" int vidi_flash_attention_bwd_sm90(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* di, const unsigned char* kv_mask, const int* q_segs,
+    const int* kv_segs, void* dq, float* dq_part, void* dk, void* dv,
+    int B, int T, int S, int Hq, int Hk, int D,
+    long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long do_sb, long long do_st, long long do_sh,
+    float scale, int causal, int window, float softcap,
+    int n_split, int kv_split, void* stream) {
+  vidi::FlashBwdParams p = bwd_params(q, k, v, dout, lse, di, q_segs, kv_segs, dq, dq_part, dk,
+                                      dv, B, T, S, Hq, Hk, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
+                                      v_sb, v_ss, v_sh, scale, causal, window, softcap, n_split,
+                                      kv_split);
+  p.kv_bytes = kv_mask;
+  p.do_sb = do_sb; p.do_st = do_st; p.do_sh = do_sh;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 128: return static_cast<int>(vidi::sm90bwd::launch_backward<128>(p, s));
+    case 256: return static_cast<int>(vidi::sm90bwd::launch_backward<256>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the attention forward
-// (flash_forward_sm90.cuh) and the int8 GEMM core (int8_gemm.cuh): mbarrier
-// TMA and cluster wrappers, wgmma fences and shared-memory descriptors,
+// (flash_forward_sm90.cuh), the attention backward (flash_backward_sm90.cuh)
+// and the int8 GEMM core (int8_gemm.cuh): mbarrier, TMA, cluster and
+// named-barrier wrappers, wgmma fences and shared-memory descriptors,
 // setmaxnreg, and the host-side tensor-map encoder.
 #pragma once
 
@@ -49,6 +50,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
         "r"(bar)
       : "memory");
+}
+// Named barrier `id` over `n` threads: wait for all, or arrive without waiting.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1) {

@@ -87,7 +87,10 @@ _K2_ARGS = [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _P]
 _SIGNATURES = {
     "vidi_flash_attention_fwd": _K1_ARGS,
     "vidi_flash_attention_fwd_sm90": _K1_ARGS,
-    "vidi_flash_attention_bwd": [_P] * 13 + [_I] * 7 + [_L] * 9
+    # K4 backward: SIMT (fp32; dO contiguous) and sm90 (bf16; dO strided)
+    "vidi_flash_attention_bwd": [_P] * 13 + [_I] * 6 + [_L] * 9
+    + [_F, _I, _I, _F, _I, _I, _P],
+    "vidi_flash_attention_bwd_sm90": [_P] * 13 + [_I] * 6 + [_L] * 12
     + [_F, _I, _I, _F, _I, _I, _P],
     "vidi_tower_attention": _K2_ARGS,
     "vidi_tower_attention_sm90": _K2_ARGS,

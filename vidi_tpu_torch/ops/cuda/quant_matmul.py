@@ -29,11 +29,13 @@ byte-transpose kernel (`launches["kmajor_copy"]` counts them) and kept in
 copies: the 735-row chunks of one layer's diagonal update call o, gate, up
 and down 32 times each with the same weight, so a copy is paid once in 32,
 while a second resident copy of every int8 weight would undo what int8
-loading is for. `gemm_plan` says how a product is cut into blocks.
+loading is for. The cache refers to the weights weakly: a dropped model's
+copies go with it. `gemm_plan` says how a product is cut into blocks.
 """
 from __future__ import annotations
 
 import collections
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -92,24 +94,26 @@ class KMajorCache:
     """K-major copies [N, K] of int8 weights [K, N], least recently used
     first out, bounded by the bytes of the copies it holds.
 
-    An entry is keyed by the weight tensor object and holds a reference to
-    it, so the weight's memory cannot be handed to another tensor while the
-    entry lives: a temporary weight (the folded o_proj of each
-    `_xattn_block` call) that is freed and whose address the next layer's
-    temporary takes can never be served the old copy. An in-place edit of
-    the weight bumps its `_version`, which the entry records: the next call
-    copies anew.
+    An entry is keyed by the weight tensor object and refers to it weakly:
+    the cache keeps no weight alive, and when a weight dies a finalizer
+    drops its entry and frees the copy's bytes. So a dropped model leaves the
+    card with its copies, and a temporary weight (the folded o_proj of each
+    `_xattn_block` call) leaves the cache when it is freed; an id or address
+    that a later tensor takes can never find a dead weight's copy. An
+    in-place edit of the weight bumps its `_version`, which the entry
+    records: the next call copies anew.
     """
 
     def __init__(self, limit_bytes: int = KMAJOR_LIMIT_BYTES):
         self.limit_bytes = limit_bytes
-        self.entries = collections.OrderedDict()  # id(w) -> (w, version, copy)
+        # id(w) -> (weakref to w, version, copy, finalizer)
+        self.entries = collections.OrderedDict()
         self.bytes = 0
         self.hits = self.misses = 0
 
     def get(self, w: torch.Tensor) -> torch.Tensor:
         entry = self.entries.get(id(w))
-        if entry is not None and entry[0] is w and entry[1] == w._version:
+        if entry is not None and entry[0]() is w and entry[1] == w._version:
             self.entries.move_to_end(id(w))
             self.hits += 1
             return entry[2]
@@ -118,7 +122,9 @@ class KMajorCache:
         copy = transpose_int8(w)
         size = copy.numel()
         if size <= self.limit_bytes:
-            self.entries[id(w)] = (w, w._version, copy)
+            key = id(w)
+            self.entries[key] = (weakref.ref(w), w._version, copy,
+                                 weakref.finalize(w, self._drop, key))
             self.bytes += size
             while self.bytes > self.limit_bytes:
                 self._drop(next(iter(self.entries)))
@@ -128,10 +134,11 @@ class KMajorCache:
         entry = self.entries.pop(key, None)
         if entry is not None:
             self.bytes -= entry[2].numel()
+            entry[3].detach()
 
     def clear(self) -> None:
-        self.entries.clear()
-        self.bytes = 0
+        for key in list(self.entries):
+            self._drop(key)
         self.hits = self.misses = 0
 
 
