@@ -17,7 +17,10 @@
    scaled up so that logits reach tens and the softcap of 50 binds; a bf16
    output must lie within ULPS bf16 ulps of the plain output's largest
    magnitude. K5 must lie within INT8_REL relative error of its plain
-   versions (the int8 codes agree; see INT8_REL); K6 must equal its plain
+   versions (the int8 codes agree; see INT8_REL) and prints its device
+   time a call, its persistent GEMM's blocks against the card's SMs,
+   torch._int_mm's time for the products alone, and the registers and
+   spills `nvcc -Xptxas -v` reports for that GEMM; K6 must equal its plain
    versions bit for bit (exact int32 sums, the same roundings), at the
    prefill's shapes, a ragged one in bf16 and fp32 and a row too long for
    the vector row pass, and prints TOP/s, its share of the bound, its time
@@ -29,7 +32,9 @@
    Each case also runs planted faults (the plain version with the cap, mask,
    window, causality, segments, di, the cap's derivative, a per-row scale,
    the hidden's requantize, a bias, the residual, the zero ff padding, the
-   exact gelu or a product's last k-step dropped; gate and up swapped; a
+   exact gelu or a product's last k-step dropped; K5's persistent schedule
+   skipping a tile or computing one twice into another's place; gate and
+   up swapped; a
    stale K-major copy served after the weight was edited in place, or after
    it was freed and another took its place; K1 with its GQA groups packed
    wrong; K2 at D = 72
@@ -56,7 +61,8 @@
    load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
    prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
    three TR queries (K1, K6), launch counts (the K-major copies among
-   them) held to the ones reckoned from the code, then the step-0 logits
+   them, none of a tower weight: the towers store theirs K-major) held to
+   the ones reckoned from the code, then the step-0 logits
    with K5 / K6 against their plain
    versions, and every K5 / K6 call of one encode and prefill against its
    plain version on the same inputs, each with a planted fault (K5 without
@@ -84,6 +90,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -788,13 +795,123 @@ def _ffn_no_requant(x, lp, eps: float, hidden_act: str):
     return x + (a.float() @ w2 + lp["fc2_b"].float()).to(x.dtype)
 
 
-def k5_phase(dev) -> dict:
+def _sched_faults(plan, plain) -> dict:
+    """The outputs of two wrong persistent schedules (csrc/int8_gemm_pp.cuh),
+    made from the plain output by the schedule's plan (`tower_plan`): one
+    consumer skips a tile (block 0's second consumer's first, or block 0's
+    first: its place keeps zeros), or a tile is computed twice, the second
+    time into the place of that skipped one."""
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
+
+    t0 = (plan.consumer_tiles(0, 1) or plan.consumer_tiles(0, 0))[0]
+    t1 = next(t for b in range(1, plan.blocks) for t in plan.block_tiles(b)
+              if t != t0 and t[1] < plan.m)
+
+    def mats():
+        out = plain()
+        return [o.reshape(-1, o.shape[-1]).clone()
+                for o in (out if isinstance(out, tuple) else (out,))]
+
+    def region(t):
+        z, m0, n0 = t
+        return z, slice(m0, m0 + k5.PP_TILE_M), slice(n0, n0 + k5.PP_TILE_N)
+
+    def skipped():
+        bad = mats()
+        z, r, c = region(t0)
+        bad[z][r, c] = 0
+        return tuple(bad)
+
+    def twice():
+        bad = mats()
+        (z, r, c), (zs, rs, cs) = region(t0), region(t1)
+        dst, src = bad[z][r, c], bad[zs][rs, cs].clone()
+        h, w = min(dst.shape[0], src.shape[0]), min(dst.shape[1], src.shape[1])
+        dst[:h, :w] = src[:h, :w]
+        return tuple(bad)
+
+    return {"scheduler skips a tile": skipped,
+            "a tile computed twice, into another's place": twice}
+
+
+def _ptxas_start():
+    """nvcc -Xptxas -v of K5's source, started beside the library's build;
+    `_ptxas_report` reads it."""
+    from vidi_tpu_torch.ops.cuda import _lib
+
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = _lib.BUILD_DIR / f"ptxas-probe.{os.getpid()}.o"
+    return obj, subprocess.Popen(
+        [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+         str(_lib.CSRC / "fused_tower_layer.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _ptxas_report(probe, fn: str = "int8_gemm_pp_sm90") -> dict:
+    """Registers and spill bytes ptxas reports for each instantiation of
+    `fn` (mangled template arguments -> (registers, spill stores, spill
+    loads)), and its warnings about them, printed."""
+    import re
+
+    obj, proc = probe
+    text = proc.communicate()[0]
+    obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed:\n{text}")
+    res, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            cur = m.group(1) if fn in m.group(1) else None
+        if cur is None:
+            continue
+        args = re.search(fn + r"I(.+?)EEv", cur)
+        key = args.group(1) if args else cur
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            res.setdefault(key, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        if (m := re.search(r"Used (\d+) registers", line)):
+            res.setdefault(key, [None, 0, 0])[0] = int(m.group(1))
+        if "warning" in line.lower():
+            print(f"  ptxas: {line.strip()}")
+    for key, (regs, st, ld) in res.items():
+        print(f"  ptxas -v {fn}<{key}>: {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads")
+    if not res:
+        raise AssertionError(f"ptxas reported no instantiation of {fn}")
+    return {k: tuple(v) for k, v in res.items()}
+
+
+def _k5_int_mm_ms(x, ws) -> tuple:
+    """torch._int_mm over the int8 codes of x and each weight of `ws` in
+    turn (the products alone; a yardstick the port never calls)."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    xq = qz.quantize_act(x.reshape(-1, x.shape[-1]))[0]
+    mats = [(xq, w["qi8"]) if w["qi8"].shape[0] == xq.shape[1] else
+            (torch.zeros((xq.shape[0], w["qi8"].shape[0]), dtype=torch.int8,
+                         device=x.device), w["qi8"]) for w in ws]
+    try:
+        for a, w in mats:
+            torch._int_mm(a, w)
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    return _time_ms(lambda: [torch._int_mm(a, w) for a, w in mats]), None
+
+
+def k5_phase(dev, probe=None) -> dict:
     """K5's three pieces at SigLIP-so400m's encode chunk (4 frames x 729
     patches, d 1152, ff 4304 padded to 4352, gelu_tanh, eps 1e-6) and
     Whisper-large-v3's window (1500 x 1280, ff 5120, exact gelu, eps 1e-5,
-    no k bias) against their plain versions, with planted faults."""
+    no k bias) against their plain versions, with planted faults (among
+    them two wrong persistent schedules); each case's device time a call,
+    the persistent GEMM's blocks against the card's SMs, torch._int_mm for
+    the products alone, and ptxas's registers and spills (`probe`)."""
+    from vidi_tpu_torch.ops.cuda import _lib
     from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
 
+    if probe is not None:
+        _ptxas_report(probe)
+    sms = _lib.sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     res = {n: {"cases": []} for n in ("ln_qkv", "o_residual", "ln_ffn")}
     for label, b, t, d, ff, act, eps, k_bias in (
@@ -806,28 +923,40 @@ def k5_phase(dev) -> dict:
         ffp = lp["fc1_w"]["qi8"].shape[1]
         x, attn = _rows(gen, (b, t, d), dev), _rows(gen, (b, t, d), dev)
         m = b * t
+        plans = k5.piece_plans(m, d, ffp, sms)
+        print(f"  K5 {label.split()[0]}: persistent GEMM on {sms} SMs: " + "; ".join(
+            f"{n} {p.total} tiles of {k5.PP_TILE_M} x {k5.PP_TILE_N} ({p.n_mats} x "
+            f"{p.tiles_m} x {p.tiles_n}), {p.steps} k-steps, {p.blocks} blocks "
+            f"({p.total / p.blocks:.2f} tiles a block, {p.blocks / sms:.2f} of the SMs)"
+            for n, p in plans.items()))
         no_bias = {k: torch.zeros_like(v) if k.endswith("_b") else v for k, v in lp.items()}
         per_tensor = lambda f: lambda: _with(k5, quantize_act=_per_tensor_act)(f)  # noqa: E731
 
         qkv_w = [lp[k] for k in ("q_w", "k_w", "v_w")]
-        res["ln_qkv"]["cases"].append(_int8_case(
-            f"K5 ln_qkv {label}", lambda: k5.ln_qkv(x, lp, eps),
-            lambda: k5.ln_qkv_plain(x, lp, eps),
-            {"per-tensor scale": per_tensor(lambda: k5.ln_qkv_plain(x, lp, eps)),
-             "bias dropped": lambda: k5.ln_qkv_plain(x, no_bias, eps)},
-            3 * 2 * m * d * d, _nbytes(x, x, x, x) + sum(_qbytes(w) for w in qkv_w)))
-        res["o_residual"]["cases"].append(_int8_case(
-            f"K5 o_residual {label}", lambda: k5.o_residual(attn, x, lp),
-            lambda: k5.o_residual_plain(attn, x, lp),
-            {"per-tensor scale": per_tensor(lambda: k5.o_residual_plain(attn, x, lp)),
+        qkv_plain = lambda: k5.ln_qkv_plain(x, lp, eps)  # noqa: E731
+        cases = [("ln_qkv", _int8_case(
+            f"K5 ln_qkv {label}", lambda: k5.ln_qkv(x, lp, eps), qkv_plain,
+            {"per-tensor scale": per_tensor(qkv_plain),
+             "bias dropped": lambda: k5.ln_qkv_plain(x, no_bias, eps),
+             **_sched_faults(plans["qkv"], qkv_plain)},
+            3 * 2 * m * d * d, _nbytes(x, x, x, x) + sum(_qbytes(w) for w in qkv_w)),
+            lambda: k5.ln_qkv(x, lp, eps), (x, qkv_w))]
+        o_plain = lambda: k5.o_residual_plain(attn, x, lp)  # noqa: E731
+        cases.append(("o_residual", _int8_case(
+            f"K5 o_residual {label}", lambda: k5.o_residual(attn, x, lp), o_plain,
+            {"per-tensor scale": per_tensor(o_plain),
              "bias dropped": lambda: k5.o_residual_plain(attn, x, no_bias),
-             "residual dropped": lambda: k5.o_residual_plain(attn, torch.zeros_like(x), lp)},
-            2 * m * d * d, _nbytes(attn, x, x) + _qbytes(lp["o_w"])))
-        faults = {"per-tensor scale": per_tensor(lambda: k5.ln_ffn_plain(x, lp, eps, act)),
+             "residual dropped": lambda: k5.o_residual_plain(attn, torch.zeros_like(x), lp),
+             **_sched_faults(plans["o"], o_plain)},
+            2 * m * d * d, _nbytes(attn, x, x) + _qbytes(lp["o_w"])),
+            lambda: k5.o_residual(attn, x, lp), (attn, [lp["o_w"]])))
+        ffn_plain = lambda: k5.ln_ffn_plain(x, lp, eps, act)  # noqa: E731
+        faults = {"per-tensor scale": per_tensor(ffn_plain),
                   "no requantize of the FFN hidden":
                       lambda: _ffn_no_requant(x, lp, eps, act),
                   "bias dropped": lambda: k5.ln_ffn_plain(x, no_bias, eps, act),
-                  "residual dropped": lambda: k5.ln_ffn_plain(x, lp, eps, act) - x}
+                  "residual dropped": lambda: k5.ln_ffn_plain(x, lp, eps, act) - x,
+                  **_sched_faults(plans["fc2"], ffn_plain)}
         if ffp != ff:
             def padding_nonzero():
                 bad = dict(lp, fc1_w=dict(lp["fc1_w"]), fc2_w=dict(lp["fc2_w"]))
@@ -840,11 +969,20 @@ def k5_phase(dev) -> dict:
         if act == "gelu":
             faults["tanh gelu for the exact one"] = \
                 lambda: k5.ln_ffn_plain(x, lp, eps, "gelu_tanh")
-        res["ln_ffn"]["cases"].append(_int8_case(
-            f"K5 ln_ffn {label}", lambda: k5.ln_ffn(x, lp, eps, act),
-            lambda: k5.ln_ffn_plain(x, lp, eps, act), faults,
-            2 * 2 * m * d * ffp, _nbytes(x, x) + _qbytes(lp["fc1_w"]) + _qbytes(lp["fc2_w"])))
-        del lp
+        cases.append(("ln_ffn", _int8_case(
+            f"K5 ln_ffn {label}", lambda: k5.ln_ffn(x, lp, eps, act), ffn_plain, faults,
+            2 * 2 * m * d * ffp, _nbytes(x, x) + _qbytes(lp["fc1_w"]) + _qbytes(lp["fc2_w"])),
+            lambda: k5.ln_ffn(x, lp, eps, act), (x, [lp["fc1_w"], lp["fc2_w"]])))
+        for n, case, run, (x_in, ws) in cases:
+            case["device_ms"] = _device_us(run) / 1e3
+            case["int_mm_ms"], why = _k5_int_mm_ms(x_in, ws)
+            case["device_bound_share"] = case["bound_ms"] / case["device_ms"]
+            print(f"  K5 {n} {label.split()[0]}: device {case['device_ms']:.4f} ms a call "
+                  f"({case['device_bound_share']:.3f} of the bound); torch._int_mm "
+                  f"(products only) "
+                  + (f"{case['int_mm_ms']:.4f} ms" if why is None else f"none ({why})"))
+            res[n]["cases"].append(case)
+        del lp, cases
     for n, r in res.items():
         r.update(src=K5_SRC, replaces=K5_REPLACES[n], kernel="K5",
                  max_abs_err=max(c["max_abs_err"] for c in r["cases"]),
@@ -1546,8 +1684,9 @@ def reckon_kmajor_copies(params, cfg, n_frames: int, n_windows: int, streams,
                          n_queries: int, w8a8: int, limit: int, mm_chunks: int = 32) -> int:
     """K-major copies (byte transposes) in one encode and n_queries prefills:
     the weights the code hands K5 and K6, in its order, replayed through the
-    cache's rule (a copy per weight not held; least recently used out once
-    the copies' bytes pass `limit`; an entry leaves when its weight dies).
+    cache's rule (no copy of a weight stored K-major, as the towers' are; a
+    copy per weight not held; least recently used out once the copies'
+    bytes pass `limit`; an entry leaves when its weight dies).
     Each tower walks all its layers once per frame / window chunk; each
     decoder layer hands K6 its k / v weights per W8A8 stream and, per W8A8
     update chunk, a folded o_proj made anew by every `_xattn_block` call,
@@ -1565,7 +1704,8 @@ def reckon_kmajor_copies(params, cfg, n_frames: int, n_windows: int, streams,
         for _ in range(chunks):
             for i, lp in enumerate(layers):
                 seq += [((tower, i, k), size(lp[k]))
-                        for k in ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")]
+                        for k in ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")
+                        if not lp[k]["qi8"].t().is_contiguous()]
     g = cfg.text.num_heads // cfg.text.num_kv_heads
     for q in range(n_queries):
         for i, lp in enumerate(params["text"]["layers"]):
@@ -1654,6 +1794,7 @@ def int8_slice_phase(sl) -> dict:
     sl.media = img, img_mask, aud, aud_mask = _encode(sl)
     torch.cuda.synchronize()
     encode_s = time.perf_counter() - t0
+    tower_copies = k6.launches["kmajor_copy"]  # the encode runs the towers alone
     print(f"  encode (int8 towers): img {tuple(img.shape)}, aud {tuple(aud.shape)} in "
           f"{encode_s:.3f} s")
     for name, x in (("img", img), ("aud", aud)):
@@ -1685,6 +1826,14 @@ def int8_slice_phase(sl) -> dict:
     want["kmajor_copy"] = reckon_kmajor_copies(
         sl.params, cfg, len(sl.frames), sl.mels.shape[0], streams, len(QUERIES),
         qz.w8a8_min_tokens, k6.KMAJOR.limit_bytes)
+    want_towers = reckon_kmajor_copies(sl.params, cfg, len(sl.frames), sl.mels.shape[0],
+                                       streams, 0, qz.w8a8_min_tokens, k6.KMAJOR.limit_bytes)
+    print(f"  K-major copies: towers {tower_copies} (reckoned {want_towers}), text "
+          f"{launches['kmajor_copy'] - tower_copies} (reckoned "
+          f"{want['kmajor_copy'] - want_towers})")
+    if tower_copies != want_towers:
+        raise AssertionError(f"the encode made {tower_copies} K-major copies of tower "
+                             f"weights, {want_towers} reckoned")
     print(f"  K-major cache: {k6.KMAJOR.hits} hits, {k6.KMAJOR.misses} misses, "
           f"{k6.KMAJOR.bytes / 2**20:.1f} MiB of copies held (limit "
           f"{k6.KMAJOR.limit_bytes / 2**20:.0f} MiB)")
@@ -2108,6 +2257,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}")
 
     from vidi_tpu_torch.ops.cuda import _lib
+    probe = _ptxas_start()  # K5's registers and spills, beside the build
     t0 = time.perf_counter()
     _lib.library()
     print(f"kernels: {_lib.library_path().name} ready in "
@@ -2119,7 +2269,7 @@ def main() -> int:
     print("K4 phase:")
     kern["flash_attention_bwd"] = k4_phase(dev)
     print("K5 phase (int8 tower layer):")
-    kern.update(k5_phase(dev))
+    kern.update(k5_phase(dev, probe))
     print("K6 phase (W8A8 matmuls):")
     kern.update(k6_phase(dev))
     print("K7 phase (fused RMSNorm, on no path):")

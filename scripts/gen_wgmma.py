@@ -26,7 +26,7 @@ OUT = Path(__file__).resolve().parents[1] / "vidi_tpu_torch" / "csrc" / "wgmma.c
 SS_N = (32, 64, 128)       # S tiles: keys (or query rows) per tile
 RS_N = (64, 72, 128, 256)  # O tiles: head dims
 SSMN_N = (64, 128)         # dK / dV tiles: half a head dim of 128 or 256
-S8_N = (256,)              # int8 GEMM tiles: output columns per warpgroup product
+S8_N = (128, 256)          # int8 GEMM tiles: output columns per warpgroup product
 
 
 def _regs(n_acc: int, first: int = 0) -> str:

@@ -1,8 +1,10 @@
-"""The host side of K6 / K5's int8 GEMM (csrc/int8_gemm.cuh) and of K7,
-which runs without a card: how a product is cut into blocks, the operand
-checks, the K-major weight cache, the exactness that lets the kernel sum a
-product's k-steps in any order, K7's routing, and the generated wgmma
-header.
+"""The host side of K6's int8 GEMM (csrc/int8_gemm.cuh), of K5's persistent
+one (csrc/int8_gemm_pp.cuh) and of K7, which runs without a card: how a
+product is cut into blocks and how the persistent schedule hands tiles to
+blocks and consumers, the operand checks, the K-major weight cache and the
+towers' K-major storage, K5's fp32 parameters made once a layer, the
+exactness that lets the kernel sum a product's k-steps in any order, K7's
+routing, and the generated wgmma header.
 
 Shapes: Vidi1.5-9B's W8A8 prefill (the image stream's k / v projection
 [23,520 x 3584] . [3584 x 2048], a 735-row update chunk through the folded
@@ -18,7 +20,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from vidi_tpu_torch.infer import quantize as qz
 from vidi_tpu_torch.ops.cuda import fused_rmsnorm as k7
+from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
 from vidi_tpu_torch.ops.cuda import quant_matmul as k6
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -79,6 +83,157 @@ def test_plan_values_at_the_slice_shapes():
     assert (down.tiles_m * down.tiles_n, down.steps) == (84, 112)
     siglip = k6.gemm_plan(2916, 1152, 1152)
     assert (siglip.tiles_m, siglip.grid_m) == (23, 24)  # one block only feeds its cluster
+
+
+# K5's launches, one tower layer each: (name, rows, d, ff)
+TOWERS = [("siglip", 2916, 1152, 4352), ("whisper", 1500, 1280, 5120),
+          ("ragged", 300, 1008, 1200)]
+PIECES = [(t, piece, sms) for t in TOWERS for piece in ("qkv", "o", "fc1", "fc2")
+          for sms in (132, 114, 7)]
+
+
+@pytest.mark.parametrize("tower,piece,sms", PIECES,
+                         ids=[f"{t[0]}-{p}-{s}sm" for t, p, s in PIECES])
+def test_tower_plan_covers_every_tile_once_split_between_consumers(tower, piece, sms):
+    """Every output tile of every product of the launch is computed once, by
+    one consumer of one block; the two consumers of a block take its tiles
+    in turn, and together take all of them."""
+    _, m, d, ff = tower
+    plan = k5.piece_plans(m, d, ff, sms)[piece]
+    n = {"qkv": d, "o": d, "fc1": ff, "fc2": d}[piece]
+    assert (plan.m, plan.n, plan.n_mats) == (m, n, 3 if piece == "qkv" else 1)
+    assert plan.blocks == min(sms, plan.total)
+    seen, area = set(), {}
+    for b in range(plan.blocks):
+        mine = plan.block_tiles(b)
+        parts = [plan.consumer_tiles(b, c) for c in range(k5.PP_CONSUMERS)]
+        assert sorted(t for p in parts for t in p) == sorted(mine)  # the split is exhaustive
+        assert all(mine[j] in parts[j % k5.PP_CONSUMERS] for j in range(len(mine)))
+        for z, m0, n0 in mine:
+            assert (z, m0, n0) not in seen  # no tile computed twice
+            seen.add((z, m0, n0))
+            assert 0 <= m0 < m and 0 <= n0 < n and 0 <= z < plan.n_mats
+            area[z] = area.get(z, 0) + (min(m, m0 + k5.PP_TILE_M) - m0) * \
+                (min(n, n0 + k5.PP_TILE_N) - n0)
+    assert len(seen) == plan.total
+    assert area == {z: m * n for z in range(plan.n_mats)}  # every output value, once
+    counts = [len(plan.block_tiles(b)) for b in range(plan.blocks)]
+    assert max(counts) - min(counts) <= 1  # the blocks' loads differ by one tile at most
+
+
+@pytest.mark.parametrize("tower,piece,sms", PIECES[::3],
+                         ids=[f"{t[0]}-{p}" for t, p, _ in PIECES[::3]])
+def test_tower_plan_k_steps_are_whole_and_reach_k(tower, piece, sms):
+    _, m, d, ff = tower
+    plan = k5.piece_plans(m, d, ff, sms)[piece]
+    k = ff if piece == "fc2" else d
+    assert (plan.steps - 1) * k6.TILE_K < k <= plan.steps * k6.TILE_K
+    assert k % 16 == 0  # TMA reads whole 16-byte pieces of each row
+
+
+def test_tower_plan_values_at_the_slice_shapes():
+    """SigLIP's and Whisper's launches on 132 SMs: none ragged along N."""
+    sig = k5.piece_plans(2916, 1152, 4352)
+    assert [(p.tiles_m, p.tiles_n, p.total, p.steps, p.blocks) for p in sig.values()] == [
+        (23, 9, 621, 9, 132), (23, 9, 207, 9, 132), (23, 34, 782, 9, 132),
+        (23, 9, 207, 34, 132)]
+    wh = k5.piece_plans(1500, 1280, 5120)
+    assert [(p.tiles_m, p.tiles_n, p.total, p.steps, p.blocks) for p in wh.values()] == [
+        (12, 10, 360, 10, 132), (12, 10, 120, 10, 120), (12, 40, 480, 10, 132),
+        (12, 10, 120, 40, 120)]
+
+
+def _tower_layer(d=64, ff=96, k_bias=True, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen)
+
+    lp = {"ln1_scale": 1 + r(d), "ln1_bias": r(d), "ln2_scale": 1 + r(d), "ln2_bias": r(d),
+          "q_w": r(d, d), "q_b": r(d), "k_w": r(d, d), "v_w": r(d, d), "v_b": r(d),
+          "o_w": r(d, d), "o_b": r(d), "fc1_w": r(d, ff), "fc1_b": r(ff),
+          "fc2_w": r(ff, d), "fc2_b": r(d)}
+    if k_bias:
+        lp["k_b"] = r(d)
+    return lp
+
+
+@pytest.mark.parametrize("key", ["q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w"])
+def test_tower_weight_is_its_own_kmajor_form(key, monkeypatch):
+    """quantize_tower_layer stores each int8 matrix K-major: kmajor() hands
+    back its transpose, the same storage, with no copy and no cache entry;
+    the codes and scales are quantize_weight's; the operand check takes it."""
+    cache = k6.KMajorCache()
+    monkeypatch.setattr(k6, "KMAJOR", cache)
+    raw = _tower_layer(seed=1)
+    lp = qz.quantize_tower_layer(raw)
+    w = lp[key]
+    want = qz.quantize_weight(torch.nn.functional.pad(raw[key], (0, 32)) if key == "fc1_w"
+                              else torch.nn.functional.pad(raw[key], (0, 0, 0, 32))
+                              if key == "fc2_w" else raw[key])
+    assert torch.equal(w["qi8"], want["qi8"]) and torch.equal(w["scale"], want["scale"])
+    assert not w["qi8"].is_contiguous() and w["qi8"].t().is_contiguous()
+    wt = k6.kmajor(w["qi8"])
+    assert wt.is_contiguous() and wt.data_ptr() == w["qi8"].data_ptr()
+    assert torch.equal(wt, w["qi8"].t())
+    assert (cache.misses, cache.hits, len(cache.entries)) == (0, 0, 0)
+    with pytest.raises(TypeError):  # the CPU tensor, after the layout passed
+        k6.check_int8_weight(w["qi8"], w["scale"].reshape(-1), w["qi8"].shape[0], key,
+                             kmajor_stored=True)
+    with pytest.raises(TypeError):  # K6's check keeps refusing a transposed view
+        k6.check_int8_weight(w["qi8"], w["scale"].reshape(-1), w["qi8"].shape[0], key)
+
+
+@pytest.mark.parametrize("k_bias", [True, False], ids=["siglip-like", "whisper-like"])
+def test_tower_fp32_parameters_made_once_a_layer(k_bias):
+    """K5's weights are checked and its fp32 LayerNorm parameters and biases
+    made at quantize time, once a piece; they equal the plain versions'
+    values (zeros for an absent bias) and are served again on every call; a
+    replaced or edited parameter is prepared anew, and a dropped layer
+    leaves PREPARED."""
+    lp = qz.quantize_tower_layer({k: v.to(torch.bfloat16) if v.dim() == 1 else v
+                                  for k, v in _tower_layer(k_bias=k_bias, seed=2).items()})
+    assert k5.takes(lp)
+    keys = [(id(lp[w]["qi8"]), piece) for w, piece in
+            (("q_w", "ln_qkv"), ("o_w", "o_residual"), ("fc1_w", "ln_ffn"))]
+    recs = {piece: k5.PREPARED[key][0] for key, piece in
+            zip(keys, ("ln_qkv", "o_residual", "ln_ffn"))}
+    for piece, rec in recs.items():
+        assert k5.prepare(lp, piece) is rec and k5.prepare(lp, piece) is rec  # nothing a call
+    assert recs["ln_qkv"].dims == ((64, 64),) * 3
+    assert recs["ln_ffn"].dims == ((64, 128), (128, 64))  # ff 96 padded to 128
+    f32 = {**recs["ln_qkv"].f32, **recs["o_residual"].f32, **recs["ln_ffn"].f32}
+    for k in ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias", "q_b", "v_b", "o_b",
+              "fc1_b", "fc2_b"):
+        assert f32[k].dtype == torch.float32 and f32[k].is_contiguous()
+        assert torch.equal(f32[k], lp[k].float())
+    assert torch.equal(f32["k_b"], lp["k_b"].float() if k_bias else torch.zeros(64))
+    for rec, wkey in ((recs["ln_qkv"], "q_w"), (recs["o_residual"], "o_w")):
+        assert rec.kmajor[0].data_ptr() == lp[wkey]["qi8"].data_ptr()  # stored K-major
+    lp["o_b"] = lp["o_b"] * 2  # replaced
+    again = k5.prepare(lp, "o_residual")
+    assert again is not recs["o_residual"] and torch.equal(again.f32["o_b"], lp["o_b"].float())
+    lp["ln1_scale"].add_(1)  # edited in place
+    third = k5.prepare(lp, "ln_qkv")
+    assert third is not recs["ln_qkv"]
+    assert torch.equal(third.f32["ln1_scale"], lp["ln1_scale"].float())
+    assert k5.prepare(lp, "ln_qkv") is third
+    lp["v_w"] = dict(lp["v_w"])  # the same codes in a new dict: still the same tensors
+    assert k5.prepare(lp, "ln_qkv") is third
+    lp["v_w"]["qi8"] = lp["v_w"]["qi8"].clone()  # another tensor: checked anew
+    assert k5.prepare(lp, "ln_qkv") is not third
+    del lp, recs, f32, again, third, rec
+    gc.collect()
+    assert not any(key in k5.PREPARED for key in keys)
+
+
+def test_tower_layer_without_its_bias_or_with_a_bad_weight_is_refused():
+    lp = qz.quantize_tower_layer(_tower_layer(seed=3))
+    assert not k5.takes({k: v for k, v in lp.items() if k != "o_b"})
+    assert k5.takes({k: v for k, v in lp.items() if k != "k_b"})  # Whisper's k: zeros
+    bad = dict(lp, o_w={"qi8": lp["o_w"]["qi8"][:, :40], "scale": lp["o_w"]["scale"]})
+    with pytest.raises(ValueError):  # N % 16 != 0
+        k5.prepare(bad, "o_residual")
 
 
 def _weight(k, n, dtype=torch.int8):
@@ -220,13 +375,18 @@ def test_kmajor_cache_is_empty_after_a_tiny_int8_model_is_dropped(monkeypatch):
             for v in tree:
                 yield from int8_weights(v)
 
-    n = 0
+    n = towers = 0
     for w in int8_weights(params):
         assert torch.equal(k6.kmajor(w), w.t())
-        assert k6.kmajor(w) is cache.entries[id(w)][2]  # used twice: one copy
-        n += 1
+        if w.is_contiguous():  # a text weight: one copy, used twice
+            assert k6.kmajor(w) is cache.entries[id(w)][2]
+            n += 1
+        else:  # a tower weight, stored K-major: its own storage, no entry
+            assert k6.kmajor(w).data_ptr() == w.data_ptr() and id(w) not in cache.entries
+            towers += 1
     del w
-    assert n > 0 and len(cache.entries) == n and cache.hits == n
+    assert n > 0 and towers > 0
+    assert len(cache.entries) == n and cache.hits == n and cache.misses == n
     del params
     gc.collect()
     assert not cache.entries and cache.bytes == 0

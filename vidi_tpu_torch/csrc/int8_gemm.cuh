@@ -1,7 +1,9 @@
-// The int8 core shared by K5 (csrc/fused_tower_layer.cu) and K6
-// (csrc/quant_matmul.cu): a per-row int8 quantize pass (optionally behind a
-// LayerNorm), an int8 x int8 -> int32 GEMM for Hopper (sm_90a) whose epilogue
-// rescales, adds a bias or a residual, applies an activation and casts.
+// The int8 core of K6 (csrc/quant_matmul.cu), whose row pass and epilogue
+// arithmetic K5 (csrc/fused_tower_layer.cu, on csrc/int8_gemm_pp.cuh)
+// shares: a per-row int8 quantize pass (optionally behind a LayerNorm or
+// with an activation first), the epilogue of one output value (rescale,
+// bias or residual, the gated activation, cast), and an int8 x int8 ->
+// int32 GEMM for Hopper (sm_90a) with K6's epilogues.
 //
 // Replaces the products of vidi_tpu/ops/pallas/quant_matmul.py and
 // vidi_tpu/ops/pallas/fused_tower_layer.py. Numerics are those of
@@ -41,16 +43,15 @@
 //    gave no more). A stage is handed back to every block that writes into
 //    it (remote mbarrier arrivals).
 //  - The ring is free once the last products are read out, so the output
-//    tile is staged there and leaves in whole 16-byte pieces of a row (a
-//    residual is added on the way out, read the same way), not in the
-//    fragments' 4-byte pairs.
+//    tile is staged there and leaves in whole 16-byte pieces of a row, not
+//    in the fragments' 4-byte pairs.
 //  - K is not split: at down's [735 x 14336] . [14336 x 3584] (84 tiles for
 //    132 SMs) parts of K through an int32 workspace were measured and came
 //    out level or slower (the workspace's traffic ate the gain).
 // What is left: one block a SM (its registers), so nothing runs beside a
 // block's epilogue, and eight consumer warps hide little of an activation's
-// latency: the gated and bias-activation epilogues cost as much as their
-// k loop (tanhf, expf and the true division stay, for bit-equal results).
+// latency: the gated epilogue costs as much as its k loop (tanhf, expf and
+// the true division stay, for bit-equal results).
 // The row pass reads its row once with 16-byte loads and keeps it in
 // registers between the statistics and the quantize (rows of up to 14,336
 // values; longer or unaligned rows take the scalar pass).
@@ -81,7 +82,7 @@ constexpr int SMEM_BYTES = BAR_OFF + 16 * STAGES + 1024;  // + alignment slack
 static_assert(SMEM_BYTES <= 232448, "a block has 227 KB of shared memory");
 static_assert(A_STAGE % 1024 == 0 && STAGE_BYTES % 1024 == 0, "swizzle atoms are 1024-byte aligned");
 
-enum Epilogue { EPI_SCALE = 0, EPI_BIAS = 1, EPI_BIAS_RES = 2, EPI_BIAS_ACT = 3, EPI_GATED = 4 };
+enum Epilogue { EPI_SCALE = 0, EPI_BIAS = 1, EPI_BIAS_RES = 2, EPI_GATED = 4 };
 enum Activation { ACT_GELU_TANH = 0, ACT_GELU = 1, ACT_QUICK_GELU = 2, ACT_SILU = 3 };
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -143,8 +144,6 @@ __device__ __forceinline__ float epilogue(int32_t acc, float s_row, float sb, fl
     return __fadd_rn(y, bias);
   } else if constexpr (EPI == EPI_BIAS_RES) {
     return round_to<T>(__fadd_rn(y, bias));
-  } else if constexpr (EPI == EPI_BIAS_ACT) {
-    return activate<T>(round_to<T>(__fadd_rn(y, bias)), act);
   } else {  // gated: act(gate) * up, each rounded to T
     const float u = round_to<T>(__fmul_rn(__fmul_rn(static_cast<float>(up), s_row), sb_up));
     return __fmul_rn(activate<T>(round_to<T>(y), act), u);
@@ -180,14 +179,17 @@ __device__ __forceinline__ float quantize_value(float v, float s) {
 
 // One block per row of x [M, K] (row stride K): xq [M, K] int8, sx [M].
 // With ln_s: the row first goes through LayerNorm in fp32 and is rounded to
-// T, as fused_tower_layer's `_ln_f32(...).astype(dt)`. The row is read once,
+// T, as fused_tower_layer's `_ln_f32(...).astype(dt)`. With ACT: each value
+// (already T) first goes through `activate` (K5's FFN hidden: the
+// activation runs here, across all the SM's warps, and not in the GEMM
+// epilogue's four, where its branches left it latency-bound). The row is read once,
 // 16 bytes a load, and held in registers, REGS values a thread (K <=
 // THREADS * REGS, K % 16 == 0, 16-byte aligned pointers): few registers for
 // short rows, so that enough blocks run at once to fill the memory pipe.
-template <typename T, int REGS>
+template <typename T, int REGS, bool ACT>
 __global__ void __launch_bounds__(THREADS) quantize_rows_vec_kernel(
     const T* __restrict__ x, int K, const float* __restrict__ ln_s,
-    const float* __restrict__ ln_b, float eps, int8_t* __restrict__ xq,
+    const float* __restrict__ ln_b, float eps, int act, int8_t* __restrict__ xq,
     float* __restrict__ sx) {
   constexpr int V = 16 / sizeof(T), NV = REGS / V;
   __shared__ float red[32];
@@ -243,6 +245,13 @@ __global__ void __launch_bounds__(THREADS) quantize_rows_vec_kernel(
       }
     }
   }
+  if constexpr (ACT) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      if (threadIdx.x + j * THREADS < nvec)
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[j][e] = activate<T>(v[j][e], act);
+  }
   float amax = 0.0f;
 #pragma unroll
   for (int j = 0; j < NV; ++j)
@@ -275,10 +284,10 @@ __global__ void __launch_bounds__(THREADS) quantize_rows_vec_kernel(
 }
 
 // The scalar row pass: any K, any alignment; reads the row up to three times.
-template <typename T>
+template <typename T, bool ACT>
 __global__ void __launch_bounds__(THREADS) quantize_rows_kernel(
     const T* __restrict__ x, int K, const float* __restrict__ ln_s,
-    const float* __restrict__ ln_b, float eps, int8_t* __restrict__ xq,
+    const float* __restrict__ ln_b, float eps, int act, int8_t* __restrict__ xq,
     float* __restrict__ sx) {
   __shared__ float red[32];
   const long long row = blockIdx.x;
@@ -302,6 +311,7 @@ __global__ void __launch_bounds__(THREADS) quantize_rows_kernel(
       v = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), rstd), ln_s[i]), ln_b[i]);
       v = round_to<T>(v);
     }
+    if constexpr (ACT) v = activate<T>(v, act);
     return v;
   };
   float amax = 0.0f;
@@ -316,19 +326,28 @@ __global__ void __launch_bounds__(THREADS) quantize_rows_kernel(
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <typename T>
-cudaError_t quantize_rows(const T* x, int M, int K, const float* ln_s, const float* ln_b,
-                          float eps, int8_t* xq, float* sx, cudaStream_t s) {
+template <typename T, bool ACT>
+cudaError_t quantize_rows_as(const T* x, int M, int K, const float* ln_s, const float* ln_b,
+                             float eps, int act, int8_t* xq, float* sx, cudaStream_t s) {
   const bool vec = K % 16 == 0 && K <= THREADS * ROW_REGS && aligned16(x) && aligned16(xq) &&
                    aligned16(ln_s) && aligned16(ln_b);
   if (vec && K <= THREADS * ROW_REGS_SHORT)
-    quantize_rows_vec_kernel<T, ROW_REGS_SHORT><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps,
-                                                                      xq, sx);
+    quantize_rows_vec_kernel<T, ROW_REGS_SHORT, ACT><<<M, THREADS, 0, s>>>(
+        x, K, ln_s, ln_b, eps, act, xq, sx);
   else if (vec)
-    quantize_rows_vec_kernel<T, ROW_REGS><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps, xq, sx);
+    quantize_rows_vec_kernel<T, ROW_REGS, ACT><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps,
+                                                                     act, xq, sx);
   else
-    quantize_rows_kernel<T><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps, xq, sx);
+    quantize_rows_kernel<T, ACT><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps, act, xq, sx);
   return cudaGetLastError();
+}
+
+// act >= 0: each value goes through that activation before the quantize.
+template <typename T>
+cudaError_t quantize_rows(const T* x, int M, int K, const float* ln_s, const float* ln_b,
+                          float eps, int8_t* xq, float* sx, cudaStream_t s, int act = -1) {
+  return act >= 0 ? quantize_rows_as<T, true>(x, M, K, ln_s, ln_b, eps, act, xq, sx, s)
+                  : quantize_rows_as<T, false>(x, M, K, ln_s, ln_b, eps, act, xq, sx, s);
 }
 
 // ---- the GEMM -----------------------------------------------------------
@@ -338,9 +357,9 @@ struct GemmArgs {
   const float* sa;       // [M] row scales
   const int8_t* b[3];    // K-major weights [N, K] (blockIdx.z picks one; gated: gate, up)
   const float* sb[3];    // [N] column scales
-  const float* bias[3];  // [N] fp32 (EPI_BIAS*)
+  const float* bias[3];  // [N] fp32 (EPI_BIAS*, K5)
   void* out[3];          // [M, N] T
-  const void* res;       // [M, N] T (EPI_BIAS_RES)
+  const void* res;       // [M, N] T (EPI_BIAS_RES, K5)
   int M, N, K, act;
   int m_fast;            // blockIdx.x walks the row tiles (else the column tiles)
 };
@@ -355,6 +374,7 @@ template <typename T, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 int8_gemm_sm90(const __grid_constant__ GemmParams P) {
   using namespace vidi::sm90;
+  static_assert(EPI == EPI_SCALE || EPI == EPI_GATED, "K6's epilogues");
   constexpr bool GATED = EPI == EPI_GATED;
   constexpr int COLS = GATED ? BN / 2 : BN;  // output columns per block
   extern __shared__ unsigned char smem_raw[];
@@ -442,10 +462,8 @@ int8_gemm_sm90(const __grid_constant__ GemmParams P) {
       // output column - 128
       constexpr int ROW_BYTES = COLS * sizeof(T) + 16;  // + 16: rows 8 apart on other banks
       unsigned char* stage = smem_raw + (base - raw) + wg * 64 * ROW_BYTES;
-      const T* __restrict__ res = static_cast<const T*>(p.res);
       const float* __restrict__ sb = p.sb[z];
       const float* __restrict__ sb_up = p.sb[1];
-      const float* __restrict__ bias = p.bias[z];
       const int act = p.act;
       const int lane = tid % 32, quad = lane % 4, warp = (tid % 128) / 32;
       const int rl = warp * 16 + lane / 4;
@@ -457,12 +475,10 @@ int8_gemm_sm90(const __grid_constant__ GemmParams P) {
       for (int j = 0; j < COLS / 8; ++j) {
         const int n = n0 + 8 * j + 2 * quad;
         if (n < p.N) {  // N is even
-          float sc[2], b[2] = {0.0f, 0.0f}, su[2] = {0.0f, 0.0f};
+          float sc[2], su[2] = {0.0f, 0.0f};
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             sc[e] = sb[n + e];
-            if constexpr (EPI == EPI_BIAS || EPI == EPI_BIAS_RES || EPI == EPI_BIAS_ACT)
-              b[e] = bias[n + e];
             if constexpr (GATED) su[e] = sb_up[n + e];
           }
 #pragma unroll
@@ -473,8 +489,8 @@ int8_gemm_sm90(const __grid_constant__ GemmParams P) {
               for (int e = 0; e < 2; ++e) {
                 int32_t up = 0;
                 if constexpr (GATED) up = acc[4 * (j + COLS / 8) + 2 * i + e];
-                r[e] = epilogue<T, EPI>(acc[4 * j + 2 * i + e], s_row[i], sc[e], b[e], up, su[e],
-                                        act);
+                r[e] = epilogue<T, EPI>(acc[4 * j + 2 * i + e], s_row[i], sc[e], 0.0f, up,
+                                        su[e], act);
               }
               store_pair(reinterpret_cast<T*>(stage + (rl + 8 * i) * ROW_BYTES) + 8 * j + 2 * quad,
                          r[0], r[1]);
@@ -490,16 +506,8 @@ int8_gemm_sm90(const __grid_constant__ GemmParams P) {
         const int row = warp * 16 + idx / CHUNKS, c = idx % CHUNKS;
         const int m = m0 + wg * 64 + row, n = n0 + c * PER;
         if (m < p.M && n < p.N) {  // N % 16 == 0: a piece is whole or absent
-          uint4 piece = *reinterpret_cast<const uint4*>(stage + row * ROW_BYTES + c * 16);
-          if constexpr (EPI == EPI_BIAS_RES) {  // residual + the staged, T-rounded product
-            float y[PER], rv[PER];
-            vidi::unpack16(piece, y);
-            vidi::unpack16(*reinterpret_cast<const uint4*>(res + (long long)m * p.N + n), rv);
-#pragma unroll
-            for (int e = 0; e < PER; ++e) y[e] = __fadd_rn(rv[e], y[e]);
-            piece = vidi::pack16(y);
-          }
-          *reinterpret_cast<uint4*>(out + (long long)m * p.N + n) = piece;
+          *reinterpret_cast<uint4*>(out + (long long)m * p.N + n) =
+              *reinterpret_cast<const uint4*>(stage + row * ROW_BYTES + c * 16);
         }
       }
     }
@@ -508,8 +516,7 @@ int8_gemm_sm90(const __grid_constant__ GemmParams P) {
 }
 
 // out[z] = epilogue(a . b[z]^T) for z < n_mats (gated: one output from b[0],
-// b[1]). K % 16 == 0 (TMA row starts), N % 16 == 0 (16-byte stores), res
-// 16-byte aligned.
+// b[1]). K % 16 == 0 (TMA row starts), N % 16 == 0 (16-byte stores).
 template <typename T, int EPI>
 cudaError_t gemm(GemmArgs g, int n_mats, cudaStream_t s) {
   constexpr bool GATED = EPI == EPI_GATED;
@@ -520,8 +527,7 @@ cudaError_t gemm(GemmArgs g, int n_mats, cudaStream_t s) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  if (g.M < 1 || g.N < 1 || g.K < 1 || g.K % 16 || g.N % 16 || n_mats < 1 || n_mats > 3 ||
-      !aligned16(g.res))
+  if (g.M < 1 || g.N < 1 || g.K < 1 || g.K % 16 || g.N % 16 || n_mats < 1 || n_mats > 3)
     return cudaErrorInvalidValue;
   GemmParams P;
   const int n_b = GATED ? 2 : n_mats;

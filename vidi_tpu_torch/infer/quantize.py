@@ -130,7 +130,16 @@ def dynamic_qdense(x: torch.Tensor, wq: Dict, bias=None) -> torch.Tensor:
 def quantize_tower_layer(lp: Dict) -> Dict:
     """One encoder layer's matmuls to int8, the FFN width zero-padded to a
     multiple of 128 (SigLIP-so400m: 4304 -> 4352). Padded columns carry zero
-    weight and bias, so act(0) = 0 adds nothing to fc2."""
+    weight and bias, so act(0) = 0 adds nothing to fc2.
+
+    Each int8 matrix is stored K-major: its `qi8` [in, out] is the `.t()`
+    view of a contiguous [out, in] tensor, the layout K5's GEMM reads (8-bit
+    wgmma takes both operands k-contiguous), so the card's kernels need no
+    copy of a tower weight. Keys, shapes and values are those of
+    `quantize_weight`. K5's fp32 LayerNorm parameters and biases are made
+    here too, once a layer (`fused_tower_layer.prepare_layer`)."""
+    from vidi_tpu_torch.ops.cuda import fused_tower_layer
+
     out = dict(lp)
     pad = (-lp["fc1_w"].shape[-1]) % 128 if "fc1_w" in lp else 0
     if pad and "fc2_w" in lp:
@@ -140,7 +149,11 @@ def quantize_tower_layer(lp: Dict) -> Dict:
             out["fc1_b"] = torch.nn.functional.pad(lp["fc1_b"], (0, pad))
     for k in _TOWER_QUANT_KEYS:
         if k in out:
-            out[k] = quantize_weight(out[k])
+            w = quantize_weight(out[k])
+            w[QUANT_KEY] = w[QUANT_KEY].t().contiguous().t()
+            out[k] = w
+    if fused_tower_layer.takes(out):
+        fused_tower_layer.prepare_layer(out)
     return out
 
 

@@ -98,9 +98,9 @@ _SIGNATURES = {
     + [_F, _F, _I, _I, _I, _P],
     "vidi_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
     "vidi_quant_gated": [_P] * 8 + [_I] * 5 + [_P],
-    "vidi_ln_qkv": [_P] * 17 + [_I] * 3 + [_F, _P],
-    "vidi_o_residual": [_P] * 8 + [_I] * 3 + [_P],
-    "vidi_ln_ffn": [_P] * 15 + [_I] * 5 + [_F, _P],
+    "vidi_ln_qkv": [_P] * 17 + [_I] * 3 + [_F, _I, _P],
+    "vidi_o_residual": [_P] * 8 + [_I] * 4 + [_P],
+    "vidi_ln_ffn": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "vidi_int8_transpose": [_P, _P, _I, _I, _P],
     "vidi_rms_norm": [_P] * 3 + [_I] * 6 + [_F, _P],
 }

@@ -25,7 +25,8 @@ operands k-contiguous. The weights stay [K, N] with N contiguous (the
 layout of the JAX tree, of `infer/quantize.py` and of every plain version);
 `kmajor` hands the kernel a K-major copy [N, K], made once per weight by a
 byte-transpose kernel (`launches["kmajor_copy"]` counts them) and kept in
-`KMAJOR`, a least-recently-used cache bounded by `KMAJOR_LIMIT_BYTES` of
+`KMAJOR` (a weight stored K-major, as the towers' are, is its own K-major
+form: no copy), a least-recently-used cache bounded by `KMAJOR_LIMIT_BYTES` of
 copies: the 735-row chunks of one layer's diagonal update call o, gate, up
 and down 32 times each with the same weight, so a copy is paid once in 32,
 while a second resident copy of every int8 weight would undo what int8
@@ -146,8 +147,12 @@ KMAJOR = KMajorCache()
 
 
 def kmajor(w: torch.Tensor) -> torch.Tensor:
-    """The K-major copy [N, K] of an int8 weight [K, N], from `KMAJOR`."""
-    return KMAJOR.get(w)
+    """The K-major form [N, K] of an int8 weight [K, N]: `w.t()` itself,
+    with no copy and no cache entry, where the weight is stored K-major (the
+    towers' weights, `infer.quantize.quantize_tower_layer`), else its copy
+    from `KMAJOR`."""
+    wt = w.t()
+    return wt if wt.is_contiguous() else KMAJOR.get(w)
 
 
 def transpose_int8(w: torch.Tensor) -> torch.Tensor:
@@ -205,20 +210,23 @@ def quant_gated_mlp_plain(x, gate_w, up_w, down_w, hidden_act: str):
     return quant_matmul_plain(_act(g, hidden_act) * u, down_w[QUANT_KEY], down_w["scale"])
 
 
-def check_int8_weight(w, scale, k: int, name: str) -> int:
-    """Raise unless w is a contiguous CUDA int8 [k, N] with N % 16 == 0 (the
-    GEMM stores its output 16 bytes at a time) and scale holds N fp32
-    values; -> N."""
-    if not (w.dtype == torch.int8 and w.dim() == 2 and w.is_contiguous()):
+def check_int8_weight(w, scale, k: int, name: str, kmajor_stored: bool = False,
+                      on_card: bool = True) -> int:
+    """Raise unless w is a contiguous CUDA int8 [k, N] (with `kmajor_stored`
+    also the [k, N] view of a contiguous [N, k], the towers' layout; with
+    `on_card` False on any device) with N % 16 == 0 (the GEMM stores its
+    output 16 bytes at a time) and scale holds N fp32 values; -> N."""
+    laid_out = w.is_contiguous() or (kmajor_stored and w.dim() == 2 and w.t().is_contiguous())
+    if not (w.dtype == torch.int8 and w.dim() == 2 and laid_out):
         raise TypeError(f"{name}: expected a contiguous int8 matrix, got "
-                        f"{w.dtype} {tuple(w.shape)}")
+                        f"{w.dtype} {tuple(w.shape)} strides {w.stride()}")
     n = w.shape[1]
     if w.shape[0] != k or n % 16:
         raise ValueError(f"{name}: expected [{k}, N] with N % 16 == 0, got {tuple(w.shape)}")
     if scale.dtype != torch.float32 or scale.numel() != n or not scale.is_contiguous():
         raise ValueError(f"{name}: scale must hold {n} contiguous fp32 values, got "
                          f"{scale.dtype} {tuple(scale.shape)}")
-    if not (w.is_cuda and scale.device == w.device):
+    if on_card and not (w.is_cuda and scale.device == w.device):
         raise TypeError(f"{name}: expected CUDA tensors on one device, got {w.device} "
                         f"and {scale.device}")
     return n
