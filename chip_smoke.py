@@ -39,9 +39,19 @@
    it was freed and another took its place; K1 with its GQA groups packed
    wrong; K2 at D = 72
    with its depth padding not zeroed, or without the keys past its last
-   whole key tile; K4 with each GQA row's lse and di taken from the other
-   head, one dq split dropped, or the band's tile skip off by one tile)
-   and fails unless every fault lands outside the limit.
+   whole key tile; K3 with one split's partial left out of its merge, or
+   the ragged last tile of the cache dropped; K4 with each GQA row's lse
+   and di taken from the other head, one dq split dropped, or the band's
+   tile skip off by one tile) and fails unless every fault lands outside
+   the limit. K3 (bf16 on its sm90 kernel: bulk copies into a shared-memory
+   ring, `decode_plan`'s splits merged by the last block, one launch a
+   call) prints each case's plan, its events time, its device time a call
+   (profiler) and its host time a call, and two bounds: the whole cache's
+   bytes and the visible keys' (the share is taken against the latter);
+   its bf16 cases run twice and must be bit-equal, a B = 2 case whose
+   second row sees no key must give bit-zero there, a capless case is
+   timed against SDPA, an fp32 case holds the SIMT route, and `nvcc -Xptxas
+   -v` prints the sm90 kernel's registers and spills.
    K1 / K2 / K4 take bf16 through the sm90 kernels (wgmma, TMA) and fp32
    through the SIMT templates: one fp32 case each holds the SIMT route.
    Each K1 / K2 / K4 case prints its TFLOP/s and its share of the bound;
@@ -56,7 +66,9 @@
    generate(max_new_tokens=32) -> decode -> parse, counting kernel launches,
    and one query with use_flash_decode=True (K3). It holds the K3 decode
    route's step-0 logits against the default route's, and a planted fault
-   (K3 without its kv_mask) against the same limits.
+   (K3 without its kv_mask) against the same limits, and shows one K3
+   decode step's calls to be as many sm90 kernels (the profiler's count
+   against decode_attention.launches), none of the SIMT route.
 5. Frees it and drives the int8 serving slice: the same model loaded with
    load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
    prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
@@ -121,7 +133,7 @@ AUD_S, AUD_VALID = 1200, 900
 
 K1_SRC = "vidi_tpu_torch/csrc/flash_attention.cu"
 K2_SRC = "vidi_tpu_torch/csrc/tower_attention.cu"
-K3_SRC = "vidi_tpu_torch/csrc/decode_attention.cu"
+K3_SRC = "vidi_tpu_torch/csrc/decode_attention_sm90.cuh"
 K4_SRC = "vidi_tpu_torch/csrc/flash_attention_bwd.cu"
 TRAIN_T = 256  # text rows of the training slice's batch
 
@@ -290,7 +302,6 @@ def kernel_phases(dev) -> dict:
     23,520 image tokens; 4 Whisper windows -> 1,200 audio tokens; the 1.5B
     configuration: 12 / 6 heads of 128), plus a sliding window short enough
     to bind and one case with the softcap off."""
-    from vidi_tpu_torch.ops.cuda import decode_attention as k3
     from vidi_tpu_torch.ops.cuda import flash_attention as k1
     from vidi_tpu_torch.ops.cuda import tower_attention as k2
 
@@ -400,47 +411,145 @@ def kernel_phases(dev) -> dict:
         src=K2_SRC, replaces="vidi_tpu/ops/pallas/tower_attention.py:179",
         max_abs_err=max(errs), cases=cases, **_times(cases, "siglip"))
 
-    # K3: one decode step against a [L,B,Hk,S,D] cache's layer view: the
-    # image and audio caches (global), the text cache grown by 32 decode
-    # slots (window 4096 on sliding layers), and a binding window
-    errs, cases = [], []
-    for label, hq, hk, d, s, n_valid, window, q_pos, faults in (
-            (f"9b image cache S={IMG_S} global", 16, 8, 256, IMG_S, IMG_VALID,
-             None, None, ("mask", "cap")),
-            (f"9b image cache S={IMG_S} window=4096", 16, 8, 256, IMG_S,
-             IMG_S - 301, 4096, IMG_S - 302, ("window", "cap")),
-            (f"9b audio cache S={AUD_S} global", 16, 8, 256, AUD_S, AUD_VALID,
-             None, None, ("mask", "cap")),
-            (f"9b text cache S={t + 32} window=4096", 16, 8, 256, t + 32,
-             n_real + 6, 4096, n_real + 5, ("mask", "cap")),
-            (f"1.5b image cache S={IMG_S} global", 12, 6, 128, IMG_S, IMG_VALID,
-             None, None, ("mask", "cap"))):
-        cache_k = _randn(gen, (2, 1, hk, s, d), dev)
-        cache_v = _randn(gen, (2, 1, hk, s, d), dev)
-        if q_pos is not None:
-            q_pos = torch.tensor([q_pos], dtype=torch.int32, device=dev)
-        args = dict(q=_randn(gen, (1, hq, d), dev, Q_GAIN), k=cache_k[1],
-                    v=cache_v[1], kv_mask=_kv_mask(s, n_valid, dev),
-                    sm_scale=d**-0.5, softcap=50.0, window=window, q_pos=q_pos)
-        out = k3.decode_attention(**args)
-        ref = k3.decode_attention_plain(**args)
-        errs.append(_check(f"K3 {label}", out, ref,
-                           _faults(k3.decode_attention_plain, args, faults)))
-        ms = _time_ms(lambda: k3.decode_attention(**args))
-        plain_ms = _time_ms(lambda: k3.decode_attention_plain(**args))
-        visible = args["kv_mask"][0].clone()
-        if window is not None:
-            visible &= int(q_pos[0]) - torch.arange(s, device=dev) < window
-        bound = _bound(4 * hq * d * int(visible.sum()),
-                       _nbytes(args["q"], args["k"], args["v"], out, args["kv_mask"]), "bf16")
-        print(f"  K3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
-        cases.append({"shape": label, "ms": ms, "plain_ms": plain_ms, **bound,
-                      "library_ms": None})
-    res["decode_attention"] = dict(
-        src=K3_SRC, replaces="vidi_tpu/ops/pallas/decode_attention.py:80",
-        max_abs_err=max(errs), cases=cases, **_times(cases, "9b image cache"))
+    res.update(k3_phase(dev, t, n_real))
     return res
+
+
+def _k3_hidden(args: dict, ranges) -> dict:
+    """K3's arguments with the keys of `ranges` ([lo, hi) pairs) hidden: what
+    the kernel computes if it drops them (a split's partial left out of the
+    merge, a tile never read)."""
+    b, s = args["q"].shape[0], args["k"].shape[2]
+    mask = torch.ones((b, s), dtype=torch.bool, device=args["q"].device)
+    if args["kv_mask"] is not None:
+        mask = args["kv_mask"].clone()
+    for lo, hi in ranges:
+        mask[:, lo:hi] = False
+    return {**args, "kv_mask": mask}
+
+
+def _k3_faults(k3, args: dict, names, plan) -> dict:
+    """The plain K3 with one feature dropped each (`_faults`), plus the
+    sm90 schedule's own: the split holding row 0's largest logit dropped
+    from the merge (the keys of all its tiles), and the ragged last tile of
+    S (keys past its last whole tile) dropped."""
+    plain = k3.decode_attention_plain
+    out = _faults(plain, args, [n for n in names if n not in ("split", "ragged")])
+    tile, _, n_split = plan
+    s = args["k"].shape[2]
+    if "split" in names:
+        q, k = args["q"].float(), args["k"].float()
+        seen = k3.visible_keys(q.shape[0], s, args["kv_mask"], args["window"],
+                               args["q_pos"], q.device)
+        logits = torch.einsum("d,sd->s", q[0, 0], k[0, 0]).masked_fill(~seen[0], -math.inf)
+        split = int(logits.argmax()) // tile % n_split
+        out[f"split {split} dropped from the merge"] = plain(**_k3_hidden(
+            args, [(t * tile, (t + 1) * tile) for t in k3.split_tiles(split, s, plan)]))
+    if "ragged" in names:
+        out[f"ragged tile {s // tile * tile}..{s} dropped"] = plain(
+            **_k3_hidden(args, [(s // tile * tile, s)]))
+    return out
+
+
+def _k3_sdpa(q, k, v, scale, kv_mask):
+    """SDPA for one decode token (q [B,Hq,1,D], a [B,1,1,S] bool mask, the
+    GQA heads shared): K3's capless function, the yardstick the port never
+    calls."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=kv_mask[:, None, None, :], scale=scale,
+        enable_gqa=True)[:, :, 0]
+
+
+def k3_phase(dev, t: int, n_real: int) -> dict:
+    """K3 against its plain version for one decode step against a
+    [L,B,Hk,S,D] cache's layer view: the 9B's image and audio caches
+    (global), its text cache grown by 32 decode slots (window 4096 on
+    sliding layers), a binding window, a capless image case timed against
+    SDPA, the 1.5B's image cache, a B = 2 ragged case whose second row sees
+    no key (bit-zero) and an fp32 case on the SIMT route. Each bf16 case
+    runs twice (bit-equal), prints the events time of 20 calls back to back
+    and the profiler's device time a call, and two bounds: the whole
+    cache's bytes and the visible keys' (what a correct kernel must read;
+    the share is taken against it)."""
+    from vidi_tpu_torch.ops.cuda import _lib
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    sms = _lib.sm_count(dev)
+    errs, cases = [], []
+    # (label, b, hq, hk, d, s, n_valid, window, q_pos, cap, q gain, faults, dtype)
+    for label, b, hq, hk, d, s, n_valid, window, q_pos, cap, gain, faults, dtype in (
+            (f"9b image cache S={IMG_S} global", 1, 16, 8, 256, IMG_S, IMG_VALID,
+             None, None, 50.0, Q_GAIN, ("mask", "cap", "split"), torch.bfloat16),
+            (f"9b image cache S={IMG_S} window=4096", 1, 16, 8, 256, IMG_S,
+             IMG_S - 301, 4096, IMG_S - 302, 50.0, Q_GAIN, ("window", "cap", "split"),
+             torch.bfloat16),
+            (f"9b image cache S={IMG_S} no cap", 1, 16, 8, 256, IMG_S, IMG_VALID,
+             None, None, None, Q_GAIN, ("mask", "cap", "split"), torch.bfloat16),
+            (f"9b audio cache S={AUD_S} global", 1, 16, 8, 256, AUD_S, AUD_VALID,
+             None, None, 50.0, Q_GAIN, ("mask", "cap", "split"), torch.bfloat16),
+            (f"9b text cache S={t + 32} window=4096", 1, 16, 8, 256, t + 32,
+             n_real + 6, 4096, n_real + 5, 50.0, Q_GAIN, ("mask", "cap", "split"),
+             torch.bfloat16),
+            (f"1.5b image cache S={IMG_S} global", 1, 12, 6, 128, IMG_S, IMG_VALID,
+             None, None, 50.0, Q_GAIN, ("mask", "cap", "split"), torch.bfloat16),
+            # q unscaled: a flat softmax, so every dropped key moves the output
+            ("9b B=2 S=1000 ragged, row 1 sees no key", 2, 16, 8, 256, 1000, None,
+             None, None, 50.0, 1.0, ("mask", "split", "ragged"), torch.bfloat16),
+            (f"fp32 9b audio cache S={AUD_S} global (SIMT route)", 1, 16, 8, 256, AUD_S,
+             AUD_VALID, None, None, 50.0, Q_GAIN, ("mask", "cap"), torch.float32)):
+        cache_k = _randn(gen, (2, b, hk, s, d), dev, dtype=dtype)
+        cache_v = _randn(gen, (2, b, hk, s, d), dev, dtype=dtype)
+        if n_valid is None:  # row 0 sees every key, row 1 none
+            mask = torch.zeros((b, s), dtype=torch.bool, device=dev)
+            mask[0] = True
+        else:
+            mask = _kv_mask(s, n_valid, dev)
+        if q_pos is not None:
+            q_pos = torch.tensor([q_pos], dtype=torch.int64, device=dev)
+        args = dict(q=_randn(gen, (b, hq, d), dev, gain, dtype), k=cache_k[1],
+                    v=cache_v[1], kv_mask=mask, sm_scale=d**-0.5, softcap=cap,
+                    window=window, q_pos=q_pos)
+        plan = k3.decode_plan(b, hk, s, d, sms)
+        run = lambda: k3.decode_attention(**args)  # noqa: E731
+        out, again = run(), run()
+        ref = k3.decode_attention_plain(**args)
+        errs.append(_check(f"K3 {label}", out, ref, _k3_faults(k3, args, faults, plan)))
+        twice = torch.equal(out, again)
+        split = f", plan (tile, chunk, n_split) = {plan}" if dtype == torch.bfloat16 else ""
+        print(f"  K3 {label}: {k3.route(dtype)}{split}; two runs "
+              f"{'bit-equal' if twice else 'DIFFER'}")
+        if dtype == torch.bfloat16 and not twice:
+            raise AssertionError(f"K3 {label}: two runs differ")
+        if n_valid is None and (out[1] != 0).any():
+            raise AssertionError(f"K3 {label}: the row with no visible key is not zero")
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: k3.decode_attention_plain(**args))
+        device_ms, host_ms = _device_us(run) / 1e3, _host_us(run) / 1e3
+        seen = k3.visible_keys(b, s, mask, window, q_pos, dev)
+        n_seen = int(seen.sum())
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        row = 2 * hk * d * args["k"].element_size()  # K and V bytes of one key
+        small = _nbytes(args["q"], out, mask)
+        whole = _bound(4 * hq * d * n_seen, small + row * b * s, kind)
+        bound = _bound(4 * hq * d * n_seen, small + row * n_seen, kind)
+        lib_ms = None
+        if cap is None:  # one PyTorch call computes the capless function
+            lib_ms = _time_ms(lambda: _k3_sdpa(args["q"], args["k"], args["v"],
+                                               d**-0.5, mask))
+        print(f"  K3 {label}: events {ms:.4f} ms, device {device_ms:.4f} ms a call, host "
+              f"{host_ms:.4f} ms a call, "
+              f"plain {plain_ms:.4f} ms, bound {whole['bound_ms']:.4f} ms (whole cache) / "
+              f"{bound['bound_ms']:.4f} ms ({n_seen} visible keys, {bound['bound_by']}), "
+              f"{bound['bound_ms'] / device_ms:.3f} of the visible bound on device time, "
+              f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+        cases.append({"shape": label, "ms": ms, "device_ms": device_ms, "host_ms": host_ms,
+                      "plain_ms": plain_ms,
+                      **bound, "bound_whole_ms": whole["bound_ms"], "library_ms": lib_ms,
+                      "plan": plan, "bound_share_device": bound["bound_ms"] / device_ms})
+    return {"decode_attention": dict(
+        src=K3_SRC, replaces="vidi_tpu/ops/pallas/decode_attention.py:80",
+        max_abs_err=max(errs), cases=cases, **_times(cases, "9b image cache"))}
 
 
 def _k4_faults(k4, args: dict, names) -> dict:
@@ -834,16 +943,16 @@ def _sched_faults(plan, plain) -> dict:
             "a tile computed twice, into another's place": twice}
 
 
-def _ptxas_start():
-    """nvcc -Xptxas -v of K5's source, started beside the library's build;
-    `_ptxas_report` reads it."""
+def _ptxas_start(source: str = "fused_tower_layer.cu"):
+    """nvcc -Xptxas -v of one kernel source (K5's by default), started
+    beside the library's build; `_ptxas_report` reads it."""
     from vidi_tpu_torch.ops.cuda import _lib
 
     _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    obj = _lib.BUILD_DIR / f"ptxas-probe.{os.getpid()}.o"
+    obj = _lib.BUILD_DIR / f"ptxas-probe.{os.getpid()}.{source}.o"
     return obj, subprocess.Popen(
         [_lib._nvcc(), *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
-         str(_lib.CSRC / "fused_tower_layer.cu")],
+         str(_lib.CSRC / source)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -1183,17 +1292,24 @@ def _host_us(fn, reps: int = 200) -> float:
 
 def _device_us(fn, reps: int = 10) -> float:
     """Device time of one call of `fn` in microseconds: torch.profiler's
-    kernel times summed over `reps` calls, over `reps`."""
+    kernel times summed over `reps` calls, over `reps`. A profiler session
+    that records no kernel at all (seen once in a plain run on an H100,
+    after several sessions in one process) is taken again, up to three
+    sessions; then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type.name == "CUDA") / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type.name == "CUDA") / reps
+        if us > 0:
+            return us
+    raise AssertionError("torch.profiler recorded no kernel in three sessions")
 
 
 def k7_phase(dev) -> dict:
@@ -1553,11 +1669,30 @@ def _logit_gap(got, want) -> tuple:
 def decode_route_check(sl) -> None:
     """The K3 route's step-0 logits against the default route's on one
     prefill; a planted fault (K3 without its kv_mask) must fail the limits."""
+    from torch.profiler import ProfilerActivity, profile
+
     from vidi_tpu_torch.ops.cuda import decode_attention as k3
 
     _, caches, lens, emb = _prefill(sl, QUERIES[0])
     plain = _decode_step(sl, emb, lens, caches, False)
-    readings = {"K3 route": _logit_gap(_decode_step(sl, emb, lens, caches, True), plain)}
+    for _ in range(3):  # a session that records no kernel at all is taken again
+        before = k3.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step = _decode_step(sl, emb, lens, caches, True)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        if events:
+            break
+    calls = k3.launches - before
+    kernels = sum(e.count for e in events if "decode_attention_sm90" in e.key)
+    others = sorted({e.key[:60] for e in events
+                     if "decode_partial" in e.key or "decode_combine" in e.key})
+    print(f"  K3 route, one decode step: {calls} K3 calls (decode_attention.launches), "
+          f"{kernels} decode_attention_sm90 kernels (profiler); SIMT K3 kernels: "
+          f"{others or 'none'}")
+    if calls == 0 or kernels != calls or others:
+        raise AssertionError("a K3 call on the bf16 decode route must be one sm90 kernel")
+    readings = {"K3 route": _logit_gap(step, plain)}
     real = k3.decode_attention
     k3.decode_attention = lambda q, k, v, kv_mask, *a, **kw: real(q, k, v, None, *a, **kw)
     try:
@@ -2258,6 +2393,7 @@ def main() -> int:
 
     from vidi_tpu_torch.ops.cuda import _lib
     probe = _ptxas_start()  # K5's registers and spills, beside the build
+    probe_k3 = _ptxas_start("decode_attention.cu")  # K3's sm90 kernel's
     t0 = time.perf_counter()
     _lib.library()
     print(f"kernels: {_lib.library_path().name} ready in "
@@ -2265,6 +2401,7 @@ def main() -> int:
           f"{'%.1f s' % _lib.build_seconds if _lib.build_seconds else 'cached'})")
 
     print("kernel phases:")
+    _ptxas_report(probe_k3, "decode_attention_sm90")
     kern = kernel_phases(dev)
     print("K4 phase:")
     kern["flash_attention_bwd"] = k4_phase(dev)

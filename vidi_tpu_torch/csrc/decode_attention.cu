@@ -2,22 +2,32 @@
 //
 // Replaces the Pallas kernel vidi_tpu/ops/pallas/decode_attention.py
 // (`decode_attention` -> `_kernel`): q [B,Hq,D] against the cache-native
-// k/v [B,Hk,S,D] (strided), GQA group rows sharing one KV head, an int32
+// k/v [B,Hk,S,D], GQA group rows sharing one KV head, a bool / uint8
 // kv_mask, logit softcap and the Gemma2 sliding window through q_pos
-// (key visible iff q_pos - key < window). Rows with no visible key give
-// zeros. As in `_kernel`, each probability is rounded to the cache dtype
-// before it weights V, and the row sum stays fp32.
+// (int32 or int64; key visible iff q_pos - key < window). Rows with no
+// visible key give zeros. As in `_kernel`, each probability is rounded to
+// the cache dtype before it weights V, and the row sum stays fp32.
 //
-// What bounds it on an H100: every step reads the whole cache once (2*S*D
-// bf16 per KV head) for 2*g*S*D FMAs, so it is bound by device-memory
-// bandwidth. A grid of (B, Hk) would be 8 blocks on 132 SMs at batch 1, so
-// the design splits S: pass 1 gives each block one chunk of keys for one
-// (batch, KV head), its warps stream keys (one 2*D-byte row per warp step,
-// lanes on neighbouring addresses) and keep fp32 online-softmax state for
-// the g query rows in registers, then merge into one partial (m, l, acc);
-// pass 2 merges the partials of all chunks. The wrapper allocates the
-// partials.
+// What bounds it on an H100: every step reads the visible cache once (2*S*D
+// elements per KV head) for 2*g*S*D FMAs, so it is bound by device-memory
+// bandwidth. Two routes, chosen by dtype in ops/cuda/decode_attention.py:
+// - bf16: `vidi_decode_attention_sm90`, the Hopper kernel of
+//   decode_attention_sm90.cuh (bulk asynchronous copies of whole K/V tiles
+//   into a shared-memory ring, a split plan that fills the card, masked
+//   tiles skipped, the splits merged by the last block: one launch a call).
+// - fp32: `vidi_decode_attention`, the SIMT kernels below, for the fp32
+//   checks that hold the card against the CPU. Pass 1 gives each block one
+//   chunk of keys for one (batch, KV head); its warps stream keys (one
+//   2*D-element row per warp step, lanes on neighbouring addresses) and keep
+//   fp32 online-softmax state for the g query rows in registers, then merge
+//   into one partial (m, l, acc); pass 2 merges the partials of all chunks.
+//
+// Both entries take the same packed arguments (`DecodeArgs`); the partials
+// and counters are the wrapper's workspace.
+#include <stddef.h>
+
 #include "attention_common.cuh"
+#include "decode_attention_sm90.cuh"
 
 namespace {
 
@@ -27,16 +37,17 @@ struct DecodeParams {
   const void* q;       // [B, Hq, D], last dim contiguous
   const void* k;       // [B, Hk, S, D], last dim contiguous
   const void* v;
-  const int* kv_mask;  // [B, S] contiguous, nullptr = all valid
-  const int* q_pos;    // [B], read when window > 0
+  const unsigned char* kv_mask;  // [B, S] bytes, row stride mask_sb; nullptr = all valid
+  const void* q_pos;   // [B] int32 or int64, stride qpos_s; read when window > 0
   float* part_m;       // [B, Hq, n_split]
   float* part_l;       // [B, Hq, n_split]
   float* part_acc;     // [B, Hq, n_split, D]
   void* out;           // [B, Hq, D] contiguous
-  int B, Hq, Hk, S, n_split, chunk;
+  int B, Hq, Hk, S, n_split, chunk, qpos64;
   long long q_sb, q_sh;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
+  long long mask_sb, qpos_s;
   float scale, softcap;
   int window;
 };
@@ -55,7 +66,10 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + lane * EPL;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh + lane * EPL;
-  const int qpos = p.window > 0 ? p.q_pos[b] : 0;
+  long long qpos = 0;
+  if (p.window > 0)
+    qpos = p.qpos64 ? static_cast<const long long*>(p.q_pos)[b * p.qpos_s]
+                    : static_cast<const int*>(p.q_pos)[b * p.qpos_s];
 
   float qr[G][EPL], acc[G][EPL], m[G], l[G];
 #pragma unroll
@@ -75,7 +89,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
 
   for (int key = c0 + warp; key < c1; key += kWarps) {
     // warp-uniform skip: masked keys cost no cache read
-    if (p.kv_mask != nullptr && p.kv_mask[b * p.S + key] == 0) continue;
+    if (p.kv_mask != nullptr && p.kv_mask[b * p.mask_sb + key] == 0) continue;
     if (p.window > 0 && qpos - key >= p.window) continue;
     float kk[EPL], vv[EPL];
 #pragma unroll
@@ -164,7 +178,7 @@ __global__ void decode_combine(DecodeParams p) {
 }
 
 template <typename T, int D, int G>
-cudaError_t launch(const DecodeParams& p, cudaStream_t s) {
+cudaError_t launch_simt(const DecodeParams& p, cudaStream_t s) {
   dim3 grid(p.n_split, p.Hk, p.B);
   decode_partial<T, D, G><<<grid, kWarps * 32, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
@@ -175,38 +189,77 @@ cudaError_t launch(const DecodeParams& p, cudaStream_t s) {
 
 // The decoders the port runs: Gemma2 with 2 query heads per KV head, head
 // dim 256 (Vidi1.5-9B) or 128 (the 1.5B configuration).
-template <typename T>
-cudaError_t dispatch(const DecodeParams& p, int D, int G, cudaStream_t s) {
-  if (G != 2) return cudaErrorInvalidValue;
+cudaError_t dispatch_simt(const DecodeParams& p, int D, cudaStream_t s) {
+  if (p.Hq != 2 * p.Hk) return cudaErrorInvalidValue;
   switch (D) {
-    case 128: return launch<T, 128, 2>(p, s);
-    case 256: return launch<T, 256, 2>(p, s);
+    case 128: return launch_simt<float, 128, 2>(p, s);
+    case 256: return launch_simt<float, 256, 2>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int vidi_decode_attention(
-    const void* q, const void* k, const void* v, const int* kv_mask,
-    const int* q_pos, float* part_m, float* part_l, float* part_acc, void* out,
-    int B, int Hq, int Hk, int S, int D, int is_bf16,
-    long long q_sb, long long q_sh,
-    long long k_sb, long long k_sh, long long k_ss,
-    long long v_sb, long long v_sh, long long v_ss,
-    float scale, float softcap, int window, int n_split, int chunk,
-    void* stream) {
+// The arguments of a K3 call, packed by the wrapper into one block
+// (ops/cuda/decode_attention.py, `ARGS`: struct format "<10Q6i10q2f3i") so
+// that a call crosses ctypes with two arguments instead of 32.
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const unsigned char* kv_mask;
+  const void* q_pos;
+  float* part_m;
+  float* part_l;
+  float* part_acc;
+  unsigned int* counters;
+  void* out;
+  int B, Hq, Hk, S, D, qpos64;
+  long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, mask_sb, qpos_s;
+  float scale, softcap;
+  int window, n_split, chunk;
+};
+static_assert(sizeof(DecodeArgs) == 208 && offsetof(DecodeArgs, q_sb) == 104 &&
+                  offsetof(DecodeArgs, scale) == 184 && offsetof(DecodeArgs, chunk) == 200,
+              "DecodeArgs must match the wrapper's packing");
+
+// fp32 operands: the two-pass SIMT kernels (counters unused)
+extern "C" int vidi_decode_attention(const DecodeArgs* a, void* stream) {
   DecodeParams p;
-  p.q = q; p.k = k; p.v = v; p.kv_mask = kv_mask; p.q_pos = q_pos;
-  p.part_m = part_m; p.part_l = part_l; p.part_acc = part_acc; p.out = out;
-  p.B = B; p.Hq = Hq; p.Hk = Hk; p.S = S; p.n_split = n_split; p.chunk = chunk;
-  p.q_sb = q_sb; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.scale = scale; p.softcap = softcap; p.window = window;
+  p.q = a->q; p.k = a->k; p.v = a->v; p.kv_mask = a->kv_mask; p.q_pos = a->q_pos;
+  p.part_m = a->part_m; p.part_l = a->part_l; p.part_acc = a->part_acc; p.out = a->out;
+  p.B = a->B; p.Hq = a->Hq; p.Hk = a->Hk; p.S = a->S; p.n_split = a->n_split;
+  p.chunk = a->chunk; p.qpos64 = a->qpos64;
+  p.q_sb = a->q_sb; p.q_sh = a->q_sh;
+  p.k_sb = a->k_sb; p.k_sh = a->k_sh; p.k_ss = a->k_ss;
+  p.v_sb = a->v_sb; p.v_sh = a->v_sh; p.v_ss = a->v_ss;
+  p.mask_sb = a->mask_sb; p.qpos_s = a->qpos_s;
+  p.scale = a->scale; p.softcap = a->softcap; p.window = a->window;
+  return static_cast<int>(dispatch_simt(p, a->D, static_cast<cudaStream_t>(stream)));
+}
+
+// bf16 operands: the Hopper kernel, one launch a call (k_ss / v_ss must be
+// D: the wrapper checks each (b, hk) block of k / v is contiguous)
+extern "C" int vidi_decode_attention_sm90(const DecodeArgs* a, void* stream) {
+  using vidi::decode_sm90::Params;
+  if (a->k_ss != a->D || a->v_ss != a->D) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(a->q);
+  p.k = static_cast<const __nv_bfloat16*>(a->k);
+  p.v = static_cast<const __nv_bfloat16*>(a->v);
+  p.kv_mask = a->kv_mask; p.q_pos = a->q_pos;
+  p.part_m = a->part_m; p.part_l = a->part_l; p.part_acc = a->part_acc;
+  p.counters = a->counters;
+  p.out = static_cast<__nv_bfloat16*>(a->out);
+  p.B = a->B; p.Hq = a->Hq; p.Hk = a->Hk; p.S = a->S; p.n_split = a->n_split;
+  p.chunk = a->chunk; p.qpos64 = a->qpos64;
+  p.q_sb = a->q_sb; p.q_sh = a->q_sh; p.k_sb = a->k_sb; p.k_sh = a->k_sh;
+  p.v_sb = a->v_sb; p.v_sh = a->v_sh; p.mask_sb = a->mask_sb; p.qpos_s = a->qpos_s;
+  p.scale = a->scale; p.softcap = a->softcap; p.window = a->window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = Hq / Hk;
-  cudaError_t err = is_bf16 ? dispatch<__nv_bfloat16>(p, D, G, s)
-                            : dispatch<float>(p, D, G, s);
-  return static_cast<int>(err);
+  switch (a->D) {
+    case 128: return static_cast<int>(vidi::decode_sm90::launch<128>(p, s));
+    case 256: return static_cast<int>(vidi::decode_sm90::launch<256>(p, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

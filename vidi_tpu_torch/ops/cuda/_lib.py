@@ -84,6 +84,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # K1 / K2 forward: the SIMT (fp32) and sm90 (bf16) entries take the same arguments
 _K1_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _I, _F, _I, _I, _P, _P, _P, _P]
 _K2_ARGS = [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _P]
+_K3_ARGS = [_P, _P]  # the packed arguments (decode_attention.ARGS) and the stream
 _SIGNATURES = {
     "vidi_flash_attention_fwd": _K1_ARGS,
     "vidi_flash_attention_fwd_sm90": _K1_ARGS,
@@ -94,8 +95,9 @@ _SIGNATURES = {
     + [_F, _I, _I, _F, _I, _I, _P],
     "vidi_tower_attention": _K2_ARGS,
     "vidi_tower_attention_sm90": _K2_ARGS,
-    "vidi_decode_attention": [_P] * 9 + [_I] * 6 + [_L] * 8
-    + [_F, _F, _I, _I, _I, _P],
+    # K3: SIMT (fp32) and sm90 (bf16) take the same packed arguments
+    "vidi_decode_attention": _K3_ARGS,
+    "vidi_decode_attention_sm90": _K3_ARGS,
     "vidi_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
     "vidi_quant_gated": [_P] * 8 + [_I] * 5 + [_P],
     "vidi_ln_qkv": [_P] * 17 + [_I] * 3 + [_F, _I, _P],
