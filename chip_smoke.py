@@ -51,7 +51,12 @@
    its bf16 cases run twice and must be bit-equal, a B = 2 case whose
    second row sees no key must give bit-zero there, a capless case is
    timed against SDPA, an fp32 case holds the SIMT route, and `nvcc -Xptxas
-   -v` prints the sm90 kernel's registers and spills.
+   -v` prints the sm90 kernel's registers and spills. The long-video
+   slice's reads run too: K3 on the 600 s clip's image cache (60,000 keys)
+   and K1 on three query rows folded into one (a prefill of 3 x T tokens, a
+   decode step of 3) against a cache's layer view transposed in place, at
+   S = 60,000 and 6,000, with the rows folded in the wrong order as a
+   planted fault.
    K1 / K2 / K4 take bf16 through the sm90 kernels (wgmma, TMA) and fp32
    through the SIMT templates: one fp32 case each holds the SIMT route.
    Each K1 / K2 / K4 case prints its TFLOP/s and its share of the bound;
@@ -69,7 +74,24 @@
    (K3 without its kv_mask) against the same limits, and shows one K3
    decode step's calls to be as many sm90 kernels (the profiler's count
    against decode_attention.launches), none of the SIMT route.
-5. Frees it and drives the int8 serving slice: the same model loaded with
+5. Drives the long-video slice on the same weights, the 120 s media
+   dropped: media_prefill_chunked's caches of the 120 s media held against
+   forward's layer by layer (cosine, a planted fault: each layer against
+   the one before); then a synthetic 600 s clip (600 frames decoded at
+   360x640, 20 Whisper windows), the device resize held against the CPU
+   (a planted fault: no antialiasing), a streamed encode of five chunks of
+   120 frames resized on the card (encode_frame_stream), the step-0 logits
+   of one query through the full forward (its 21.2 GiB of caches then
+   dropped), the media caches prefilled once in chunks of 32,768 tokens
+   (media_prefill_chunked, peak memory printed), and the three queries as
+   three rows folded onto those shared caches (generate(media_caches=):
+   folded K1 prefill and decode) and one alone (K1 prefill, K3 decode),
+   each run's K1 / K3 launches held to the reckoned ones. It holds the
+   shared-cache query's step-0 logits against the full forward's and the
+   three folded rows' against the rows one by one, under the decode
+   routes' logit limits, with a planted fault each (the tail chunk's
+   caches left zero; the rows unfolded in the wrong order).
+6. Frees it and drives the int8 serving slice: the same model loaded with
    load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
    prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
    three TR queries (K1, K6), launch counts (the K-major copies among
@@ -79,16 +101,18 @@
    versions, and every K5 / K6 call of one encode and prefill against its
    plain version on the same inputs, each with a planted fault (K5 without
    the FFN requantize) that the per-call limit must reject.
-6. Frees it and drives the training slice: Vidi1.5-9B at full width with
+7. Frees it and drives the training slice: Vidi1.5-9B at full width with
    TRAIN_LAYERS text layers (bf16, towers frozen, remat, use_flash), four
    train_steps on synthetic batches of 256 text tokens, 120 frames and 4
    Whisper windows, counting K1 / K2 / K4 launches. It then holds the
    gradients of a few leaves on the kernel route against the
    plain-attention route, and a planted fault (K4 without di) against the
    same limits.
-7. With --profile, profiles both serving slices' encode, one prefill and
-   eight decode steps (each decode route of the bf16 one), and one training
-   step, with torch.profiler.
+8. With --profile, profiles both serving slices' encode, one prefill and
+   eight decode steps (each decode route of the bf16 one), the long-video
+   slice's streamed encode, chunked media prefill, shared-cache prefills
+   and decode steps (three folded rows, one row), and one training step,
+   with torch.profiler.
 
 Exits non-zero on any failure (no CUDA device, a kernel that does not build,
 launch or agree, a planted fault the checks cannot see, a launch count off
@@ -130,6 +154,16 @@ Q_GAIN = 12.0
 # clip batched with a 120 s one.
 IMG_S, IMG_VALID = 23520, 23520 - 24 * 196
 AUD_S, AUD_VALID = 1200, 900
+
+# The long-video slice: a 600 s clip, 600 frames decoded at 360x640 (resized
+# on the card to 384x384; the token budget, budget_hw(600) = (20, 20), pools
+# each to 10 x 10 tokens) and 20 Whisper windows (300 tokens each), streamed
+# in chunks of 120 frames; its media caches are prefilled in chunks of
+# 32,768 tokens (two image chunks, the second a padded tail; one audio chunk)
+LONG_SECONDS, LONG_DECODE_HW, LONG_CHUNK_FRAMES = 600, (360, 640), 120
+LONG_FRAME_TOKENS = 100
+LONG_IMG_S, LONG_AUD_S = LONG_SECONDS * LONG_FRAME_TOKENS, 6000
+LONG_CHUNK_TOKENS = 32768
 
 K1_SRC = "vidi_tpu_torch/csrc/flash_attention.cu"
 K2_SRC = "vidi_tpu_torch/csrc/tower_attention.cu"
@@ -369,6 +403,8 @@ def kernel_phases(dev) -> dict:
               f"({bound['bound_by']}), library {lib_ms} ms")
         cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, **bound,
                       "library_ms": lib_ms, **_rate(f"K1 {label}", ops, ms, bound)})
+    e, c = k1_cache_cases(dev, gen, t)
+    errs, cases = errs + e, cases + c
     # the summary time is the 9B T2V case's, most of K1's time in the slice
     res["flash_attention"] = dict(
         src=K1_SRC, replaces="vidi_tpu/ops/pallas/flash_attention.py:396",
@@ -413,6 +449,65 @@ def kernel_phases(dev) -> dict:
 
     res.update(k3_phase(dev, t, n_real))
     return res
+
+
+def k1_cache_cases(dev, gen, t: int) -> tuple:
+    """K1 on the long-video slice's reads of shared caches: the three query
+    rows folded into one row of 3 x T tokens (the text prefill) or of 3
+    tokens (a decode step), against a [L,1,Hk,S,D] cache's layer view
+    transposed in place to [1,S,Hk,D] (no copy), the 600 s clip's image
+    cache (LONG_IMG_S keys, the last 24 frames' masked) and audio cache
+    (LONG_AUD_S, the last window masked), cap 50. Planted faults: the mask
+    or the cap dropped, the rows folded in the wrong order. -> (errors,
+    cases)."""
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+
+    errs, cases = [], []
+    hq, hk, d = 16, 8, 256
+    for label, tq, s, n_valid in (
+            (f"9b folded prefill 3x{t} vs image cache view S={LONG_IMG_S} mask cap=50",
+             t, LONG_IMG_S, LONG_IMG_S - 24 * LONG_FRAME_TOKENS),
+            (f"9b folded prefill 3x{t} vs audio cache view S={LONG_AUD_S} mask cap=50",
+             t, LONG_AUD_S, LONG_AUD_S - 300),
+            (f"9b folded decode 3x1 vs image cache view S={LONG_IMG_S} mask cap=50",
+             1, LONG_IMG_S, LONG_IMG_S - 24 * LONG_FRAME_TOKENS),
+            (f"9b folded decode 3x1 vs audio cache view S={LONG_AUD_S} mask cap=50",
+             1, LONG_AUD_S, LONG_AUD_S - 300)):
+        cache_k = _randn(gen, (2, 1, hk, s, d), dev)
+        cache_v = _randn(gen, (2, 1, hk, s, d), dev)
+        rows = _randn(gen, (3, tq, hq, d), dev, Q_GAIN)
+        args = dict(q=rows.reshape(1, 3 * tq, hq, d), k=cache_k[1].transpose(1, 2),
+                    v=cache_v[1].transpose(1, 2), kv_mask=_kv_mask(s, n_valid, dev),
+                    sm_scale=d**-0.5, causal=False, window=None, softcap=50.0)
+        out, lse = k1.flash_attention(**args)
+        ref, ref_lse = k1.flash_attention_plain(**args)
+        planted = _faults(k1.flash_attention_plain, args, ("mask", "cap"))
+        planted["rows folded in the wrong order"] = k1.flash_attention_plain(
+            **{**args, "q": rows.roll(1, 0).reshape(1, 3 * tq, hq, d)})[0]
+        errs.append(_check(f"K1 {label}", out, ref, planted))
+        lse_err = float((lse - ref_lse).abs().max())
+        print(f"  K1 {label} lse: max_abs_err={lse_err:.3e} (limit {LSE_ATOL})")
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"K1 {label}: lse disagrees")
+        ms = _time_ms(lambda: k1.flash_attention(**args))
+        plain_ms = _time_ms(lambda: k1.flash_attention_plain(**args))
+        # as K3's bound: K / V bytes of the visible keys only (a correct
+        # kernel need not read a masked key), q, out, lse and the mask whole
+        ops = 4 * hq * d * 3 * tq * n_valid
+        small = _nbytes(args["q"], out, lse, args["kv_mask"])
+        row = 2 * hk * d * args["k"].element_size()  # K and V bytes of one key
+        whole = _bound(ops, small + row * s, "bf16")
+        bound = _bound(ops, small + row * n_valid, "bf16")
+        call_ms = _call_ms(lambda: k1.flash_attention(**args))
+        print(f"  K1 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {whole['bound_ms']:.4f} ms (whole cache) / "
+              f"{bound['bound_ms']:.4f} ms ({n_valid} visible keys, {bound['bound_by']}), "
+              f"library None ms")
+        cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      **bound, "bound_whole_ms": whole["bound_ms"], "library_ms": None,
+                      **_rate(f"K1 {label}", ops, ms, bound)})
+        del cache_k, cache_v, args, out, ref, planted
+    return errs, cases
 
 
 def _k3_hidden(args: dict, ranges) -> dict:
@@ -491,6 +586,9 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
             (f"9b text cache S={t + 32} window=4096", 1, 16, 8, 256, t + 32,
              n_real + 6, 4096, n_real + 5, 50.0, Q_GAIN, ("mask", "cap", "split"),
              torch.bfloat16),
+            # the 600 s clip's image cache, every key visible as in its slice
+            (f"9b image cache S={LONG_IMG_S} global (600 s)", 1, 16, 8, 256, LONG_IMG_S,
+             LONG_IMG_S, None, None, 50.0, Q_GAIN, ("cap", "split"), torch.bfloat16),
             (f"1.5b image cache S={IMG_S} global", 1, 12, 6, 128, IMG_S, IMG_VALID,
              None, None, 50.0, Q_GAIN, ("mask", "cap", "split"), torch.bfloat16),
             # q unscaled: a flat softmax, so every dropped key moves the output
@@ -1528,19 +1626,31 @@ def _decode_step(sl, emb, lens, caches, flash: bool):
                              use_flash=flash)[0]
 
 
+def _kernel_counts() -> dict:
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import tower_attention as k2
+    return {"flash_attention": k1.launches, "tower_attention": k2.launches,
+            "decode_attention": k3.launches}
+
+
+def _reset_kernel_counts() -> None:
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import tower_attention as k2
+    k1.launches = k2.launches = k3.launches = 0
+
+
 def slice_phase(sl) -> dict:
     """One media encode, three TR queries on the default decode route, one
     on the K3 route, with every kernel's launch count read around them."""
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer.generate import generate
-    from vidi_tpu_torch.ops.cuda import decode_attention as k3
-    from vidi_tpu_torch.ops.cuda import flash_attention as k1
-    from vidi_tpu_torch.ops.cuda import tower_attention as k2
 
     cfg, tok, dev, seconds = sl.cfg, sl.tok, sl.dev, sl.seconds
     eos = P.pick_eos(cfg, tok)
 
-    k1.launches = k2.launches = k3.launches = 0
+    _reset_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sl.media = img, img_mask, aud, aud_mask = _encode(sl)
@@ -1582,8 +1692,7 @@ def slice_phase(sl) -> dict:
     runs = [query(q, False) for q in QUERIES]
     k3_res, k3_rate = query(QUERIES[0], True)
     torch.cuda.synchronize()
-    launches = {"flash_attention": k1.launches, "tower_attention": k2.launches,
-                "decode_attention": k3.launches}
+    launches = _kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  kernel launches in the slice: {launches}")
     print(f"  peak device memory (max_memory_allocated): {peak:.2f} GiB")
@@ -1709,6 +1818,334 @@ def decode_route_check(sl) -> None:
         raise AssertionError("decode routes disagree on the step-0 logits")
     if passes["planted fault, K3 without kv_mask"]:
         raise AssertionError("the step-0 logit limits do not reject the planted fault")
+
+
+# ---------------------------------------------------------------------------
+# The long-video slice
+# ---------------------------------------------------------------------------
+
+# The chunked caches of the 120 s slice against forward's, per layer and per
+# cache. Forward runs the diagonal update in mm_chunks chunks of the stream;
+# cuBLAS picks its bf16 products by row count, and rows of another count may
+# round differently and carry it through the later layers (forward with
+# mm_chunks 32 against 1 reads cosine 0.9996 on the 1,200 audio tokens, 38
+# rows a chunk; H100 80GB HBM3, 700 W). The reference is forward with one
+# chunk, whose products run on whole streams as media_prefill_chunked's do.
+CACHE_COS = 0.9999
+RESIZE_ATOL = 1e-2  # on the 0-255 scale: the resize on the card vs the CPU
+
+
+def _cos(a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def long_cache_check(sl) -> None:
+    """media_prefill_chunked on the 120 s slice's media (chunks of 8,192
+    tokens: the image stream in two whole chunks and a padded tail of
+    7,136, the audio in one) against the caches of one query's forward
+    (mm_chunks=1), layer by layer: cosine >= CACHE_COS for every layer of
+    the four caches. The planted fault (each layer's chunked caches held
+    against the layer before's) must fail it. Also printed: the least
+    cosine against forward with the slice's mm_chunks=32, and that
+    forward's against mm_chunks=1 (the rounding of other row counts)."""
+    from vidi_tpu_torch.infer import generate as gen
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.models import dattn
+
+    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(QUERIES[0], sl.tok)])
+    pr, pm = torch.as_tensor(prompt).long().to(sl.dev), torch.as_tensor(mask).to(sl.dev)
+
+    def forward_caches(mm_chunks):
+        return gen._prefill(sl.params, sl.cfg, pr, pm, *sl.media, max_new_tokens=32,
+                            mm_chunks=mm_chunks, use_flash=True)[1]
+
+    img, _, aud, _ = sl.media
+    chunked = dattn.media_prefill_chunked(sl.params, sl.cfg, img, aud, chunk_tokens=8192)
+    whole, split = forward_caches(1), forward_caches(32)
+    names = ("img_k", "img_v", "aud_k", "aud_v")
+    n_layers = whole.img_k.shape[0]
+
+    def least(a, b, shift=0):
+        return min(_cos(getattr(a, n)[i], getattr(b, n)[i - shift])
+                   for n in names for i in range(shift, n_layers))
+
+    got, fault = least(chunked, whole), least(chunked, whole, shift=1)
+    print(f"  120 s caches, media_prefill_chunked(chunk_tokens=8192) vs forward "
+          f"(mm_chunks=1): least cosine over {n_layers} layers x {len(names)} caches "
+          f"{got:.6f} (limit {CACHE_COS}); planted fault (layer i against forward's layer "
+          f"i - 1) {fault:.6f}; against forward with mm_chunks=32 {least(chunked, split):.6f}, "
+          f"forward mm_chunks=32 vs 1 {least(split, whole):.6f}")
+    if not got >= CACHE_COS:
+        raise AssertionError("the chunked media caches disagree with forward's")
+    if fault >= CACHE_COS:
+        raise AssertionError("the cache limit does not reject the planted fault")
+
+
+def _long_clip(cfg):
+    """The 600 s clip from SEED: uint8 frames at LONG_DECODE_HW (the
+    decoder's output, resized on the card) and the mel windows of a 16 kHz
+    waveform (tones + noise)."""
+    from vidi_tpu_torch.infer import pipeline as P
+
+    rng = np.random.default_rng(SEED + 10)
+    frames = rng.integers(0, 256, (LONG_SECONDS, *LONG_DECODE_HW, 3), dtype=np.uint8)
+    sr = cfg.audio.sampling_rate
+    t = np.arange(LONG_SECONDS * sr, dtype=np.float32) / sr
+    wave = (0.3 * np.sin(2 * np.pi * 330.0 * t) + 0.05 * rng.standard_normal(t.shape)
+            ).astype(np.float32)
+    mels, audio_len = P.process_audio(wave, cfg.audio)
+    return frames, mels, audio_len
+
+
+def _resize_check(dev, frames, size: int) -> None:
+    """The device resize of a few decoded frames on the card against the
+    CPU within RESIZE_ATOL; the planted fault (no antialiasing) must fail."""
+    from vidi_tpu_torch.ops.preprocess import resize_bicubic
+
+    x = torch.from_numpy(frames)
+    want = resize_bicubic(x, size)
+    err = float((resize_bicubic(x.to(dev), size).cpu() - want).abs().max())
+    nchw = x.permute(0, 3, 1, 2).float().to(dev)
+    plain = torch.nn.functional.interpolate(nchw, size=(size, size), mode="bicubic",
+                                            align_corners=False).clamp(0, 255)
+    fault = float((plain.permute(0, 2, 3, 1).cpu() - want).abs().max())
+    print(f"  device resize {tuple(frames.shape[1:3])} -> {size}x{size}, card vs cpu: "
+          f"max_abs_err={err:.3e} (limit {RESIZE_ATOL}); planted fault (no antialias) "
+          f"{fault:.3e}")
+    if not err <= RESIZE_ATOL:
+        raise AssertionError("the device resize disagrees with the CPU")
+    if fault <= RESIZE_ATOL:
+        raise AssertionError("the resize limit does not reject the planted fault")
+
+
+def _long_prompts(sl):
+    """The three TR queries' prompts, right-padded to one length, on the card."""
+    from vidi_tpu_torch.infer import pipeline as P
+
+    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(q, sl.tok) for q in QUERIES])
+    return torch.as_tensor(prompt).long().to(sl.dev), torch.as_tensor(mask).to(sl.dev)
+
+
+def _step0(sl, pr, pm, media, media_caches=None):
+    """Logits [B,V] of the token each row's prefill chooses: the full forward
+    over the media features, or (media_caches) the text prefill against
+    them (media then gives the masks)."""
+    from vidi_tpu_torch.infer import generate as gen
+    from vidi_tpu_torch.models import decoder
+
+    img, img_mask, aud, aud_mask = media
+    if media_caches is not None:
+        img = aud = None
+    h, _, lens = gen._prefill(sl.params, sl.cfg, pr, pm, img, img_mask, aud, aud_mask,
+                              max_new_tokens=32, mm_chunks=32, use_flash=True,
+                              media_caches=media_caches)
+    h_last = h[torch.arange(h.shape[0], device=h.device), lens - 1]
+    return decoder.lm_logits(sl.params["text"], h_last, sl.cfg.text)
+
+
+def _gib(nbytes: float) -> str:
+    return f"{nbytes / 2**30:.2f} GiB"
+
+
+def long_video_phase(sl) -> tuple:
+    """The long-video path at full width: a streamed encode of the 600 s
+    clip with the resize on the card, the one-row plain path's step-0
+    logits (full forward; its caches dropped), the media caches prefilled
+    once in chunks, then three TR queries as three rows folded onto the
+    shared caches and one of them alone, and the checks. -> (the path's
+    kernel launches, the clip's state for the profile)."""
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer.generate import generate
+    from vidi_tpu_torch.models import dattn
+
+    cfg, tok, dev, params = sl.cfg, sl.tok, sl.dev, sl.params
+    n_layers = cfg.text.num_layers
+    frames, mels, audio_len = _long_clip(cfg)
+    _resize_check(dev, frames[:4], cfg.vision.image_size)
+
+    # 1. streamed encode, chunks shipped at their decode resolution
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chunks = (frames[a:a + LONG_CHUNK_FRAMES] for a in range(0, LONG_SECONDS, LONG_CHUNK_FRAMES))
+    media = P.encode_frame_stream(params, cfg, chunks, LONG_SECONDS, mels, audio_len,
+                                  mm_chunks=32, use_flash=True, device_resize=True)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    img, img_mask, aud, aud_mask = media
+    path = _kernel_counts()
+    hw = P.budget_hw(LONG_SECONDS, cfg.mm_image_pool_size, cfg.vision.num_patches_per_side)
+    side = hw[0] // cfg.mm_image_pool_size
+    print(f"  streamed encode: {LONG_SECONDS} frames {LONG_DECODE_HW[0]}x{LONG_DECODE_HW[1]} "
+          f"in {LONG_SECONDS // LONG_CHUNK_FRAMES} chunks of {LONG_CHUNK_FRAMES} (device "
+          f"resize) + {mels.shape[0]} audio windows -> img {tuple(img.shape)} "
+          f"({int(img_mask.sum())} valid; budget_hw {hw}: {side}x{side} tokens a frame), "
+          f"aud {tuple(aud.shape)} ({int(aud_mask.sum())} valid) in {encode_s:.3f} s; "
+          f"K2 launches {path['tower_attention']}; peak "
+          f"{_gib(torch.cuda.max_memory_allocated())}")
+    if img.shape != (1, LONG_IMG_S, cfg.text.hidden_size) or \
+            aud.shape != (1, LONG_AUD_S, cfg.text.hidden_size) or \
+            LONG_SECONDS * side * side != LONG_IMG_S:
+        raise AssertionError("unexpected long-video feature shapes")
+    if not (torch.isfinite(img).all() and torch.isfinite(aud).all()):
+        raise AssertionError("non-finite long-video features")
+
+    # 2. the one-row plain path: full forward over the streams, caches dropped
+    pr, pm = _long_prompts(sl)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain = _step0(sl, pr[:1], pm[:1], media)
+    torch.cuda.synchronize()
+    print(f"  one-row plain path (full forward at {LONG_SECONDS} s): "
+          f"{time.perf_counter() - t0:.3f} s, peak {_gib(torch.cuda.max_memory_allocated())}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the media caches, prefilled once in chunks
+    _reset_kernel_counts()
+    param_bytes = sum(_nbytes(t) for t in _leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    caches = dattn.media_prefill_chunked(params, cfg, img, aud, chunk_tokens=LONG_CHUNK_TOKENS)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cache_bytes = _nbytes(caches.img_k, caches.img_v, caches.aud_k, caches.aud_v)
+    n_chunks = -(-LONG_IMG_S // LONG_CHUNK_TOKENS)
+    print(f"  media_prefill_chunked(chunk_tokens={LONG_CHUNK_TOKENS}): {n_chunks} image "
+          f"chunks (tail {LONG_IMG_S - (n_chunks - 1) * LONG_CHUNK_TOKENS} padded) + 1 audio "
+          f"chunk in {prefill_s:.3f} s; caches {_gib(cache_bytes)} "
+          f"({LONG_IMG_S + LONG_AUD_S} tokens x {n_layers} layers x 8,192 B), weights "
+          f"{_gib(param_bytes)}, peak {_gib(torch.cuda.max_memory_allocated())} (reckoned "
+          f"~{_gib(cache_bytes + param_bytes + _nbytes(img, aud) + 2.6e9)} with one "
+          f"chunk's ~2.6 GB of transients)")
+
+    # 4. three TR queries folded onto the shared caches, and one alone
+    eos = P.pick_eos(cfg, tok)
+    for rows in (3, 1):
+        before = _kernel_counts()
+        res = generate(params, cfg, pr[:rows], pm[:rows], img_mask=img_mask,
+                       aud_mask=aud_mask, max_new_tokens=32, eos_id=eos, use_flash=True,
+                       use_flash_decode=True, media_caches=caches)
+        run = {k: v - before[k] for k, v in _kernel_counts().items()}
+        steps = res.decode_steps
+        # K1: each layer's T2T, T2V and T2A prefill; the folded rows' T2V and
+        # T2A in each decode step. K3: each step's T2T, and one row's T2V / T2A
+        want = ({"flash_attention": n_layers * (3 + 2 * steps),
+                 "decode_attention": n_layers * steps} if rows > 1 else
+                {"flash_attention": 3 * n_layers, "decode_attention": 3 * n_layers * steps})
+        answers = []
+        for r in range(rows):
+            toks = res.tokens[r, : int(res.lengths[r])].cpu()
+            if not ((toks >= 0) & (toks < cfg.text.vocab_size)).all():
+                raise AssertionError("generated ids outside the vocabulary")
+            text = tok.decode(toks.numpy(), skip_special_tokens=True).strip()
+            answers.append(P.parse_task_output(text, "tr", float(LONG_SECONDS)))
+        route = "folded K1" if rows > 1 else "K3"
+        print(f"  {rows} row(s) on the shared caches: prefill {res.prefill_s:.3f} s, decode "
+              f"{steps} steps {res.decode_s:.3f} s = {steps / res.decode_s:.2f} tok/s "
+              f"({route} decode route, {rows * steps / res.decode_s:.2f} tokens/s over the "
+              f"rows); launches K1 {run['flash_attention']}, K2 {run['tower_attention']}, K3 "
+              f"{run['decode_attention']} (reckoned K1 {want['flash_attention']}, K3 "
+              f"{want['decode_attention']}); answers {answers}")
+        if {k: run[k] for k in want} != want:
+            raise AssertionError(f"the {rows}-row queries did not take the {route} routes")
+    torch.cuda.synchronize()
+    path = {k: v + path[k] for k, v in _kernel_counts().items()}
+    print(f"  kernel launches on the long-video path (encode, media prefill, queries): "
+          f"{path}; peak {_gib(torch.cuda.max_memory_allocated())}")
+    if min(path.values()) == 0:
+        raise AssertionError(f"a kernel of the long-video path was never launched: {path}")
+
+    # 5. checks, under the step-0 logit limits of the decode routes
+    readings = {}
+    readings["shared caches, one row, vs the one-row plain path"] = _logit_gap(
+        _step0(sl, pr[:1], pm[:1], media, caches), plain)
+    folded = _step0(sl, pr, pm, media, caches)
+    alone = torch.cat([_step0(sl, pr[r:r + 1], pm[r:r + 1], media, caches) for r in range(3)])
+    readings["three folded rows vs the rows one by one"] = _logit_gap(folded, alone)
+    real = dattn._unfold_rows
+    dattn._unfold_rows = lambda out, bq, tq: real(out, bq, tq).roll(1, 0)
+    try:
+        faults = {"planted fault, rows unfolded in the wrong order": _logit_gap(
+            _step0(sl, pr, pm, media, caches), alone)}
+    finally:
+        dattn._unfold_rows = real
+    tail = (n_chunks - 1) * LONG_CHUNK_TOKENS
+    for name in ("img_k", "img_v"):  # the last check: it spoils the caches
+        getattr(caches, name)[:, :, :, tail:].zero_()
+    faults["planted fault, the tail chunk's caches left zero"] = _logit_gap(
+        _step0(sl, pr[:1], pm[:1], media, caches), plain)
+    for name, (rel, cos) in {**readings, **faults}.items():
+        print(f"  step-0 logits, {name}: max_abs_err = {rel:.3e} of max|logit| (limit "
+              f"{LOGIT_REL}), cosine {cos:.6f} (limit {LOGIT_COS})")
+    for name, (rel, cos) in readings.items():
+        if not (rel <= LOGIT_REL and cos >= LOGIT_COS):
+            raise AssertionError(f"long video: {name} outside the limits")
+    for name, (rel, cos) in faults.items():
+        if rel <= LOGIT_REL and cos >= LOGIT_COS:
+            raise AssertionError(f"long video: the limits do not reject the {name}")
+    del caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path, types.SimpleNamespace(frames=frames, mels=mels, audio_len=audio_len,
+                                       media=media, prompts=(pr, pm))
+
+
+def profile_long(sl, clip) -> None:
+    """torch.profiler over the long-video path (see `_region`): the streamed
+    encode, the chunked media prefill (its caches dropped after each run),
+    the shared-cache text prefill of three folded rows and of one row, and
+    PROFILE_DECODE_STEPS decode steps of each on its route (folded K1, one
+    row K3)."""
+    from vidi_tpu_torch.infer import generate as gen
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.models import dattn, decoder
+
+    params, cfg = sl.params, sl.cfg
+    img, img_mask, aud, aud_mask = clip.media
+
+    def encode():
+        chunks = (clip.frames[a:a + LONG_CHUNK_FRAMES]
+                  for a in range(0, LONG_SECONDS, LONG_CHUNK_FRAMES))
+        return P.encode_frame_stream(params, cfg, chunks, LONG_SECONDS, clip.mels,
+                                     clip.audio_len, mm_chunks=32, use_flash=True,
+                                     device_resize=True)
+
+    def media_prefill():
+        return dattn.media_prefill_chunked(params, cfg, img, aud,
+                                           chunk_tokens=LONG_CHUNK_TOKENS)
+
+    _region(f"long encode ({LONG_SECONDS} frames, device resize)", lambda: (encode(), None)[1])
+    _region(f"media_prefill_chunked ({LONG_SECONDS} s)", lambda: (media_prefill(), None)[1])
+    caches = media_prefill()
+    pr, pm = clip.prompts
+    for rows in (3, 1):
+        def prefill():
+            h, c, lens = gen._prefill(params, cfg, pr[:rows], pm[:rows], None, img_mask,
+                                      None, aud_mask, max_new_tokens=32, mm_chunks=32,
+                                      use_flash=True, media_caches=caches)
+            h_last = h[torch.arange(rows, device=h.device), lens - 1]
+            tok0 = decoder.lm_logits(params["text"], h_last, cfg.text).argmax(-1)
+            return c, lens, decoder.embed_tokens(params["text"], tok0[:, None], cfg.text)
+
+        c, lens, emb = _region(f"shared-cache text prefill, {rows} row(s)", prefill)
+
+        def steps():
+            cur, e = lens.clone(), emb
+            for _ in range(PROFILE_DECODE_STEPS):
+                logits = dattn.decode_step(params, cfg, e, cur, c, img_mask=img_mask,
+                                           aud_mask=aud_mask, use_flash=True)[0]
+                e = decoder.embed_tokens(params["text"], logits.argmax(-1)[:, None], cfg.text)
+                cur = cur + 1
+            return logits
+
+        route = "folded K1" if rows > 1 else "K3"
+        _region(f"decode on the shared caches, {rows} row(s), {route} route "
+                f"x{PROFILE_DECODE_STEPS}", steps)
+    del caches
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2425,7 +2862,17 @@ def main() -> int:
         profile_phase(sl)
     print("decode routes:")
     decode_route_check(sl)
-    del sl
+    print("long-video cache check (the 120 s slice's media):")
+    long_cache_check(sl)
+    sl.media = None  # the 120 s slice is dropped; its weights serve the long one
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"long-video slice (Vidi1.5-9B, a {LONG_SECONDS} s clip, random weights):")
+    serve_long, clip = long_video_phase(sl)
+    if args.profile:
+        print("long-video profile:")
+        profile_long(sl, clip)
+    del sl, clip
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2466,7 +2913,8 @@ def main() -> int:
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
     # training for K4, int8 serving for K5 / K6; K7 is on no path);
     # launches_by_path gives every path's count
-    paths = {"serve": serve, "serve_int8": serve_int8, "train": train}
+    paths = {"serve": serve, "serve_long": serve_long, "serve_int8": serve_int8,
+             "train": train}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [

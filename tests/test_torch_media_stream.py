@@ -1,0 +1,200 @@
+"""The streamed encode of the port against vidi_tpu, fp32 on the CPU with the
+same tiny random weights (params_from_jax): the device bicubic resize
+(`ops/preprocess.resize_bicubic`, `preprocess_uint8`), `encode_media_streaming`
+on a clip made by scripts/make_example.make_video (host resize and
+`device_resize`), `encode_frame_stream` fed the same frames in chunks of
+any size, the audio thread's error, `encode_media`'s flags, and `ask` and
+the CLI with `--stream-chunk` / `--device-resize`.
+
+Tolerances: the resize within 1e-2 on the 0-255 scale and 1e-4 normalized
+(the same antialiased a = -0.5 cubic in fp32, summed in another order);
+media features within atol = rtol = 2e-4 (tests/test_torch_pipeline.py's,
+the same layers); the port's streamed features against its own whole-clip
+encode within 1e-5 (the same arithmetic on chunks of other sizes); answers
+equal strings, generated ids equal.
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vidi_tpu.core.config import DattnConfig
+from vidi_tpu.infer import pipeline as jpipe
+from vidi_tpu.media.text import ByteTokenizer
+from vidi_tpu.models import dattn as jdattn
+from vidi_tpu.ops import preprocess as jpre
+from vidi_tpu_torch.infer import pipeline as tpipe
+from vidi_tpu_torch.infer.convert import params_from_jax
+from vidi_tpu_torch.media import video as tvideo
+from vidi_tpu_torch.ops import preprocess as tpre
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+from make_example import make_video  # noqa: E402
+
+CFG = DattnConfig.tiny()
+QUERY = "a moving gradient"
+FEATS = dict(atol=2e-4, rtol=2e-4)
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+
+
+@pytest.fixture(scope="module")
+def clip(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("media") / "clip.mp4")
+    make_video(path, seconds=6.0)
+    return path
+
+
+@pytest.fixture(scope="module")
+def model():
+    jp = jdattn.init_params(jax.random.PRNGKey(7), CFG, jnp.float32)
+    return jp, params_from_jax(jax.device_get(jp))
+
+
+@pytest.mark.parametrize("h,w,size", [(360, 640, 384), (480, 854, 384), (384, 500, 384),
+                                      (200, 300, 384), (30, 20, 42)])
+def test_resize_bicubic_matches(h, w, size):
+    """Downscales of common decode resolutions, and upscales (200x300 and
+    30x20 to the tower's side)."""
+    x = np.random.default_rng(h + w).integers(0, 256, (2, h, w, 3), dtype=np.uint8)
+    got = tpre.resize_bicubic(torch.from_numpy(x), size)
+    want = jpre.resize_bicubic(jnp.asarray(x, jnp.float32), size)
+    assert got.shape == (2, size, size, 3) and got.dtype == torch.float32
+    assert float(got.min()) >= 0.0 and float(got.max()) <= 255.0
+    _close(got, want, atol=1e-2, rtol=0)
+    mean, std = (0.48, 0.45, 0.40), (0.27, 0.26, 0.28)
+    _close(tpre.preprocess_uint8(torch.from_numpy(x), size, mean, std),
+           jpre.preprocess_uint8(jnp.asarray(x), size, mean, std), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("device_resize", [False, True])
+def test_encode_media_streaming_matches(clip, model, device_resize):
+    """Chunks of 4 of the clip's 6 frames (a short tail) against vidi_tpu's
+    streamed encode; with the host resize also against the port's
+    whole-clip encode of the same frames."""
+    jp, tp = model
+    kw = dict(chunk_frames=4, mm_chunks=4, device_resize=device_resize)
+    want = jpipe.encode_media_streaming(jp, CFG, clip, **kw)
+    got = tpipe.encode_media_streaming(tp, CFG, clip, **kw)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+        _close(g, w, **FEATS)
+    if not device_resize:
+        whole = tpipe.encode_media_arrays(tp, CFG, *tpipe.decode_media_host(clip, CFG),
+                                          mm_chunks=4)
+        for g, w in zip(got, whole):
+            _close(g, w.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("device_resize", [False, True])
+def test_encode_frame_stream_does_not_depend_on_the_chunk(model, device_resize):
+    """The same 9 frames (decoded at 30x50) in chunks of 1, 7 and 9 give
+    the same features; as uint8 at the tower's size, the whole-clip encode's."""
+    _, tp = model
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, (9, 30, 50, 3), dtype=np.uint8)
+    mels = rng.standard_normal((2, 128, 3000)).astype(np.float32)
+
+    def run(size):
+        chunks = (frames[a:a + size] for a in range(0, len(frames), size))
+        return tpipe.encode_frame_stream(tp, CFG, chunks, len(frames), mels, 5000,
+                                         mm_chunks=2, device_resize=device_resize)
+
+    want = run(9)
+    for size in (1, 7):
+        for g, w in zip(run(size), want):
+            _close(g, w.numpy(), atol=1e-5, rtol=1e-5)
+    if not device_resize:
+        from vidi_tpu_torch.media.images import resize_frames_uint8
+        whole = tpipe.encode_media_arrays(
+            tp, CFG, resize_frames_uint8(frames, CFG.vision.image_size), mels, 5000,
+            mm_chunks=2)
+        for g, w in zip(want, whole):
+            _close(g, w.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_encode_frame_stream_checks_the_frame_count(model):
+    _, tp = model
+    frames = np.zeros((3, 42, 42, 3), np.uint8)
+    mels = np.zeros((1, 128, 3000), np.float32)
+    with pytest.raises(ValueError, match="3 frames, not 4"):
+        tpipe.encode_frame_stream(tp, CFG, [frames], 4, mels, 3000)
+
+
+def test_audio_thread_error_is_reraised(clip, model, monkeypatch):
+    _, tp = model
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("no audio stream")
+
+    monkeypatch.setattr(tvideo, "load_audio", broken)
+    with pytest.raises(RuntimeError, match="no audio stream"):
+        tpipe.encode_media_streaming(tp, CFG, clip, chunk_frames=4)
+
+
+def test_encode_media_selects_the_path(clip, model):
+    _, tp = model
+    with pytest.raises(ValueError, match="stream_chunk"):
+        tpipe.encode_media(tp, CFG, clip, device_resize=True)
+    streamed = tpipe.encode_media(tp, CFG, clip, mm_chunks=4, stream_chunk=5)
+    whole = tpipe.encode_media(tp, CFG, clip, mm_chunks=4)
+    for g, w in zip(streamed, whole):
+        _close(g, w.numpy(), atol=1e-5, rtol=1e-5)
+
+
+class _RecordingTokenizer(ByteTokenizer):
+    """Keeps every id sequence `ask` decodes (random weights rarely give a
+    time range the parser keeps)."""
+
+    def __init__(self):
+        super().__init__()
+        self.decoded = []
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        self.decoded.append([int(t) for t in ids])
+        return super().decode(ids, skip_special_tokens)
+
+
+@pytest.mark.parametrize("device_resize", [False, True])
+def test_ask_streamed_gives_the_same_answer(clip, model, device_resize):
+    jp, tp = model
+    kw = dict(max_new_tokens=12, mm_chunks=4, use_flash=False, stream_chunk=4,
+              device_resize=device_resize)
+    jtok, ttok = _RecordingTokenizer(), _RecordingTokenizer()
+    want = jpipe.ask(QUERY, clip, jp, CFG, jtok, **kw)
+    got = tpipe.ask(QUERY, clip, tp, CFG, ttok, **kw)
+    assert got == want
+    assert ttok.decoded == jtok.decoded and any(ttok.decoded)
+
+
+def _cli(*args):
+    return subprocess.run(
+        [sys.executable, "-m", "vidi_tpu_torch.infer.pipeline", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=180)
+
+
+def test_cli_stream_flags(clip):
+    """--stream-chunk with --device-resize prints what `ask` gives with the
+    same options on load_model's weights; --device-resize alone exits with
+    the error."""
+    from vidi_tpu_torch.infer.loader import load_model
+
+    base = ["--video-path", clip, "--query", QUERY, "--random-weights", "tiny",
+            "--device", "cpu", "--dtype", "float32", "--max-new-tokens", "8"]
+    res = _cli(*base, "--stream-chunk", "4", "--device-resize")
+    assert res.returncode == 0, res.stderr
+    params, cfg, tok = load_model(random_weights="tiny", dtype=torch.float32,
+                                  device="cpu")
+    want = tpipe.ask(QUERY, clip, params, cfg, tok, max_new_tokens=8, stream_chunk=4,
+                     device_resize=True)
+    assert res.stdout.strip().splitlines()[-1] == (want or "(no parsed output)")
+    res = _cli(*base, "--device-resize")
+    assert res.returncode != 0 and "device_resize needs stream_chunk" in res.stderr

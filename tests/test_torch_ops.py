@@ -135,7 +135,11 @@ def test_normalize_uint8_matches(mean, std):
            jpre.preprocess_uint8(jnp.asarray(x), 6, mean, std))
 
 
-def test_device_resize_is_not_ported_yet():
-    x = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError):
-        tpre.preprocess_uint8(x, 6, 0.5, 0.5)
+def test_device_resize_matches():
+    """Frames not at the tower's size are resized on the device (bicubic,
+    antialiased) before the normalize: within 1e-4 of JAX's normalized
+    output (tests/test_torch_media_stream.py holds the resize at more
+    shapes)."""
+    x = np.random.default_rng(1).integers(0, 256, (2, 8, 11, 3), dtype=np.uint8)
+    _close(tpre.preprocess_uint8(torch.from_numpy(x), 6, 0.5, 0.5),
+           jpre.preprocess_uint8(jnp.asarray(x), 6, 0.5, 0.5))

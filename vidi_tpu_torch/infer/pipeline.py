@@ -5,15 +5,23 @@ decode video -> uint8 frames + log-mel windows (host) -> SigLIP / Whisper
 towers and adapters (device) -> TR prompt -> greedy generate -> parse the
 normalized `a.aaa-b.bbb` ranges -> "HH:MM:SS-HH:MM:SS" spans.
 
+The encode runs whole (`encode_media_arrays`: every frame decoded first)
+or streamed (`stream_chunk > 0`: `encode_media_streaming`, the device
+encoding one chunk of frames while the host decodes the next, the audio
+decoded on its own thread; `encode_frame_stream` is its device half for
+any iterable of uint8 frame chunks). `device_resize` ships the streamed
+chunks at decode resolution and resizes them on the device.
+
     python -m vidi_tpu_torch.infer.pipeline --video-path v.mp4 --query "a red car" \
         --random-weights 9b|1.5b|tiny --device cuda|cpu --dtype bfloat16|float32 \
         [--load-8bit | --load-4bit] [--load-8bit-towers] [--quantize-kv] \
-        [--w8a8-prefill MIN_TOKENS]
+        [--w8a8-prefill MIN_TOKENS] [--stream-chunk FRAMES [--device-resize]]
 """
 from __future__ import annotations
 
 import argparse
 import re
+import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -86,11 +94,118 @@ def encode_media_arrays(params, cfg: DattnConfig, pixels, mels, audio_len, *,
         params, cfg, torch.as_tensor(np.asarray(pixels)).to(dev)[None],
         torch.tensor([n], device=dev), hw, mm_chunks=mm_chunks,
         use_flash=use_flash)
-    aud, aud_mask = dattn.encode_video_audios(
+    return (img, img_mask,
+            *_encode_audio(params, cfg, mels, audio_len, mm_chunks, use_flash))
+
+
+def _encode_audio(params, cfg: DattnConfig, mels, audio_len, mm_chunks: int,
+                  use_flash: bool):
+    """Mel windows [W,n_mels,3000] -> (aud, aud_mask) on the parameters'
+    device."""
+    dev = params["text"]["embed"].device
+    return dattn.encode_video_audios(
         params, cfg, torch.as_tensor(np.asarray(mels, np.float32)).to(dev)[None],
         torch.tensor([audio_len], device=dev), mm_chunks=mm_chunks,
         use_flash=use_flash)
-    return img, img_mask, aud, aud_mask
+
+
+def _encode_frame_chunks(params, cfg: DattnConfig, chunks, n_frames: int, *,
+                        use_flash: bool = False, device_resize: bool = False):
+    """Image half of the streamed encode: uint8 frame chunks [C,H,W,3] (any
+    iterable; each goes to the device and through the tower while the
+    producer makes the next) -> (img [1, N*h2*w2, d], img_mask). The token
+    grid is fixed from `n_frames` before the first frame arrives
+    (`budget_hw`). With `device_resize` the chunks ship at their decode
+    resolution and are resized on the device; otherwise the host's PIL
+    resize runs on each chunk first."""
+    dev = params["text"]["embed"].device
+    hw = budget_hw(n_frames, cfg.mm_image_pool_size, cfg.vision.num_patches_per_side,
+                   cfg.mm_max_tokens_base)
+    toks = []
+    for chunk in chunks:
+        if device_resize:
+            pixels = np.ascontiguousarray(chunk)
+        else:
+            from vidi_tpu_torch.media.images import resize_frames_uint8
+            pixels = resize_frames_uint8(chunk, cfg.vision.image_size)
+        toks.append(dattn.frame_tokens_chunk(params, torch.as_tensor(pixels).to(dev),
+                                             cfg, hw, use_flash))
+    tok = torch.cat(toks)[None]  # [1, N, h2, w2, d]
+    if tok.shape[1] != n_frames:
+        raise ValueError(f"the chunks held {tok.shape[1]} frames, not {n_frames}")
+    return dattn.finish_video_tokens(params, cfg, tok,
+                                     torch.tensor([n_frames], device=dev))
+
+
+def encode_frame_stream(params, cfg: DattnConfig, chunks, n_frames: int, mels,
+                        audio_len, *, mm_chunks: int = 32, use_flash: bool = False,
+                        device_resize: bool = False):
+    """Streamed device encode from frame chunks already decoded (or decoded
+    as they are iterated) and the clip's mel windows -> (img, img_mask,
+    aud, aud_mask), as `encode_media_arrays` gives them for the same
+    frames. See `_encode_frame_chunks`."""
+    img, img_mask = _encode_frame_chunks(params, cfg, chunks, n_frames,
+                                        use_flash=use_flash,
+                                        device_resize=device_resize)
+    return (img, img_mask,
+            *_encode_audio(params, cfg, mels, audio_len, mm_chunks, use_flash))
+
+
+def encode_media_streaming(params, cfg: DattnConfig, vid_path: str, *,
+                           fps: float = 1.0, chunk_frames: int = 112,
+                           mm_chunks: int = 32, use_flash: bool = False,
+                           device_resize: bool = False):
+    """Video file -> (img, img_mask, aud, aud_mask), streamed: the frames
+    are decoded in `chunk_frames` chunks, each encoded on the device while
+    the host decodes the next, and the audio is decoded on its own thread
+    meanwhile (its error re-raised after the frames). The frame count, so
+    the token grid, comes from the container before any frame is decoded.
+    Numerics equal `encode_media_arrays`': every per-frame step is local to
+    its chunk."""
+    from vidi_tpu_torch.media.video import _frame_indices, load_audio, probe, stream_video
+
+    _, avg_fps, n_total, _, _ = probe(vid_path)
+    n = len(_frame_indices(n_total, avg_fps, fps, None))
+    audio = {}
+
+    def decode_audio():
+        try:
+            audio["mels"] = process_audio(load_audio(vid_path, cfg.audio.sampling_rate),
+                                          cfg.audio)
+        except Exception as e:  # noqa: BLE001 -- re-raised after the join
+            audio["err"] = e
+
+    thread = threading.Thread(target=decode_audio, daemon=True)
+    thread.start()
+    try:
+        img, img_mask = _encode_frame_chunks(
+            params, cfg, stream_video(vid_path, fps=fps, chunk=chunk_frames), n,
+            use_flash=use_flash, device_resize=device_resize)
+    finally:
+        thread.join()
+    if "err" in audio:
+        raise audio["err"]
+    return (img, img_mask,
+            *_encode_audio(params, cfg, *audio["mels"], mm_chunks, use_flash))
+
+
+def encode_media(params, cfg: DattnConfig, vid_path: str, *, fps: float = 1.0,
+                 mm_chunks: int = 32, use_flash: bool = False,
+                 stream_chunk: int = 0, device_resize: bool = False):
+    """Video file -> (img, img_mask, aud, aud_mask): streamed in
+    `stream_chunk`-frame chunks when it is > 0, else decoded whole first.
+    `device_resize` needs `stream_chunk`: the whole path would hold every
+    raw-resolution frame on the device at once."""
+    if stream_chunk > 0:
+        return encode_media_streaming(params, cfg, vid_path, fps=fps,
+                                      chunk_frames=stream_chunk, mm_chunks=mm_chunks,
+                                      use_flash=use_flash, device_resize=device_resize)
+    if device_resize:
+        raise ValueError("device_resize needs stream_chunk > 0 (the whole-video "
+                         "path would stage every raw-resolution frame on the "
+                         "device at once)")
+    return encode_media_arrays(params, cfg, *decode_media_host(vid_path, cfg, fps=fps),
+                               mm_chunks=mm_chunks, use_flash=use_flash)
 
 
 def build_prompt_ids(question: str, tokenizer, task: str = "tr",
@@ -122,20 +237,22 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
         task: str = "tr", fps: float = 1.0, max_new_tokens: int = 1024,
         mm_chunks: int = 32, eos_id: Optional[int] = None, pad_to: int = 64,
         use_flash: Optional[bool] = None, use_flash_decode: bool = False,
-        quantize_caches: bool = False, stop_keywords: tuple = ()) -> str:
+        quantize_caches: bool = False, stream_chunk: int = 0,
+        device_resize: bool = False, stop_keywords: tuple = ()) -> str:
     """Answer one query about one video -> the task's display string.
     `use_flash=None` means "the parameters are on a CUDA device": the CUDA
     kernels run there and the reference ops on the CPU. `quantize_caches`
-    keeps the image / audio KV caches as per-token int8."""
+    keeps the image / audio KV caches as per-token int8; `stream_chunk` and
+    `device_resize` select the encode (`encode_media`)."""
     from vidi_tpu_torch.media.video import get_media_length
 
     dev = params["text"]["embed"].device
     if use_flash is None:
         use_flash = dev.type == "cuda"
     length = get_media_length(vid_path)
-    img, img_mask, aud, aud_mask = encode_media_arrays(
-        params, cfg, *decode_media_host(vid_path, cfg, fps=fps),
-        mm_chunks=mm_chunks, use_flash=use_flash)
+    img, img_mask, aud, aud_mask = encode_media(
+        params, cfg, vid_path, fps=fps, mm_chunks=mm_chunks, use_flash=use_flash,
+        stream_chunk=stream_chunk, device_resize=device_resize)
     prompt, mask = build_prompt_batch([build_prompt_ids(question, tokenizer, task)],
                                       pad_to)
     result = generate(
@@ -202,6 +319,12 @@ def main(argv=None):
                    help="with --load-8bit: int8 activations for decoder products "
                         "of at least MIN_TOKENS rows (the modality-stream prefill); "
                         "decode stays weight-only")
+    p.add_argument("--stream-chunk", type=int, default=0, metavar="FRAMES",
+                   help="encode while decoding, in chunks of FRAMES frames "
+                        "(0: decode the whole video first)")
+    p.add_argument("--device-resize", action="store_true",
+                   help="with --stream-chunk: ship frames at their decode "
+                        "resolution and resize them on the device")
     args = p.parse_args(argv)
 
     from vidi_tpu_torch.infer import quantize
@@ -215,7 +338,8 @@ def main(argv=None):
         load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit)
     out = ask(args.query, args.video_path, params, cfg, tokenizer,
               task=args.task, fps=args.fps, max_new_tokens=args.max_new_tokens,
-              mm_chunks=args.mm_splits, quantize_caches=args.quantize_kv)
+              mm_chunks=args.mm_splits, quantize_caches=args.quantize_kv,
+              stream_chunk=args.stream_chunk, device_resize=args.device_resize)
     print(out if out else "(no parsed output)")
 
 

@@ -16,9 +16,15 @@ chunking is a loop over chunks, and decode writes the text cache in place.
 Training position noise comes as explicit standard-normal draws
 (`draw_pos_noise`) instead of a JAX key; `remat=True` checkpoints each
 layer (`torch.utils.checkpoint`), the counterpart of `jax.checkpoint`.
-`use_flash` routes attention to the CUDA kernels (K1 for prefill T2T and
-stream cross attention, K3 for decode); without it the reference ops of
-`ops/attention.py` run. Caches keep the decode-native [L,B,Hk,S,D] layout;
+`use_flash` routes attention to the CUDA kernels (K1 for the T2T prefill,
+the stream cross attention and several query tokens against a cache; K3
+for one query token against a cache); without it the reference ops of
+`ops/attention.py` run. Long video: `media_prefill` /
+`media_prefill_chunked` compute a video's image / audio caches once (the
+latter chunk by chunk through all layers, into preallocated buffers), and
+`text_prefill_with_caches` / `decode_step` read them for any number of
+query rows, batch-1 caches folded across the rows (`_xattn_block`).
+Caches keep the decode-native [L,B,Hk,S,D] layout;
 with `quantize_caches` the image / audio caches are per-token int8 dicts
 ({qi8 [L,B,Hk,S,D], scale [L,B,Hk,S,1]}) that decode reads through
 `quantized_cache_cross_attention`. Layer weights may be int8 / int4 dicts
@@ -56,8 +62,8 @@ class Caches(NamedTuple):
     are None when the modality is absent, and int8 dicts (see the module
     docstring) when quantized."""
 
-    text_k: torch.Tensor
-    text_v: torch.Tensor
+    text_k: Optional[torch.Tensor]  # None in media-only caches (media_prefill)
+    text_v: Optional[torch.Tensor]
     img_k: Optional[torch.Tensor]
     img_v: Optional[torch.Tensor]
     aud_k: Optional[torch.Tensor]
@@ -207,6 +213,16 @@ def _frame_tokens(params, x, cfg: DattnConfig, hw, use_flash, noise=None):
     return adapters.add_pos(t, pe_w, axis=2, eps=cfg.mm_rms_eps)
 
 
+def frame_tokens_chunk(params: Params, x: torch.Tensor, cfg: DattnConfig,
+                       hw: Tuple[int, int], use_flash: bool = False) -> torch.Tensor:
+    """One chunk of a streamed encode: frames [C,H,W,3] (uint8 at any
+    decode resolution, or normalized float) -> tokens [C,h2,w2,d], with no
+    position noise (inference). The streamed pipeline concatenates the
+    chunks and passes them to `finish_video_tokens` (JAX:
+    `frame_tokens_chunk` and `finish_video_tokens_jit`)."""
+    return _frame_tokens(params, x, cfg, hw, use_flash)
+
+
 def finish_video_tokens(params: Params, cfg: DattnConfig, tok: torch.Tensor,
                         frame_counts: torch.Tensor, *,
                         t_noise: Optional[torch.Tensor] = None):
@@ -303,36 +319,69 @@ def _fold_o_w(o_w, tcfg: TextConfig):
     return fold(o_w.float()).to(o_w.dtype)
 
 
+def _fold_rows(q: torch.Tensor, kb: int) -> torch.Tensor:
+    """[bq,tq,H,D] query rows -> [kb,(bq//kb)*tq,H,D]: the rows that share
+    a cache entry laid end to end along the query axis."""
+    return q.reshape(kb, (q.shape[0] // kb) * q.shape[1], *q.shape[2:])
+
+
+def _unfold_rows(out: torch.Tensor, bq: int, tq: int) -> torch.Tensor:
+    """The inverse of `_fold_rows` on the output [kb,(bq//kb)*tq,d]."""
+    return out.reshape(bq, tq, out.shape[-1])
+
+
 def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
                  kv=None, use_flash: bool = False):
     """T2V / T2A cross attention plus the diagonal stream update. Returns
-    (xattn out [B,T,d], updated stream, (k, v)). With `kv` (decode, the
-    cache-native [B,Hk,S,D] layer slices) the stream update is skipped."""
+    (xattn out [B,T,d], updated stream, (k, v)). With `kv` (the
+    cache-native [Bc,Hk,S,D] layer slices: decode, or a text prefill against
+    shared caches) the stream update is skipped; a cache batch Bc that
+    divides B without equalling it serves B / Bc rows each (folded)."""
     has = stream_mask.any(dim=-1)  # [B] sample has this modality
-    # samples without the modality attend everywhere (finite), then zeroed
+    # samples without the modality attend everywhere (finite), then zeroed;
+    # this also keeps every row non-empty before K1 / K3 see it
     kv_valid = torch.where(has[:, None], stream_mask, torch.ones_like(stream_mask))
     if kv is not None:
         mk, mv = kv
-        if qz.is_quantized(mk):
+        quantized = qz.is_quantized(mk)
+        # shared media: a cache of batch kb serving bq = kb * G query rows
+        # (rows [b*G, (b+1)*G) read cache b; kb == 1 is one video's caches
+        # prefilled once, media_prefill) folds the rows into the query axis:
+        # cross attention is non-causal, so rows stay independent and the
+        # cache is read once, never replicated per row
+        bq, tq = q.shape[0], q.shape[1]
+        kb = (mk[qz.QUANT_KEY] if quantized else mk).shape[0]
+        folded = kb != bq and bq % kb == 0
+        if folded:
+            q = _fold_rows(q, kb)
+        if quantized:
             # int8 per-token caches, read as they are (ahead of K3, which
             # reads bf16 caches)
             attn = quantized_cache_cross_attention(q, mk, mv, kv_valid=kv_valid,
                                                    scale=tcfg.q_scale,
                                                    softcap=tcfg.attn_softcap)
-        elif use_flash:
+        elif use_flash and q.shape[1] == 1:
+            # one query token a row: the decode kernel
             from vidi_tpu_torch.ops.cuda.decode_attention import decode_attention
             attn = decode_attention(q[:, 0], mk, mv, kv_valid, tcfg.q_scale,
                                     tcfg.attn_softcap)[:, None]
+        elif use_flash:
+            # several query tokens (a text prefill, or folded rows) against
+            # the cache: K1 reads the transposed view in place
+            from vidi_tpu_torch.ops.cuda.flash_attention import flash_attention
+            attn = flash_attention(q, mk.transpose(1, 2), mv.transpose(1, 2),
+                                   kv_valid, tcfg.q_scale, False, None,
+                                   tcfg.attn_softcap)[0]
         else:
             attn = cross_attention(q, mk.transpose(1, 2), mv.transpose(1, 2),
                                    kv_valid=kv_valid, scale=tcfg.q_scale,
                                    softcap=tcfg.attn_softcap)
         out = qdot(decoder.merge_heads(attn), lp["o_w"]) * has[:, None, None]
+        if folded:
+            out = _unfold_rows(out, bq, tq)
         return out, stream, (mk, mv)
 
-    sn = decoder.norm(stream, lp["input_ln"], tcfg)
-    mk = decoder.split_heads(qdot(sn, lp["k_w"]), tcfg.num_kv_heads, tcfg.head_dim)
-    mv = decoder.split_heads(qdot(sn, lp["v_w"]), tcfg.num_kv_heads, tcfg.head_dim)
+    mk, mv = _stream_kv(lp, stream, tcfg)
     if use_flash:
         from vidi_tpu_torch.ops.cuda.flash_attention import flash_attention
         attn = flash_attention(q, mk, mv, kv_valid, tcfg.q_scale, False, None,
@@ -342,26 +391,42 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
                                softcap=tcfg.attn_softcap)
     out = qdot(decoder.merge_heads(attn), lp["o_w"]) * has[:, None, None]
 
-    # diagonal update: o_proj over GQA-repeated values == v @ folded o_w
-    g = tcfg.num_heads // tcfg.num_kv_heads
-    o_w = _fold_o_w(lp["o_w"], tcfg) if g > 1 else lp["o_w"]
-
-    def diag_update(s_chunk, v_chunk):
-        dv = qdot(decoder.merge_heads(v_chunk), o_w)
-        if tcfg.double_norms:
-            dv = decoder.norm(dv, lp["post_attn_ln"], tcfg)
-        return decoder.ffn_block(lp, s_chunk + dv, tcfg)
-
+    o_w = _diag_o_w(lp, tcfg)
     s = stream.shape[1]
     if mm_chunks > 1 and s > mm_chunks:
         # chunk along the token axis (the update is per token)
         size = -(-s // mm_chunks)
         new = torch.empty_like(stream)
         for a in range(0, s, size):
-            new[:, a:a + size] = diag_update(stream[:, a:a + size], mv[:, a:a + size])
+            new[:, a:a + size] = _diag_update(lp, stream[:, a:a + size],
+                                              mv[:, a:a + size], o_w, tcfg)
     else:
-        new = diag_update(stream, mv)
+        new = _diag_update(lp, stream, mv, o_w, tcfg)
     return out, new, (mk, mv)
+
+
+def _stream_kv(lp, stream, tcfg: TextConfig):
+    """A stream's k / v [B,S,Hk,D] (its cache entries) from the input norm."""
+    sn = decoder.norm(stream, lp["input_ln"], tcfg)
+    mk = decoder.split_heads(qdot(sn, lp["k_w"]), tcfg.num_kv_heads, tcfg.head_dim)
+    mv = decoder.split_heads(qdot(sn, lp["v_w"]), tcfg.num_kv_heads, tcfg.head_dim)
+    return mk, mv
+
+
+def _diag_o_w(lp, tcfg: TextConfig):
+    """The o_proj of the diagonal update: o_proj over GQA-repeated values ==
+    v @ folded o_w."""
+    g = tcfg.num_heads // tcfg.num_kv_heads
+    return _fold_o_w(lp["o_w"], tcfg) if g > 1 else lp["o_w"]
+
+
+def _diag_update(lp, stream, v, o_w, tcfg: TextConfig):
+    """The stream's diagonal update, token by token: its values through
+    `o_w` (`_diag_o_w`), the post-attention norm, then the FFN."""
+    dv = qdot(decoder.merge_heads(v), o_w)
+    if tcfg.double_norms:
+        dv = decoder.norm(dv, lp["post_attn_ln"], tcfg)
+    return decoder.ffn_block(lp, stream + dv, tcfg)
 
 
 def _self_attn_switch(q, k, v, q_pos, kv_pos, kv_valid, tcfg: TextConfig,
@@ -466,22 +531,28 @@ def _caches_ys(caches, quantize: bool = False):
     return t(tk), t(tv), mm(ik), mm(iv), mm(ak), mm(av)
 
 
-def _cache_buffer(y, n_layers: int):
-    """An empty [L, ...] buffer for one layer's cache output (a dict of
-    buffers for a quantized one)."""
+def _cache_buffer(y, n_layers: int, length: Optional[int] = None):
+    """An empty [L, ...] buffer for one layer's cache output y [...,S,D] (a
+    dict of buffers for a quantized one), `length` tokens long (default
+    y's S)."""
     if y is None:
         return None
     if isinstance(y, dict):
-        return {k: _cache_buffer(v, n_layers) for k, v in y.items()}
-    return torch.empty((n_layers, *y.shape), dtype=y.dtype, device=y.device)
+        return {k: _cache_buffer(v, n_layers, length) for k, v in y.items()}
+    shape = (*y.shape[:-2], length or y.shape[-2], y.shape[-1])
+    return torch.empty((n_layers, *shape), dtype=y.dtype, device=y.device)
 
 
-def _write_layer(buf, i: int, y) -> None:
+def _write_cache_slice(buf, i: int, piece, start: int) -> None:
+    """Write one layer's cache slice `piece` [...,c,D] (or an int8 dict of
+    such) into layer i of the [L,...,S,D] buffer at token `start`, in place;
+    tokens past S (a padded tail chunk's) are dropped."""
     if isinstance(buf, dict):
         for k in buf:
-            buf[k][i].copy_(y[k])
+            _write_cache_slice(buf[k], i, piece[k], start)
     elif buf is not None:
-        buf[i].copy_(y)
+        n = min(piece.shape[-2], buf.shape[-2] - start)
+        buf[i, ..., start:start + n, :].copy_(piece[..., :n, :])
 
 
 def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
@@ -524,9 +595,137 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
             if bufs is None:
                 bufs = [_cache_buffer(y, len(layers)) for y in ys]
             for buf, y in zip(bufs, ys):
-                _write_layer(buf, i, y)
+                _write_cache_slice(buf, i, y, 0)
     h = decoder.norm(h, params["text"]["final_ln"], tcfg)
     return h, (Caches(*bufs) if return_caches else None)
+
+
+# ---------------------------------------------------------------------------
+# Shared media caches (one video's stream caches serve many queries)
+# ---------------------------------------------------------------------------
+
+def media_prefill(params: Params, cfg: DattnConfig, img=None, img_mask=None,
+                  aud=None, aud_mask=None, *, mm_chunks: int = 1,
+                  use_flash: bool = False, quantize_caches: bool = False) -> Caches:
+    """The modality streams alone -> per-layer image / audio caches (text
+    caches None). The stream evolution reads only the stream (text attends
+    into it, never the other way), so one video's caches, computed once,
+    serve every query on it (`generate(media_caches=)`). Runs `forward`
+    over one dummy text token and drops its text cache."""
+    ref = img if img is not None else aud
+    b, dev = ref.shape[0], ref.device
+    _, caches = forward(
+        params, cfg, ref.new_zeros((b, 1, cfg.text.hidden_size)),
+        torch.ones((b, 1), dtype=torch.bool, device=dev),
+        torch.zeros((b, 1), dtype=torch.long, device=dev),
+        img=img, img_mask=img_mask, aud=aud, aud_mask=aud_mask,
+        mm_chunks=mm_chunks, return_caches=True, use_flash=use_flash,
+        quantize_caches=quantize_caches)
+    return caches._replace(text_k=None, text_v=None)
+
+
+def _stream_chunk_layers(params: Params, cfg: DattnConfig, chunk: torch.Tensor,
+                         quantize_caches: bool):
+    """Yield each layer's (k, v) cache slices [B,Hk,c,D] of one stream chunk
+    [B,c,d] (raw adapter output, before the sqrt(d) scale), carrying only
+    the chunk from layer to layer: input norm -> k / v projections (the
+    cache entries) -> diagonal update through the folded o_w -> post-
+    attention norm -> FFN, the stream branch of `_xattn_block` token by
+    token (`_stream_kv`, `_diag_update`)."""
+    tcfg = cfg.text
+    s = _embed_scale(chunk, tcfg) if tcfg.embed_scale else chunk
+    for lp in params["text"]["layers"]:
+        k, v = _stream_kv(lp, s, tcfg)
+        s = _diag_update(lp, s, v, _diag_o_w(lp, tcfg), tcfg)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        if quantize_caches:
+            kt, vt = qz.quantize_cache(kt), qz.quantize_cache(vt)
+        yield kt, vt
+
+
+def stream_chunk_caches(params: Params, cfg: DattnConfig, chunk: torch.Tensor, *,
+                        quantize_caches: bool = False):
+    """One stream chunk [B,c,d] (raw adapter output) through all layers ->
+    (k, v) cache slices [L,B,Hk,c,D] (per-token int8 dicts with
+    `quantize_caches`). The stream update is per token, so chunks of a
+    stream can run one after another with the same result."""
+    n_layers = len(params["text"]["layers"])
+    ks = vs = None
+    for i, (k, v) in enumerate(_stream_chunk_layers(params, cfg, chunk, quantize_caches)):
+        if ks is None:
+            ks, vs = _cache_buffer(k, n_layers), _cache_buffer(v, n_layers)
+        _write_cache_slice(ks, i, k, 0)
+        _write_cache_slice(vs, i, v, 0)
+    return ks, vs
+
+
+def media_prefill_chunked(params: Params, cfg: DattnConfig, img=None, aud=None, *,
+                          chunk_tokens: int = 32768,
+                          quantize_caches: bool = False) -> Caches:
+    """`media_prefill` with bounded peak memory: each stream runs in
+    `chunk_tokens` slices through all layers (`_stream_chunk_layers`), each
+    layer's slice written in place into [L,B,Hk,S,D] buffers of exactly S
+    tokens (never gathered and concatenated, which would hold the caches
+    twice). The tail chunk is padded to `chunk_tokens`, so every chunk has
+    one shape and the allocator reuses one chunk's blocks; its padding's
+    cache entries are not written. Peak memory: the caches plus one
+    chunk's transients. Masks are not needed: a masked token's entries are
+    computed and never attended."""
+    n_layers = len(params["text"]["layers"])
+
+    def run_stream(stream):
+        s = stream.shape[1]
+        c = min(chunk_tokens, s)
+        ks = vs = None
+        for start in range(0, s, c):
+            piece = stream[:, start:start + c]
+            if piece.shape[1] < c:
+                piece = torch.nn.functional.pad(piece, (0, 0, 0, c - piece.shape[1]))
+            for i, (k, v) in enumerate(
+                    _stream_chunk_layers(params, cfg, piece, quantize_caches)):
+                if ks is None:
+                    ks, vs = _cache_buffer(k, n_layers, s), _cache_buffer(v, n_layers, s)
+                _write_cache_slice(ks, i, k, start)
+                _write_cache_slice(vs, i, v, start)
+        return ks, vs
+
+    ik, iv = run_stream(img) if img is not None else (None, None)
+    ak, av = run_stream(aud) if aud is not None else (None, None)
+    return Caches(None, None, ik, iv, ak, av)
+
+
+def text_prefill_with_caches(params: Params, cfg: DattnConfig, inputs_embeds,
+                             text_mask, positions, media: Caches, img_mask=None,
+                             aud_mask=None, use_flash: bool = False):
+    """The text side of B query rows against precomputed media caches (of
+    batch 1 or B; their masks `img_mask` / `aud_mask` of the same batch):
+    per layer the causal T2T prefill and the T2V / T2A reads of the caches
+    (folded when their batch is 1), the stream work skipped. -> (final
+    hidden [B,T,d], Caches with a fresh text cache [L,B,Hk,T,D] and the
+    media caches passed through)."""
+    tcfg = cfg.text
+    h = _embed_scale(inputs_embeds, tcfg) if tcfg.embed_scale else inputs_embeds
+    rope_cs = rope_cos_sin(positions, tcfg.head_dim, tcfg.rope_theta)
+    has_img, has_aud = media.img_k is not None, media.aud_k is not None
+    layers = params["text"]["layers"]
+    tk = tv = None
+    for i, lp in enumerate(layers):
+        h, _, _, ((k_r, v), _, _) = dattn_layer(
+            lp, _is_sliding(i, tcfg), h, None, None, tcfg=tcfg, rope_cs=rope_cs,
+            q_positions=positions, kv_positions=positions, text_mask=text_mask,
+            img_mask=img_mask, aud_mask=aud_mask,
+            img_kv=((_layer_slice(media.img_k, i), _layer_slice(media.img_v, i))
+                    if has_img else None),
+            aud_kv=((_layer_slice(media.aud_k, i), _layer_slice(media.aud_v, i))
+                    if has_aud else None),
+            use_flash=use_flash)
+        k_r, v = k_r.transpose(1, 2), v.transpose(1, 2)  # [B,Hk,T,D] views
+        if tk is None:
+            tk, tv = _cache_buffer(k_r, len(layers)), _cache_buffer(v, len(layers))
+        _write_cache_slice(tk, i, k_r, 0)
+        _write_cache_slice(tv, i, v, 0)
+    h = decoder.norm(h, params["text"]["final_ln"], tcfg)
+    return h, media._replace(text_k=tk, text_v=tv)
 
 
 # ---------------------------------------------------------------------------

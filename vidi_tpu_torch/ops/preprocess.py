@@ -1,14 +1,20 @@
 """Device-side frame preprocessing (port of vidi_tpu/ops/preprocess.py):
-uint8 frames cross to the device and are rescaled / normalized there.
+uint8 frames cross to the device and are (resized,) rescaled and normalized
+there.
 
-Only frames already at the tower's `image_size` are taken; the device
-bicubic resize (`resize_bicubic`) is not ported yet and raises.
+- `normalize_uint8`: the normalize of frames already at the tower's size
+  (the default path: the host's PIL bicubic resize keeps bit parity with
+  the reference processor).
+- `resize_bicubic`: an antialiased Keys-cubic (a = -0.5, PIL's bicubic
+  family) resize on the device, so raw decode-resolution frames can ship
+  as they are (`pipeline.encode_media(device_resize=True)`).
 """
 from __future__ import annotations
 
 from typing import Sequence, Union
 
 import torch
+import torch.nn.functional as F
 
 Stats = Union[float, Sequence[float]]
 
@@ -22,14 +28,21 @@ def normalize_uint8(x: torch.Tensor, mean: Stats, std: Stats,
 
 
 def resize_bicubic(x: torch.Tensor, size: int) -> torch.Tensor:
-    raise NotImplementedError(
-        "device-side bicubic resize is not ported yet: pass frames already "
-        "resized to the tower's image_size (host PIL resize)")
+    """[N,H,W,3] (uint8 or float) -> [N,size,size,3] fp32: antialiased
+    bicubic resize in fp32 (torch's antialiased bicubic takes a = -0.5, the
+    kernel of `jax.image.resize(method="cubic")`), clipped to [0, 255] as
+    PIL's uint8 resample saturates the cubic's overshoot at hard edges."""
+    nchw = x.permute(0, 3, 1, 2).float()
+    out = F.interpolate(nchw, size=(size, size), mode="bicubic",
+                        align_corners=False, antialias=True)
+    return out.clamp(0.0, 255.0).permute(0, 2, 3, 1)
 
 
 def preprocess_uint8(x: torch.Tensor, size: int, mean: Stats, std: Stats,
                      dtype=torch.float32) -> torch.Tensor:
-    """uint8 [N,H,W,3] -> normalized [N,size,size,3]."""
+    """uint8 [N,H,W,3] at any decode resolution -> normalized
+    [N,size,size,3]; the resize (when the frames are not at `size`) runs in
+    fp32 before the normalize, as PIL resamples in the uint8 domain."""
     if x.shape[1] != size or x.shape[2] != size:
         x = resize_bicubic(x, size)
     return normalize_uint8(x, mean, std, dtype)
