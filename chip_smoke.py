@@ -73,7 +73,11 @@
    route's step-0 logits against the default route's, and a planted fault
    (K3 without its kv_mask) against the same limits, and shows one K3
    decode step's calls to be as many sm90 kernels (the profiler's count
-   against decode_attention.launches), none of the SIMT route.
+   against decode_attention.launches), none of the SIMT route. Then it
+   reads the bf16 forward's dependence on mm_chunks (ROADMAP Q3.10) on the
+   first MMC_LAYERS layers: mm_chunks 1 and 32, each against an fp32
+   forward, with a planted fault (the audio stream's ragged last chunk left
+   without its update).
 5. Drives the long-video slice on the same weights, the 120 s media
    dropped: media_prefill_chunked's caches of the 120 s media held against
    forward's layer by layer (cosine, a planted fault: each layer against
@@ -91,7 +95,23 @@
    three folded rows' against the rows one by one, under the decode
    routes' logit limits, with a planted fault each (the tail chunk's
    caches left zero; the rows unfolded in the wrong order).
-6. Frees it and drives the int8 serving slice: the same model loaded with
+6. Drives the checkpoint slice on the same weights, made distinct first
+   (seeded noise on every leaf: random init leaves biases at 0 and norms at
+   0 or 1): the 120 s clip's frames written as an mp4 and `ask` run twice
+   on the in-memory tree (K2, K1, K3); save_pretrained into a temporary
+   directory (free disk checked against the reckoned bytes first),
+   load_model(model_path=...) on the card: every tensor bit-equal to the one written and
+   config_from_hf(config_to_hf(cfg)) == cfg; `ask` on the loaded tree, its
+   step-0 logits and tokens equal to the in-memory tree's; four planted
+   faults (a square weight left untransposed, two text layers swapped, a
+   tensor read one element off, a bias dropped), each through the whole
+   load, must fail the tree check; load_model(load_8bit=True,
+   load_8bit_towers=True) from the directory, bit-equal to quantizing the
+   in-memory tree layer by layer; the full-precision tree dropped and one
+   int8 `ask` (K5, K6). It prints bytes written, write and load times and
+   rates, host (VmRSS sampled) and device peaks, with the card's name and
+   power limit.
+7. Frees it and drives the int8 serving slice: the same model loaded with
    load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
    prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
    three TR queries (K1, K6), launch counts (the K-major copies among
@@ -101,14 +121,14 @@
    versions, and every K5 / K6 call of one encode and prefill against its
    plain version on the same inputs, each with a planted fault (K5 without
    the FFN requantize) that the per-call limit must reject.
-7. Frees it and drives the training slice: Vidi1.5-9B at full width with
+8. Frees it and drives the training slice: Vidi1.5-9B at full width with
    TRAIN_LAYERS text layers (bf16, towers frozen, remat, use_flash), four
    train_steps on synthetic batches of 256 text tokens, 120 frames and 4
    Whisper windows, counting K1 / K2 / K4 launches. It then holds the
    gradients of a few leaves on the kernel route against the
    plain-attention route, and a planted fault (K4 without di) against the
    same limits.
-8. With --profile, profiles both serving slices' encode, one prefill and
+9. With --profile, profiles both serving slices' encode, one prefill and
    eight decode steps (each decode route of the bf16 one), the long-video
    slice's streamed encode, chunked media prefill, shared-cache prefills
    and decode steps (three folded rows, one row), and one training step,
@@ -1882,6 +1902,81 @@ def long_cache_check(sl) -> None:
         raise AssertionError("the cache limit does not reject the planted fault")
 
 
+# The bf16 forward's dependence on mm_chunks (the chunking of the streams'
+# diagonal update), read on the first MMC_LAYERS layers of the 9B on the
+# 120 s media: forward with mm_chunks 1 and 32, each against an fp32 forward
+# of the same layers and inputs (plain attention, TF32 off), over the text
+# hidden states and each layer's image / audio caches. Exact arithmetic gives
+# the same result for every chunking, so the chunked run must lie no farther
+# from fp32 than MMC_FACTOR times the whole-stream run's distance (1 - cosine).
+MMC_LAYERS, MMC_CHUNKS, MMC_FACTOR = 4, 32, 2.0
+
+
+def mm_chunks_reading(sl) -> dict:
+    """The readings above (-> {output: (1 - cos, rel err) by run}); fails if
+    the chunked run drifts beyond MMC_FACTOR, or if the planted fault (the
+    chunked run's audio stream left without its diagonal update in the last
+    chunk) stays inside it."""
+    import dataclasses
+
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.models import dattn, decoder
+
+    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(QUERIES[0], sl.tok)])
+    ids, pm = torch.as_tensor(prompt).long().to(sl.dev), torch.as_tensor(mask).to(sl.dev)
+    pos = torch.clamp(torch.cumsum(pm.long(), dim=1) - 1, min=0)
+    cfg = dataclasses.replace(sl.cfg, text=dataclasses.replace(sl.cfg.text,
+                                                               num_layers=MMC_LAYERS))
+    text = sl.params["text"]
+    p16 = {"text": {"layers": text["layers"][:MMC_LAYERS], "final_ln": text["final_ln"]}}
+    p32 = _tree_map(lambda t: t.float(), p16)
+    emb = decoder.embed_tokens(text, ids, cfg.text)
+    img, img_mask, aud, aud_mask = sl.media
+
+    def run(params, dtype, k, flash):
+        h, c = dattn.forward(params, cfg, emb.to(dtype), pm, pos, img.to(dtype), img_mask,
+                             aud.to(dtype), aud_mask, mm_chunks=k, return_caches=True,
+                             use_flash=flash)
+        return {"h": h.float(), **{n: getattr(c, n).float()
+                                   for n in ("img_k", "img_v", "aud_k", "aud_v")}}
+
+    ref = run(p32, torch.float32, 1, False)
+    runs = {"mm_chunks=1": run(p16, torch.bfloat16, 1, True),
+            f"mm_chunks={MMC_CHUNKS}": run(p16, torch.bfloat16, MMC_CHUNKS, True)}
+    real = dattn._diag_update
+    size = -(-aud.shape[1] // MMC_CHUNKS)  # rows a chunk; the audio's last is shorter
+    last = aud.shape[1] - size * (aud.shape[1] // size)
+
+    def tail_dropped(lp, stream, v, o_w, tcfg):
+        return stream if stream.shape[1] == last else real(lp, stream, v, o_w, tcfg)
+
+    with _swap(dattn, _diag_update=tail_dropped):
+        fault = run(p16, torch.bfloat16, MMC_CHUNKS, True)
+
+    def gap(got, want):
+        return {n: (1 - _cos(got[n], want[n]),
+                    float((got[n] - want[n]).abs().max() / want[n].abs().max()))
+                for n in want}
+
+    out = {name: gap(r, ref) for name, r in runs.items()}
+    out["planted fault"] = gap(fault, ref)
+    whole, split = out["mm_chunks=1"], out[f"mm_chunks={MMC_CHUNKS}"]
+    between = gap(runs[f"mm_chunks={MMC_CHUNKS}"], runs["mm_chunks=1"])
+    for name in ref:
+        print(f"  Q3.10, 9B first {MMC_LAYERS} layers, 120 s media, {name}: vs fp32 "
+              + ", ".join(f"{run} 1-cos {g[name][0]:.3e} rel {g[name][1]:.3e}"
+                          for run, g in out.items())
+              + f"; mm_chunks={MMC_CHUNKS} vs 1: 1-cos {between[name][0]:.3e}")
+    ok = all(split[n][0] <= MMC_FACTOR * whole[n][0] for n in ref)
+    seen = any(out["planted fault"][n][0] > MMC_FACTOR * whole[n][0] for n in ref)
+    if not ok:
+        raise AssertionError(f"the chunked forward drifts from fp32 beyond {MMC_FACTOR}x "
+                             "the whole-stream forward's distance")
+    if not seen:
+        raise AssertionError("the mm_chunks reading does not see the planted fault")
+    return out
+
+
 def _long_clip(cfg):
     """The 600 s clip from SEED: uint8 frames at LONG_DECODE_HW (the
     decoder's output, resized on the card) and the mel windows of a 16 kHz
@@ -2551,6 +2646,348 @@ def profile_int8(sl) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The checkpoint slice: save_pretrained and load_model at full width
+# ---------------------------------------------------------------------------
+
+# Random init leaves biases at 0 and norm weights at 0 or 1, so a dropped or
+# swapped tensor could read equal to the one written: every floating leaf
+# gets seeded noise of CKPT_NOISE times its standard deviation (1 for a
+# constant leaf) first.
+CKPT_NOISE = 0.05
+CKPT_MARGIN = 2**30  # free disk demanded beyond the reckoned file bytes
+# the planted faults: one square tensor left untransposed (SigLIP's q_w is
+# 1152 x 1152), two text layers swapped, one tensor read one element off
+# its offset, one bias dropped (each must fail the bit-equal tree check)
+CKPT_UNTRANSPOSED = "encoder.layers.0.self_attn.q_proj.weight"
+CKPT_SHIFTED = "model.layers.0.self_attn.o_proj.weight"
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _distinct(params, seed: int) -> None:
+    """CKPT_NOISE (above) on every floating leaf, from `seed`, in place."""
+    gen = None
+    with torch.no_grad():
+        for t in _leaves(params):
+            if not t.is_floating_point():
+                continue
+            if gen is None:
+                gen = torch.Generator(device=t.device).manual_seed(seed)
+            std = float(t.float().std()) if t.numel() > 1 else 0.0
+            noise = torch.randn(t.shape, generator=gen, device=t.device)
+            t.add_((noise * (CKPT_NOISE * (std or 1.0))).to(t.dtype))
+
+
+def _tree_diff(got, want, path: str = "") -> list:
+    """The paths where two trees differ in keys, length, dtype, shape or
+    any bit of a value."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [f"{path} keys {sorted(set(got) ^ set(want)) if isinstance(got, dict) else got}"]
+        return [d for k in want for d in _tree_diff(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [f"{path} length"]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in _tree_diff(g, w, f"{path}/{i}")]
+    same = (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+            and got.shape == want.shape and torch.equal(got, want))
+    return [] if same else [path]
+
+
+def _write_clip(frames, path: str) -> None:
+    """The 120 s clip's frames as an mp4 at 1 fps (cv2 writes no audio
+    track, so ask reads silence: load_audio's fallback)."""
+    import cv2
+
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 1, (w, h))
+    if not writer.isOpened():
+        raise AssertionError(f"cv2 cannot write {path}")
+    for f in frames:
+        writer.write(np.ascontiguousarray(f[..., ::-1]))
+    writer.release()
+
+
+def _ask(params, cfg, tok, clip: str, quantize_caches: bool = False):
+    """pipeline.ask on QUERIES[0] (32 new tokens; bf16: the K3 decode route)
+    -> (answer, step-0 logits, generated tokens, seconds)."""
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.models import decoder
+
+    first, results = [], []
+    real_logits, real_generate = decoder.lm_logits, P.generate
+
+    def lm_logits(*a, **kw):
+        out = real_logits(*a, **kw)
+        if not first:
+            first.append(out.float())
+        return out
+
+    def generate(*a, **kw):
+        results.append(real_generate(*a, **kw))
+        return results[-1]
+
+    t0 = time.perf_counter()
+    with _swap(decoder, lm_logits=lm_logits), _swap(P, generate=generate):
+        answer = P.ask(QUERIES[0], clip, params, cfg, tok, max_new_tokens=32,
+                       use_flash_decode=not quantize_caches, quantize_caches=quantize_caches)
+    torch.cuda.synchronize()
+    res = results[0]
+    return types.SimpleNamespace(answer=answer, logits=first[0],
+                                 tokens=res.tokens[0, : int(res.lengths[0])].cpu(),
+                                 s=time.perf_counter() - t0)
+
+
+def _vm_rss() -> int:
+    """The process's resident set in bytes (/proc/self/status VmRSS: some
+    kernels have no RssAnon and refuse a VmHWM reset)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise KeyError("VmRSS")
+
+
+class _HostPeak:
+    """Peak host memory over a `with` block: VmRSS sampled every 5 ms, and
+    where it ends (a load or save keeps no staging buffer past its end)."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = _vm_rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def _sample(self):
+        while not self.stop.wait(0.005):
+            self.peak = max(self.peak, _vm_rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.end = _vm_rss()
+        self.peak = max(self.peak, self.end)
+
+    def __str__(self):
+        return (f"host VmRSS {_gib(self.base)} -> peak {_gib(self.peak)} "
+                f"(+{_gib(self.peak - self.base)}, sampled every 5 ms) -> "
+                f"{_gib(self.end)} after")
+
+
+def _ckpt_faults():
+    """{name: a context that plants the fault in load_model's path}."""
+    from vidi_tpu_torch.infer import convert as C
+    from vidi_tpu_torch.infer import loader as L
+
+    real_getter, real_index = C._getter, L.load_safetensors_dir
+
+    def getter(rename=None, untranspose=None):
+        def make(sd, prefix, dtype, device):
+            get = real_getter(sd, prefix, dtype, device)
+
+            def faulty(name, transpose=False):
+                if rename is not None:
+                    name = rename(prefix, name)
+                return get(name, transpose and name != untranspose)
+            return faulty
+        return make
+
+    def swap01(prefix, name):
+        if prefix == "model." and name.startswith(("layers.0.", "layers.1.")):
+            return ("layers.1." if name[7] == "0" else "layers.0.") + name[9:]
+        return name
+
+    def shifted(path):
+        index = real_index(path)
+        ref = index.refs[CKPT_SHIFTED]
+        index.refs[CKPT_SHIFTED] = ref._replace(offset=ref.offset + ref.nbytes // math.prod(ref.shape))
+        return index
+
+    return {
+        f"SigLIP {CKPT_UNTRANSPOSED} left untransposed":
+            _swap(C, _getter=getter(untranspose=CKPT_UNTRANSPOSED)),
+        "text layers 0 and 1 swapped": _swap(C, _getter=getter(rename=swap01)),
+        f"{CKPT_SHIFTED} read one element past its offset":
+            _swap(L, load_safetensors_dir=shifted),
+        "SigLIP q_proj bias dropped":
+            _swap(C, VIT_LAYER_NAMES={k: v for k, v in C.VIT_LAYER_NAMES.items()
+                                      if k != "q_b"}),
+    }
+
+
+def _quant_diff(q, params) -> list:
+    """The int8 load against quantizing the full-precision tree, layer by
+    layer (one quantized layer alive at a time)."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    diff = []
+    for module, fn in (("text", qz.quantize_text_layer), ("vision", qz.quantize_tower_layer),
+                       ("audio", qz.quantize_tower_layer)):
+        for i, lp in enumerate(params[module]["layers"]):
+            diff += _tree_diff(q[module]["layers"][i], fn(lp), f"/{module}/layers/{i}")
+        diff += _tree_diff({k: v for k, v in q[module].items() if k != "layers"},
+                           {k: v for k, v in params[module].items() if k != "layers"},
+                           f"/{module}")
+    return diff + _tree_diff(q["mm"], params["mm"], "/mm")
+
+
+def checkpoint_phase(sl) -> tuple:
+    """Vidi1.5-9B at full width through save_pretrained and load_model on
+    the card, in a temporary directory, the in-memory tree made distinct
+    first (_distinct) and then dropped from `sl`. -> (the bf16 asks'
+    launches, the int8 ask's)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="vidi_ckpt_")
+    try:
+        return _checkpoint_steps(sl, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _checkpoint_steps(sl, tmp: str) -> tuple:
+    import shutil
+
+    from vidi_tpu_torch.infer import export as E
+    from vidi_tpu_torch.infer import loader as L
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.infer import safetensors_io as sio
+
+    dev, cfg, params = sl.dev, sl.cfg, sl.params
+    card = _card()
+    _distinct(params, SEED + 20)
+    clip = os.path.join(tmp, "clip.mp4")
+    _write_clip(sl.frames, clip)
+
+    # (d)'s reference: the in-memory tree's ask, twice
+    _reset_kernel_counts()
+    mem = [_ask(params, cfg, sl.tok, clip) for _ in range(2)]
+    self_gap = float((mem[0].logits - mem[1].logits).abs().max())
+    print(f"  ask on the in-memory tree (K2 encode, K1 prefill, K3 decode): {mem[0].s:.3f} / "
+          f"{mem[1].s:.3f} s, {len(mem[0].tokens)} tokens, answer {mem[0].answer!r}; "
+          f"two runs: step-0 logits max|diff| {self_gap:.3e}, tokens equal "
+          f"{torch.equal(mem[0].tokens, mem[1].tokens)}")
+
+    # (b) write, after checking the disk
+    out = os.path.join(tmp, "vidi15_9b")
+    need = sum(sio.nbytes(t) for t in E.export_state_dict(params, cfg).values())
+    free = shutil.disk_usage(tmp).free
+    print(f"  disk: {free / 1e9:.3f} GB free under {tmp}, {need / 1e9:.3f} GB of tensors "
+          f"reckoned (+{CKPT_MARGIN / 2**30:.0f} GiB margin)")
+    if free < need + CKPT_MARGIN:
+        raise AssertionError(f"{free} bytes free for a checkpoint of {need} bytes "
+                             f"(+{CKPT_MARGIN} margin)")
+    torch.cuda.synchronize()
+    with _HostPeak() as host_w:
+        t0 = time.perf_counter()
+        E.save_pretrained(params, cfg, out)
+        write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(out, "model.safetensors"))
+
+    # (c) load back: every tensor bit-equal, the configuration equal
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _HostPeak() as host_r:
+        t0 = time.perf_counter()
+        loaded, lcfg, ltok = L.load_model(model_path=out, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    dev_peak = torch.cuda.max_memory_allocated() - base
+    n_tensors = sum(1 for _ in _leaves(loaded))
+    diff = _tree_diff(loaded, params)
+    cfg_ok = L.config_from_hf(E.config_to_hf(cfg)) == cfg and lcfg == cfg
+    print(f"  card: {card}")
+    print(f"  save_pretrained: {nbytes} bytes ({nbytes / 1e9:.3f} GB) in {write_s:.3f} s = "
+          f"{nbytes / 1e9 / write_s:.3f} GB/s (fsync included); {host_w}")
+    print(f"  load_model(model_path) of the file just written: {load_s:.3f} s = "
+          f"{nbytes / 1e9 / load_s:.3f} GB/s; {host_r}; device peak above the "
+          f"resident tree {_gib(dev_peak)} (tree {_gib(base)} resident)")
+    print(f"  loaded tree: {n_tensors} tensors, {len(diff)} differ from the written ones "
+          f"{diff[:4]}; config_from_hf(config_to_hf(cfg)) == cfg and the loaded config "
+          f"equal: {cfg_ok}")
+    if diff or not cfg_ok:
+        raise AssertionError("the checkpoint does not load back bit-equal")
+
+    # (d) ask on the loaded tree
+    got = _ask(loaded, lcfg, ltok, clip)
+    gap = float((got.logits - mem[0].logits).abs().max())
+    launches = _kernel_counts()
+    print(f"  ask on the loaded tree: {got.s:.3f} s, answer {got.answer!r}; step-0 logits "
+          f"max|diff| vs the in-memory tree {gap:.3e} (the tree against itself "
+          f"{self_gap:.3e}), tokens equal {torch.equal(got.tokens, mem[0].tokens)}; "
+          f"launches over the three asks {launches}")
+    if not (torch.equal(got.tokens, mem[0].tokens) and gap <= self_gap
+            and got.answer == mem[0].answer):
+        raise AssertionError("the loaded tree's ask differs from the in-memory tree's")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the path was never launched: {launches}")
+    del loaded, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) planted faults, each through the whole load: the tree check must
+    # see each one (an exception fails the run, it is not a fault caught)
+    for name, fault in _ckpt_faults().items():
+        with fault:
+            bad = L.load_model(model_path=out, device=dev)[0]
+        found = _tree_diff(bad, params)
+        del bad
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  planted fault, {name}: {len(found)} tensors differ {found[:2]}")
+        if not found:
+            raise AssertionError(f"the tree check does not see the planted fault: {name}")
+
+    # (e) the int8 load from the directory
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with _HostPeak() as host_q:
+        t0 = time.perf_counter()
+        q, qcfg, qtok = L.load_model(model_path=out, device=dev, load_8bit=True,
+                                     load_8bit_towers=True)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+    q_peak = torch.cuda.max_memory_allocated() - base
+    qdiff = _quant_diff(q, params)
+    print(f"  load_model(load_8bit=True, load_8bit_towers=True): {q_s:.3f} s (page cache "
+          f"warm), {_gib(_nbytes(*_leaves(q)))} of parameters, device peak above the "
+          f"resident tree {_gib(q_peak)}; {host_q}; {len(qdiff)} tensors differ from "
+          f"quantizing the in-memory tree {qdiff[:4]}")
+    if qdiff:
+        raise AssertionError("the int8 load differs from quantizing the in-memory tree")
+    del params
+    sl.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    qz.w8a8_min_tokens = W8A8_MIN_TOKENS
+    _reset_int8_counts()
+    try:
+        r8 = _ask(q, qcfg, qtok, clip, quantize_caches=True)
+    finally:
+        qz.w8a8_min_tokens = None
+    launches8 = _read_int8_counts()
+    print(f"  int8 ask (W8A8 from {W8A8_MIN_TOKENS} rows, int8 caches): {r8.s:.3f} s, "
+          f"{len(r8.tokens)} tokens, answer {r8.answer!r}; launches {launches8}")
+    if not torch.isfinite(r8.logits).all():
+        raise AssertionError("non-finite int8 logits")
+    if min(launches8[k] for k in ("ln_qkv", "o_residual", "ln_ffn", "quant_matmul",
+                                  "quant_gated_mlp")) == 0:
+        raise AssertionError(f"a K5 / K6 kernel was never launched: {launches8}")
+    return launches, launches8
+
+
+# ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
 
@@ -2821,9 +3258,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = _card()
     print(f"card: {smi}")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
@@ -2862,6 +3297,8 @@ def main() -> int:
         profile_phase(sl)
     print("decode routes:")
     decode_route_check(sl)
+    print(f"mm_chunks reading (ROADMAP Q3.10; the first {MMC_LAYERS} layers):")
+    mm_chunks_reading(sl)
     print("long-video cache check (the 120 s slice's media):")
     long_cache_check(sl)
     sl.media = None  # the 120 s slice is dropped; its weights serve the long one
@@ -2872,7 +3309,12 @@ def main() -> int:
     if args.profile:
         print("long-video profile:")
         profile_long(sl, clip)
-    del sl, clip
+    del clip
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("checkpoint slice (Vidi1.5-9B at full width: save_pretrained, load_model, ask):")
+    ckpt, ckpt_int8 = checkpoint_phase(sl)
+    del sl
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2913,8 +3355,8 @@ def main() -> int:
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
     # training for K4, int8 serving for K5 / K6; K7 is on no path);
     # launches_by_path gives every path's count
-    paths = {"serve": serve, "serve_long": serve_long, "serve_int8": serve_int8,
-             "train": train}
+    paths = {"serve": serve, "serve_long": serve_long, "checkpoint": ckpt,
+             "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8, "train": train}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [

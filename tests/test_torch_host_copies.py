@@ -32,6 +32,10 @@ EXCEPTIONS = {
         ("replace", "melspec_jax", "the docstring's mention of the jax transform"),
         ("delete", "def melspec_jax", "the on-device jax mel transform, which nothing calls"),
     ],
+    "media/video.py": [
+        ("replace", "except OSError", "a native decoder that cannot load (built against "
+                                      "libav that is not installed) is skipped: cv2 decodes"),
+    ],
     "train/data.py": [
         ("insert", "import torch", "the port's batches become torch tensors"),
         ("insert", "def to_device", "the port's own addition: numpy batch -> tensors"),

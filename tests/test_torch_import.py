@@ -1,5 +1,6 @@
 """The port imports torch and never jax, nothing of vidi_tpu (it keeps its
-own copies of the host code it shares), and builds nothing at import time.
+own copies of the host code it shares), neither safetensors nor
+transformers, and builds nothing at import time.
 
 Each check runs in a fresh interpreter, because this test process has jax
 and vidi_tpu loaded already (tests/conftest.py and the other tests).
@@ -38,6 +39,8 @@ MODULES = [
     "vidi_tpu_torch.models.decoder",
     "vidi_tpu_torch.models.dattn",
     "vidi_tpu_torch.infer.convert",
+    "vidi_tpu_torch.infer.safetensors_io",
+    "vidi_tpu_torch.infer.export",
     "vidi_tpu_torch.infer.quantize",
     "vidi_tpu_torch.infer.loader",
     "vidi_tpu_torch.infer.generate",
@@ -60,6 +63,8 @@ print(json.dumps({{
     "lib_loaded": _lib._lib is not None,
     "built": _lib.build_seconds is not None,
     "cv2_or_pil": sorted(m for m in ("cv2", "PIL") if m in sys.modules),
+    "hf": sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("safetensors", "transformers")),
 }}))
 """
 
@@ -88,8 +93,8 @@ import importlib, json, sys
 for m in {modules!r}:
     importlib.import_module(m)
 print(json.dumps(sorted(m for m in sys.modules
-                        if m in ("jax", "optax", "orbax", "vidi_tpu")
-                        or m.startswith(("jax.", "orbax.", "vidi_tpu.")))))
+                        if m.split(".")[0] in ("jax", "optax", "orbax", "vidi_tpu",
+                                               "safetensors", "transformers"))))
 """
 
 
@@ -144,6 +149,13 @@ def test_config_copy_has_not_drifted(ctor):
 
     assert dataclasses.asdict(getattr(tcfg.DattnConfig, ctor)()) == \
         dataclasses.asdict(getattr(jcfg.DattnConfig, ctor)())
+
+
+def test_port_never_imports_safetensors_or_transformers(probe):
+    """The port reads and writes checkpoints itself (a CUDA host may have
+    neither package); transformers is imported only to read a checkpoint's
+    tokenizer files."""
+    assert probe["hf"] == []
 
 
 def test_training_path_never_imports_jax_or_vidi_tpu():

@@ -198,3 +198,19 @@ def test_cli_stream_flags(clip):
     assert res.stdout.strip().splitlines()[-1] == (want or "(no parsed output)")
     res = _cli(*base, "--device-resize")
     assert res.returncode != 0 and "device_resize needs stream_chunk" in res.stderr
+
+
+def test_unloadable_native_decoder_falls_back_to_cv2(clip, tmp_path, monkeypatch):
+    """A native decoder built against libav libraries that are not
+    installed is skipped: probe, frames and audio come from cv2 and
+    the silence fallback, as where no native library exists."""
+    broken = tmp_path / "libvidi_media.so"
+    broken.write_bytes(b"not a shared object")
+    monkeypatch.setattr(tvideo, "_NATIVE_PATHS", [str(broken)])
+    monkeypatch.setattr(tvideo, "_native", None)
+    assert tvideo._load_native() is False
+    duration, _, n_frames, w, h = tvideo.probe(clip)
+    assert duration > 5 and n_frames > 0 and (w, h) == (128, 128)
+    frames = tvideo.load_video(clip, fps=1.0)
+    assert len(frames) == 6 and frames[0].shape == (128, 128, 3)
+    assert not tvideo.load_audio(clip, 16000).any()

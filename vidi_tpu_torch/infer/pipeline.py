@@ -13,7 +13,8 @@ any iterable of uint8 frame chunks). `device_resize` ships the streamed
 chunks at decode resolution and resizes them on the device.
 
     python -m vidi_tpu_torch.infer.pipeline --video-path v.mp4 --query "a red car" \
-        --random-weights 9b|1.5b|tiny --device cuda|cpu --dtype bfloat16|float32 \
+        --model-path DIR | --random-weights 9b|1.5b|tiny \
+        --device cuda|cpu --dtype bfloat16|float32 \
         [--load-8bit | --load-4bit] [--load-8bit-towers] [--quantize-kv] \
         [--w8a8-prefill MIN_TOKENS] [--stream-chunk FRAMES [--device-resize]]
 """
@@ -297,9 +298,11 @@ def main(argv=None):
     p.add_argument("--video-path", required=True)
     p.add_argument("--query", required=True)
     p.add_argument("--task", default="tr", choices=TASKS)
-    p.add_argument("--random-weights", required=True, choices=["tiny", "9b", "1.5b"],
-                   help="random weights at this configuration's widths "
-                        "(checkpoint loading is not ported yet)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--model-path", help="an HF-format Vidi checkpoint directory "
+                                          "(config.json + *.safetensors)")
+    src.add_argument("--random-weights", choices=["tiny", "9b", "1.5b"],
+                     help="random weights at this configuration's widths")
     p.add_argument("--device", default="cuda",
                    help="cuda (raises without a card) or cpu")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
@@ -333,7 +336,7 @@ def main(argv=None):
     if args.w8a8_prefill is not None:
         quantize.w8a8_min_tokens = args.w8a8_prefill
     params, cfg, tokenizer = load_model(
-        random_weights=args.random_weights, dtype=getattr(torch, args.dtype),
+        args.model_path, args.random_weights, dtype=getattr(torch, args.dtype),
         device=args.device, seed=args.seed, load_8bit=args.load_8bit,
         load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit)
     out = ask(args.query, args.video_path, params, cfg, tokenizer,

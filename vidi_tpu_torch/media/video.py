@@ -33,7 +33,11 @@ def _load_native():
     for p in _NATIVE_PATHS:
         p = os.path.abspath(p)
         if os.path.exists(p):
-            lib = ctypes.CDLL(p)
+            try:
+                lib = ctypes.CDLL(p)
+            except OSError:
+                # built against libav libraries that are not installed: cv2 decodes
+                continue
             lib.vm_probe.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_double),
                 ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_long),

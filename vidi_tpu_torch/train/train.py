@@ -5,6 +5,9 @@ that the port implements, plus --device and --dtype).
         --max_steps 2 --device cpu --output_dir out/
     python -m vidi_tpu_torch.train.train --tiny --data_path example.json \
         --video_folder /data --use_flash --device cuda
+    python -m vidi_tpu_torch.train.train --model_path gemma2/ \
+        --mm_vision_tower siglip/ --mm_audio_tower whisper/ --mm_std 0.029 \
+        --data_path synthetic --export_hf out/hf
 
 Each step writes one metrics.jsonl line with the JAX CLI's keys; the
 run saves every --save_steps steps and at the end, and resumes from the
@@ -28,9 +31,24 @@ def _flag(s: str) -> bool:
 def parse_args():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model_path", type=str, default=None,
-                   help="a Vidi checkpoint (loading one into the port is not "
-                        "implemented yet)")
+                   help="a full Vidi checkpoint, or (with --mm_vision_tower) a "
+                        "plain Gemma2 / Mistral HF checkpoint to assemble from")
     p.add_argument("--tiny", action="store_true", help="random tiny model")
+    # assembly from a base LLM + tower checkpoints (mm_rand_* adapters drawn fresh)
+    p.add_argument("--mm_vision_tower", type=str, default=None,
+                   help="vision tower checkpoint dir (e.g. siglip2-so400m-patch14-384); "
+                        "triggers assembly")
+    p.add_argument("--mm_audio_tower", type=str, default=None,
+                   help="audio tower checkpoint dir (whisper-large-v3)")
+    p.add_argument("--mm_std", type=float, default=None,
+                   help="init scale of mm_rand_llm_norm")
+    p.add_argument("--mm_image_pool_size", type=int, default=None)
+    p.add_argument("--mm_audio_pool_size", type=int, default=None)
+    p.add_argument("--mm_time_interval", type=int, default=None)
+    p.add_argument("--mm_input_type", choices=["video", "image"], default=None)
+    p.add_argument("--mm_image_aspect_ratio",
+                   choices=["pad", "resize", "anyres", "crop"], default=None)
+    p.add_argument("--model_max_length", type=int, default=None)
     p.add_argument("--data_path", type=str, required=True,
                    help="conversation JSON, or 'synthetic'")
     p.add_argument("--video_folder", type=str, default=".")
@@ -62,6 +80,9 @@ def parse_args():
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' without a card raises")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
+    p.add_argument("--export_hf", type=str, default=None, metavar="DIR",
+                   help="after training, also write HF-format safetensors + "
+                        "config.json to DIR (loadable with --model-path)")
     return p.parse_args()
 
 
@@ -80,8 +101,13 @@ def main():
         raise SystemExit("pass --tiny (random weights) or --model_path")
     dev = resolve_device(args.device)
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
-    params, cfg, tokenizer = load_model(args.model_path, "tiny", dtype=dtype,
-                                        device=dev, seed=args.seed)
+    mm_overrides = {k: getattr(args, k) for k in (
+        "mm_std", "mm_image_pool_size", "mm_audio_pool_size", "mm_time_interval",
+        "mm_input_type", "mm_image_aspect_ratio", "model_max_length")}
+    params, cfg, tokenizer = load_model(
+        args.model_path, "tiny" if args.tiny else None, dtype=dtype, device=dev,
+        seed=args.seed, mm_vision_tower=args.mm_vision_tower,
+        mm_audio_tower=args.mm_audio_tower, mm_overrides=mm_overrides)
     cfg = dataclasses.replace(cfg, loss_thres=args.loss_thres)
     hp = TrainHParams(
         learning_rate=args.learning_rate, mm_rand_lr=args.mm_rand_lr,
@@ -154,6 +180,10 @@ def main():
             if (step + 1) % args.save_steps == 0 or step + 1 == args.max_steps:
                 ckpt.save(step + 1, params, opt_state)
     ckpt.close()
+    if args.export_hf:
+        from vidi_tpu_torch.infer.export import save_pretrained
+        save_pretrained(params, cfg, args.export_hf, tokenizer_src=args.model_path)
+        print(f"exported HF checkpoint to {args.export_hf}")
     print("training done")
 
 
