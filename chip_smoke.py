@@ -73,7 +73,22 @@
    route's step-0 logits against the default route's, and a planted fault
    (K3 without its kv_mask) against the same limits, and shows one K3
    decode step's calls to be as many sm90 kernels (the profiler's count
-   against decode_attention.launches), none of the SIMT route. Then it
+   against decode_attention.launches), none of the SIMT route. Then the
+   decoding variants (serve_decoding): verify_step on a window of VERIFY_W
+   tokens against as many decode steps (logits under the decode routes'
+   limits, the window's text-cache slots to cosine CACHE_COS; a planted
+   fault: the window written one slot late); greedy speculative decoding
+   (spec_k SPEC_K; the n-gram draft and a random DRAFT_LAYERS-layer
+   text-only draft) on the per-row caches, on media_prefill's caches for
+   the three queries folded and (n-gram) on int8 caches, its tokens equal
+   to greedy's wherever greedy's top-2 gap exceeds the logit limit; beams
+   (num_beams = 1 bit-equal to greedy on the K3 route, NUM_BEAMS on the
+   kernel and plain routes parting only at a near tie, the final text
+   caches against a teacher-forced replay of the beams with a planted
+   fault: caches not reordered by parent; NUM_BEAMS on the folded shared
+   caches); sampling (one seed twice bit-equal, top-k 1 greedy); and ask
+   with the n-gram draft and with two beams on the clip written as an
+   mp4. Each run's K1 / K3 launches are held to the reckoned ones. Then it
    reads the bf16 forward's dependence on mm_chunks (ROADMAP Q3.10) on the
    first MMC_LAYERS layers: mm_chunks 1 and 32, each against an fp32
    forward, with a planted fault (the audio stream's ragged last chunk left
@@ -193,6 +208,15 @@ TRAIN_T = 256  # text rows of the training slice's batch
 
 QUERIES = ("a red car driving past", "someone opens a door",
            "a dog runs across the grass")
+# The decoding variants (serve_decoding): speculative rounds of SPEC_K drafts
+# verified in one pass of VERIFY_W tokens, NUM_BEAMS beams, DECODE_NEW new
+# tokens a run, the sampler's warp, and the random draft model's depth and seed
+SPEC_K = 4
+VERIFY_W = SPEC_K + 1
+NUM_BEAMS = 4
+DECODE_NEW = 32
+SAMPLING = dict(temperature=0.7, top_k=50, top_p=0.9)
+DRAFT_LAYERS, DRAFT_SEED = 2, 1
 PROFILE_DECODE_STEPS = 8
 
 
@@ -477,33 +501,49 @@ def k1_cache_cases(dev, gen, t: int) -> tuple:
     tokens (a decode step), against a [L,1,Hk,S,D] cache's layer view
     transposed in place to [1,S,Hk,D] (no copy), the 600 s clip's image
     cache (LONG_IMG_S keys, the last 24 frames' masked) and audio cache
-    (LONG_AUD_S, the last window masked), cap 50. Planted faults: the mask
-    or the cap dropped, the rows folded in the wrong order. -> (errors,
+    (LONG_AUD_S, the last window masked), cap 50; and the decoding
+    variants' reads of the 120 s clip's caches: a verify window of VERIFY_W
+    tokens (image and audio caches) and NUM_BEAMS beams folded (image).
+    Planted faults: the mask or the cap dropped, the rows folded in the
+    wrong order, the window collapsed to its first token. -> (errors,
     cases)."""
     from vidi_tpu_torch.ops.cuda import flash_attention as k1
 
     errs, cases = [], []
     hq, hk, d = 16, 8, 256
-    for label, tq, s, n_valid in (
+    # (label, rows, query tokens a row, S, valid keys); the serving slice's
+    # decoding variants add a verify window (1 row x VERIFY_W tokens) and a
+    # beam step (NUM_BEAMS rows x 1 folded) against the 120 s clip's caches
+    for label, n_rows, tq, s, n_valid in (
             (f"9b folded prefill 3x{t} vs image cache view S={LONG_IMG_S} mask cap=50",
-             t, LONG_IMG_S, LONG_IMG_S - 24 * LONG_FRAME_TOKENS),
+             3, t, LONG_IMG_S, LONG_IMG_S - 24 * LONG_FRAME_TOKENS),
             (f"9b folded prefill 3x{t} vs audio cache view S={LONG_AUD_S} mask cap=50",
-             t, LONG_AUD_S, LONG_AUD_S - 300),
+             3, t, LONG_AUD_S, LONG_AUD_S - 300),
             (f"9b folded decode 3x1 vs image cache view S={LONG_IMG_S} mask cap=50",
-             1, LONG_IMG_S, LONG_IMG_S - 24 * LONG_FRAME_TOKENS),
+             3, 1, LONG_IMG_S, LONG_IMG_S - 24 * LONG_FRAME_TOKENS),
             (f"9b folded decode 3x1 vs audio cache view S={LONG_AUD_S} mask cap=50",
-             1, LONG_AUD_S, LONG_AUD_S - 300)):
+             3, 1, LONG_AUD_S, LONG_AUD_S - 300),
+            (f"9b verify window 1x{VERIFY_W} vs image cache view S={IMG_S} mask cap=50",
+             1, VERIFY_W, IMG_S, IMG_VALID),
+            (f"9b verify window 1x{VERIFY_W} vs audio cache view S={AUD_S} mask cap=50",
+             1, VERIFY_W, AUD_S, AUD_VALID),
+            (f"9b beams {NUM_BEAMS}x1 folded vs image cache view S={IMG_S} mask cap=50",
+             NUM_BEAMS, 1, IMG_S, IMG_VALID)):
         cache_k = _randn(gen, (2, 1, hk, s, d), dev)
         cache_v = _randn(gen, (2, 1, hk, s, d), dev)
-        rows = _randn(gen, (3, tq, hq, d), dev, Q_GAIN)
-        args = dict(q=rows.reshape(1, 3 * tq, hq, d), k=cache_k[1].transpose(1, 2),
+        rows = _randn(gen, (n_rows, tq, hq, d), dev, Q_GAIN)
+        args = dict(q=rows.reshape(1, n_rows * tq, hq, d), k=cache_k[1].transpose(1, 2),
                     v=cache_v[1].transpose(1, 2), kv_mask=_kv_mask(s, n_valid, dev),
                     sm_scale=d**-0.5, causal=False, window=None, softcap=50.0)
         out, lse = k1.flash_attention(**args)
         ref, ref_lse = k1.flash_attention_plain(**args)
         planted = _faults(k1.flash_attention_plain, args, ("mask", "cap"))
-        planted["rows folded in the wrong order"] = k1.flash_attention_plain(
-            **{**args, "q": rows.roll(1, 0).reshape(1, 3 * tq, hq, d)})[0]
+        if n_rows > 1:
+            planted["rows folded in the wrong order"] = k1.flash_attention_plain(
+                **{**args, "q": rows.roll(1, 0).reshape(1, n_rows * tq, hq, d)})[0]
+        else:  # the window read as its first token only (a q[:, 0] slip)
+            planted["window collapsed to its first token"] = k1.flash_attention_plain(
+                **{**args, "q": rows[:, :1].expand(1, tq, hq, d)})[0]
         errs.append(_check(f"K1 {label}", out, ref, planted))
         lse_err = float((lse - ref_lse).abs().max())
         print(f"  K1 {label} lse: max_abs_err={lse_err:.3e} (limit {LSE_ATOL})")
@@ -513,7 +553,7 @@ def k1_cache_cases(dev, gen, t: int) -> tuple:
         plain_ms = _time_ms(lambda: k1.flash_attention_plain(**args))
         # as K3's bound: K / V bytes of the visible keys only (a correct
         # kernel need not read a masked key), q, out, lse and the mask whole
-        ops = 4 * hq * d * 3 * tq * n_valid
+        ops = 4 * hq * d * n_rows * tq * n_valid
         small = _nbytes(args["q"], out, lse, args["kv_mask"])
         row = 2 * hk * d * args["k"].element_size()  # K and V bytes of one key
         whole = _bound(ops, small + row * s, "bf16")
@@ -547,9 +587,10 @@ def _k3_faults(k3, args: dict, names, plan) -> dict:
     """The plain K3 with one feature dropped each (`_faults`), plus the
     sm90 schedule's own: the split holding row 0's largest logit dropped
     from the merge (the keys of all its tiles), and the ragged last tile of
-    S (keys past its last whole tile) dropped."""
+    S (keys past its last whole tile) dropped; and for beam rows, each row
+    reading the next row's cache."""
     plain = k3.decode_attention_plain
-    out = _faults(plain, args, [n for n in names if n not in ("split", "ragged")])
+    out = _faults(plain, args, [n for n in names if n not in ("split", "ragged", "rows")])
     tile, _, n_split = plan
     s = args["k"].shape[2]
     if "split" in names:
@@ -563,6 +604,9 @@ def _k3_faults(k3, args: dict, names, plan) -> dict:
     if "ragged" in names:
         out[f"ragged tile {s // tile * tile}..{s} dropped"] = plain(
             **_k3_hidden(args, [(s // tile * tile, s)]))
+    if "rows" in names:  # beam rows: each row must read its own cache row
+        out["rows read the next row's cache"] = plain(
+            **{**args, "k": args["k"].roll(1, 0), "v": args["v"].roll(1, 0)})
     return out
 
 
@@ -606,6 +650,10 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
             (f"9b text cache S={t + 32} window=4096", 1, 16, 8, 256, t + 32,
              n_real + 6, 4096, n_real + 5, 50.0, Q_GAIN, ("mask", "cap", "split"),
              torch.bfloat16),
+            # beam search: NUM_BEAMS beam rows of one query's text cache
+            (f"9b beam rows B={NUM_BEAMS} text cache S={t + 32} window=4096", NUM_BEAMS, 16,
+             8, 256, t + 32, n_real + 6, 4096, n_real + 5, 50.0, Q_GAIN,
+             ("mask", "cap", "split", "rows"), torch.bfloat16),
             # the 600 s clip's image cache, every key visible as in its slice
             (f"9b image cache S={LONG_IMG_S} global (600 s)", 1, 16, 8, 256, LONG_IMG_S,
              LONG_IMG_S, None, None, 50.0, Q_GAIN, ("cap", "split"), torch.bfloat16),
@@ -622,9 +670,9 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
             mask = torch.zeros((b, s), dtype=torch.bool, device=dev)
             mask[0] = True
         else:
-            mask = _kv_mask(s, n_valid, dev)
+            mask = _kv_mask(s, n_valid, dev).expand(b, s).contiguous()
         if q_pos is not None:
-            q_pos = torch.tensor([q_pos], dtype=torch.int64, device=dev)
+            q_pos = torch.full((b,), q_pos, dtype=torch.int64, device=dev)
         args = dict(q=_randn(gen, (b, hq, d), dev, gain, dtype), k=cache_k[1],
                     v=cache_v[1], kv_mask=mask, sm_scale=d**-0.5, softcap=cap,
                     window=window, q_pos=q_pos)
@@ -1776,6 +1824,46 @@ def profile_phase(sl) -> None:
                 steps)
 
 
+def profile_decoding(sl) -> None:
+    """torch.profiler over PROFILE_DECODE_STEPS verify passes of VERIFY_W
+    tokens (K1 route) and as many beam steps of NUM_BEAMS beams (K3 for the
+    beam rows' T2T, K1 folded for the image / audio reads, the caches
+    gathered by parent) on one prefill's caches (see `_region`)."""
+    from vidi_tpu_torch.infer import generate as gen
+    from vidi_tpu_torch.models import dattn
+
+    _, caches, lens, emb = _prefill(sl, QUERIES[0])
+    window = emb.expand(1, VERIFY_W, -1)
+
+    def verify():
+        for _ in range(PROFILE_DECODE_STEPS):
+            out = dattn.verify_step(sl.params, sl.cfg, window, lens, caches,
+                                    img_mask=sl.media[1], aud_mask=sl.media[3],
+                                    use_flash=True)[0]
+        return out
+
+    _region(f"verify pass ({VERIFY_W} tokens, K1 route) x{PROFILE_DECODE_STEPS}", verify)
+    beams = caches._replace(text_k=caches.text_k.repeat_interleave(NUM_BEAMS, dim=1),
+                            text_v=caches.text_v.repeat_interleave(NUM_BEAMS, dim=1))
+    spare = (torch.empty_like(beams.text_k), torch.empty_like(beams.text_v))
+    parent = torch.arange(NUM_BEAMS, device=sl.dev).roll(1)
+    tok = emb.expand(NUM_BEAMS, 1, -1)
+
+    def steps():
+        nonlocal beams, spare
+        cur = lens.repeat_interleave(NUM_BEAMS)
+        for _ in range(PROFILE_DECODE_STEPS):
+            logits, beams = dattn.decode_step(sl.params, sl.cfg, tok, cur, beams,
+                                              img_mask=sl.media[1], aud_mask=sl.media[3],
+                                              use_flash=True)
+            gen._top(torch.log_softmax(logits.float(), dim=-1).reshape(1, -1), NUM_BEAMS)
+            beams, spare = gen._reorder(beams, spare, parent)
+            cur = cur + 1
+        return logits
+
+    _region(f"beam step ({NUM_BEAMS} beams, K3 + folded K1) x{PROFILE_DECODE_STEPS}", steps)
+
+
 # Step-0 logits of the two decode routes. Both run bf16 activations through
 # 42 random-weight layers and round attention outputs to bf16 at different
 # points, so the difference grows layer by layer. The limits sit between the
@@ -1838,6 +1926,490 @@ def decode_route_check(sl) -> None:
         raise AssertionError("decode routes disagree on the step-0 logits")
     if passes["planted fault, K3 without kv_mask"]:
         raise AssertionError("the step-0 logit limits do not reject the planted fault")
+
+
+# ---------------------------------------------------------------------------
+# The decoding variants: verify_step, speculative decoding, beams, sampling
+# ---------------------------------------------------------------------------
+
+class _LogitLog:
+    """Records, for each lm_logits call inside a `with` block (a prefill's
+    last-token logits, then one call a decode step), each row's fp32 top-2
+    gap and the logit limit LOGIT_REL * max|logit|: where the gap exceeds
+    the limit, the routes' differences cannot flip the greedy choice."""
+
+    def __init__(self):
+        from vidi_tpu_torch.models import decoder
+        self.decoder, self.real = decoder, decoder.lm_logits
+        self.gaps, self.limits = [], []
+
+    def __enter__(self):
+        def lm_logits(*a, **kw):
+            out = self.real(*a, **kw)
+            top = out.float().topk(2, dim=-1).values
+            self.gaps.append((top[..., 0] - top[..., 1]).reshape(-1).cpu())
+            self.limits.append(LOGIT_REL * out.float().abs().amax(dim=-1).reshape(-1).cpu())
+            return out
+        self.decoder.lm_logits = lm_logits
+        return self
+
+    def __exit__(self, *exc):
+        self.decoder.lm_logits = self.real
+
+
+def _first_difference(got, want):
+    """Index of the first token where two [L] rows differ, or None."""
+    diff = (got.cpu() != want.cpu()).nonzero()
+    return int(diff[0]) if len(diff) else None
+
+
+def _near_tie_rule(label: str, got, greedy, log: _LogitLog) -> None:
+    """Tokens [B,N] against greedy's: equal, or first different at a step
+    whose greedy top-2 gap is within the logit limit (printed); a first
+    difference at a clear choice fails."""
+    for r in range(greedy.shape[0]):
+        i = _first_difference(got[r], greedy[r])
+        if i is None:
+            continue
+        gap, limit = float(log.gaps[i][r]), float(log.limits[i][r])
+        print(f"  {label}: row {r} first differs from greedy at token {i}, greedy's top-2 "
+              f"gap {gap:.4f} vs the logit limit {limit:.4f}: "
+              f"{'a near tie' if gap <= limit else 'FAIL'}")
+        if gap > limit:
+            raise AssertionError(f"{label}: row {r} leaves greedy at token {i}, "
+                                 f"a clear choice")
+
+
+def _held(label: str, run: dict, want: dict) -> None:
+    """Launch counts of one run against the ones reckoned from the code."""
+    got = {k: run[k] for k in want}
+    print(f"  {label}: launches K1 {run['flash_attention']}, K3 {run['decode_attention']} "
+          f"(reckoned K1 {want['flash_attention']}, K3 {want['decode_attention']})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, reckoned {want}")
+
+
+def _counted(fn):
+    """(fn's result, K1 / K2 / K3 launches during it)."""
+    before = _kernel_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _kernel_counts().items()}
+
+
+def _add(total: dict, *runs: dict) -> dict:
+    """Launch counts summed over runs."""
+    for run in runs:
+        total = {k: total.get(k, 0) + v for k, v in run.items()}
+    return total
+
+
+def _draft_model(sl):
+    """A random text-only draft at the 9B's vocabulary and widths with
+    DRAFT_LAYERS layers, from DRAFT_SEED (about 2.6 GB in bf16)."""
+    import dataclasses
+
+    from vidi_tpu_torch.models import decoder
+    dcfg = dataclasses.replace(sl.cfg, text=dataclasses.replace(
+        sl.cfg.text, num_layers=DRAFT_LAYERS))
+    gen = torch.Generator(device=sl.dev).manual_seed(DRAFT_SEED)
+    dtype = sl.params["text"]["embed"].dtype
+    return {"text": decoder.init_params(dcfg.text, dtype, sl.dev, gen)}, dcfg
+
+
+def verify_check(sl) -> None:
+    """verify_step on a window of VERIFY_W tokens (the K1 route: dense T2T,
+    K1 reads of the image / audio caches) against VERIFY_W sequential
+    decode_steps (K3) on copies of one prefill's caches: each position's
+    logits under the decode routes' limits, each layer's written text-cache
+    slots to cosine CACHE_COS. Planted fault: the window written at
+    cur_len + 1."""
+    from vidi_tpu_torch.models import dattn, decoder
+
+    n_layers = sl.cfg.text.num_layers
+    _, base, lens, _ = _prefill(sl, QUERIES[0])
+    gen = torch.Generator(device=sl.dev).manual_seed(SEED + 12)
+    window = torch.randint(3, sl.cfg.text.vocab_size, (1, VERIFY_W), generator=gen,
+                           device=sl.dev)
+    emb = decoder.embed_tokens(sl.params["text"], window, sl.cfg.text)
+
+    def copy():
+        return base._replace(text_k=base.text_k.clone(), text_v=base.text_v.clone())
+
+    def verify(caches):
+        return dattn.verify_step(sl.params, sl.cfg, emb, lens, caches, img_mask=sl.media[1],
+                                 aud_mask=sl.media[3], use_flash=True)[0]
+
+    ver = copy()
+    logits, run = _counted(lambda: verify(ver))
+    _held(f"one verify pass of {VERIFY_W} tokens", run,
+          {"flash_attention": 2 * n_layers, "decode_attention": 0})
+    seq = copy()
+    steps = [_decode_step(sl, emb[:, i:i + 1], lens + i, seq, True) for i in range(VERIFY_W)]
+    n = int(lens[0])
+    # a pass rewrites the same slots with the same values, so it can repeat
+    verify_ms = _time_ms(lambda: verify(ver), reps=5)
+    step_ms = _time_ms(lambda: _decode_step(sl, emb[:, :1], lens, seq, True), reps=5)
+    print(f"  one verify pass of {VERIFY_W} tokens (K1 route) {verify_ms:.2f} ms, one decode "
+          f"step (K3 route) {step_ms:.2f} ms: {verify_ms / step_ms:.2f}x (CUDA events around "
+          f"5 calls back to back; both host-bound)")
+
+    def slots_cos(caches):  # the least cosine of the window's slots a layer
+        return min(_cos(getattr(caches, name)[layer, :, :, n:n + VERIFY_W],
+                        getattr(seq, name)[layer, :, :, n:n + VERIFY_W])
+                   for name in ("text_k", "text_v") for layer in range(n_layers))
+
+    def within(out, caches):
+        gaps = [_logit_gap(out[:, i], steps[i]) for i in range(VERIFY_W)]
+        cos = slots_cos(caches)
+        return gaps, cos, (all(r <= LOGIT_REL and c >= LOGIT_COS for r, c in gaps)
+                           and cos >= CACHE_COS)
+
+    real = dattn.dattn_layer
+
+    def shifted(*a, **kw):  # the window's K/V written one slot late
+        return real(*a, **{**kw, "write_at": kw["write_at"] + 1})
+
+    bad = copy()
+    with _swap(dattn, dattn_layer=shifted):
+        fault = verify(bad)
+    (gaps, cos, ok), (f_gaps, f_cos, f_ok) = within(logits, ver), within(fault, bad)
+    for i in range(VERIFY_W):
+        print(f"  verify vs {VERIFY_W} decode steps, position {i}: max_abs_err = "
+              f"{gaps[i][0]:.3e} of max|logit| (limit {LOGIT_REL}), cosine {gaps[i][1]:.6f} "
+              f"(limit {LOGIT_COS}); planted fault (written at cur_len + 1): "
+              f"{f_gaps[i][0]:.3e}, {f_gaps[i][1]:.6f}")
+    print(f"  verify vs decode steps: the window's text-cache slots, least cosine a layer "
+          f"over {n_layers} layers x (k, v) {cos:.6f} (limit {CACHE_COS}); planted fault "
+          f"{f_cos:.6f}")
+    if not ok:
+        raise AssertionError("verify_step disagrees with sequential decode steps")
+    if f_ok:
+        raise AssertionError("the limits do not reject the window written at cur_len + 1")
+
+
+def _spec_rate(res) -> float:
+    """Tokens a second after the first, over the rows."""
+    return float((res.lengths - 1).sum()) / res.decode_s
+
+
+def speculative_check(sl, draft, route: str, prompts, kw):
+    """Greedy generate and greedy speculative decoding (the n-gram draft
+    and the draft model; with `quantize_caches` the n-gram draft alone) on
+    one route (K3 / folded K1 decode), tokens under the near-tie rule,
+    launches held to the reckoned ones. -> (the greedy run, the launches
+    of these runs)."""
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer.generate import generate, speculative_generate
+
+    n_layers = sl.cfg.text.num_layers
+    pr, pm = prompts
+    rows = pr.shape[0]
+    kw = dict(kw, max_new_tokens=DECODE_NEW, eos_id=P.pick_eos(sl.cfg, sl.tok),
+              mm_chunks=32, use_flash=True, use_flash_decode=True)
+    quantized = kw.get("quantize_caches", False)
+    with _LogitLog() as log:
+        greedy, run = _counted(lambda: generate(sl.params, sl.cfg, pr, pm, **kw))
+    folded = "media_caches" in kw and rows > 1
+    per_step = ({"flash_attention": 2 * n_layers, "decode_attention": n_layers} if folded
+                else {"flash_attention": 0,
+                      "decode_attention": (1 if quantized else 3) * n_layers})
+    _held(f"{route}: greedy generate", run, {
+        k: 3 * n_layers * (k == "flash_attention") + greedy.decode_steps * v
+        for k, v in per_step.items()})
+    path = run
+    g_rate = rows * greedy.decode_steps / greedy.decode_s
+    print(f"  {route}: greedy {rows} row(s), {greedy.decode_steps} steps, "
+          f"{g_rate:.2f} tok/s over the rows")
+    drafts = [("n-gram", (None, None))] + ([] if quantized else [("draft model", draft)])
+    for name, (dp, dc) in drafts:
+        res, run = _counted(lambda: speculative_generate(
+            sl.params, sl.cfg, dp, dc, pr, pm, spec_k=SPEC_K, **kw))
+        # prefill K1 T2T / T2V / T2A; a verify pass: K1 on the image / audio
+        # caches (none on int8 caches), dense T2T; the draft's prefill: K1
+        # T2T a layer; its decode steps: no kernel
+        _held(f"{route}: speculative, {name}", run, {
+            "flash_attention": n_layers * (3 + (0 if quantized else 2) * res.n_target_steps)
+            + (dc.text.num_layers if dc is not None else 0),
+            "decode_attention": 0})
+        path = _add(path, run)
+        acc, drafted = int(res.n_accepted.sum()), max(int(res.n_drafted.sum()), 1)
+        print(f"  {route}: speculative ({name}, spec_k {SPEC_K}): {res.n_target_steps} target "
+              f"passes for {int(res.lengths.sum())} tokens, accepted {acc}/{drafted} "
+              f"({acc / drafted:.0%}), {_spec_rate(res):.2f} tok/s over the rows vs greedy "
+              f"{g_rate:.2f} (prefill {res.prefill_s:.3f} s vs {greedy.prefill_s:.3f} s)")
+        _near_tie_rule(f"{route}: speculative, {name}", res.tokens, greedy.tokens, log)
+    return greedy, path
+
+
+class _BeamLog:
+    """Records each frontier choice of beam_generate inside a `with` block:
+    the top NUM_BEAMS + 1 candidate scores and the chosen NUM_BEAMS
+    (`generate._top`), the step's logit limit (LOGIT_REL * max|logit|,
+    from lm_logits), and the text caches after the last reorder
+    (`generate._reorder`, or `reorder` in its place: a planted fault)."""
+
+    def __init__(self, reorder=None):
+        from vidi_tpu_torch.infer import generate as gen
+        from vidi_tpu_torch.models import decoder
+        self.gen, self.decoder = gen, decoder
+        self.reorder = reorder or gen._reorder
+        self.vals, self.idx, self.limits, self.caches = [], [], [], None
+
+    def __enter__(self):
+        real_top, real_logits, reorder = self.gen._top, self.decoder.lm_logits, self.reorder
+
+        def top(x, k):
+            vals, idx = real_top(x, k + 1)
+            self.vals.append(vals.cpu())
+            self.idx.append(idx[:, :k].cpu())
+            return vals[:, :k], idx[:, :k]
+
+        def lm_logits(*a, **kw):
+            out = real_logits(*a, **kw)
+            self.limits.append(LOGIT_REL * float(out.float().abs().max()))
+            return out
+
+        def reordered(caches, spare, parent):
+            out = reorder(caches, spare, parent)
+            self.caches = out[0]
+            return out
+
+        self.saved = real_top, real_logits, self.gen._reorder
+        self.gen._top, self.decoder.lm_logits, self.gen._reorder = top, lm_logits, reordered
+        return self
+
+    def __exit__(self, *exc):
+        self.gen._top, self.decoder.lm_logits, self.gen._reorder = self.saved
+
+    def frontiers(self, v: int) -> list:
+        """Each step's frontier: for each query, its beams' token tuples in
+        beam-row order (a candidate index is parent * v + token, v the
+        vocabulary; the prefill's are tokens)."""
+        out, hyps = [], None
+        for idx in self.idx:
+            if hyps is None:
+                hyps = [[(int(t),) for t in row] for row in idx]
+            else:
+                hyps = [[hyps[q][int(i) // v] + (int(i) % v,) for i in row]
+                        for q, row in enumerate(idx)]
+            out.append(hyps)
+        return out
+
+
+def _beam_rule(label: str, got: _BeamLog, want: _BeamLog, v: int) -> bool:
+    """Two beam runs' frontiers (as sets of hypotheses: an order swap inside
+    the frontier changes nothing) step by step: True if equal throughout,
+    or if the first step where they part has the K-th and (K+1)-th
+    candidates of `want` within that step's logit limit (printed); False
+    if they part at a clear choice."""
+    for step, (a, b) in enumerate(zip(got.frontiers(v), want.frontiers(v))):
+        parted = [q for q in range(len(b)) if set(a[q]) != set(b[q])]
+        if not parted:
+            continue
+        vals = want.vals[step]
+        gap = min(float(vals[q, NUM_BEAMS - 1] - vals[q, NUM_BEAMS]) for q in parted)
+        limit = want.limits[step]
+        print(f"  {label}: the frontiers part at step {step}; the K-th and (K+1)-th "
+              f"candidates' gap {gap:.4f} vs the logit limit {limit:.4f}: "
+              f"{'a near tie' if gap <= limit else 'a clear choice'}")
+        return gap <= limit
+    print(f"  {label}: the frontiers are equal at all {len(want.idx)} steps")
+    return True
+
+
+def _replay_cos(sl, prefill, log: _BeamLog) -> float:
+    """Least cosine, over the layers, k and v and the final beams, between a
+    beam run's final text caches and a teacher-forced replay of each final
+    beam's tokens on `prefill`'s caches (the text cache repeated, decode
+    steps on the K3 route): each beam row's cache must hold its own
+    tokens."""
+    from vidi_tpu_torch.models import dattn, decoder
+
+    _, caches, lens = prefill
+    img_mask, aud_mask = sl.media[1], sl.media[3]
+    beams = log.frontiers(sl.cfg.text.vocab_size)[-1]
+    toks = torch.tensor([h for q in beams for h in q], device=sl.dev)  # [B*K, S+1]
+    caches = caches._replace(text_k=caches.text_k.repeat_interleave(NUM_BEAMS, dim=1),
+                             text_v=caches.text_v.repeat_interleave(NUM_BEAMS, dim=1))
+    cur = lens.repeat_interleave(NUM_BEAMS)
+    n_steps = toks.shape[1] - 1
+    for j in range(n_steps):
+        emb = decoder.embed_tokens(sl.params["text"], toks[:, j:j + 1], sl.cfg.text)
+        dattn.decode_step(sl.params, sl.cfg, emb, cur + j, caches, img_mask=img_mask,
+                          aud_mask=aud_mask, use_flash=True)
+    n = int(lens[0])
+    return min(_cos(getattr(log.caches, name)[layer, r, :, n:n + n_steps],
+                    getattr(caches, name)[layer, r, :, n:n + n_steps])
+               for name in ("text_k", "text_v") for layer in range(sl.cfg.text.num_layers)
+               for r in range(toks.shape[0]))
+
+
+def beam_check(sl, prompts, media_caches, greedy) -> None:
+    """num_beams = 1 bit-equal to `greedy` (a greedy run of the first query
+    on the per-row caches, K3 route); NUM_BEAMS beams on
+    the kernel route and on the plain route under the near-tie rule, the
+    kernel route's final text caches against a teacher-forced replay of
+    its beams (cosine CACHE_COS); a planted fault (text caches not
+    reordered by parent) that the replay must reject; once with
+    media_caches (the three queries folded). -> the launches of the path's
+    runs (num_beams = 1, NUM_BEAMS on the kernel route and on
+    media_caches), without the plain route, the fault and the replays."""
+    from vidi_tpu_torch.infer import generate as gen
+    from vidi_tpu_torch.infer import pipeline as P
+
+    n_layers, v = sl.cfg.text.num_layers, sl.cfg.text.vocab_size
+    pr, pm = prompts
+    kw = dict(max_new_tokens=DECODE_NEW, eos_id=P.pick_eos(sl.cfg, sl.tok), mm_chunks=32,
+              use_flash=True)
+    one = (pr[:1], pm[:1], *sl.media)
+
+    path = {}
+
+    def counted(label, fn, want, on_path=True):
+        nonlocal path
+        res, run = _counted(fn)
+        _held(label, run, want(res.decode_steps))
+        if on_path:
+            path = _add(path, run)
+        return res
+
+    beam1 = counted("num_beams = 1, K3 route", lambda: gen.beam_generate(
+        sl.params, sl.cfg, *one, num_beams=1, use_flash_decode=True, **kw),
+        lambda n: {"flash_attention": 3 * n_layers, "decode_attention": 3 * n_layers * n})
+    equal = torch.equal(beam1.tokens, greedy.tokens)
+    print(f"  num_beams = 1 vs greedy generate (K3 route, {greedy.decode_steps} steps): "
+          f"tokens {'bit-equal' if equal else 'DIFFER'}")
+    if not equal:
+        raise AssertionError("num_beams = 1 must give greedy's tokens")
+
+    # a beam step: K3 for the T2T of the B*K beam rows, K1 for the beams
+    # folded onto each image / audio cache row
+    logs = {}
+    for route, flash in (("kernel", True), ("plain", False)):
+        with _BeamLog() as logs[route]:
+            res = counted(f"num_beams = {NUM_BEAMS}, {route} route", lambda: gen.beam_generate(
+                sl.params, sl.cfg, *one, num_beams=NUM_BEAMS, use_flash_decode=flash, **kw),
+                lambda n: ({"flash_attention": n_layers * (3 + 2 * n),
+                            "decode_attention": n_layers * n} if flash else
+                           {"flash_attention": 3 * n_layers, "decode_attention": 0}),
+                on_path=flash)
+        rate = res.decode_steps / res.decode_s
+        print(f"  num_beams = {NUM_BEAMS}, {route} route: {res.decode_steps} steps, "
+              f"{rate:.2f} steps/s = {NUM_BEAMS * rate:.2f} beam tokens/s, best beam "
+              f"{int(res.lengths[0])} tokens {res.tokens[0, :8].tolist()}...")
+    if not _beam_rule(f"num_beams = {NUM_BEAMS}, kernel vs plain route", logs["kernel"],
+                      logs["plain"], v):
+        raise AssertionError("the beam routes part at a clear choice")
+    with _BeamLog(reorder=lambda caches, spare, parent: (caches, spare)) as fault:
+        gen.beam_generate(sl.params, sl.cfg, *one, num_beams=NUM_BEAMS,
+                          use_flash_decode=True, **kw)
+    prefill = gen._prefill(sl.params, sl.cfg, *one, max_new_tokens=DECODE_NEW, mm_chunks=32,
+                           use_flash=True)
+    cos, fault_cos = _replay_cos(sl, prefill, logs["kernel"]), _replay_cos(sl, prefill, fault)
+    print(f"  num_beams = {NUM_BEAMS}, kernel route: final text caches vs a teacher-forced "
+          f"replay of the beams, least cosine {cos:.6f} (limit {CACHE_COS}); planted fault "
+          f"(caches not reordered by parent) {fault_cos:.6f}")
+    if cos < CACHE_COS:
+        raise AssertionError("the beams' text caches do not hold their own tokens")
+    if fault_cos >= CACHE_COS:
+        raise AssertionError("the replay does not reject caches left unreordered")
+
+    res = counted(f"num_beams = {NUM_BEAMS}, {pr.shape[0]} queries on media_caches",
+                  lambda: gen.beam_generate(
+                      sl.params, sl.cfg, pr, pm, img_mask=sl.media[1], aud_mask=sl.media[3],
+                      num_beams=NUM_BEAMS, use_flash_decode=True, media_caches=media_caches,
+                      **kw),
+                  lambda n: {"flash_attention": n_layers * (3 + 2 * n),
+                             "decode_attention": n_layers * n})
+    print(f"  num_beams = {NUM_BEAMS}, {pr.shape[0]} queries x {NUM_BEAMS} beams folded onto "
+          f"media_caches: {res.decode_steps} steps, {res.decode_steps / res.decode_s:.2f} "
+          f"steps/s, lengths {res.lengths.tolist()}")
+    return path
+
+
+def sampling_check(sl, greedy) -> dict:
+    """Sampled generate (SAMPLING) on the K3 route: one seed twice gives
+    bit-equal tokens; top-k 1 gives greedy's. -> the launches of the first
+    run (the others are its checks)."""
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer.generate import generate
+
+    kw = dict(max_new_tokens=DECODE_NEW, eos_id=P.pick_eos(sl.cfg, sl.tok), mm_chunks=32,
+              use_flash=True, use_flash_decode=True)
+    pr, pm = _long_prompts(sl)
+    one = (pr[:1], pm[:1], *sl.media)
+
+    def sample(seed, **warp):
+        gen = torch.Generator(device=sl.dev).manual_seed(seed)
+        return generate(sl.params, sl.cfg, *one, generator=gen, **{**kw, **SAMPLING, **warp})
+
+    a, path = _counted(lambda: sample(3))
+    b, k1 = sample(3), sample(3, top_k=1)
+    same, greedy_equal = torch.equal(a.tokens, b.tokens), torch.equal(k1.tokens, greedy.tokens)
+    print(f"  sampling {SAMPLING}: seed 3 twice {'bit-equal' if same else 'DIFFER'} "
+          f"({a.decode_steps / a.decode_s:.2f} tok/s), top-k 1 vs greedy "
+          f"{'bit-equal' if greedy_equal else 'DIFFER'}; tokens {a.tokens[0, :8].tolist()}...")
+    if not (same and greedy_equal):
+        raise AssertionError("sampling is not reproducible, or top-k 1 is not greedy")
+    return path
+
+
+def serve_decoding_phase(sl) -> dict:
+    """The decoding variants on the 120 s slice (Vidi1.5-9B, random
+    weights): verify_step against sequential decode steps; greedy
+    speculative decoding (n-gram and a random DRAFT_LAYERS-layer draft) on
+    the per-row caches, on media_prefill's caches for three folded queries,
+    and (n-gram) on int8 caches; beams; sampling; `ask` with a draft and
+    with beams. -> the kernel launches of the path's own runs (greedy,
+    speculative, beams on the kernel route and on media_caches, the first
+    sampled run, the two `ask` calls), without the checks' runs (the
+    verify check, timing repetitions, plain-route runs, planted faults,
+    replays)."""
+    import tempfile
+
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.models import dattn
+
+    t0 = time.perf_counter()
+    verify_check(sl)
+    pr, pm = _long_prompts(sl)
+    draft = _draft_model(sl)
+    img, img_mask, aud, aud_mask = sl.media
+    media = dattn.media_prefill(sl.params, sl.cfg, img, img_mask, aud, aud_mask,
+                                mm_chunks=32, use_flash=True)
+    per_row = dict(img=img, img_mask=img_mask, aud=aud, aud_mask=aud_mask)
+    shared = dict(img_mask=img_mask, aud_mask=aud_mask, media_caches=media)
+    greedy, launches = speculative_check(sl, draft, "per-row caches, K3 route",
+                                         (pr[:1], pm[:1]), per_row)
+    launches = _add(launches, speculative_check(
+        sl, draft, "media_caches, 3 queries folded (K1 route)", (pr, pm), shared)[1])
+    launches = _add(launches, speculative_check(
+        sl, draft, "int8 caches, K3 route", (pr[:1], pm[:1]),
+        dict(per_row, quantize_caches=True))[1])
+    del draft
+    launches = _add(launches, beam_check(sl, (pr, pm), media, greedy))
+    del media
+    launches = _add(launches, sampling_check(sl, greedy))
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.mp4")
+        _write_clip(sl.frames, clip)
+        for label, extra in (("draft='ngram'", dict(draft="ngram")),
+                             ("num_beams=2", dict(num_beams=2))):
+            t1 = time.perf_counter()
+            answer, run = _counted(lambda: P.ask(
+                QUERIES[0], clip, sl.params, sl.cfg, sl.tok, max_new_tokens=DECODE_NEW // 2,
+                use_flash_decode=True, **extra))
+            launches = _add(launches, run)
+            print(f"  ask({label}) on the {sl.seconds} s mp4: {answer!r} in "
+                  f"{time.perf_counter() - t1:.3f} s")
+    print(f"  kernel launches in the decoding variants' own runs: {launches}; phase wall time "
+          f"{time.perf_counter() - t0:.1f} s")
+    if launches["flash_attention"] == 0 or launches["decode_attention"] == 0:
+        raise AssertionError(f"a kernel of the decoding path was never launched: {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3297,6 +3869,11 @@ def main() -> int:
         profile_phase(sl)
     print("decode routes:")
     decode_route_check(sl)
+    print("decoding variants (verify_step, speculative, beams, sampling; the 120 s slice):")
+    serve_decoding = serve_decoding_phase(sl)
+    if args.profile:
+        print("decoding variants' profile:")
+        profile_decoding(sl)
     print(f"mm_chunks reading (ROADMAP Q3.10; the first {MMC_LAYERS} layers):")
     mm_chunks_reading(sl)
     print("long-video cache check (the 120 s slice's media):")
@@ -3355,7 +3932,8 @@ def main() -> int:
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
     # training for K4, int8 serving for K5 / K6; K7 is on no path);
     # launches_by_path gives every path's count
-    paths = {"serve": serve, "serve_long": serve_long, "checkpoint": ckpt,
+    paths = {"serve": serve, "serve_decoding": serve_decoding, "serve_long": serve_long,
+             "checkpoint": ckpt,
              "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8, "train": train}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}

@@ -1,9 +1,10 @@
 """End-to-end temporal-retrieval inference for the port, plus its CLI
-(port of vidi_tpu/infer/pipeline.py, greedy v1.5 path).
+(port of vidi_tpu/infer/pipeline.py, v1.5 path).
 
 decode video -> uint8 frames + log-mel windows (host) -> SigLIP / Whisper
-towers and adapters (device) -> TR prompt -> greedy generate -> parse the
-normalized `a.aaa-b.bbb` ranges -> "HH:MM:SS-HH:MM:SS" spans.
+towers and adapters (device) -> TR prompt -> generate (greedy, sampled,
+beam search or speculative) -> parse the normalized `a.aaa-b.bbb` ranges
+-> "HH:MM:SS-HH:MM:SS" spans.
 
 The encode runs whole (`encode_media_arrays`: every frame decoded first)
 or streamed (`stream_chunk > 0`: `encode_media_streaming`, the device
@@ -16,12 +17,16 @@ chunks at decode resolution and resizes them on the device.
         --model-path DIR | --random-weights 9b|1.5b|tiny \
         --device cuda|cpu --dtype bfloat16|float32 \
         [--load-8bit | --load-4bit] [--load-8bit-towers] [--quantize-kv] \
-        [--w8a8-prefill MIN_TOKENS] [--stream-chunk FRAMES [--device-resize]]
+        [--w8a8-prefill MIN_TOKENS] [--stream-chunk FRAMES [--device-resize]] \
+        [--random-weights-seed N] [--temperature T [--top-k K] [--top-p P] [--seed N]] \
+        [--num-beams K] [--spec-ngram | --draft-model-path DIR | \
+         --draft-random-weights 9b|1.5b|tiny] [--spec-k K]
 """
 from __future__ import annotations
 
 import argparse
 import re
+import sys
 import threading
 from typing import List, Optional, Tuple
 
@@ -32,7 +37,8 @@ from vidi_tpu_torch.constants import DEFAULT_IMAGE_TOKEN, GEMMA_EOS_TOKEN_ID, IM
 from vidi_tpu_torch.core.config import DattnConfig
 from vidi_tpu_torch.media.audio import process_audio
 from vidi_tpu_torch.media.text import preprocess_chat, tokenizer_image_token
-from vidi_tpu_torch.infer.generate import generate, tokenize_stop_keywords
+from vidi_tpu_torch.infer.generate import (beam_generate, generate, speculative_generate,
+                                           tokenize_stop_keywords)
 from vidi_tpu_torch.models import dattn
 from vidi_tpu_torch.models.adapters import budget_hw
 
@@ -239,12 +245,23 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
         mm_chunks: int = 32, eos_id: Optional[int] = None, pad_to: int = 64,
         use_flash: Optional[bool] = None, use_flash_decode: bool = False,
         quantize_caches: bool = False, stream_chunk: int = 0,
-        device_resize: bool = False, stop_keywords: tuple = ()) -> str:
+        device_resize: bool = False, stop_keywords: tuple = (),
+        temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+        seed: int = 0, num_beams: int = 1, draft=None, spec_k: int = 4) -> str:
     """Answer one query about one video -> the task's display string.
     `use_flash=None` means "the parameters are on a CUDA device": the CUDA
     kernels run there and the reference ops on the CPU. `quantize_caches`
     keeps the image / audio KV caches as per-token int8; `stream_chunk` and
-    `device_resize` select the encode (`encode_media`)."""
+    `device_resize` select the encode (`encode_media`).
+
+    Decoding: greedy by default; `temperature > 0` samples (with `top_k`,
+    `top_p`) from a generator seeded with `seed` on the model's device;
+    `num_beams > 1` runs beam search; `draft` ("ngram", or (params, cfg)
+    of a small text-only model sharing the vocabulary) runs speculative
+    decoding with `spec_k` drafts a pass, and prints its acceptance on
+    stderr. A draft with `num_beams > 1` is ignored (with a warning). The
+    beam and speculative routes stop at eos only; `stop_keywords` then act
+    on the text."""
     from vidi_tpu_torch.media.video import get_media_length
 
     dev = params["text"]["embed"].device
@@ -256,14 +273,31 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
         stream_chunk=stream_chunk, device_resize=device_resize)
     prompt, mask = build_prompt_batch([build_prompt_ids(question, tokenizer, task)],
                                       pad_to)
-    result = generate(
-        params, cfg, torch.as_tensor(prompt).long().to(dev),
-        torch.as_tensor(mask).to(dev), img=img, img_mask=img_mask, aud=aud,
-        aud_mask=aud_mask, max_new_tokens=max_new_tokens,
-        eos_id=eos_id if eos_id is not None else pick_eos(cfg, tokenizer),
-        mm_chunks=mm_chunks, use_flash=use_flash,
-        use_flash_decode=use_flash_decode, quantize_caches=quantize_caches,
-        stop_sequences=tokenize_stop_keywords(stop_keywords, tokenizer))
+    args = (params, cfg, torch.as_tensor(prompt).long().to(dev),
+            torch.as_tensor(mask).to(dev), img, img_mask, aud, aud_mask)
+    kw = dict(max_new_tokens=max_new_tokens,
+              eos_id=eos_id if eos_id is not None else pick_eos(cfg, tokenizer),
+              mm_chunks=mm_chunks, use_flash=use_flash,
+              use_flash_decode=use_flash_decode, quantize_caches=quantize_caches)
+    sampling = dict(temperature=temperature, top_k=top_k, top_p=top_p,
+                    generator=(torch.Generator(device=dev).manual_seed(seed)
+                               if temperature > 0 else None))
+    if draft is not None and num_beams > 1:
+        print("warning: speculative decoding does not compose with beam search; "
+              "the draft is IGNORED with num_beams > 1", file=sys.stderr)
+    if draft is not None and num_beams == 1:
+        d_params, d_cfg = (None, None) if draft == "ngram" else draft
+        result = speculative_generate(params, cfg, d_params, d_cfg, *args[2:],
+                                      spec_k=spec_k, **kw, **sampling)
+        n_acc, n_draft = int(result.n_accepted.sum()), int(result.n_drafted.sum())
+        print(f"speculative: {result.n_target_steps} target passes, accept "
+              f"{n_acc}/{max(n_draft, 1)} ({n_acc / max(n_draft, 1):.0%})",
+              file=sys.stderr)
+    elif num_beams > 1:
+        result = beam_generate(*args, num_beams=num_beams, **kw)
+    else:
+        result = generate(*args, **kw, **sampling,
+                          stop_sequences=tokenize_stop_keywords(stop_keywords, tokenizer))
     n = int(result.lengths[0])
     text = tokenizer.decode(result.tokens[0, :n].cpu().numpy(),
                             skip_special_tokens=True).strip()
@@ -306,7 +340,8 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (raises without a card) or cpu")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
-    p.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    p.add_argument("--random-weights-seed", type=int, default=0,
+                   help="seed of --random-weights and --draft-random-weights")
     p.add_argument("--fps", type=float, default=1.0)
     p.add_argument("--max-new-tokens", type=int, default=1024)
     p.add_argument("--mm-splits", type=int, default=32)
@@ -328,6 +363,28 @@ def main(argv=None):
     p.add_argument("--device-resize", action="store_true",
                    help="with --stream-chunk: ship frames at their decode "
                         "resolution and resize them on the device")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0: greedy; > 0: sample from the warped distribution")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="with --temperature: keep the k best logits (and their ties)")
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="with --temperature: nucleus sampling mass")
+    p.add_argument("--seed", type=int, default=0,
+                   help="sampling seed (runs are reproducible)")
+    p.add_argument("--num-beams", type=int, default=1,
+                   help="> 1: beam search; the image / audio caches stay shared "
+                        "across a query's beams")
+    p.add_argument("--draft-model-path",
+                   help="a small text-only HF checkpoint with the target's "
+                        "vocabulary: speculative decoding (greedy output equals "
+                        "plain greedy)")
+    p.add_argument("--draft-random-weights", choices=["tiny", "9b", "1.5b"],
+                   help="random draft weights at this configuration's widths")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="speculative window: draft tokens verified a target pass")
+    p.add_argument("--spec-ngram", action="store_true",
+                   help="speculative decoding drafting from 2-gram matches in "
+                        "the prompt and generated history (no draft model)")
     args = p.parse_args(argv)
 
     from vidi_tpu_torch.infer import quantize
@@ -335,14 +392,25 @@ def main(argv=None):
 
     if args.w8a8_prefill is not None:
         quantize.w8a8_min_tokens = args.w8a8_prefill
+    dtype = getattr(torch, args.dtype)
     params, cfg, tokenizer = load_model(
-        args.model_path, args.random_weights, dtype=getattr(torch, args.dtype),
-        device=args.device, seed=args.seed, load_8bit=args.load_8bit,
+        args.model_path, args.random_weights, dtype=dtype, device=args.device,
+        seed=args.random_weights_seed, load_8bit=args.load_8bit,
         load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit)
+    draft = "ngram" if args.spec_ngram else None
+    if args.draft_model_path or args.draft_random_weights:
+        d_params, d_cfg, _ = load_model(
+            args.draft_model_path, args.draft_random_weights, dtype=dtype,
+            device=args.device, seed=args.random_weights_seed,
+            load_8bit=args.load_8bit)
+        draft = (d_params, d_cfg)
     out = ask(args.query, args.video_path, params, cfg, tokenizer,
               task=args.task, fps=args.fps, max_new_tokens=args.max_new_tokens,
               mm_chunks=args.mm_splits, quantize_caches=args.quantize_kv,
-              stream_chunk=args.stream_chunk, device_resize=args.device_resize)
+              stream_chunk=args.stream_chunk, device_resize=args.device_resize,
+              temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+              seed=args.seed, num_beams=args.num_beams, draft=draft,
+              spec_k=args.spec_k)
     print(out if out else "(no parsed output)")
 
 

@@ -24,6 +24,8 @@ for one query token against a cache); without it the reference ops of
 latter chunk by chunk through all layers, into preallocated buffers), and
 `text_prefill_with_caches` / `decode_step` read them for any number of
 query rows, batch-1 caches folded across the rows (`_xattn_block`).
+`verify_step` (speculative decoding) runs a window of W tokens a row
+against the caches in one pass, as W decode steps would.
 Caches keep the decode-native [L,B,Hk,S,D] layout;
 with `quantize_caches` the image / audio caches are per-token int8 dicts
 ({qi8 [L,B,Hk,S,D], scale [L,B,Hk,S,1]}) that decode reads through
@@ -461,20 +463,30 @@ def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
     k_r = apply_rope(k, cos, sin)
 
     if text_kv is not None:
-        # decode: write this step's K/V into the layer's text cache IN PLACE
-        # (ck / cv are views of the [L,B,Hk,S,D] cache) at slot `write_at`
+        # decode / verify: write the step's K/V into the layer's text cache
+        # IN PLACE (ck / cv are views of the [L,B,Hk,S,D] cache), one indexed
+        # write for all rows: at slot write_at [B] for one token a row, at
+        # slots write_at [B,W] for a window (slot == absolute position)
         ck, cv = text_kv
+        w = h.shape[1]
         bidx = torch.arange(ck.shape[0], device=ck.device)
-        ck[bidx, :, write_at] = k_r[:, 0]
-        cv[bidx, :, write_at] = v[:, 0]
+        if write_at.dim() == 1:
+            ck[bidx, :, write_at] = k_r[:, 0]
+            cv[bidx, :, write_at] = v[:, 0]
+        else:
+            ck[bidx[:, None], :, write_at] = k_r
+            cv[bidx[:, None], :, write_at] = v
         new_text_kv = (ck, cv)
-        if use_flash:
+        if use_flash and w == 1:
             from vidi_tpu_torch.ops.cuda.decode_attention import decode_attention
             window = tcfg.sliding_window if is_sliding else None
             t2t = decode_attention(q_r[:, 0], ck, cv, text_mask, tcfg.q_scale,
                                    tcfg.attn_softcap, window,
                                    q_pos=q_positions[:, 0])[:, None]
         else:
+            # a verify window (W > 1) takes the dense, position-masked path:
+            # K1 masks causality by absolute index (query i of the window
+            # would see keys 0..i only) and K3 takes one query token
             t2t = _self_attn_switch(q_r, ck.transpose(1, 2), cv.transpose(1, 2),
                                     q_positions, kv_positions, text_mask, tcfg,
                                     is_sliding)
@@ -732,21 +744,23 @@ def text_prefill_with_caches(params: Params, cfg: DattnConfig, inputs_embeds,
 # Decode step
 # ---------------------------------------------------------------------------
 
-def decode_step(params: Params, cfg: DattnConfig, token_embeds, cur_len,
-                caches: Caches, *, img_mask=None, aud_mask=None,
-                use_flash: bool = False):
-    """One greedy-decode step: token_embeds [B,1,d], cur_len [B] tokens
-    already cached -> (logits [B,V] fp32, caches). The text cache is updated
-    in place; the returned Caches is the same object."""
+def _cached_layers(params: Params, cfg: DattnConfig, token_embeds, cur_len,
+                   caches: Caches, img_mask, aud_mask, use_flash: bool):
+    """W tokens a row [B,W,d] at positions cur_len + 0..W-1 through every
+    layer against the caches, their K/V written into the text cache in
+    place at those slots -> the final-normed hidden [B,W,d]. The text
+    cache is valid below cur_len + W; causality inside the window rides
+    on the positions."""
     tcfg = cfg.text
     h = _embed_scale(token_embeds, tcfg) if tcfg.embed_scale else token_embeds
-    b = h.shape[0]
-    positions = cur_len[:, None]
+    b, w = h.shape[:2]
+    positions = (cur_len[:, None] if w == 1 else
+                 cur_len[:, None] + torch.arange(w, dtype=cur_len.dtype, device=h.device))
     rope_cs = rope_cos_sin(positions, tcfg.head_dim, tcfg.rope_theta)
     s_max = caches.text_k.shape[3]
     kv_positions = torch.arange(s_max, dtype=positions.dtype,
                                 device=h.device)[None].expand(b, s_max)
-    text_valid = kv_positions < (cur_len + 1)[:, None]
+    text_valid = kv_positions < (cur_len + w)[:, None]
     has_img, has_aud = caches.img_k is not None, caches.aud_k is not None
     for i, lp in enumerate(params["text"]["layers"]):
         h, _, _, _ = dattn_layer(
@@ -758,6 +772,33 @@ def decode_step(params: Params, cfg: DattnConfig, token_embeds, cur_len,
                     if has_img else None),
             aud_kv=((_layer_slice(caches.aud_k, i), _layer_slice(caches.aud_v, i))
                     if has_aud else None),
-            write_at=cur_len, use_flash=use_flash)
-    h = decoder.norm(h, params["text"]["final_ln"], tcfg)
-    return decoder.lm_logits(params["text"], h[:, 0], tcfg), caches
+            write_at=cur_len if w == 1 else positions, use_flash=use_flash)
+    return decoder.norm(h, params["text"]["final_ln"], tcfg)
+
+
+def decode_step(params: Params, cfg: DattnConfig, token_embeds, cur_len,
+                caches: Caches, *, img_mask=None, aud_mask=None,
+                use_flash: bool = False):
+    """One greedy-decode step: token_embeds [B,1,d], cur_len [B] tokens
+    already cached -> (logits [B,V] fp32, caches). The text cache is updated
+    in place; the returned Caches is the same object."""
+    h = _cached_layers(params, cfg, token_embeds, cur_len, caches, img_mask,
+                       aud_mask, use_flash)
+    return decoder.lm_logits(params["text"], h[:, 0], cfg.text), caches
+
+
+def verify_step(params: Params, cfg: DattnConfig, token_embeds, cur_len,
+                caches: Caches, *, img_mask=None, aud_mask=None,
+                use_flash: bool = False):
+    """The speculative verify pass: a window of W tokens a row
+    (token_embeds [B,W,d]) at per-row offsets cur_len [B] in one forward
+    -> (logits [B,W,V] fp32, position i predicting the token after window
+    token i; caches). The window's K/V are written in place at cur_len ..
+    cur_len + W - 1; slots past an accepted prefix hold stale entries that
+    lie beyond the next pass's validity mask, so a rollback is not
+    advancing cur_len. T2T runs dense (see `dattn_layer`); with
+    `use_flash` the image / audio reads take K1 (W query tokens a row, or
+    the rows folded onto a shared cache)."""
+    h = _cached_layers(params, cfg, token_embeds, cur_len, caches, img_mask,
+                       aud_mask, use_flash)
+    return decoder.lm_logits(params["text"], h, cfg.text), caches
