@@ -93,6 +93,25 @@
    first MMC_LAYERS layers: mm_chunks 1 and 32, each against an fp32
    forward, with a planted fault (the audio stream's ragged last chunk left
    without its update).
+   Then the serving daemon (serve), SERVE_NEW new tokens a response, on two
+   mp4 clips (A: the 120 s frames; B: 60 s of other frames), through
+   serve_loop fed by its own JSONL reader: (a) batch_queries 2,
+   media_cache 2 over three A queries, one B query and a vqa request with
+   options, with three planted bad requests (a line that is not JSON, a
+   request without a query, a missing file); (b) batch_videos 2 (one
+   generate over the two videos' caches stacked on the batch axis); (c)
+   quantize_kv; (d) spec_ngram; (e) media_cache 1 over A, B, A. Each run's
+   stats and K1 / K2 launches (no K3: the reference's decode route) are
+   held to the reckoned ones, its only errors must be the planted ones,
+   and each response's generated ids (recorded by the tokenizer) and
+   step-0 logits are held to a generate of its query alone on the full
+   forward (ids equal but where the anchor's top-2 gap is within the logit
+   limit; logits within the decode routes' limits). Two planted faults
+   must leave the limits: _stack_media padding the masks with True, an
+   LRU handing back the other video's caches. Then the batch runner
+   (run_benchmark.make_ask_batch + run_task) on made-up ground truths for
+   tr, vqa, character and stg, its TR rows held like the daemon's, and the
+   evals (vue_tr, vue_plot, vue_stg) on its predictions.
 5. Drives the long-video slice on the same weights, the 120 s media
    dropped: media_prefill_chunked's caches of the 120 s media held against
    forward's layer by layer (cosine, a planted fault: each layer against
@@ -125,7 +144,9 @@
    in-memory tree layer by layer; the full-precision tree dropped and one
    int8 `ask` (K5, K6). It prints bytes written, write and load times and
    rates, host (VmRSS sampled) and device peaks, with the card's name and
-   power limit.
+   power limit. Last, the daemon's CLI, serve.main(["--model-path", DIR,
+   "--in", ..., "--out", ...]), at full width on the directory, its stats
+   and launches held to the reckoned ones.
 7. Frees it and drives the int8 serving slice: the same model loaded with
    load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
    prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
@@ -135,7 +156,9 @@
    with K5 / K6 against their plain
    versions, and every K5 / K6 call of one encode and prefill against its
    plain version on the same inputs, each with a planted fault (K5 without
-   the FFN requantize) that the per-call limit must reject.
+   the FFN requantize) that the per-call limit must reject; and two
+   requests through serve_loop with quantize_kv (K2 + K5 encode, K1 + K6
+   stream prefill), launches and answers held as in the bf16 daemon.
 8. Frees it and drives the training slice: Vidi1.5-9B at full width with
    TRAIN_LAYERS text layers (bf16, towers frozen, remat, use_flash), four
    train_steps on synthetic batches of 256 text tokens, 120 frames and 4
@@ -146,8 +169,9 @@
 9. With --profile, profiles both serving slices' encode, one prefill and
    eight decode steps (each decode route of the bf16 one), the long-video
    slice's streamed encode, chunked media prefill, shared-cache prefills
-   and decode steps (three folded rows, one row), and one training step,
-   with torch.profiler.
+   and decode steps (three folded rows, one row), one cache-hit group of
+   the daemon (two queries' text prefill on shared caches and the decode
+   steps), and one training step, with torch.profiler.
 
 Exits non-zero on any failure (no CUDA device, a kernel that does not build,
 launch or agree, a planted fault the checks cannot see, a launch count off
@@ -167,6 +191,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -561,6 +586,79 @@ def k1_cache_cases(dev, gen, t: int) -> tuple:
         call_ms = _call_ms(lambda: k1.flash_attention(**args))
         print(f"  K1 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms, bound {whole['bound_ms']:.4f} ms (whole cache) / "
+              f"{bound['bound_ms']:.4f} ms ({n_valid} visible keys, {bound['bound_by']}), "
+              f"library None ms")
+        cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      **bound, "bound_whole_ms": whole["bound_ms"], "library_ms": None,
+                      **_rate(f"K1 {label}", ops, ms, bound)})
+        del cache_k, cache_v, args, out, ref, planted
+    e, c = k1_stacked_cases(dev, gen)
+    return errs + e, cases + c
+
+
+def _pair_prompt_len() -> int:
+    """Padded length of the daemon's cross-video bundle prompt (run (b):
+    QUERIES[0] on clip A, QUERIES[2] on clip B)."""
+    from vidi_tpu_torch import ByteTokenizer
+    from vidi_tpu_torch.infer import pipeline as P
+
+    tok = ByteTokenizer()
+    return P.build_prompt_batch([P.build_prompt_ids(q, tok)
+                                 for q in (QUERIES[0], QUERIES[2])])[0].shape[1]
+
+
+def k1_stacked_cases(dev, gen) -> tuple:
+    """K1 on the daemon's cross-video bundle (serve run (b)): two query rows,
+    each against its own row of a [L,2,Hk,S,D] cache stacked by
+    serve._stack_media (the layer view transposed in place to [2,S,Hk,D]).
+    Row 0 is clip A's stream, every key valid; row 1 is clip B's, half as
+    long, padded to A's length and masked False past its end. The padded
+    keys hold random values, not _stack_media's zeros: against this sharp
+    softmax zero keys weigh nothing, and a kernel must ignore them whatever
+    they hold. Image (S = IMG_S) and audio (S = AUD_S) caches, cap 50.
+    Planted faults: the
+    mask or the cap dropped, row 1 reading row 0's mask (its padded slots
+    attended), row 1 reading row 0's cache rows. -> (errors, cases)."""
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+
+    errs, cases = [], []
+    hq, hk, d, t = 16, 8, 256, _pair_prompt_len()
+    for label, s, n_b in (
+            (f"9b stacked 2x{t} vs per-row image caches S={IMG_S}, row 1 valid to "
+             f"{IMG_S // 2} cap=50", IMG_S, IMG_S // 2),
+            (f"9b stacked 2x{t} vs per-row audio caches S={AUD_S}, row 1 valid to "
+             f"{AUD_S // 2} cap=50", AUD_S, AUD_S // 2)):
+        cache_k = _randn(gen, (2, 2, hk, s, d), dev)
+        cache_v = _randn(gen, (2, 2, hk, s, d), dev)
+        mask = torch.ones((2, s), dtype=torch.bool, device=dev)
+        mask[1, n_b:] = False
+        args = dict(q=_randn(gen, (2, t, hq, d), dev, Q_GAIN), k=cache_k[1].transpose(1, 2),
+                    v=cache_v[1].transpose(1, 2), kv_mask=mask, sm_scale=d**-0.5,
+                    causal=False, window=None, softcap=50.0)
+        out, lse = k1.flash_attention(**args)
+        ref, ref_lse = k1.flash_attention_plain(**args)
+        planted = _faults(k1.flash_attention_plain, args, ("mask", "cap"))
+        row0 = torch.tensor([0, 0], device=dev)
+        planted["row 1 reads row 0's mask"] = k1.flash_attention_plain(
+            **{**args, "kv_mask": mask[row0]})[0]
+        planted["row 1 reads row 0's cache rows"] = k1.flash_attention_plain(
+            **{**args, "k": args["k"][row0], "v": args["v"][row0]})[0]
+        errs.append(_check(f"K1 {label}", out, ref, planted))
+        lse_err = float((lse - ref_lse).abs().max())
+        print(f"  K1 {label} lse: max_abs_err={lse_err:.3e} (limit {LSE_ATOL})")
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"K1 {label}: lse disagrees")
+        ms = _time_ms(lambda: k1.flash_attention(**args))
+        plain_ms = _time_ms(lambda: k1.flash_attention_plain(**args))
+        n_valid = s + n_b  # visible keys over both rows
+        ops = 4 * hq * d * t * n_valid
+        small = _nbytes(args["q"], out, lse, mask)
+        row = 2 * hk * d * args["k"].element_size()  # K and V bytes of one key
+        whole = _bound(ops, small + row * 2 * s, "bf16")
+        bound = _bound(ops, small + row * n_valid, "bf16")
+        call_ms = _call_ms(lambda: k1.flash_attention(**args))
+        print(f"  K1 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {whole['bound_ms']:.4f} ms (whole caches) / "
               f"{bound['bound_ms']:.4f} ms ({n_valid} visible keys, {bound['bound_by']}), "
               f"library None ms")
         cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
@@ -2413,6 +2511,612 @@ def serve_decoding_phase(sl) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The serving daemon, the batch runner and the evals
+# ---------------------------------------------------------------------------
+
+# The daemon's slice: SERVE_NEW new tokens a response; clip A is the 120 s
+# clip, clip B a second clip of SERVE_B_SECONDS s from SERVE_B_SEED (both
+# mp4v at 1 fps, no audio track: cv2 decodes and the audio is silence)
+SERVE_NEW = 16
+SERVE_B_SECONDS, SERVE_B_SEED = 60, SEED + 30
+SERVE_VQA = ("which object crosses the frame first?",
+             ["a red car", "a dog", "a door", "nothing"])
+
+
+class _RecordingTokenizer:
+    """A tokenizer that keeps every id sequence it decodes: a response's
+    generated tokens (random weights decode to "" through the byte
+    tokenizer, so the text alone would compare nothing)."""
+
+    def __init__(self, tok):
+        self.tok, self.decoded = tok, []
+
+    def __getattr__(self, name):
+        return getattr(self.tok, name)
+
+    def __call__(self, *a, **kw):
+        return self.tok(*a, **kw)
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        self.decoded.append([int(t) for t in ids])
+        return self.tok.decode(ids, skip_special_tokens)
+
+
+class _FirstLogits:
+    """Within `with`: the first lm_logits output (the prefill's last-token
+    logits [B,V], fp32) of every generate / speculative_generate call, in
+    call order; the daemon and the runner emit their rows in that order."""
+
+    def __init__(self):
+        from vidi_tpu_torch.infer import generate as G
+        from vidi_tpu_torch.models import decoder
+        self.G, self.decoder, self.calls, self.armed = G, decoder, [], False
+
+    def __enter__(self):
+        self.real = (self.decoder.lm_logits, self.G.generate, self.G.speculative_generate)
+        real_lm = self.real[0]
+
+        def lm_logits(*a, **kw):
+            out = real_lm(*a, **kw)
+            if self.armed:
+                self.calls.append(out.float())
+                self.armed = False
+            return out
+
+        def armed(fn):
+            def call(*a, **kw):
+                self.armed = True
+                return fn(*a, **kw)
+            return call
+
+        self.decoder.lm_logits = lm_logits
+        self.G.generate, self.G.speculative_generate = armed(self.real[1]), armed(self.real[2])
+        return self
+
+    def __exit__(self, *exc):
+        self.decoder.lm_logits, self.G.generate, self.G.speculative_generate = self.real
+
+    def rows(self):
+        """Each call's rows' logits [V], in emit order."""
+        return [c[r] for c in self.calls for r in range(c.shape[0])]
+
+
+def _tower_launches(cfg, n_frames: int, n_windows: int, mm_chunks: int = 32) -> int:
+    """K2 launches (and each K5 piece's on int8 towers) of one encode: every
+    SigLIP layer it runs once per frame chunk, every Whisper layer once per
+    window chunk (`dattn.chunked_map`)."""
+    vis_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
+    return (vis_layers * _map_chunks(n_frames, mm_chunks)
+            + cfg.audio.num_layers * _map_chunks(n_windows, mm_chunks))
+
+
+def _serve_clips(sl, tmp: str, names=("clipA", "clipB")) -> dict:
+    """Clip A (the 120 s frames) and clip B (SERVE_B_SECONDS s of other
+    frames) written as <name>.mp4 in `tmp`, each decoded once on the host
+    (frame and window counts, for the reckoning)."""
+    from vidi_tpu_torch.infer import pipeline as P
+
+    rng = np.random.default_rng(SERVE_B_SEED)
+    size = sl.cfg.vision.image_size
+    frames = {"clipA": sl.frames,
+              "clipB": rng.integers(0, 256, (SERVE_B_SECONDS, size, size, 3), dtype=np.uint8)}
+    clips = {}
+    for name in names:
+        frames_n = frames[name]
+        path = os.path.join(tmp, name + ".mp4")
+        _write_clip(frames_n, path)
+        pixels, mels, _ = P.decode_media_host(path, sl.cfg)
+        clips[name] = types.SimpleNamespace(path=path, n_frames=len(pixels),
+                                            n_windows=mels.shape[0], enc=None)
+    return clips
+
+
+def _anchor(sl, clip, query: str, task: str = "tr", options=None,
+            quantize: bool = False):
+    """The reference's anchor for one request: a generate of the query alone
+    on the full forward over the clip's decoded features (K1 prefill, K3
+    decode route; int8 caches with `quantize`), SERVE_NEW tokens -> its
+    ids, its step-0 logits [V] and each step's greedy top-2 gap and logit
+    limit."""
+    from vidi_tpu_torch.infer import generate as G
+    from vidi_tpu_torch.infer import pipeline as P
+
+    if clip.enc is None:
+        clip.enc = P.encode_media(sl.params, sl.cfg, clip.path, mm_chunks=32, use_flash=True)
+    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(query, sl.tok, task=task,
+                                                            options=options)])
+    with _LogitLog() as log, _FirstLogits() as first:
+        res = G.generate(sl.params, sl.cfg, torch.as_tensor(prompt).long().to(sl.dev),
+                         torch.as_tensor(mask).to(sl.dev), *clip.enc,
+                         max_new_tokens=SERVE_NEW, eos_id=P.pick_eos(sl.cfg, sl.tok),
+                         mm_chunks=32, use_flash=True, use_flash_decode=True,
+                         quantize_caches=quantize)
+    return types.SimpleNamespace(ids=res.tokens[0, : int(res.lengths[0])].tolist(),
+                                 logits=first.calls[0][0],
+                                 gaps=[float(g[0]) for g in log.gaps],
+                                 limits=[float(x[0]) for x in log.limits])
+
+
+def _tie_rule(label: str, got: list, a) -> None:
+    """Generated ids against the anchor's: equal, or first different at a
+    step whose anchor top-2 gap is within the logit limit (printed)."""
+    i = next((j for j, (x, y) in enumerate(zip(got, a.ids)) if x != y), None)
+    if i is None:
+        return
+    near = a.gaps[i] <= a.limits[i]
+    print(f"  {label}: parts from the anchor at token {i}, its top-2 gap {a.gaps[i]:.4f} "
+          f"vs the logit limit {a.limits[i]:.4f}: {'a near tie' if near else 'FAIL'}")
+    if not near:
+        raise AssertionError(f"{label}: leaves the anchor at token {i}, a clear choice")
+
+
+def _logits_held(label: str, got, want) -> bool:
+    rel, cos = _logit_gap(got, want)
+    ok = rel <= LOGIT_REL and cos >= LOGIT_COS
+    print(f"  {label}: step-0 logits vs the anchor's: max_abs_err = {rel:.3e} of max|logit| "
+          f"(limit {LOGIT_REL}), cosine {cos:.6f} (limit {LOGIT_COS})")
+    return ok
+
+
+class _CacheProvenance:
+    """Within `with`: for each generate call serve_loop makes, the video key
+    it looked up last in its MediaLRU and the image cache (img_k) it was
+    handed; and each key's own image cache, as the key's media prefill put
+    it in the LRU. A call handed another tensor than its key's own is
+    foreign: exact, whatever the weights. On exit it keeps only the count
+    of calls and the foreign ones (`n_calls`, `foreign`), so no cache
+    outlives its LRU."""
+
+    def __init__(self):
+        from vidi_tpu_torch.infer import generate as G
+        from vidi_tpu_torch.infer import serve as S
+        self.G, self.S, self.own, self.calls, self.last = G, S, {}, [], None
+
+    def __enter__(self):
+        rec, real = self, self.G.generate
+
+        class Recording(self.S.MediaLRU):
+            def get(self, key):
+                rec.last = key
+                return super().get(key)
+
+            def put(self, key, value):
+                rec.own[key] = value[3].img_k
+                super().put(key, value)
+
+        def generate(*a, **kw):
+            rec.calls.append((rec.last, kw["media_caches"].img_k))
+            return real(*a, **kw)
+
+        self.swaps = (_swap(self.S, MediaLRU=Recording), _swap(self.G, generate=generate))
+        for sw in self.swaps:
+            sw.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for sw in reversed(self.swaps):
+            sw.__exit__(*exc)
+        # (call, key) of each generate handed another img_k than its key's
+        self.n_calls, self.foreign = len(self.calls), [
+            (i, os.path.basename(k)) for i, (k, t) in enumerate(self.calls)
+            if t is not self.own.get(k)]
+        self.own, self.calls = {}, []
+
+
+def _daemon(sl, lines, read=_kernel_counts, **kw):
+    """serve_loop on JSONL `lines` (through the daemon's own reader) ->
+    (responses, stats, recorded ids, step-0 logits of each row, the
+    launches `read` counts)."""
+    import io
+    import queue
+
+    from vidi_tpu_torch.infer import serve as S
+
+    q = queue.Queue()
+    S._reader(io.StringIO("\n".join(lines) + "\n"), q)
+    tok, out = _RecordingTokenizer(sl.tok), []
+    before = read()
+    with _FirstLogits() as first:
+        stats = S.serve_loop(sl.params, sl.cfg, tok, q, out.append, **{
+            "max_new_tokens": SERVE_NEW, **kw})
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in read().items()}
+    return out, stats, tok.decoded, first.rows(), launches
+
+
+def _serve_check(sl, label, lines, anchors, want_stats, want_launches, planted=(),
+                 read=_kernel_counts, **kw):
+    """One daemon run held to the reckoned stats and launches, its only
+    error responses the planted ones, each response's ids under the
+    near-tie rule against its anchor and its step-0 logits within the logit
+    limits. -> the run's launches."""
+    out, stats, ids, rows, launches = _daemon(sl, lines, read, **kw)
+    errors = sorted(str(o.get("id")) for o in out if "error" in o)
+    served = [o for o in out if "error" not in o]
+    got = {k: stats[k] for k in want_stats}
+    print(f"  {label}: {stats['served']} served, {stats['errors']} errors in "
+          f"{stats['wall_s']:.3f} s = {stats['queries_per_s']:.3f} queries/s; stats {got} "
+          f"(reckoned {want_stats}); launches {launches} (reckoned {want_launches})")
+    for o in out:
+        if "error" in o:
+            print(f"    planted error {o.get('id')!r}: {o['error'][:100]}")
+    if errors != sorted(planted):
+        raise AssertionError(f"{label}: error responses {errors}, planted {sorted(planted)}: "
+                             f"{[o for o in out if 'error' in o]}")
+    if got != want_stats:
+        raise AssertionError(f"{label}: stats {got}, reckoned {want_stats}")
+    if {k: launches[k] for k in want_launches} != want_launches:
+        raise AssertionError(f"{label}: launches {launches}, reckoned {want_launches}")
+    if not len(served) == len(ids) == len(rows):
+        raise AssertionError(f"{label}: {len(served)} responses, {len(ids)} decodes, "
+                             f"{len(rows)} rows")
+    for o, got_ids, logits in zip(served, ids, rows):
+        a = anchors[o["id"]]
+        if not all(0 <= t < sl.cfg.text.vocab_size for t in got_ids):
+            raise AssertionError(f"{label}: ids outside the vocabulary")
+        _tie_rule(f"{label} {o['id']}", got_ids, a)
+        if not _logits_held(f"{label} {o['id']}", logits, a.logits):
+            raise AssertionError(f"{label} {o['id']}: step-0 logits outside the limits")
+    return launches
+
+
+def _serve_stats(served, errors, calls, hits, misses) -> dict:
+    return {"served": served, "errors": errors, "generate_calls": calls,
+            "media_cache_hits": hits, "media_cache_misses": misses, "overlapped_decodes": 0}
+
+
+def _req(rid: str, clip, query: str, **extra) -> str:
+    return json.dumps({"id": rid, "video": clip.path, "query": query, **extra})
+
+
+def _planted_daemon_faults(sl, clips, anchors) -> None:
+    """Two planted faults, each must put a row's step-0 logits outside the
+    limits: _stack_media padding the masks with True (the shorter video's
+    padded slots attended) in run (b)'s bundle, and an LRU that hands back
+    the other video's caches on a hit, which the cache provenance check
+    (_CacheProvenance) must also find. One new token a row: only the
+    step-0 logits are read."""
+    from vidi_tpu_torch.infer import serve as S
+
+    A, B = clips["clipA"], clips["clipB"]
+    real_pad = S._pad_tail
+    with _swap(S, _pad_tail=lambda x, dim, n, value: real_pad(
+            x, dim, n, True if value is False else value)):
+        out, _, _, rows, _ = _daemon(sl, [_req("a0", A, QUERIES[0]), _req("b0", B, QUERIES[2])],
+                                     batch_videos=2, max_new_tokens=1)
+    row = {o["id"]: r for o, r in zip(out, rows)}
+    if _logits_held("planted fault, masks padded with True: b0", row["b0"],
+                    anchors["b0"].logits):
+        raise AssertionError("the limits do not see the planted fault: masks padded with True")
+
+    class WrongLRU(S.MediaLRU):
+        def get(self, key):
+            other = [k for k in self._od if k != key]
+            if key in self._od and other:
+                self.hits += 1
+                return self._od[other[-1]]
+            return super().get(key)
+
+    with _swap(S, MediaLRU=WrongLRU), _CacheProvenance() as prov:
+        out, _, _, rows, _ = _daemon(
+            sl, [_req("a0", A, QUERIES[0]), _req("b0", B, QUERIES[2]),
+                 _req("a1", A, QUERIES[1])], batch_queries=1, media_cache=2, max_new_tokens=1)
+    row = {o["id"]: (o, r) for o, r in zip(out, rows)}
+    print(f"  planted fault, the LRU hands back the other video's caches: a1 answered with "
+          f"video_s {row['a1'][0]['video_s']}; foreign caches (call, key) {prov.foreign}")
+    if not prov.foreign:
+        raise AssertionError("the cache provenance check does not see the planted fault: "
+                             "the other video's caches")
+    if _logits_held("planted fault, the other video's caches: a1", row["a1"][1],
+                    anchors["a1"].logits):
+        raise AssertionError("the limits do not see the planted fault: the other video's caches")
+
+
+def _runner(sl, clips, anchors, tmp: str) -> dict:
+    """The batch runner (run_benchmark.make_ask_batch + run_task, the body
+    of its main) on made-up ground truths for tr (four queries over A and
+    B), vqa, character and stg, then the evals on its predictions. -> the
+    runs' launches."""
+    from vidi_tpu_torch.evals import vue_plot, vue_stg, vue_tr
+    from vidi_tpu_torch.infer import run_benchmark as rb
+
+    cfg, n_layers = sl.cfg, sl.cfg.text.num_layers
+    A, B = clips["clipA"], clips["clipB"]
+    secs = {"clipA": float(sl.seconds), "clipB": float(SERVE_B_SECONDS)}
+    tr_q = [("t0", "clipA", QUERIES[0], "a0"), ("t1", "clipA", QUERIES[1], "a1"),
+            ("t2", "clipA", QUERIES[2], "a2"), ("t3", "clipB", QUERIES[2], "b0")]
+    gts = {
+        "tr": [{"query_id": qid, "video_id": v, "query": q, "duration": secs[v],
+                "gt": [[10.0, 25.0]], "duration_category": "medium",
+                "query_format": "phrase", "query_modality": "vision"}
+               for qid, v, q, _ in tr_q],
+        "vqa": [{"problem_id": 1, "video_id": "clipA", "problem": SERVE_VQA[0],
+                 "options": [f"{'ABCD'[i]}. {o}" for i, o in enumerate(SERVE_VQA[1])],
+                 "answer": "A", "task_type": "Perception and Understanding"}],
+        "character": [{"query_id": "c0", "video_id": "clipB", "character": "the pilot",
+                       "duration": secs["clipB"],
+                       "gt": [{"start": 3.0, "end": 9.0, "text": "hello there",
+                               "boxes": [{"timestamp": 4.0,
+                                          "box_2d": [0.1, 0.2, 0.4, 0.6]}]}]}],
+        "stg": [{"query_id": "s0", "video_id": "clipA", "query": QUERIES[0]},
+                {"query_id": "s1", "video_id": "clipB", "query": QUERIES[1]}],
+    }
+    # (videos encoded, generate calls) of each task: one encode and one
+    # generate a video (batch_queries 4 holds each video's queries)
+    shape = {"tr": (("clipA", "clipB"), 2), "vqa": (("clipA",), 1),
+             "character": (("clipB",), 1), "stg": (("clipA", "clipB"), 2)}
+    launches, outs = {}, {}
+    for task, gt in gts.items():
+        gt_path = os.path.join(tmp, f"{task}_gt.json")
+        with open(gt_path, "w") as f:
+            json.dump(gt, f)
+        outs[task] = os.path.join(tmp, f"{task}_pred.{'csv' if task == 'stg' else 'json'}")
+        args = rb.build_parser().parse_args([
+            "--task", task, "--gt", gt_path, "--video-dir", tmp, "--out", outs[task],
+            "--max-new-tokens", str(SERVE_NEW), "--batch-queries", "4"])
+        tok = _RecordingTokenizer(sl.tok)
+        t0 = time.perf_counter()
+        with _FirstLogits() as first:
+            _, run = _counted(lambda: rb.run_task(args, rb.make_ask_batch(
+                sl.params, cfg, tok, args)))
+        wall = time.perf_counter() - t0
+        vids, calls = shape[task]
+        want = {"flash_attention": 3 * n_layers * (len(vids) + calls),
+                "tower_attention": sum(_tower_launches(cfg, clips[v].n_frames,
+                                                       clips[v].n_windows) for v in vids),
+                "decode_attention": 0}
+        print(f"  run_benchmark --task {task}: {len(gt)} queries in {wall:.3f} s = "
+              f"{len(gt) / wall:.3f} queries/s; launches {run} (reckoned {want})")
+        if run != want:
+            raise AssertionError(f"runner {task}: launches {run}, reckoned {want}")
+        launches = _add(launches, run)
+        if task == "tr":
+            with open(outs[task]) as f:
+                preds = json.load(f)
+            order = [p["query_id"] for p in preds]
+            if order != [t[0] for t in tr_q] or len(tok.decoded) != 4:
+                raise AssertionError(f"runner tr: predictions {order}")
+            for (qid, _, _, anchor), ids, logits in zip(tr_q, tok.decoded, first.rows()):
+                _tie_rule(f"runner {qid}", ids, anchors[anchor])
+                if not _logits_held(f"runner {qid}", logits, anchors[anchor].logits):
+                    raise AssertionError(f"runner {qid}: step-0 logits outside the limits")
+
+    # the evals on the runner's predictions (the scores of random weights)
+    with warnings.catch_warnings():  # an empty precision list's mean is NaN
+        warnings.simplefilter("ignore", RuntimeWarning)
+        tr = vue_tr.evaluate(outs["tr"], os.path.join(tmp, "tr_gt.json"))
+    vqa = vue_plot.evaluate_vqa(outs["vqa"])
+    char = vue_plot.evaluate_character(outs["character"])
+    ds = os.path.join(tmp, "stg_dataset")
+    os.makedirs(ds, exist_ok=True)
+    with open(os.path.join(ds, "video.csv"), "w") as f:
+        f.write("video_id,video_duration\n" + "".join(f"{v},{s}\n" for v, s in secs.items()))
+    with open(os.path.join(ds, "query.csv"), "w") as f:
+        f.write("query_id,video_id\ns0,clipA\ns1,clipB\n")
+    with open(os.path.join(ds, "tubes.csv"), "w") as f:
+        f.write("query_id,time_ms,x0,y0,x1,y1\n" + "".join(
+            f"{q},{t * 1000},0.2,0.2,0.6,0.7\n" for q in ("s0", "s1") for t in range(5, 12)))
+    ev = vue_stg.SpatioTemporalEvaluator()
+    ev.load_dataset(ds)
+    stg = vue_stg.summarize(ev.evaluate_pred_file(outs["stg"]))
+    print("  evals on the runner's predictions (random weights: the scores mean nothing "
+          "of the model):")
+    print(f"    vue_tr: {tr['n_query']} queries, overall {tr['overall']}")
+    print(f"    vue_plot vqa: {vqa['total']} questions, accuracy {vqa['overall_accuracy']:.2f}%")
+    print(f"    vue_plot character: {char['num_questions']} questions, temporal IoU "
+          f"{char['temporal_iou_avg']:.4f}, WER {char['word_error_rate']:.4f}")
+    print(f"    vue_stg: {[{k: (round(v, 4) if isinstance(v, float) else v) for k, v in r.items()} for r in stg[:1]]}")
+    if tr["n_query"] != 4 or vqa["total"] != 1 or char["num_questions"] != 1 or not stg:
+        raise AssertionError("the evals did not score the runner's predictions")
+    return launches
+
+
+def serve_phase(sl) -> tuple:
+    """The serving daemon on the bf16 9B (random weights) over two mp4
+    clips: runs (a) grouping, hits and the planted bad requests, (b) a
+    cross-video bundle, (c) int8 caches, (d) n-gram speculative decoding,
+    (e) eviction; two planted faults; the batch runner on four tasks and
+    the evals on its predictions. Every response's ids and step-0 logits
+    are held to a generate of its query alone on the full forward. ->
+    (the daemon's and the runner's launches, the clips for the profile)."""
+    import shutil
+    import tempfile
+
+    from vidi_tpu_torch.infer import serve as S
+
+    cfg, n_layers = sl.cfg, sl.cfg.text.num_layers
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="vidi_serve_")
+    try:
+        clips = _serve_clips(sl, tmp)
+        A, B = clips["clipA"], clips["clipB"]
+        k2 = {n: _tower_launches(cfg, c.n_frames, c.n_windows) for n, c in clips.items()}
+        print(f"  clips: A {A.n_frames} frames + {A.n_windows} windows, B {B.n_frames} frames "
+              f"+ {B.n_windows} windows (cv2 decode, silent audio)")
+        t0 = time.perf_counter()
+        anchors = {"a0": _anchor(sl, A, QUERIES[0]), "a1": _anchor(sl, A, QUERIES[1]),
+                   "a2": _anchor(sl, A, QUERIES[2]), "b0": _anchor(sl, B, QUERIES[2]),
+                   "v0": _anchor(sl, A, SERVE_VQA[0], task="mcq", options=SERVE_VQA[1])}
+        quant = {"a0": _anchor(sl, A, QUERIES[0], quantize=True),
+                 "a1": _anchor(sl, A, QUERIES[1], quantize=True)}
+        print(f"  anchors: {len(anchors) + len(quant)} generates on the full forward in "
+              f"{time.perf_counter() - t0:.3f} s")
+
+        def want(encodes, calls, per_call=3):
+            return {"flash_attention": n_layers * (3 * len(encodes) + per_call * calls),
+                    "tower_attention": sum(k2[e] for e in encodes), "decode_attention": 0}
+
+        stats = _serve_stats
+        # (a) two A groups (a miss, then a hit), B, and the planted bad requests
+        lines = [_req("a0", A, QUERIES[0]), _req("a1", A, QUERIES[1]), "not json {",
+                 json.dumps({"id": "noquery", "video": A.path}),
+                 _req("b0", B, QUERIES[2]), _req("a2", A, QUERIES[2]),
+                 _req("v0", A, SERVE_VQA[0], task="vqa", options=SERVE_VQA[1]),
+                 _req("missing", types.SimpleNamespace(path=os.path.join(tmp, "none.mp4")),
+                      QUERIES[0])]
+        with _CacheProvenance() as prov:
+            launches = _serve_check(sl, "(a) batch_queries 2, media_cache 2", lines, anchors,
+                                    stats(5, 3, 3, 1, 3), want(("clipA", "clipB"), 3),
+                                    planted=("None", "noquery", "missing"),
+                                    batch_queries=2, media_cache=2)
+        print(f"  (a) cache provenance: {prov.n_calls} generate calls, foreign caches "
+              f"{prov.foreign} (each call must be handed its video's own img_k)")
+        if prov.n_calls != 3 or prov.foreign:
+            raise AssertionError(f"(a): a generate was handed another video's caches: "
+                                 f"{prov.foreign}")
+
+        # (b) a cross-video bundle: one generate over caches stacked on B
+        stacked = []
+        real_stack = S._stack_media
+
+        def stack(entries):
+            out = real_stack(entries)
+            stacked.append(_nbytes(*[t for c in out[2][2:] if c is not None
+                                     for t in (c.values() if isinstance(c, dict) else [c])]))
+            return out
+
+        with _swap(S, _stack_media=stack):
+            launches = _add(launches, _serve_check(
+                sl, "(b) batch_videos 2", [_req("a0", A, QUERIES[0]), _req("b0", B, QUERIES[2])],
+                anchors, stats(2, 0, 1, 0, 2), want(("clipA", "clipB"), 1), batch_videos=2))
+        print(f"  (b) stacked caches: {_gib(stacked[0])} (B padded to A's length)")
+
+        # (c) int8 caches, (d) n-gram speculative decoding, (e) eviction
+        pair = [_req("a0", A, QUERIES[0]), _req("a1", A, QUERIES[1])]
+        launches = _add(launches, _serve_check(
+            sl, "(c) quantize_kv", pair, quant, stats(2, 0, 1, 0, 1),
+            want(("clipA",), 1, per_call=1), quantize_kv=True))
+        launches = _add(launches, _serve_check(
+            sl, "(d) spec_ngram", pair, anchors, stats(2, 0, 1, 0, 1), want(("clipA",), 1),
+            spec_ngram=True, spec_k=SPEC_K))
+        launches = _add(launches, _serve_check(
+            sl, "(e) media_cache 1, A B A", [_req("a0", A, QUERIES[0]),
+                                             _req("b0", B, QUERIES[2]),
+                                             _req("a1", A, QUERIES[1])],
+            anchors, stats(3, 0, 3, 0, 3), want(("clipA", "clipB", "clipA"), 3),
+            batch_queries=1, media_cache=1))
+        _planted_daemon_faults(sl, clips, anchors)
+        runner = _runner(sl, clips, anchors, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  kernel launches of the daemon's runs (a)-(e): {launches}; the runner's: {runner}; "
+          f"peak device memory {_gib(peak)}; phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if launches["flash_attention"] == 0 or launches["tower_attention"] == 0:
+        raise AssertionError(f"a kernel of the daemon's path was never launched: {launches}")
+    return launches, runner, clips
+
+
+def profile_serve(sl, clips) -> None:
+    """torch.profiler over one cache-hit group of the daemon: two queries'
+    text prefill on clip A's shared caches plus SERVE_NEW - 1 decode steps
+    (the generate call serve_loop makes for a group whose video is in the
+    LRU)."""
+    from vidi_tpu_torch.infer import generate as G
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.models import dattn
+
+    img, im, aud, am = clips["clipA"].enc
+    media = dattn.media_prefill(sl.params, sl.cfg, img, im, aud, am, mm_chunks=32,
+                                use_flash=True)
+    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(q, sl.tok) for q in QUERIES[:2]])
+    pr, pm = torch.as_tensor(prompt).long().to(sl.dev), torch.as_tensor(mask).to(sl.dev)
+    _region(f"serve: cache-hit group of 2 queries (text prefill on the shared caches + "
+            f"{SERVE_NEW - 1} decode steps, plain decode route)",
+            lambda: G.generate(sl.params, sl.cfg, pr, pm, img_mask=im, aud_mask=am,
+                               media_caches=media, max_new_tokens=SERVE_NEW,
+                               eos_id=P.pick_eos(sl.cfg, sl.tok), use_flash=True,
+                               mm_chunks=32))
+
+
+def int8_daemon(sl) -> dict:
+    """Two TR requests on clip A through serve_loop on the int8 model with
+    int8 caches (quantize_kv) and W8A8 from qz.w8a8_min_tokens rows: K2 and
+    K5 in the encode, K1 and K6 in the stream prefill, K1 (T2T) in the text
+    prefill on the int8 caches. Launches held to the reckoned ones, ids and
+    step-0 logits to each query's int8 full-forward generate."""
+    import shutil
+    import tempfile
+
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer import quantize as qz
+
+    cfg = sl.cfg
+    tmp = tempfile.mkdtemp(prefix="vidi_serve8_")
+    try:
+        A = _serve_clips(sl, tmp, ("clipA",))["clipA"]
+        anchors = {"a0": _anchor(sl, A, QUERIES[0], quantize=True),
+                   "a1": _anchor(sl, A, QUERIES[1], quantize=True)}
+        img, _, aud, _ = A.enc
+        prompt, _ = P.build_prompt_batch([P.build_prompt_ids(q, sl.tok) for q in QUERIES[:2]])
+        # the stream prefill as one query's forward; the text prefill's rows
+        # (both prompts) stay below the W8A8 threshold
+        want = reckon_int8_launches(cfg, A.n_frames, A.n_windows, (img.shape[1], aud.shape[1]),
+                                    prompt.size, 1, qz.w8a8_min_tokens)
+        want["flash_attention"] += cfg.text.num_layers  # the text prefill's T2T
+        launches = _serve_check(sl, "int8 daemon, quantize_kv", [
+            _req("a0", A, QUERIES[0]), _req("a1", A, QUERIES[1])], anchors,
+            _serve_stats(2, 0, 1, 0, 1), want, read=_read_int8_counts, quantize_kv=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if min(launches[k] for k in ("ln_qkv", "o_residual", "ln_ffn", "quant_matmul",
+                                 "quant_gated_mlp")) == 0:
+        raise AssertionError(f"a K5 / K6 kernel was never launched under the daemon: {launches}")
+    return launches
+
+
+def serve_cli(sl, model_dir: str, clip: str, mem) -> dict:
+    """The daemon's CLI at full width: serve.main(["--model-path", model_dir,
+    "--in", ..., "--out", ...]) loads the 9B from the directory and answers
+    two TR queries on the clip (one group: a K2 encode, K1 stream and text
+    prefills). The first response's ids against the in-memory tree's `ask`
+    (`mem`, the K3 decode route) under the near-tie rule, with the CLI's own
+    top-2 gaps. -> its launches."""
+    from vidi_tpu_torch.infer import loader as L
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer import serve as S
+
+    n_layers = sl.cfg.text.num_layers
+    req, resp = model_dir + ".req.jsonl", model_dir + ".resp.jsonl"
+    with open(req, "w") as f:
+        f.write(json.dumps({"id": "c0", "video": clip, "query": QUERIES[0]}) + "\n"
+                + json.dumps({"id": "c1", "video": clip, "query": QUERIES[1]}) + "\n")
+    pixels, mels, _ = P.decode_media_host(clip, sl.cfg)
+    toks, real = [], L.load_tokenizer
+
+    def load_tokenizer(*a, **kw):
+        toks.append(_RecordingTokenizer(real(*a, **kw)))
+        return toks[-1]
+
+    t0 = time.perf_counter()
+    with _swap(L, load_tokenizer=load_tokenizer), _LogitLog() as log:
+        stats, run = _counted(lambda: S.main(["--model-path", model_dir, "--in", req, "--out",
+                                              resp, "--max-new-tokens", str(SERVE_NEW)]))
+    wall = time.perf_counter() - t0
+    with open(resp) as f:
+        out = [json.loads(x) for x in f]
+    want = {"flash_attention": 6 * n_layers, "decode_attention": 0,
+            "tower_attention": _tower_launches(sl.cfg, len(pixels), mels.shape[0])}
+    got = {k: stats[k] for k in ("served", "errors", "generate_calls", "media_cache_hits",
+                                 "media_cache_misses")}
+    print(f"  serve.main(--model-path): {wall:.3f} s with the load, serving "
+          f"{stats['wall_s']:.3f} s = {stats['queries_per_s']:.3f} queries/s; stats {got}; "
+          f"launches {run} (reckoned {want}); responses {[sorted(o) for o in out]}")
+    if got != {"served": 2, "errors": 0, "generate_calls": 1, "media_cache_hits": 0,
+               "media_cache_misses": 1} or any("error" in o for o in out) or len(out) != 2:
+        raise AssertionError(f"the CLI's run: {got}, {out}")
+    if run != want:
+        raise AssertionError(f"the CLI's launches {run}, reckoned {want}")
+    ids = toks[0].decoded[0]
+    n = min(len(ids), len(mem.tokens))
+    _near_tie_rule("the CLI's c0 vs the in-memory tree's ask", torch.tensor([ids[:n]]),
+                   mem.tokens[None, :n], log)
+    return run
+
+
+# ---------------------------------------------------------------------------
 # The long-video slice
 # ---------------------------------------------------------------------------
 
@@ -2984,9 +3688,7 @@ def reckon_int8_launches(cfg, n_frames: int, n_windows: int, streams, prompt_row
     least `w8a8` rows a quant_matmul (folded o) and a quant_gated_mlp, whose
     down projection is one more quant_matmul. Decode runs none of them."""
     assert prompt_rows < w8a8, "the text prefill must stay weight-only"
-    vis_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
-    tower = (vis_layers * _map_chunks(n_frames, mm_chunks)
-             + cfg.audio.num_layers * _map_chunks(n_windows, mm_chunks))
+    tower = _tower_launches(cfg, n_frames, n_windows, mm_chunks)
     qm = gated = 0
     for rows in streams:
         qm += 2 * (rows >= w8a8)
@@ -3016,7 +3718,8 @@ def int8_slice_phase(sl) -> dict:
     """The int8 serving slice: one media encode (int8 towers: K2 + K5) and
     three TR queries x 32 new tokens with W8A8 prefill (K1 + K6) and int8
     image / audio caches, with every kernel's launches read around them and
-    held to the reckoned counts."""
+    held to the reckoned counts; then the daemon on the int8 model
+    (`int8_daemon`). -> (the slice's launches, the daemon's)."""
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer import quantize as qz
     from vidi_tpu_torch.infer.generate import generate
@@ -3084,7 +3787,7 @@ def int8_slice_phase(sl) -> dict:
     if launches != want:
         raise AssertionError(f"launch counts differ from the reckoned ones: {launches} "
                              f"vs {want}")
-    return launches
+    return launches, int8_daemon(sl)
 
 
 # The int8 slice's route check, two readings, both on the card:
@@ -3415,7 +4118,7 @@ def checkpoint_phase(sl) -> tuple:
     """Vidi1.5-9B at full width through save_pretrained and load_model on
     the card, in a temporary directory, the in-memory tree made distinct
     first (_distinct) and then dropped from `sl`. -> (the bf16 asks'
-    launches, the int8 ask's)."""
+    launches, the int8 ask's, the daemon CLI's)."""
     import shutil
     import tempfile
 
@@ -3556,7 +4259,13 @@ def _checkpoint_steps(sl, tmp: str) -> tuple:
     if min(launches8[k] for k in ("ln_qkv", "o_residual", "ln_ffn", "quant_matmul",
                                   "quant_gated_mlp")) == 0:
         raise AssertionError(f"a K5 / K6 kernel was never launched: {launches8}")
-    return launches, launches8
+
+    # (g) the daemon's CLI on the directory, the phase's other trees freed
+    del q
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = serve_cli(sl, out, clip, mem[0])
+    return launches, launches8, cli
 
 
 # ---------------------------------------------------------------------------
@@ -3874,6 +4583,15 @@ def main() -> int:
     if args.profile:
         print("decoding variants' profile:")
         profile_decoding(sl)
+    print(f"serving daemon, batch runner and evals (Vidi1.5-9B bf16, {SERVE_NEW} new tokens, "
+          f"a {sl.seconds} s and a {SERVE_B_SECONDS} s mp4):")
+    serve_daemon, serve_runner, serve_clips = serve_phase(sl)
+    if args.profile:
+        print("serving daemon's profile:")
+        profile_serve(sl, serve_clips)
+    del serve_clips
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"mm_chunks reading (ROADMAP Q3.10; the first {MMC_LAYERS} layers):")
     mm_chunks_reading(sl)
     print("long-video cache check (the 120 s slice's media):")
@@ -3890,7 +4608,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("checkpoint slice (Vidi1.5-9B at full width: save_pretrained, load_model, ask):")
-    ckpt, ckpt_int8 = checkpoint_phase(sl)
+    ckpt, ckpt_int8, serve_cli_run = checkpoint_phase(sl)
     del sl
     gc.collect()
     torch.cuda.empty_cache()
@@ -3900,7 +4618,7 @@ def main() -> int:
           f"{W8A8_MIN_TOKENS} rows, int8 caches, random weights):")
     qz.w8a8_min_tokens = W8A8_MIN_TOKENS
     sl = load_slice(dev, int8=True)
-    serve_int8 = int8_slice_phase(sl)
+    serve_int8, serve_daemon_int8 = int8_slice_phase(sl)
     if args.profile:
         print("int8 profile:")
         profile_int8(sl)
@@ -3933,8 +4651,10 @@ def main() -> int:
     # training for K4, int8 serving for K5 / K6; K7 is on no path);
     # launches_by_path gives every path's count
     paths = {"serve": serve, "serve_decoding": serve_decoding, "serve_long": serve_long,
-             "checkpoint": ckpt,
-             "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8, "train": train}
+             "serve_daemon": serve_daemon, "serve_runner": serve_runner,
+             "checkpoint": ckpt, "serve_cli": serve_cli_run,
+             "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8,
+             "serve_daemon_int8": serve_daemon_int8, "train": train}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [

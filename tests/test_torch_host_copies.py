@@ -35,6 +35,12 @@ EXCEPTIONS = {
     "media/video.py": [
         ("replace", "except OSError", "a native decoder that cannot load (built against "
                                       "libav that is not installed) is skipped: cv2 decodes"),
+        ("replace", "native_frames_safe", "the docstring's mention of the width rule"),
+        ("insert", "def native_frames_safe", "the native frame decode overruns its rows "
+                                             "at width % 16 >= 8 (ROADMAP Q3.11)"),
+        ("replace", "if lib and native_frames_safe(w)", "load_video: cv2 for such widths"),
+        ("replace", 'hasattr(lib, "vm_stream_open") and native_frames_safe(w)',
+         "stream_video: cv2 for such widths"),
     ],
     "train/data.py": [
         ("insert", "import torch", "the port's batches become torch tensors"),

@@ -46,6 +46,13 @@ MODULES = [
     "vidi_tpu_torch.infer.generate",
     "vidi_tpu_torch.infer.pipeline",
     "vidi_tpu_torch.infer.tasks",
+    "vidi_tpu_torch.infer.serve",
+    "vidi_tpu_torch.infer.run_benchmark",
+    "vidi_tpu_torch.evals.vue_tr",
+    "vidi_tpu_torch.evals.vue_plot",
+    "vidi_tpu_torch.evals.vue_stg",
+    "vidi_tpu_torch.evals.plots",
+    "vidi_tpu_torch.evals.visualize",
 ]
 
 PROBE = """
@@ -65,6 +72,8 @@ print(json.dumps({{
     "cv2_or_pil": sorted(m for m in ("cv2", "PIL") if m in sys.modules),
     "hf": sorted(m for m in sys.modules
                  if m.split(".")[0] in ("safetensors", "transformers")),
+    "pandas": sorted(m for m in sys.modules if m.split(".")[0] == "pandas"),
+    "matplotlib": sorted(m for m in sys.modules if m.split(".")[0] == "matplotlib"),
 }}))
 """
 
@@ -115,6 +124,15 @@ def test_port_never_imports_vidi_tpu(probe):
     assert probe["vidi_tpu"] == []
 
 
+def test_port_never_imports_pandas(probe):
+    """The card's machine has no pandas: the evals read CSVs with `csv`."""
+    assert probe["pandas"] == []
+
+
+def test_plots_import_matplotlib_lazily(probe):
+    assert probe["matplotlib"] == []
+
+
 def test_chip_smoke_imports_neither_jax_nor_vidi_tpu():
     """chip_smoke.py's imports (its module body, not main) load no jax and no
     vidi_tpu module."""
@@ -131,14 +149,19 @@ _IMPORT_RE = re.compile(r"^\s*(from\s+vidi_tpu(\.\w+)*\s+import\b|import\s+vidi_
                         re.M)
 
 
+_PANDAS_RE = re.compile(r"^\s*(from\s+pandas(\.\w+)*\s+import\b|import\s+pandas\b)", re.M)
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*Path(ROOT, "vidi_tpu_torch").rglob("*.py"),
-                                       Path(ROOT, "chip_smoke.py")]))
+                                       Path(ROOT, "chip_smoke.py"),
+                                       Path(ROOT, "scripts", "native_decode_probe.py")]))
 def test_no_source_line_imports_vidi_tpu(path):
     text = Path(ROOT, path).read_text()
     assert not _IMPORT_RE.search(text), f"{path} imports vidi_tpu"
     assert not re.search(r"[\"']vidi_tpu(\.[a-z_.]+)?[\"']", text), \
         f"{path} names a vidi_tpu module in a string (a lazy import)"
+    assert not _PANDAS_RE.search(text), f"{path} imports pandas"
 
 
 @pytest.mark.parametrize("ctor", ["tiny", "vidi15_9b", "bench_1_5b"])

@@ -214,3 +214,54 @@ def test_unloadable_native_decoder_falls_back_to_cv2(clip, tmp_path, monkeypatch
     frames = tvideo.load_video(clip, fps=1.0)
     assert len(frames) == 6 and frames[0].shape == (128, 128, 3)
     assert not tvideo.load_audio(clip, 16000).any()
+
+
+# Widths the native frame decoder overruns its rows at (width % 16 >= 8:
+# "double free or corruption" on 56 and 120 px clips), square and not;
+# 64 px is one it takes. Each decodes in a subprocess, so an abort fails
+# the test instead of ending the run.
+_DECODE_CHILD = """
+import sys
+import numpy as np
+from vidi_tpu_torch.media import video as V
+path, out = sys.argv[1], sys.argv[2]
+whole = np.stack(V.load_video(path, fps=5.0))
+streamed = np.concatenate(list(V.stream_video(path, fps=5.0, chunk=3)))
+np.savez(out, whole=whole, streamed=streamed, native=bool(V._load_native()))
+"""
+
+
+@pytest.mark.parametrize("w, h", [(56, 56), (120, 120), (200, 72), (72, 120), (64, 64)])
+def test_load_video_never_aborts_and_matches_cv2(tmp_path, w, h):
+    import cv2
+
+    path = str(tmp_path / f"clip_{w}x{h}.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 5, (w, h))
+    rng = np.random.default_rng(w * 1000 + h)
+    for _ in range(8):
+        writer.write(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+    writer.release()
+    out = str(tmp_path / "frames.npz")
+    res = subprocess.run([sys.executable, "-c", _DECODE_CHILD, path, out], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, (res.returncode, res.stderr[-2000:])
+    got = np.load(out)
+    assert got["whole"].shape == (8, h, w, 3)
+    np.testing.assert_array_equal(got["streamed"], got["whole"])
+    cap = cv2.VideoCapture(path)
+    want = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        want.append(cv2.cvtColor(frame, cv2.COLOR_BGR2RGB))
+    cap.release()
+    if tvideo.native_frames_safe(w) and got["native"]:
+        # the library decodes this width (it converts YUV to RGB itself)
+        return
+    np.testing.assert_array_equal(got["whole"], np.stack(want))
+
+
+def test_native_frames_safe_rule():
+    assert [w for w in (48, 56, 64, 100, 120, 200, 384, 426, 640, 854, 1280, 1920)
+            if not tvideo.native_frames_safe(w)] == [56, 120, 200, 426]

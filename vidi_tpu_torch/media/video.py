@@ -6,7 +6,8 @@ Replaces decord + the ffmpeg/ffprobe subprocesses
 1. a first-party C++ decoder (`native/vidi_media.cc`, libavformat/libavcodec/
    libswscale/libswresample via ctypes) — frames, 16 kHz mono PCM, duration;
 2. an OpenCV fallback for frames/duration when the native lib isn't built
-   (no audio — returns silence).
+   (no audio — returns silence), and for the frames of any clip whose width
+   the native frame decode cannot take (`native_frames_safe`).
 
 Frame sampling matches vid_utils.py:10-24: uniform stride round(avg_fps/fps),
 or linspace over a time_range.
@@ -68,6 +69,17 @@ def _load_native():
     return False
 
 
+def native_frames_safe(width: int) -> bool:
+    """Whether the native library may decode frames `width` pixels wide.
+    Its RGB24 conversion writes past the end of each output row when
+    width % 16 >= 8, corrupting the heap (the process aborts with "double
+    free or corruption" on 56 or 120 px clips). Heights do not matter. The
+    rule comes from `python3 scripts/native_decode_probe.py`,
+    which decodes cv2-written clips through the library in subprocesses
+    (widths 16-1398, heights 16-130) under glibc's malloc checks."""
+    return width % 16 < 8
+
+
 def probe(path: str) -> Tuple[float, float, int, int, int]:
     """-> (duration_s, fps, n_frames, width, height)."""
     lib = _load_native()
@@ -116,7 +128,7 @@ def load_video(path: str, fps: float = 1.0,
     idx = _frame_indices(n_frames, avg_fps, fps, time_range)
 
     lib = _load_native()
-    if lib:
+    if lib and native_frames_safe(w):
         out = np.empty((len(idx), h, w, 3), np.uint8)
         c_idx = (ctypes.c_long * len(idx))(*idx.tolist())
         rc = lib.vm_decode_frames(
@@ -141,7 +153,7 @@ def stream_video(path: str, fps: float = 1.0, chunk: int = 112,
         return
 
     lib = _load_native()
-    if lib and hasattr(lib, "vm_stream_open"):
+    if lib and hasattr(lib, "vm_stream_open") and native_frames_safe(w):
         c_idx = (ctypes.c_long * n)(*idx.tolist())
         handle = lib.vm_stream_open(path.encode(), c_idx, n, w, h)
         if handle:
