@@ -9,7 +9,10 @@
    copies, K7 fused_rms_norm) from vidi_tpu_torch/csrc with one nvcc per
    source, all started together.
 2. Runs each kernel at the shapes the Vidi1.5-9B slices give it (and K1 /
-   K3 / K4 at the 1.5B configuration's head dim 128) against its plain
+   K3 / K4 at the 1.5B configuration's head dim 128; K1 / K2 / K3 at the
+   Vidi-7B slice's: Mistral's 32 query / 8 KV heads of 128, G = 4, no
+   softcap, CLIP's 4 x 257 tokens of 16 heads of 64; K3 also at G = 1 and
+   G = 8) against its plain
    PyTorch version on the same inputs, and times both with CUDA events,
    beside the least time the card could take (bytes over 3.35 TB/s or
    operations over the peak of their type) and, where one PyTorch call
@@ -40,7 +43,8 @@
    wrong; K2 at D = 72
    with its depth padding not zeroed, or without the keys past its last
    whole key tile; K3 with one split's partial left out of its merge, or
-   the ragged last tile of the cache dropped; K4 with each GQA row's lse
+   the ragged last tile of the cache dropped, or on a G = 4 cache with
+   Gemma2's grouping (query head h reading KV head h // 2); K4 with each GQA row's lse
    and di taken from the other head, one dq split dropped, or the band's
    tile skip off by one tile) and fails unless every fault lands outside
    the limit. K3 (bf16 on its sm90 kernel: bulk copies into a shared-memory
@@ -63,8 +67,10 @@
    K4's two runs must be bit-equal, and its capless T2A case is timed
    against SDPA's backward.
 3. Checks small fp32 models end to end, the card (kernels) against the CPU
-   (plain PyTorch): a prefill + greedy decode in bf16-layout fp32 and on
-   the int8 route, and two training steps.
+   (plain PyTorch): a prefill + greedy decode in bf16-layout fp32 at the
+   9B's kernel shapes and at the 7B's (Mistral with G = 4, CLIP with its
+   class token, the v1 adapters), on the int8 route, and two training
+   steps.
 4. Drives the serving slice: load_model(random_weights="9b") at full width,
    a synthetic 120 s clip (120 frames 384x384, 16 kHz audio), one media
    encode, then three temporal-retrieval queries through prompt ->
@@ -147,6 +153,17 @@
    power limit. Last, the daemon's CLI, serve.main(["--model-path", DIR,
    "--in", ..., "--out", ...]), at full width on the directory, its stats
    and launches held to the reckoned ones.
+   Frees it and drives Vidi-7B (serve_7b): load_model(random_weights="7b")
+   at full width (Mistral-7B, CLIP ViT-L/14, Whisper-large-v3, the v1
+   adapters), a synthetic 120 s clip at 224 px, one encode of its arrays
+   (7,680 image and 1,200 audio tokens), then the clip written as an mp4
+   and asked three TR queries on the plain decode route and one on the K3
+   route (32 new tokens each); K1 / K2 / K3 launches held to the ones
+   reckoned from the code, each answer a string of v1 spans (seconds with
+   two decimals), the routes' step-0 logits under the decode routes'
+   limits with a planted fault (K3 with Gemma2's G = 2 grouping); it
+   prints weight and cache bytes, encode and prefill s, decode tok/s on
+   each route and the peak beside the card's name and power limit.
 7. Frees it and drives the int8 serving slice: the same model loaded with
    load_8bit=True, load_8bit_towers=True (int8 text and towers), W8A8
    prefill from 512 rows, int8 image / audio caches: one encode (K2, K5),
@@ -167,7 +184,8 @@
    plain-attention route, and a planted fault (K4 without di) against the
    same limits.
 9. With --profile, profiles both serving slices' encode, one prefill and
-   eight decode steps (each decode route of the bf16 one), the long-video
+   eight decode steps (each decode route of the bf16 one; the 7B's eight
+   on the K3 route), the long-video
    slice's streamed encode, chunked media prefill, shared-cache prefills
    and decode steps (three folded rows, one row), one cache-hit group of
    the daemon (two queries' text prefill on shared caches and the decode
@@ -214,6 +232,10 @@ Q_GAIN = 12.0
 # clip batched with a 120 s one.
 IMG_S, IMG_VALID = 23520, 23520 - 24 * 196
 AUD_S, AUD_VALID = 1200, 900
+# Vidi-7B (the serve_7b slice): 120 frames at 224 px pooled to 8 x 8 tokens
+# each by the v1 adapters; the masks as above (24 frames of padding)
+IMG7_S, IMG7_VALID = 7680, 7680 - 24 * 64
+K3_7B_FAULTS = ("mask", "cap", "split", "g2")
 
 # The long-video slice: a 600 s clip, 600 frames decoded at 360x640 (resized
 # on the card to 384x384; the token budget, budget_hw(600) = (20, 20), pools
@@ -389,13 +411,14 @@ def _rate(label: str, ops: float, ms: float, bound: dict, unit: str = "TFLOP/s")
     return out
 
 
-def _prompt_lengths() -> tuple:
+def _prompt_lengths(mm_version: str = "v1.5", length: float = 120.0) -> tuple:
     """(real tokens, padded length) of the first query's TR prompt: the T
-    that prefill gives K1 and the text-cache length that decode gives K3."""
+    that prefill gives K1 and the text-cache length that decode gives K3
+    (v1.5: Vidi1.5's prompt; v1: Vidi-7B's, which states the 120 s length)."""
     from vidi_tpu_torch import ByteTokenizer
     from vidi_tpu_torch.infer import pipeline as P
 
-    ids = P.build_prompt_ids(QUERIES[0], ByteTokenizer())
+    ids = P.build_prompt_ids(QUERIES[0], ByteTokenizer(), mm_version, length)
     return len(ids), P.build_prompt_batch([ids])[0].shape[1]
 
 
@@ -411,6 +434,7 @@ def kernel_phases(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     res = {}
     n_real, t = _prompt_lengths()
+    n7, t7 = _prompt_lengths("v1")
 
     # K1: T2T prefill (causal, window, cap; right-padded prompt) and the
     # T2V / T2A cross attention (ragged kv_mask); bf16 takes the sm90 kernel,
@@ -434,9 +458,18 @@ def kernel_phases(dev) -> dict:
              4096, 50.0, n_real, ("causal", "cap"), torch.bfloat16),
             (f"1.5b t2v T={t} S={IMG_S} mask cap=50", 12, 6, 128, IMG_S, False,
              None, 50.0, IMG_VALID, ("mask", "cap"), torch.bfloat16),
+            # Vidi-7B: Mistral's 32 query / 8 KV heads of 128 (G = 4: 32
+            # tokens a 128-row tile), every layer sliding, no softcap
+            (f"7b t2t T=S={t7} causal window=4096", 32, 8, 128, t7, True, 4096, None,
+             n7, ("causal", "mask", "cap", "gqa"), torch.bfloat16),
+            (f"7b t2v T={t7} S={IMG7_S} mask", 32, 8, 128, IMG7_S, False, None, None,
+             IMG7_VALID, ("mask", "cap", "gqa"), torch.bfloat16),
+            (f"7b t2a T={t7} S={AUD_S} mask", 32, 8, 128, AUD_S, False, None, None,
+             AUD_VALID, ("mask", "cap", "gqa"), torch.bfloat16),
             (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
              None, 50.0, AUD_VALID, ("mask", "cap"), torch.float32)):
-        args = dict(q=_randn(gen, (1, t, hq, d), dev, Q_GAIN, dtype),
+        tq = t7 if label.startswith("7b") else t
+        args = dict(q=_randn(gen, (1, tq, hq, d), dev, Q_GAIN, dtype),
                     k=_randn(gen, (1, s, hk, d), dev, dtype=dtype),
                     v=_randn(gen, (1, s, hk, d), dev, dtype=dtype),
                     kv_mask=_kv_mask(s, n_valid, dev), sm_scale=d**-0.5,
@@ -457,15 +490,15 @@ def kernel_phases(dev) -> dict:
             raise AssertionError(f"K1 {label}: lse or empty rows disagree")
         ms = _time_ms(lambda: k1.flash_attention(**args))
         plain_ms = _time_ms(lambda: k1.flash_attention_plain(**args))
-        pairs = int(k1.visible_mask(1, t, s, args["kv_mask"], causal, window, None, None,
-                                    dev).sum())
-        ops = 4 * hq * d * pairs
+        seen = k1.visible_mask(1, tq, s, args["kv_mask"], causal, window, None, None, dev)
+        ops = 4 * hq * d * int(seen.sum())
         bound = _bound(ops, _nbytes(args["q"], args["k"], args["v"], out, lse,
                                     args["kv_mask"]), "bf16" if dtype == torch.bfloat16 else "fp32")
         lib_ms = None
-        if cap is None:  # one PyTorch call computes the capless function
+        if cap is None:  # one PyTorch call computes the capless function: SDPA
+            # with the keys each row sees (causal and window included) as a mask
             lib_ms = _time_ms(lambda: _sdpa(args["q"], args["k"], args["v"], d**-0.5,
-                                            args["kv_mask"]))
+                                            seen if causal else args["kv_mask"]))
         call_ms = _call_ms(lambda: k1.flash_attention(**args))
         print(f"  K1 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
@@ -486,6 +519,9 @@ def kernel_phases(dev) -> dict:
     for label, b, n, h, dh, dtype in (
             ("siglip B=4 T=729 H=16 D=72", 4, 729, 16, 72, torch.bfloat16),
             ("whisper B=1 T=1500 H=20 D=64", 1, 1500, 20, 64, torch.bfloat16),
+            # Vidi-7B's CLIP ViT-L/14 at 224 px: a class token and 256
+            # patches, a tail of one row past two 128-row tiles
+            ("clip B=4 T=257 H=16 D=64", 4, 257, 16, 64, torch.bfloat16),
             ("fp32 whisper B=1 T=1500 H=20 D=64", 1, 1500, 20, 64, torch.float32)):
         q = _randn(gen, (b, n, h, dh), dev, Q_GAIN, dtype)
         k = _randn(gen, (b, n, h, dh), dev, dtype=dtype)
@@ -688,7 +724,7 @@ def _k3_faults(k3, args: dict, names, plan) -> dict:
     S (keys past its last whole tile) dropped; and for beam rows, each row
     reading the next row's cache."""
     plain = k3.decode_attention_plain
-    out = _faults(plain, args, [n for n in names if n not in ("split", "ragged", "rows")])
+    out = _faults(plain, args, [n for n in names if n not in ("split", "ragged", "rows", "g2")])
     tile, _, n_split = plan
     s = args["k"].shape[2]
     if "split" in names:
@@ -705,7 +741,18 @@ def _k3_faults(k3, args: dict, names, plan) -> dict:
     if "rows" in names:  # beam rows: each row must read its own cache row
         out["rows read the next row's cache"] = plain(
             **{**args, "k": args["k"].roll(1, 0), "v": args["v"].roll(1, 0)})
+    if "g2" in names:  # Gemma2's grouping on a G = 4 cache
+        out["G = 2 grouping (head h reads KV head h // 2)"] = plain(
+            **{**args, **_g2_grouping(args["q"], args["k"], args["v"])})
     return out
+
+
+def _g2_grouping(q, k, v) -> dict:
+    """k / v [B,Hk,S,D] spread to one KV head a query head, query head h
+    reading KV head (h // 2) % Hk: a kernel that kept G = 2's grouping,
+    as a G = 1 call."""
+    heads = (torch.arange(q.shape[1], device=k.device) // 2) % k.shape[1]
+    return {"k": k[:, heads], "v": v[:, heads]}
 
 
 def _k3_sdpa(q, k, v, scale, kv_mask):
@@ -723,7 +770,11 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
     (global), its text cache grown by 32 decode slots (window 4096 on
     sliding layers), a binding window, a capless image case timed against
     SDPA, the 1.5B's image cache, a B = 2 ragged case whose second row sees
-    no key (bit-zero) and an fp32 case on the SIMT route. Each bf16 case
+    no key (bit-zero) and an fp32 case on the SIMT route; Vidi-7B's caches
+    (G = 4, D = 128, no cap: image, audio, text through q_pos, a B = 2
+    case with an empty row, an fp32 case on the SIMT route; each with
+    Gemma2's G = 2 grouping as a planted fault) and a small case each at
+    G = 1 and G = 8. Capless cases are timed against SDPA. Each bf16 case
     runs twice (bit-equal), prints the events time of 20 calls back to back
     and the profiler's device time a call, and two bounds: the whole
     cache's bytes and the visible keys' (what a correct kernel must read;
@@ -733,6 +784,7 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     sms = _lib.sm_count(dev)
+    n7, t7 = _prompt_lengths("v1")
     errs, cases = [], []
     # (label, b, hq, hk, d, s, n_valid, window, q_pos, cap, q gain, faults, dtype)
     for label, b, hq, hk, d, s, n_valid, window, q_pos, cap, gain, faults, dtype in (
@@ -761,7 +813,25 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
             ("9b B=2 S=1000 ragged, row 1 sees no key", 2, 16, 8, 256, 1000, None,
              None, None, 50.0, 1.0, ("mask", "split", "ragged"), torch.bfloat16),
             (f"fp32 9b audio cache S={AUD_S} global (SIMT route)", 1, 16, 8, 256, AUD_S,
-             AUD_VALID, None, None, 50.0, Q_GAIN, ("mask", "cap"), torch.float32)):
+             AUD_VALID, None, None, 50.0, Q_GAIN, ("mask", "cap"), torch.float32),
+            # Vidi-7B: 32 query / 8 KV heads of 128 (G = 4), no softcap,
+            # every layer sliding at 4096
+            (f"7b image cache S={IMG7_S} mask", 1, 32, 8, 128, IMG7_S, IMG7_VALID, None,
+             None, None, Q_GAIN, K3_7B_FAULTS, torch.bfloat16),
+            (f"7b audio cache S={AUD_S} mask", 1, 32, 8, 128, AUD_S, AUD_VALID, None, None,
+             None, Q_GAIN, K3_7B_FAULTS, torch.bfloat16),
+            (f"7b text cache S={t7 + 32} window=4096", 1, 32, 8, 128, t7 + 32, n7 + 6, 4096,
+             n7 + 5, None, Q_GAIN, K3_7B_FAULTS, torch.bfloat16),
+            ("7b B=2 S=1000 ragged, row 1 sees no key", 2, 32, 8, 128, 1000, None, None,
+             None, None, 1.0, ("mask", "split", "ragged", "g2"), torch.bfloat16),
+            (f"fp32 7b audio cache S={AUD_S} mask (SIMT route)", 1, 32, 8, 128, AUD_S,
+             AUD_VALID, None, None, None, Q_GAIN, ("mask", "cap", "g2"), torch.float32),
+            ("G=1 S=1000 D=256 cap=50", 1, 8, 8, 256, 1000, 900, None, None, 50.0, Q_GAIN,
+             ("mask", "cap", "split"), torch.bfloat16),
+            # q unscaled and a short window: the few keys of each fault move
+            # a flat softmax over 64 keys
+            ("G=8 S=1000 D=128 window=64", 1, 16, 2, 128, 1000, 995, 64, 994, None,
+             1.0, ("mask", "window", "split", "ragged"), torch.bfloat16)):
         cache_k = _randn(gen, (2, b, hk, s, d), dev, dtype=dtype)
         cache_v = _randn(gen, (2, b, hk, s, d), dev, dtype=dtype)
         if n_valid is None:  # row 0 sees every key, row 1 none
@@ -774,7 +844,7 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
         args = dict(q=_randn(gen, (b, hq, d), dev, gain, dtype), k=cache_k[1],
                     v=cache_v[1], kv_mask=mask, sm_scale=d**-0.5, softcap=cap,
                     window=window, q_pos=q_pos)
-        plan = k3.decode_plan(b, hk, s, d, sms)
+        plan = k3.decode_plan(b, hk, s, d, sms, g=hq // hk)
         run = lambda: k3.decode_attention(**args)  # noqa: E731
         out, again = run(), run()
         ref = k3.decode_attention_plain(**args)
@@ -800,7 +870,7 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
         lib_ms = None
         if cap is None:  # one PyTorch call computes the capless function
             lib_ms = _time_ms(lambda: _k3_sdpa(args["q"], args["k"], args["v"],
-                                               d**-0.5, mask))
+                                               d**-0.5, seen))
         print(f"  K3 {label}: events {ms:.4f} ms, device {device_ms:.4f} ms a call, host "
               f"{host_ms:.4f} ms a call, "
               f"plain {plain_ms:.4f} ms, bound {whole['bound_ms']:.4f} ms (whole cache) / "
@@ -1640,8 +1710,9 @@ def _times(cases, prefix: str) -> dict:
 def _sdpa(q, k, v, scale, kv_mask):
     """torch's scaled_dot_product_attention on [B,T,H,D] operands (the
     yardstick of a kernel that computes the same function; the port never
-    calls it)."""
-    mask = None if kv_mask is None else kv_mask[:, None, None, :]
+    calls it); kv_mask [B,S] or the visible pairs [B,T,S]."""
+    mask = None if kv_mask is None else (
+        kv_mask[:, None, None, :] if kv_mask.dim() == 2 else kv_mask[:, None])
     return torch.nn.functional.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
         scale=scale, enable_gqa=q.shape[2] != k.shape[2])
@@ -1663,21 +1734,44 @@ def _small_config():
         audio=dataclasses.replace(AudioConfig.tiny(), d_model=128, num_heads=2))
 
 
+def _small_config_7b():
+    """A few-layer Vidi-7B whose kernel shapes are the 7B's: Mistral with 8
+    query / 2 KV heads of 128 (G = 4, every layer sliding at 16 keys, so
+    the window binds), CLIP with a class token (17 tokens, heads of 64),
+    the v1 adapters, Whisper heads of 64."""
+    import dataclasses
+
+    from vidi_tpu_torch import AudioConfig, DattnConfig, TextConfig, VisionConfig
+    return dataclasses.replace(
+        DattnConfig.tiny("mistral"),
+        text=dataclasses.replace(TextConfig.tiny("mistral"), hidden_size=256, num_heads=8,
+                                 num_kv_heads=2, head_dim=128, num_layers=2),
+        vision=dataclasses.replace(VisionConfig.tiny("clip"), hidden_size=128,
+                                   num_heads=2, image_size=56),
+        audio=dataclasses.replace(AudioConfig.tiny(), d_model=128, num_heads=2))
+
+
 def reference_check(dev) -> None:
     """End to end at a small size in fp32: the port on the card (kernels)
     against the port on the CPU (plain PyTorch, the parity-tested path),
-    same weights and inputs. Tokens must be identical; prefill hidden
+    same weights and inputs, for the 9B's shape (`_small_config`) and the
+    7B's (`_small_config_7b`). Tokens must be identical; prefill hidden
     states within atol = rtol = 1e-3 (fp32, different summation orders)."""
+    for shape, cfg in (("9b", _small_config()), ("7b", _small_config_7b())):
+        _reference_check(dev, shape, cfg)
+
+
+def _reference_check(dev, shape: str, cfg) -> None:
     from vidi_tpu_torch.infer import generate as gen
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.models import dattn
 
-    cfg = _small_config()
     params = dattn.init_params(cfg, torch.float32, torch.device("cpu"), SEED)
     to_dev = lambda t: t.to(dev)  # noqa: E731
     gparams = _tree_map(to_dev, params)
     rng = np.random.default_rng(SEED)
-    frames = rng.integers(0, 256, (6, 42, 42, 3), dtype=np.uint8)
+    size = cfg.vision.image_size
+    frames = rng.integers(0, 256, (6, size, size, 3), dtype=np.uint8)
     mels = rng.standard_normal((2, 128, 3000)).astype(np.float32)
     ids = rng.integers(3, 259, (2, 20))
     mask = np.zeros((2, 20), bool)
@@ -1698,11 +1792,11 @@ def reference_check(dev) -> None:
     err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
     ok = torch.allclose(outs["cuda"][0], outs["cpu"][0], atol=1e-3, rtol=1e-3)
     same = torch.equal(outs["cuda"][1], outs["cpu"][1])
-    print(f"  small fp32 model, card (kernels) vs cpu (plain): hidden max_abs_err="
-          f"{err:.3e} (atol=rtol=1e-3) {'ok' if ok else 'FAIL'}; tokens "
+    print(f"  small fp32 model ({shape}'s shape), card (kernels) vs cpu (plain): hidden "
+          f"max_abs_err={err:.3e} (atol=rtol=1e-3) {'ok' if ok else 'FAIL'}; tokens "
           f"{'identical' if same else 'DIFFER'}: {outs['cuda'][1].tolist()}")
     if not (ok and same):
-        raise AssertionError("small-model reference check failed")
+        raise AssertionError(f"small-model reference check ({shape}) failed")
 
 
 def _tree_map(fn, tree):
@@ -1774,7 +1868,8 @@ def _prefill(sl, query: str, quantize_caches: bool = False):
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.models import decoder
 
-    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(query, sl.tok)])
+    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(
+        query, sl.tok, sl.cfg.mm_version, sl.seconds)])
     pr = torch.as_tensor(prompt).long().to(sl.dev)
     pm = torch.as_tensor(mask).to(sl.dev)
     h, caches, lens = gen._prefill(sl.params, sl.cfg, pr, pm, *sl.media,
@@ -1981,9 +2076,22 @@ def _logit_gap(got, want) -> tuple:
     return rel, cos
 
 
-def decode_route_check(sl) -> None:
+def _k3_without_mask(real):
+    return lambda q, k, v, kv_mask, *a, **kw: real(q, k, v, None, *a, **kw)
+
+
+def _k3_g2(real):
+    """K3 reading a G = 4 cache with Gemma2's grouping (`_g2_grouping`)."""
+    def run(q, k, v, *a, **kw):
+        kv = _g2_grouping(q, k, v)
+        return real(q, kv["k"], kv["v"], *a, **kw)
+    return run
+
+
+def decode_route_check(sl, fault=("K3 without kv_mask", _k3_without_mask)) -> None:
     """The K3 route's step-0 logits against the default route's on one
-    prefill; a planted fault (K3 without its kv_mask) must fail the limits."""
+    prefill; a planted fault (`fault`: its label and a wrapper of the real
+    K3; by default K3 without its kv_mask) must fail the limits."""
     from torch.profiler import ProfilerActivity, profile
 
     from vidi_tpu_torch.ops.cuda import decode_attention as k3
@@ -2009,10 +2117,10 @@ def decode_route_check(sl) -> None:
         raise AssertionError("a K3 call on the bf16 decode route must be one sm90 kernel")
     readings = {"K3 route": _logit_gap(step, plain)}
     real = k3.decode_attention
-    k3.decode_attention = lambda q, k, v, kv_mask, *a, **kw: real(q, k, v, None, *a, **kw)
+    planted = f"planted fault, {fault[0]}"
+    k3.decode_attention = fault[1](real)
     try:
-        readings["planted fault, K3 without kv_mask"] = _logit_gap(
-            _decode_step(sl, emb, lens, caches, True), plain)
+        readings[planted] = _logit_gap(_decode_step(sl, emb, lens, caches, True), plain)
     finally:
         k3.decode_attention = real
     for name, (rel, cos) in readings.items():
@@ -2022,7 +2130,7 @@ def decode_route_check(sl) -> None:
     passes = {n: rel <= LOGIT_REL and cos >= LOGIT_COS for n, (rel, cos) in readings.items()}
     if not passes["K3 route"]:
         raise AssertionError("decode routes disagree on the step-0 logits")
-    if passes["planted fault, K3 without kv_mask"]:
+    if passes[planted]:
         raise AssertionError("the step-0 logit limits do not reject the planted fault")
 
 
@@ -3988,9 +4096,13 @@ def _write_clip(frames, path: str) -> None:
     writer.release()
 
 
-def _ask(params, cfg, tok, clip: str, quantize_caches: bool = False):
-    """pipeline.ask on QUERIES[0] (32 new tokens; bf16: the K3 decode route)
-    -> (answer, step-0 logits, generated tokens, seconds)."""
+def _ask(params, cfg, tok, clip: str, quantize_caches: bool = False,
+         query: str = QUERIES[0], flash_decode=None):
+    """pipeline.ask on `query` (32 new tokens; bf16: the K3 decode route
+    unless `flash_decode` is False) -> (answer, step-0 logits, generated
+    tokens, seconds, generate's result)."""
+    if flash_decode is None:
+        flash_decode = not quantize_caches
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.models import decoder
 
@@ -4009,13 +4121,13 @@ def _ask(params, cfg, tok, clip: str, quantize_caches: bool = False):
 
     t0 = time.perf_counter()
     with _swap(decoder, lm_logits=lm_logits), _swap(P, generate=generate):
-        answer = P.ask(QUERIES[0], clip, params, cfg, tok, max_new_tokens=32,
-                       use_flash_decode=not quantize_caches, quantize_caches=quantize_caches)
+        answer = P.ask(query, clip, params, cfg, tok, max_new_tokens=32,
+                       use_flash_decode=flash_decode, quantize_caches=quantize_caches)
     torch.cuda.synchronize()
     res = results[0]
     return types.SimpleNamespace(answer=answer, logits=first[0],
                                  tokens=res.tokens[0, : int(res.lengths[0])].cpu(),
-                                 s=time.perf_counter() - t0)
+                                 s=time.perf_counter() - t0, res=res)
 
 
 def _vm_rss() -> int:
@@ -4271,6 +4383,144 @@ def _checkpoint_steps(sl, tmp: str) -> tuple:
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# Vidi-7B: Mistral (G = 4), CLIP ViT-L/14, the v1 adapters
+# ---------------------------------------------------------------------------
+
+SECONDS_7B = 120
+
+
+def load_7b(dev):
+    """Vidi-7B at full width on random weights, and the synthetic 120 s
+    clip at CLIP's 224 px with its mel windows."""
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer.loader import load_model
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cfg, tok = load_model(random_weights="7b", dtype=torch.bfloat16, device=dev,
+                                  seed=SEED)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params, n_bytes = sum(t.numel() for t in leaves), _nbytes(*leaves)
+    print(f"  load_model(random_weights='7b'): {n_params / 1e9:.3f} B values, weights "
+          f"{n_bytes / 1e9:.3f} GB, {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({_card()})")
+    frames, wave = _synthetic_clip(SECONDS_7B, cfg.vision.image_size, cfg.audio.sampling_rate)
+    mels, audio_len = P.process_audio(wave, cfg.audio)
+    return types.SimpleNamespace(dev=dev, params=params, cfg=cfg, tok=tok, seconds=SECONDS_7B,
+                                 frames=frames, mels=mels, audio_len=audio_len, media=None)
+
+
+def _reckon_7b(cfg, n_frames: int, n_windows: int, encodes: int, prefills: int,
+               k3_steps: int) -> dict:
+    """K1 / K2 / K3 launches: K2 once a CLIP / Whisper layer a frame or
+    window chunk an encode (`_tower_launches`), K1 three a layer a prefill
+    (T2T, T2V, T2A), K3 three a layer a decode step on the K3 route."""
+    per_layer = 3 * cfg.text.num_layers
+    return {"flash_attention": per_layer * prefills,
+            "tower_attention": encodes * _tower_launches(cfg, n_frames, n_windows),
+            "decode_attention": per_layer * k3_steps}
+
+
+def serve_7b_phase(s7) -> dict:
+    """One encode of the 120 s clip's arrays, then the clip written as an
+    mp4 and asked three TR queries on the plain decode route and one on
+    the K3 route (32 new tokens each; each ask encodes the mp4 again):
+    launches held to the reckoned ones, the v1 prompt and parse, the step-0
+    logits of the two routes (a planted fault: K3 with G = 2's grouping)."""
+    import re
+    import tempfile
+
+    from vidi_tpu_torch.infer import pipeline as P
+
+    cfg, smi = s7.cfg, _card()
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s7.media = img, img_mask, aud, aud_mask = _encode(s7)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    n_img = s7.seconds * cfg.mm_image_pool_size**2
+    n_win = s7.mels.shape[0]
+    print(f"  encode: {s7.seconds} frames {s7.frames.shape[1]}x{s7.frames.shape[2]} + "
+          f"{n_win} audio windows -> img {tuple(img.shape)} ({int(img_mask.sum())} valid), "
+          f"aud {tuple(aud.shape)} ({int(aud_mask.sum())} valid) in {encode_s:.3f} s ({smi})")
+    if img.shape != (1, n_img, cfg.text.hidden_size) or \
+            aud.shape != (1, n_win * 300, cfg.text.hidden_size):
+        raise AssertionError("unexpected 7B media feature shapes")
+    for name, x in (("img", img), ("aud", aud)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"non-finite 7B {name} features")
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip7b.mp4")
+        _write_clip(s7.frames, clip)
+        pixels, mels, _ = P.decode_media_host(clip, cfg)
+        runs = [(_ask(s7.params, cfg, s7.tok, clip, query=q, flash_decode=False), False)
+                for q in QUERIES]
+        runs.append((_ask(s7.params, cfg, s7.tok, clip, flash_decode=True), True))
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k3_steps = runs[-1][0].res.decode_steps
+    want = _reckon_7b(cfg, pixels.shape[0], mels.shape[0], 1 + len(runs), len(runs), k3_steps)
+    print(f"  kernel launches: {launches} (reckoned {want}: {len(runs) + 1} encodes of "
+          f"{pixels.shape[0]} frames and {mels.shape[0]} windows, {len(runs)} prefills, "
+          f"{k3_steps} K3-route decode steps)")
+    if launches != want:
+        raise AssertionError(f"7B launches {launches}, reckoned {want}")
+    spans = re.compile(r"^(\d+:\d\d:\d+\.\d\d-\d+:\d\d:\d+\.\d\d(, )?)*$")
+    for r, flash in runs:
+        res = r.res
+        if not ((r.tokens >= 0) & (r.tokens < cfg.text.vocab_size)).all():
+            raise AssertionError("generated ids outside the vocabulary")
+        if not spans.match(r.answer):
+            raise AssertionError(f"the v1 answer {r.answer!r} is not v1 spans")
+        print(f"  ask ({'K3' if flash else 'plain'} decode route): prefill {res.prefill_s:.3f} s, "
+              f"decode {res.decode_steps} steps {res.decode_s:.3f} s = "
+              f"{res.decode_steps / res.decode_s:.2f} tok/s, ask {r.s:.2f} s, "
+              f"answer {r.answer!r}")
+    if not torch.equal(runs[-1][0].tokens[:1], runs[0][0].tokens[:1]):
+        raise AssertionError("the first token must not depend on the decode route")
+    probe = P.format_spans(P.parse_time_ranges("12.5-30.25, 40-55", "v1"), 1.0, "v1")
+    print(f"  v1 parse: '12.5-30.25, 40-55' at length 1 -> {probe!r}")
+    if probe != "00:00:12.00-00:00:30.00, 00:00:40.00-00:00:55.00":
+        raise AssertionError(f"v1 format_spans gave {probe!r}")
+    plain_rate = statistics.mean(r.res.decode_steps / r.res.decode_s for r, f in runs if not f)
+    k3 = runs[-1][0].res
+    _, caches, _, _ = _prefill(s7, QUERIES[0])
+    cache_bytes = _nbytes(*[c for c in caches if c is not None])
+    tokens = caches.text_k.shape[3] + caches.img_k.shape[3] + caches.aud_k.shape[3]
+    del caches
+    print(f"  caches: {cache_bytes / 2**30:.3f} GiB for {tokens} tokens "
+          f"({cache_bytes / tokens / 1024:.0f} KiB a token); decode tok/s: plain route "
+          f"{plain_rate:.2f}, K3 route {k3.decode_steps / k3.decode_s:.2f}; encode "
+          f"{encode_s:.3f} s, prefill {statistics.mean(r.res.prefill_s for r, _ in runs):.3f} s; "
+          f"peak device memory {peak:.2f} GiB ({smi})")
+    print("  decode routes (7B):")
+    decode_route_check(s7, ("K3 with G = 2's grouping", _k3_g2))
+    return launches
+
+
+def profile_7b(s7) -> None:
+    """torch.profiler over PROFILE_DECODE_STEPS decode steps of the 7B on
+    the K3 route (see `_region`)."""
+    from vidi_tpu_torch.models import decoder
+
+    _, caches, lens, emb = _prefill(s7, QUERIES[0])
+
+    def steps():
+        cur, e = lens.clone(), emb
+        for _ in range(PROFILE_DECODE_STEPS):
+            logits = _decode_step(s7, e, cur, caches, True)
+            e = decoder.embed_tokens(s7.params["text"], logits.argmax(-1)[:, None],
+                                     s7.cfg.text)
+            cur = cur + 1
+        return logits
+
+    _region(f"7b decode K3 route x{PROFILE_DECODE_STEPS}", steps)
+
 
 TRAIN_LAYERS = 8  # text depth of the training slice: fp32 Adam moments of the
                   # 42-layer text stack (9.3 B trainable) would need ~112 GB
@@ -4613,6 +4863,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    print("Vidi-7B slice (Mistral-7B G = 4, CLIP ViT-L/14, v1 adapters; random weights, "
+          f"a {SECONDS_7B} s clip at 224 px):")
+    s7 = load_7b(dev)
+    serve_7b = serve_7b_phase(s7)
+    if args.profile:
+        print("7B profile:")
+        profile_7b(s7)
+    del s7
+    gc.collect()
+    torch.cuda.empty_cache()
+
     from vidi_tpu_torch.infer import quantize as qz
     print("int8 slice (Vidi1.5-9B, int8 text + towers, W8A8 prefill from "
           f"{W8A8_MIN_TOKENS} rows, int8 caches, random weights):")
@@ -4652,7 +4913,7 @@ def main() -> int:
     # launches_by_path gives every path's count
     paths = {"serve": serve, "serve_decoding": serve_decoding, "serve_long": serve_long,
              "serve_daemon": serve_daemon, "serve_runner": serve_runner,
-             "checkpoint": ckpt, "serve_cli": serve_cli_run,
+             "checkpoint": ckpt, "serve_cli": serve_cli_run, "serve_7b": serve_7b,
              "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8,
              "serve_daemon_int8": serve_daemon_int8, "train": train}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",

@@ -5,7 +5,9 @@ which must stay as it was when K1's changed.
 
 Shapes: Vidi1.5-9B's text side (16 query / 8 KV heads of 256; a 128-row
 prompt, 23,520 image keys, 1,200 audio keys; training batches of 256 rows),
-the 1.5B configuration (12 / 6 heads of 128), SigLIP-so400m (4 frames of
+the 1.5B configuration (12 / 6 heads of 128), Vidi-7B's Mistral (32 / 8
+heads of 128: G = 4; 7,680 image keys) and CLIP ViT-L/14 (257 tokens, 16
+heads of 64), SigLIP-so400m (4 frames of
 729 tokens, 16 heads of 72) and Whisper-large-v3 (1,500 tokens, 20 heads of
 64), on an H100's 132 SMs.
 """
@@ -23,6 +25,10 @@ SHAPES = [
     ("9b t2t", 1, 128, 128, 16, 8, 256),
     ("9b train t2v", 1, 256, 23520, 16, 8, 256),
     ("1.5b t2v", 1, 128, 23520, 12, 6, 128),
+    ("7b t2v", 1, 128, 7680, 32, 8, 128),
+    ("7b t2a", 1, 128, 1200, 32, 8, 128),
+    ("7b t2t", 1, 128, 128, 32, 8, 128),
+    ("clip", 8, 257, 257, 16, 16, 64),
     ("siglip", 4, 729, 729, 16, 16, 72),
     ("whisper", 1, 1500, 1500, 20, 20, 64),
 ]
@@ -57,7 +63,8 @@ def test_plan_values_at_the_slice_shapes():
 
 
 @pytest.mark.parametrize("t,hq,hk", [(128, 16, 8), (256, 16, 8), (128, 12, 6),
-                                     (37, 8, 1), (729, 16, 16), (1500, 20, 20)])
+                                     (37, 8, 1), (729, 16, 16), (1500, 20, 20),
+                                     (128, 32, 8), (37, 32, 8), (257, 16, 16)])
 def test_gqa_row_map_is_a_bijection(t, hq, hk):
     """Every (t, query head of the KV head's group) is computed by exactly
     one row of one tile; rows past T are the tile's padding."""

@@ -30,6 +30,9 @@ def _inputs(b, s, hq, hk, d, seed=0):
     (96, 96, 8, 4, 50.0, None),    # image-cache style: mask + cap
     (768, 256, 4, 2, None, None),  # several Pallas blocks
     (320, 64, 4, 2, 30.0, 64),     # sliding text layer: window through q_pos
+    (256, 128, 8, 2, None, 64),    # Mistral-7B's G = 4: sliding, no cap
+    (192, 64, 16, 2, None, None),  # G = 8
+    (128, 64, 8, 2, 30.0, None),   # G = 4 with a cap
 ])
 def test_matches_pallas(s, block, hq, hk, softcap, window):
     """S is a multiple of the Pallas block: interpret mode fills reads past

@@ -5,8 +5,10 @@ against `decode_attention_plain`, the routing by dtype, the operand checks,
 the mask / q_pos operands and the workspace.
 
 Shapes: Vidi1.5-9B's decode caches (16 query / 8 KV heads of 256; 23,520
-image keys, 1,200 audio keys, a 160-key text cache) and the 1.5B
-configuration's (12 / 6 heads of 128), on an H100's 132 SMs.
+image keys, 1,200 audio keys, a 160-key text cache), the 1.5B
+configuration's (12 / 6 heads of 128) and Vidi-7B's (32 / 8 heads of 128,
+G = 4; 7,680 image keys, 1,200 audio keys, a 160-key text cache), on an
+H100's 132 SMs.
 
 Tolerance of the mirror: atol = rtol = 2e-5 in fp32 (the same masked
 softmax, summed tile by tile and merged warp by warp and split by split).
@@ -22,24 +24,30 @@ from vidi_tpu_torch.ops.cuda import decode_attention as k3
 
 SMS = 132  # H100 SXM
 TOL = dict(atol=2e-5, rtol=2e-5)
-# (name, b, hk, s, d)
+# (name, b, hk, s, d, g)
 SHAPES = [
-    ("9b image", 1, 8, 23520, 256),
-    ("9b audio", 1, 8, 1200, 256),
-    ("9b text", 1, 8, 160, 256),
-    ("1.5b image", 1, 6, 23520, 128),
-    ("1.5b audio", 1, 6, 1200, 128),
-    ("1.5b text", 1, 6, 160, 128),
-    ("9b batch 8", 8, 8, 23520, 256),
-    ("9b batch 64", 64, 8, 23520, 256),
-] + [(f"ragged S={s} D={d}", 1, 8, s, d) for s in (1, 31, 160, 1199, 23520)
-     for d in (128, 256)]
+    ("9b image", 1, 8, 23520, 256, 2),
+    ("9b audio", 1, 8, 1200, 256, 2),
+    ("9b text", 1, 8, 160, 256, 2),
+    ("1.5b image", 1, 6, 23520, 128, 2),
+    ("1.5b audio", 1, 6, 1200, 128, 2),
+    ("1.5b text", 1, 6, 160, 128, 2),
+    ("9b batch 8", 8, 8, 23520, 256, 2),
+    ("9b batch 64", 64, 8, 23520, 256, 2),
+    ("7b image", 1, 8, 7680, 128, 4),
+    ("7b audio", 1, 8, 1200, 128, 4),
+    ("7b text", 1, 8, 160, 128, 4),
+    ("7b batch 8", 8, 8, 7680, 128, 4),
+] + [(f"ragged S={s} D={d}", 1, 8, s, d, 2) for s in (1, 31, 160, 1199, 23520)
+     for d in (128, 256)] + [(f"ragged S={s} D={d} G={g}", 1, 8, s, d, g)
+                             for s in (1, 31, 1199) for d in (128, 256) for g in (1, 4, 8)]
 
 
-@pytest.mark.parametrize("name,b,hk,s,d", SHAPES, ids=[x[0] for x in SHAPES])
-def test_plan_covers_keys_once_and_fills_one_wave(name, b, hk, s, d):
-    plan = tile, chunk, n_split = k3.decode_plan(b, hk, s, d, SMS)
-    assert tile == k3.SM90_TILE[d]
+@pytest.mark.parametrize("name,b,hk,s,d,g", SHAPES, ids=[x[0] for x in SHAPES])
+def test_plan_covers_keys_once_and_fills_one_wave(name, b, hk, s, d, g):
+    plan = tile, chunk, n_split = k3.decode_plan(b, hk, s, d, SMS, g=g)
+    assert tile == k3.sm90_tile(d, g) and tile % 16 == 0
+    assert tile // k3.SM90_CONSUMERS * g <= 32  # a warp's scores fit one reduce
     assert chunk % tile == 0 and chunk <= k3.SM90_MAX_CHUNK
     covered = torch.zeros(s, dtype=torch.int64)
     for i in range(n_split):
@@ -58,21 +66,27 @@ def test_plan_covers_keys_once_and_fills_one_wave(name, b, hk, s, d):
 
 
 def test_plan_values_at_the_slice_shapes():
-    assert k3.decode_plan(1, 8, 23520, 256, SMS) == (32, 736, 33)  # 264 blocks
-    assert k3.decode_plan(1, 8, 1200, 256, SMS) == (32, 64, 33)
-    assert k3.decode_plan(1, 8, 160, 256, SMS) == (32, 32, 5)
-    assert k3.decode_plan(1, 6, 23520, 128, SMS) == (64, 576, 44)
-    assert k3.decode_plan(64, 8, 23520, 256, SMS) == (32, 3936, 6)  # mask bytes bound the chunk
+    assert k3.decode_plan(1, 8, 23520, 256, SMS, g=2) == (32, 736, 33)  # 264 blocks
+    assert k3.decode_plan(1, 8, 1200, 256, SMS, g=2) == (32, 64, 33)
+    assert k3.decode_plan(1, 8, 160, 256, SMS, g=2) == (32, 32, 5)
+    assert k3.decode_plan(1, 6, 23520, 128, SMS, g=2) == (64, 576, 44)
+    assert k3.decode_plan(64, 8, 23520, 256, SMS, g=2) == (32, 3936, 6)  # mask bytes bound the chunk
+    # Vidi-7B (G = 4, D = 128): 32-key tiles, a 64-key tile's 16 keys a
+    # warp times 4 rows would not fit one 32-lane reduce
+    assert k3.sm90_tile(128, 4) == 32 and k3.sm90_tile(128, 8) == 16
+    assert k3.decode_plan(1, 8, 7680, 128, SMS, g=4) == (32, 256, 33)
+    assert k3.decode_plan(1, 8, 1200, 128, SMS, g=4) == (32, 64, 33)
+    assert k3.decode_plan(1, 8, 160, 128, SMS, g=4) == (32, 32, 5)
     # the image cache's masked tail (the last 4,704 keys) spreads over the
     # splits: each holds 17 or 18 of the 588 tiles with a visible key
-    plan = k3.decode_plan(1, 8, 23520, 256, SMS)
+    plan = k3.decode_plan(1, 8, 23520, 256, SMS, g=2)
     seen = [sum(t < 18816 // 32 for t in k3.split_tiles(i, 23520, plan)) for i in range(33)]
     assert (min(seen), max(seen)) == (17, 18)
 
 
-def _case(b, hk, s, d, seed, p_valid=0.7):
+def _case(b, hk, s, d, seed, p_valid=0.7, g=2):
     rng = np.random.default_rng(seed)
-    q = torch.from_numpy(3.0 * rng.standard_normal((b, 2 * hk, d)).astype(np.float32))
+    q = torch.from_numpy(3.0 * rng.standard_normal((b, g * hk, d)).astype(np.float32))
     k = torch.from_numpy(rng.standard_normal((b, hk, s, d)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((b, hk, s, d)).astype(np.float32))
     mask = torch.from_numpy(rng.random((b, s)) < p_valid)
@@ -107,29 +121,36 @@ def _empty_row(q, k, v, mask):
     return mask, None, None
 
 
-# (name, b, hk, s, d, sms, setup, softcap): small SM counts give several
+# (name, b, hk, s, d, sms, setup, softcap, g): small SM counts give several
 # splits at these short caches
 MIRROR_CASES = [
-    ("ragged S", 1, 2, 1199, 256, 8, _ragged, 50.0),
-    ("ragged S D=128", 2, 2, 999, 128, 8, _ragged, None),
-    ("masked chunks", 1, 2, 1000, 256, 8, _masked_chunks, 50.0),
-    ("window", 2, 2, 600, 128, 6, _window, 50.0),
-    ("empty row", 2, 2, 300, 256, 6, _empty_row, None),
+    ("ragged S", 1, 2, 1199, 256, 8, _ragged, 50.0, 2),
+    ("ragged S D=128", 2, 2, 999, 128, 8, _ragged, None, 2),
+    ("masked chunks", 1, 2, 1000, 256, 8, _masked_chunks, 50.0, 2),
+    ("window", 2, 2, 600, 128, 6, _window, 50.0, 2),
+    ("empty row", 2, 2, 300, 256, 6, _empty_row, None, 2),
+    # Vidi-7B's decoder: 4 query heads a KV head at D = 128, no softcap
+    ("7b ragged S", 1, 2, 1199, 128, 8, _ragged, None, 4),
+    ("7b masked chunks", 1, 2, 1000, 128, 8, _masked_chunks, None, 4),
+    ("7b window", 2, 2, 600, 128, 6, _window, None, 4),
+    ("7b empty row", 2, 2, 300, 128, 6, _empty_row, None, 4),
+    ("G=8 window D=256", 2, 1, 600, 256, 6, _window, 50.0, 8),
+    ("G=1 ragged S", 1, 2, 999, 128, 8, _ragged, None, 1),
 ]
 
 
-@pytest.mark.parametrize("name,b,hk,s,d,sms,setup,softcap", MIRROR_CASES,
+@pytest.mark.parametrize("name,b,hk,s,d,sms,setup,softcap,g", MIRROR_CASES,
                          ids=[x[0] for x in MIRROR_CASES])
-def test_schedule_mirror_matches_plain(name, b, hk, s, d, sms, setup, softcap):
-    q, k, v, mask = _case(b, hk, s, d, seed=s)
+def test_schedule_mirror_matches_plain(name, b, hk, s, d, sms, setup, softcap, g):
+    q, k, v, mask = _case(b, hk, s, d, seed=s, g=g)
     mask, window, q_pos = setup(q, k, v, mask)
-    plan = k3.decode_plan(b, hk, s, d, sms)
+    plan = k3.decode_plan(b, hk, s, d, sms, g=g)
     assert plan[2] > 1  # the merge across splits is exercised
     args = (q, k, v, mask, d**-0.5, softcap, window, q_pos)
     got = k3.decode_attention_schedule(*args, plan=plan)
     want = k3.decode_attention_plain(*args)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
-    if name == "empty row":
+    if name.endswith("empty row"):
         assert not got[1].any() and got[0].abs().sum() > 0
 
 
@@ -140,7 +161,7 @@ def test_schedule_mirror_skips_tiles_it_cannot_see():
     mask[:, 64:] = False
     k[:, :, 64:] = float("nan")
     v[:, :, 64:] = float("nan")
-    plan = k3.decode_plan(1, 2, 640, 256, 8)
+    plan = k3.decode_plan(1, 2, 640, 256, 8, g=2)
     got = k3.decode_attention_schedule(q, k, v, mask, 0.0625, 50.0, plan=plan)
     want = k3.decode_attention_plain(q[:, :, :], k[:, :, :64], v[:, :, :64],
                                      mask[:, :64], 0.0625, 50.0)
@@ -168,7 +189,7 @@ def test_operand_check_passes_a_cache_layer_view():
     ("misaligned start", "not 16-byte aligned"),
     ("misaligned head stride", "16-byte aligned"),
     ("D = 64", "D = 64"),
-    ("G = 4", "G = 4"),
+    ("G = 3", "G = 3"),
 ])
 def test_operand_check_raises(fault, match):
     if fault == "rows not contiguous":  # a [B,S,Hk,D] cache read through a transpose
@@ -183,8 +204,8 @@ def test_operand_check_raises(fault, match):
         call = lambda: k3.block_strides("k", x.shape, x.stride(), x.data_ptr(), 2)  # noqa: E731
     elif fault == "D = 64":
         call = lambda: k3.check_shapes((1, 16, 64), (1, 8, 160, 64), (1, 8, 160, 64))  # noqa: E731
-    else:
-        call = lambda: k3.check_shapes((1, 32, 256), (1, 8, 160, 256), (1, 8, 160, 256))  # noqa: E731
+    else:  # 24 query heads over 8: a group the kernels are not built for
+        call = lambda: k3.check_shapes((1, 24, 256), (1, 8, 160, 256), (1, 8, 160, 256))  # noqa: E731
     with pytest.raises(ValueError, match=match):
         call()
 
@@ -251,7 +272,7 @@ def test_launch_passes_the_operands_as_they_come(monkeypatch, dtype):
     assert args[5:9] == args2[5:9]  # the same workspace
     n_split, chunk = args[-2:]
     if dtype == torch.bfloat16:
-        assert (chunk, n_split) == k3.decode_plan(1, 8, 160, 256, SMS)[1:]
+        assert (chunk, n_split) == k3.decode_plan(1, 8, 160, 256, SMS, g=2)[1:]
         assert args[18] == 0 and args[20] == 256  # batch stride 0, rows D apart
     else:
         assert (chunk, n_split) == (k3.CHUNK, 1)

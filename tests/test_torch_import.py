@@ -164,14 +164,17 @@ def test_no_source_line_imports_vidi_tpu(path):
     assert not _PANDAS_RE.search(text), f"{path} imports pandas"
 
 
-@pytest.mark.parametrize("ctor", ["tiny", "vidi15_9b", "bench_1_5b"])
+@pytest.mark.parametrize("ctor", ["tiny", "vidi15_9b", "bench_1_5b", "vidi_7b",
+                                  "tiny:mistral"])
 def test_config_copy_has_not_drifted(ctor):
-    """The port's copy of core/config.py builds the same configurations."""
+    """The port's copy of core/config.py builds the same configurations
+    (`name:arg` calls the constructor with one argument)."""
     from vidi_tpu.core import config as jcfg
     from vidi_tpu_torch.core import config as tcfg
 
-    assert dataclasses.asdict(getattr(tcfg.DattnConfig, ctor)()) == \
-        dataclasses.asdict(getattr(jcfg.DattnConfig, ctor)())
+    name, *args = ctor.split(":")
+    assert dataclasses.asdict(getattr(tcfg.DattnConfig, name)(*args)) == \
+        dataclasses.asdict(getattr(jcfg.DattnConfig, name)(*args))
 
 
 def test_port_never_imports_safetensors_or_transformers(probe):

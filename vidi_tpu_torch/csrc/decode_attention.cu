@@ -10,7 +10,9 @@
 //
 // What bounds it on an H100: every step reads the visible cache once (2*S*D
 // elements per KV head) for 2*g*S*D FMAs, so it is bound by device-memory
-// bandwidth. Two routes, chosen by dtype in ops/cuda/decode_attention.py:
+// bandwidth. Both routes are built for g = Hq / Hk in {1, 2, 4, 8} (Gemma2
+// has 2, Mistral-7B 4) and D in {128, 256}; anything else is refused. Two
+// routes, chosen by dtype in ops/cuda/decode_attention.py:
 // - bf16: `vidi_decode_attention_sm90`, the Hopper kernel of
 //   decode_attention_sm90.cuh (bulk asynchronous copies of whole K/V tiles
 //   into a shared-memory ring, a split plan that fills the card, masked
@@ -187,13 +189,37 @@ cudaError_t launch_simt(const DecodeParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The decoders the port runs: Gemma2 with 2 query heads per KV head, head
-// dim 256 (Vidi1.5-9B) or 128 (the 1.5B configuration).
+template <int D>
+cudaError_t dispatch_simt_g(const DecodeParams& p, cudaStream_t s) {
+  if (p.Hk < 1 || p.Hq % p.Hk) return cudaErrorInvalidValue;
+  switch (p.Hq / p.Hk) {
+    case 1: return launch_simt<float, D, 1>(p, s);
+    case 2: return launch_simt<float, D, 2>(p, s);
+    case 4: return launch_simt<float, D, 4>(p, s);
+    case 8: return launch_simt<float, D, 8>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Query heads per KV head 1, 2 (Gemma2: Vidi1.5-9B at head dim 256, the
+// 1.5B configuration at 128), 4 (Mistral-7B, 128) or 8
 cudaError_t dispatch_simt(const DecodeParams& p, int D, cudaStream_t s) {
-  if (p.Hq != 2 * p.Hk) return cudaErrorInvalidValue;
   switch (D) {
-    case 128: return launch_simt<float, 128, 2>(p, s);
-    case 256: return launch_simt<float, 256, 2>(p, s);
+    case 128: return dispatch_simt_g<128>(p, s);
+    case 256: return dispatch_simt_g<256>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t dispatch_sm90(const vidi::decode_sm90::Params& p, cudaStream_t s) {
+  using vidi::decode_sm90::launch;
+  if (p.Hk < 1 || p.Hq % p.Hk) return cudaErrorInvalidValue;
+  switch (p.Hq / p.Hk) {
+    case 1: return launch<D, 1>(p, s);
+    case 2: return launch<D, 2>(p, s);
+    case 4: return launch<D, 4>(p, s);
+    case 8: return launch<D, 8>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -258,8 +284,8 @@ extern "C" int vidi_decode_attention_sm90(const DecodeArgs* a, void* stream) {
   p.scale = a->scale; p.softcap = a->softcap; p.window = a->window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->D) {
-    case 128: return static_cast<int>(vidi::decode_sm90::launch<128>(p, s));
-    case 256: return static_cast<int>(vidi::decode_sm90::launch<256>(p, s));
+    case 128: return static_cast<int>(dispatch_sm90<128>(p, s));
+    case 256: return static_cast<int>(dispatch_sm90<256>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,8 +1,9 @@
 // K3's bf16 route on Hopper: one decode token against a bf16 KV cache.
 //
 // What bounds it on an H100: each call reads every visible cache row once
-// (2 * D bf16 of K and V per key and KV head) for only G = 2 query rows, so
-// 2 FMAs per cache element: about 7 TFLOP/s of fp32 at the full 3.35 TB/s,
+// (2 * D bf16 of K and V per key and KV head) for only G query rows (G = 2
+// for Gemma2, 4 for Mistral-7B; 1, 2, 4 and 8 are built), so G FMAs per
+// cache element: about 3.5 G TFLOP/s of fp32 at the full 3.35 TB/s,
 // against the card's 67. Tensor cores do not decide it; what does is the
 // bytes in flight and the number of SMs that hold them.
 //
@@ -11,9 +12,10 @@
 //   (batch, KV head) one contiguous run of kTile * D elements, so a single
 //   1-D bulk asynchronous copy (`cp.async.bulk`, completed on an mbarrier;
 //   no tensor map, so no host work per call) moves it whole. One producer
-//   warp keeps a ring of kStages stages (K and V tiles, 32 KB a stage)
-//   full; two blocks an SM keep up to 192 KB in flight. The copies are
-//   marked evict-first in L2: each step reads the cache once.
+//   warp keeps a ring of 96 KB full (three stages of 32 KB of K and V at
+//   G <= 2; more, smaller stages at G >= 4, see Cfg); two blocks an SM keep
+//   up to 192 KB in flight. The copies are marked evict-first in L2: each
+//   step reads the cache once.
 // - The wrapper's split plan (`decode_plan`) gives B * Hk * n_split blocks,
 //   up to one wave of two an SM; the splits take the tiles of S in turn
 //   (split i: tiles i, i + n_split, ...), so the padded frames at the end
@@ -26,7 +28,10 @@
 // - Four consumer warps compute from shared memory with fp32 FMAs (SIMT).
 //   Each takes kKPW keys of every tile: its lanes hold D / 32 neighbouring
 //   elements of a row, so a warp reads whole rows (no bank conflicts), and
-//   one butterfly reduce-scatter leaves each lane one (key, row) score.
+//   one butterfly reduce-scatter leaves each lane one (key, row) score, so
+//   a warp takes at most 32 / G keys of a tile: at G >= 4 the tile shrinks
+//   (to 128 / G keys) and the ring gets as many more stages, rather than
+//   the reduce growing a second round.
 //   Per tile and warp, in the Pallas kernel's order: scores in fp32, the
 //   softcap, where(valid, s, MASK), the running max, p rounded to bf16
 //   against it before P @ V, the row sum l in fp32. Each warp keeps its own
@@ -56,9 +61,7 @@ namespace decode_sm90 {
 
 constexpr int kConsumers = 4;  // consumer warps; one more warp produces
 constexpr int kThreads = (kConsumers + 1) * 32;
-constexpr int kStages = 3;
 constexpr int kMaxChunk = 4096;  // keys a block takes: their mask bytes sit in shared memory
-constexpr int kG = 2;            // query rows per KV head (the port's decoders)
 constexpr float kMaskValue = -0.7f * FLT_MAX;  // the Pallas kernel's MASK_VALUE
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -68,7 +71,7 @@ struct Params {
   const __nv_bfloat16* v;
   const unsigned char* kv_mask;  // [B, S] bytes, row stride mask_sb; nullptr = all valid
   const void* q_pos;             // [B] int32 or int64 (qpos64), stride qpos_s; window > 0
-  float* part_m;                 // [B, Hk, n_split, G]
+  float* part_m;                 // [B, Hk, n_split, G] (G = Hq / Hk)
   float* part_l;
   float* part_acc;               // [B, Hk, n_split, G, D]
   unsigned int* counters;        // [B, Hk], 0 between calls
@@ -79,18 +82,28 @@ struct Params {
   int window;
 };
 
-template <int D>
+// D: head dim; G: query rows a KV head (Hq / Hk)
+template <int D, int G>
 struct Cfg {
-  static constexpr int kTile = D == 256 ? 32 : 64;  // keys a ring stage holds
-  static constexpr int kEPL = D / 32;               // row elements a lane holds
-  static constexpr int kKPW = kTile / kConsumers;   // keys a warp takes of a tile
-  static constexpr int kNV = kKPW * kG;             // scores a warp reduces a tile
+  static constexpr int kBaseTile = D == 256 ? 32 : 64;  // 16 KB of K a stage
+  // keys a ring stage holds: a warp's kKPW keys times G rows must fit the
+  // 32 lanes of one reduce-scatter, so G >= 4 halves the tile (or more)
+  static constexpr int kTile = kBaseTile < kConsumers * 32 / G ? kBaseTile
+                                                               : kConsumers * 32 / G;
+  static constexpr int kStages = 3 * kBaseTile / kTile;  // 96 KB of ring whatever G
+  static constexpr int kEPL = D / 32;                    // row elements a lane holds
+  static constexpr int kKPW = kTile / kConsumers;        // keys a warp takes of a tile
+  static constexpr int kNV = kKPW * G;                   // scores a warp reduces a tile
   // after the reduce-scatter lane l holds score (lane >> kShift): kNV <= 32
   static constexpr int kShift = kNV == 32 ? 0 : kNV == 16 ? 1 : kNV == 8 ? 2 : -1;
   static constexpr int kTileBytes = kTile * D * 2;
   static constexpr int kRing = kStages * 2 * kTileBytes;  // K and V tiles
   static constexpr int kMaxBytes = kRing + kMaxChunk;
-  static_assert(kShift >= 0 && kEPL % 4 == 0, "unsupported head dim");
+  // the merge's float4 columns (G rows of D) a thread sums
+  static constexpr int kCols = (G * D / 4 + kThreads - 1) / kThreads;
+  // registers: acc and q take 2 G D / 32 a lane; at G D > 1024 one block an SM
+  static constexpr int kMinBlocks = G * D > 1024 ? 1 : 2;
+  static_assert(kShift >= 0 && kEPL % 4 == 0 && kTile % 16 == 0, "unsupported D, G");
 };
 
 // `bytes` of global memory at `src` into shared memory at `dst`, completed on
@@ -166,10 +179,12 @@ __device__ __forceinline__ float reduce_scatter(float* v, int lane) {
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 2) decode_attention_sm90(const Params p) {
-  using C = Cfg<D>;
+template <int D, int kG>
+__global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
+    decode_attention_sm90(const Params p) {
+  using C = Cfg<D, kG>;
   using namespace vidi::sm90;
+  constexpr int kStages = C::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages], staged;
   __shared__ __align__(16) float sP[kConsumers][C::kNV];
@@ -293,7 +308,8 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_sm90(const Param
       float part[C::kNV];
 #pragma unroll
       for (int j = 0; j < C::kKPW; ++j) {
-        part[j * kG] = part[j * kG + 1] = 0.f;
+#pragma unroll
+        for (int g = 0; g < kG; ++g) part[j * kG + g] = 0.f;
         if (j < nk) {
           float kk[C::kEPL];
           reinterpret_cast<const Bits*>(sk + (row0 + j) * D + lane * C::kEPL)->unpack(kk);
@@ -310,20 +326,23 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_sm90(const Param
       if (p.softcap > 0.f) sc = softcap(sc, p.softcap);
       const bool valid = sMask[t * C::kTile + row0 + my_j] != 0 && key0(t) + row0 + my_j >= first;
       sc = valid ? sc : kMaskValue;
+      // lane bits: kShift copies, then log2 kG of the row, then the key;
+      // the row's max and sum run over the key bits only
       float tmax = sc;
 #pragma unroll
-      for (int o = 1 << (C::kShift + 1); o < 32; o <<= 1)
+      for (int o = kG << C::kShift; o < 32; o <<= 1)
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      float m_new[kG], alpha[kG];
+      float m_new[kG], alpha[kG], m_mine = 0.f;
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
         m_new[g] = fmaxf(m[g], __shfl_sync(0xffffffffu, tmax, g << C::kShift));
         alpha[g] = exp2f((m[g] - m_new[g]) * kLog2e);
+        if (g == my_g) m_mine = m_new[g];
       }
-      const float pr = valid ? exp2f((sc - (my_g ? m_new[1] : m_new[0])) * kLog2e) : 0.f;
+      const float pr = valid ? exp2f((sc - m_mine) * kLog2e) : 0.f;
       float lsum = pr;
 #pragma unroll
-      for (int o = 1 << (C::kShift + 1); o < 32; o <<= 1)
+      for (int o = kG << C::kShift; o < 32; o <<= 1)
         lsum += __shfl_xor_sync(0xffffffffu, lsum, o);
 #pragma unroll
       for (int g = 0; g < kG; ++g)
@@ -432,6 +451,7 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_sm90(const Param
   // m) a (split, row), and sums in split order: l by the row's warp, acc
   // four neighbouring columns a thread.
   constexpr int kGroup = C::kRing / (kG * D * 4 + 2 * kG * 4);
+  constexpr int kRowWarps = kThreads / 32;  // warps that take the rows' m and l
   float* sPa = reinterpret_cast<float*>(smem);  // [kGroup][kG][D]: acc rows
   float* sF = sPa + kGroup * kG * D;            // [kGroup][kG]: m, then factors
   float* sPl = sF + kGroup * kG;                // [kGroup][kG]: l
@@ -459,16 +479,18 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_sm90(const Param
     return ns;
   };
   int ns = stage(0);
-  if (warp < kG) {
+  for (int r = warp; r < kG; r += kRowWarps) {
     float mx = -INFINITY;
 #pragma unroll 4
     for (int s = lane; s < p.n_split; s += 32)
-      mx = fmaxf(mx, __ldcg(p.part_m + row0 + s * kG + warp));
+      mx = fmaxf(mx, __ldcg(p.part_m + row0 + s * kG + r));
     mx = warp_max(mx);
-    if (lane == 0) sMx[warp] = mx;
+    if (lane == 0) sMx[r] = mx;
   }
-  const int g = tid * 4 / D, d = tid * 4 % D;  // the thread's columns (tid < kG * D / 4)
-  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the thread's float4 columns: c = tid + i * kThreads of the kG * D / 4
+  float4 a[C::kCols];
+#pragma unroll
+  for (int i = 0; i < C::kCols; ++i) a[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s0 = 0; s0 < p.n_split; s0 += kGroup) {
     if (s0 > 0) ns = stage(s0);
     mbar_wait(smem_u32(&staged), (s0 / kGroup) & 1);
@@ -478,46 +500,55 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_sm90(const Param
       sF[i] = mx == -INFINITY ? 0.f : expf(sF[i] - mx);
     }
     __syncthreads();
-    if (warp < kG) {
+    for (int r = warp; r < kG; r += kRowWarps) {
       float ls = 0.f;
-      for (int s = lane; s < ns; s += 32) ls += sPl[s * kG + warp] * sF[s * kG + warp];
+      for (int s = lane; s < ns; s += 32) ls += sPl[s * kG + r] * sF[s * kG + r];
       ls = warp_sum(ls);
-      if (lane == 0) sLs[warp] = (s0 == 0 ? 0.f : sLs[warp]) + ls;
+      if (lane == 0) sLs[r] = (s0 == 0 ? 0.f : sLs[r]) + ls;
     }
-    if (tid < kG * D / 4) {
-      for (int s = 0; s < ns; ++s) {
-        const float f = sF[s * kG + g];
-        const float4 x = *reinterpret_cast<const float4*>(sPa + (s * kG + g) * D + d);
-        a.x += x.x * f;
-        a.y += x.y * f;
-        a.z += x.z * f;
-        a.w += x.w * f;
+#pragma unroll
+    for (int i = 0; i < C::kCols; ++i) {
+      const int c = tid + i * kThreads, g = c * 4 / D, d = c * 4 % D;
+      if (c < kG * D / 4) {
+        for (int s = 0; s < ns; ++s) {
+          const float f = sF[s * kG + g];
+          const float4 x = *reinterpret_cast<const float4*>(sPa + (s * kG + g) * D + d);
+          a[i].x += x.x * f;
+          a[i].y += x.y * f;
+          a[i].z += x.z * f;
+          a[i].w += x.w * f;
+        }
       }
     }
     __syncthreads();  // the group is merged: the ring may take the next
   }
-  if (tid < kG * D / 4) {
-    const float ls = sLs[g];
-    __nv_bfloat16* o = p.out + (b * (long long)p.Hq + hk * kG + g) * D + d;
-    store2(o, ls == 0.f ? 0.f : a.x / ls, ls == 0.f ? 0.f : a.y / ls);
-    store2(o + 2, ls == 0.f ? 0.f : a.z / ls, ls == 0.f ? 0.f : a.w / ls);
+#pragma unroll
+  for (int i = 0; i < C::kCols; ++i) {
+    const int c = tid + i * kThreads, g = c * 4 / D, d = c * 4 % D;
+    if (c < kG * D / 4) {
+      const float ls = sLs[g];
+      __nv_bfloat16* o = p.out + (b * (long long)p.Hq + hk * kG + g) * D + d;
+      store2(o, ls == 0.f ? 0.f : a[i].x / ls, ls == 0.f ? 0.f : a[i].y / ls);
+      store2(o + 2, ls == 0.f ? 0.f : a[i].z / ls, ls == 0.f ? 0.f : a[i].w / ls);
+    }
   }
   if (tid == 0) p.counters[head] = 0;  // ready for the next call on this stream
 }
 
 // Checks the plan against the kernel's limits, sets the shared-memory
 // limit once, and launches one block per (split, KV head, batch row).
-template <int D>
+template <int D, int G>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, G>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_sm90<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kMaxBytes);
+        decode_attention_sm90<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::kMaxBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  if (p.Hq != kG * p.Hk || p.S < 1 || p.chunk < 1 || p.chunk % C::kTile ||
+  if (p.Hq != G * p.Hk || p.S < 1 || p.chunk < 1 || p.chunk % C::kTile ||
       p.chunk > kMaxChunk || p.n_split < 1 || p.n_split > (p.S + C::kTile - 1) / C::kTile ||
       (long long)(p.chunk / C::kTile) * p.n_split < (p.S + C::kTile - 1) / C::kTile ||
       p.n_split > 65535 || p.Hk > 65535 || p.B > 65535 ||
@@ -525,7 +556,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const dim3 grid(p.n_split, p.Hk, p.B);
   const int bytes = C::kRing + (p.chunk + 15) / 16 * 16;
-  decode_attention_sm90<D><<<grid, kThreads, bytes, stream>>>(p);
+  decode_attention_sm90<D, G><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 

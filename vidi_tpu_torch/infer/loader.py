@@ -10,8 +10,9 @@ of the model nor an fp32 staging of it is ever made. With
 `mm_vision_tower`, `model_path` is a plain Gemma2 / Mistral checkpoint and
 the model is assembled (`assemble_model`).
 
-`load_model(random_weights="tiny" | "9b" | "1.5b")` builds the configuration
-(`DattnConfig.tiny`, `vidi15_9b`, `bench_1_5b`) and draws random weights
+`load_model(random_weights="tiny" | "9b" | "1.5b" | "7b" | "tiny7b")` builds
+the configuration (`DattnConfig.tiny`, `vidi15_9b`, `bench_1_5b`,
+`vidi_7b`, `tiny("mistral")`) and draws random weights
 directly on `device` in `dtype` from `seed` -- a host-side fp32 init of the
 9B would need ~41 GB of RAM.
 
@@ -46,6 +47,8 @@ CONFIGS = {
     "tiny": DattnConfig.tiny,
     "9b": DattnConfig.vidi15_9b,
     "1.5b": DattnConfig.bench_1_5b,
+    "7b": DattnConfig.vidi_7b,
+    "tiny7b": lambda: DattnConfig.tiny("mistral"),
 }
 TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
 MAX_TRIES = 5  # weight loads retried on errors other than a layout's
@@ -279,6 +282,7 @@ def load_model(model_path: Optional[str] = None,
                 layers = params[module]["layers"]
                 for i, lp in enumerate(layers):
                     layers[i] = fn(lp)
+        _quantize_lm_head(params, text_fn, load_4bit)
         return params, cfg, ByteTokenizer()
 
     if model_path is None:
@@ -305,10 +309,15 @@ def load_model(model_path: Optional[str] = None,
             print(f"load_model try {attempt} of {MAX_TRIES} failed: {e!r}")
             if attempt == MAX_TRIES:
                 raise
+    _quantize_lm_head(params, text_fn, load_4bit)
+    return params, cfg, load_tokenizer(model_path, cfg)
+
+
+def _quantize_lm_head(params, text_fn, load_4bit: bool) -> None:
+    """An untied lm_head (Mistral) takes the text layers' format."""
     if text_fn is not None and "lm_head" in params["text"]:
         qw = qz.quantize_weight4 if load_4bit else qz.quantize_weight
         params["text"]["lm_head"] = qw(params["text"]["lm_head"])
-    return params, cfg, load_tokenizer(model_path, cfg)
 
 
 def load_tokenizer(model_path: str, cfg: DattnConfig):

@@ -1,10 +1,13 @@
 """End-to-end temporal-retrieval inference for the port, plus its CLI
-(port of vidi_tpu/infer/pipeline.py, v1.5 path).
+(port of vidi_tpu/infer/pipeline.py).
 
-decode video -> uint8 frames + log-mel windows (host) -> SigLIP / Whisper
-towers and adapters (device) -> TR prompt -> generate (greedy, sampled,
-beam search or speculative) -> parse the normalized `a.aaa-b.bbb` ranges
--> "HH:MM:SS-HH:MM:SS" spans.
+decode video -> uint8 frames + log-mel windows (host) -> SigLIP or CLIP /
+Whisper towers and adapters (device) -> TR prompt -> generate (greedy,
+sampled, beam search or speculative) -> parse the normalized `a.aaa-b.bbb`
+ranges -> "HH:MM:SS-HH:MM:SS" spans. `cfg.mm_version` picks the
+generation's prompt and parse: "v1.5" (Vidi1.5, Gemma2 chat) as above;
+"v1" (Vidi-7B, Mistral chat) states the video length in the TR prompt,
+parses a looser number pattern and prints seconds with two decimals.
 
 The encode runs whole (`encode_media_arrays`: every frame decoded first)
 or streamed (`stream_chunk > 0`: `encode_media_streaming`, the device
@@ -14,13 +17,13 @@ any iterable of uint8 frame chunks). `device_resize` ships the streamed
 chunks at decode resolution and resizes them on the device.
 
     python -m vidi_tpu_torch.infer.pipeline --video-path v.mp4 --query "a red car" \
-        --model-path DIR | --random-weights 9b|1.5b|tiny \
+        --model-path DIR | --random-weights 9b|1.5b|7b|tiny|tiny7b \
         --device cuda|cpu --dtype bfloat16|float32 \
         [--load-8bit | --load-4bit] [--load-8bit-towers] [--quantize-kv] \
         [--w8a8-prefill MIN_TOKENS] [--stream-chunk FRAMES [--device-resize]] \
         [--random-weights-seed N] [--temperature T [--top-k K] [--top-p P] [--seed N]] \
         [--num-beams K] [--spec-ngram | --draft-model-path DIR | \
-         --draft-random-weights 9b|1.5b|tiny] [--spec-k K]
+         --draft-random-weights 9b|1.5b|7b|tiny|tiny7b] [--spec-k K]
 """
 from __future__ import annotations
 
@@ -44,6 +47,12 @@ from vidi_tpu_torch.models.adapters import budget_hw
 
 TIME_RANGE_RE = re.compile(r"(\d\.\d+)-(\d\.\d+)")
 TR_PROMPT = "During which time segments in the video can we see {}?"
+# Vidi-7B (mm_version "v1"): a looser number pattern, and a prompt asking
+# for percentage ranges with the video length stated
+TIME_RANGE_RE_V1 = re.compile(r"([\d|\.]+)-([\d|\.]+)")
+TR_PROMPT_V1 = ("Given the frames from a video, answer the time range in "
+                "percentage that corresponds to query text split by comma. "
+                "Video length is: {:.2f} and text query is: {}.")
 TASKS = ("tr", "stg", "chapter", "highlight", "qa", "mcq", "character")
 
 
@@ -60,19 +69,32 @@ def pick_eos(cfg: DattnConfig, tokenizer) -> int:
     return eos
 
 
-def format_spans(ranges: List[Tuple[float, float]], length: float) -> str:
-    """Normalized (t0, t1) pairs -> 'HH:MM:SS-HH:MM:SS, ...'."""
+def format_spans(ranges: List[Tuple[float, float]], length: float,
+                 mm_version: str = "v1.5") -> str:
+    """Normalized (t0, t1) pairs -> 'HH:MM:SS-HH:MM:SS, ...'; v1 prints the
+    seconds with two decimals ('HH:MM:SS.00')."""
+    fmt = ("{:02d}:{:02d}:{:.2f}-{:02d}:{:02d}:{:.2f}" if mm_version == "v1"
+           else "{:02d}:{:02d}:{:02d}-{:02d}:{:02d}:{:02d}")
     out = []
     for r0, r1 in ranges:
         t0, t1 = r0 * length, r1 * length
-        out.append("{:02d}:{:02d}:{:02d}-{:02d}:{:02d}:{:02d}".format(
+        out.append(fmt.format(
             int(t0 / 3600), (int(t0) % 3600) // 60, int(t0) % 60,
             int(t1 / 3600), (int(t1) % 3600) // 60, int(t1) % 60))
     return ", ".join(out)
 
 
-def parse_time_ranges(text: str) -> List[Tuple[float, float]]:
-    return [(float(a), float(b)) for a, b in TIME_RANGE_RE.findall(text)]
+def parse_time_ranges(text: str, mm_version: str = "v1.5") -> List[Tuple[float, float]]:
+    """The (t0, t1) number pairs of `text`; v1's loose pattern may match
+    what is not a number ('..'), which is skipped."""
+    pattern = TIME_RANGE_RE_V1 if mm_version == "v1" else TIME_RANGE_RE
+    pairs = []
+    for a, b in pattern.findall(text):
+        try:
+            pairs.append((float(a), float(b)))
+        except ValueError:
+            continue
+    return pairs
 
 
 def decode_media_host(vid_path: str, cfg: DattnConfig, *, fps: float = 1.0):
@@ -215,15 +237,19 @@ def encode_media(params, cfg: DattnConfig, vid_path: str, *, fps: float = 1.0,
                                mm_chunks=mm_chunks, use_flash=use_flash)
 
 
-def build_prompt_ids(question: str, tokenizer, task: str = "tr",
+def build_prompt_ids(question: str, tokenizer, mm_version: str = "v1.5",
+                     length: float = 0.0, task: str = "tr",
                      options=None) -> np.ndarray:
     """Chat-templated prompt ids with the <image> token spliced out (video
-    reaches Dattn through cross attention, not the text stream)."""
+    reaches Dattn through cross attention, not the text stream): the
+    Gemma2 template for v1.5, Mistral's for v1, whose TR prompt states the
+    video's `length` in seconds."""
     from vidi_tpu_torch.infer.tasks import build_task_prompt
 
-    qs = DEFAULT_IMAGE_TOKEN + "\n" + build_task_prompt(task, question, options)
+    qs = DEFAULT_IMAGE_TOKEN + "\n" + build_task_prompt(
+        task, question, mm_version=mm_version, length=length, options=options)
     prompt = preprocess_chat([{"from": "human", "value": qs}], tokenizer,
-                             arch="gemma2")
+                             arch="mistral" if mm_version == "v1" else "gemma2")
     ids = tokenizer_image_token(prompt, tokenizer, IMAGE_TOKEN_INDEX)
     return np.asarray([t for t in ids if t != IMAGE_TOKEN_INDEX], np.int32)
 
@@ -271,8 +297,8 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
     img, img_mask, aud, aud_mask = encode_media(
         params, cfg, vid_path, fps=fps, mm_chunks=mm_chunks, use_flash=use_flash,
         stream_chunk=stream_chunk, device_resize=device_resize)
-    prompt, mask = build_prompt_batch([build_prompt_ids(question, tokenizer, task)],
-                                      pad_to)
+    prompt, mask = build_prompt_batch(
+        [build_prompt_ids(question, tokenizer, cfg.mm_version, length, task)], pad_to)
     args = (params, cfg, torch.as_tensor(prompt).long().to(dev),
             torch.as_tensor(mask).to(dev), img, img_mask, aud, aud_mask)
     kw = dict(max_new_tokens=max_new_tokens,
@@ -304,21 +330,22 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
     if stop_keywords:
         from vidi_tpu_torch.media.text import truncate_at_keywords
         text = truncate_at_keywords(text, stop_keywords).strip()
-    return parse_task_output(text, task, length)
+    return parse_task_output(text, task, length, cfg.mm_version)
 
 
-def parse_task_output(text: str, task: str, length: float) -> str:
+def parse_task_output(text: str, task: str, length: float,
+                      mm_version: str = "v1.5") -> str:
     """Decoded model text -> the task's display string."""
     from vidi_tpu_torch.infer import tasks
 
     if task == "tr":
-        return format_spans(parse_time_ranges(text), length)
+        return format_spans(parse_time_ranges(text, mm_version), length, mm_version)
     if task == "chapter":
         return "\n".join(f"{c['start']:.1f}-{c['end']:.1f}s {c['title']}"
-                         for c in tasks.parse_chapters(text, length))
+                         for c in tasks.parse_chapters(text, length, mm_version))
     if task == "highlight":
         return ", ".join(f"{a:.1f}-{b:.1f}s"
-                         for a, b in tasks.parse_highlights(text, length))
+                         for a, b in tasks.parse_highlights(text, length, mm_version))
     if task == "mcq":
         return tasks.parse_mcq(text)
     if task == "character":
@@ -328,6 +355,9 @@ def parse_task_output(text: str, task: str, length: float) -> str:
 
 
 def main(argv=None):
+    from vidi_tpu_torch.infer import quantize
+    from vidi_tpu_torch.infer.loader import CONFIGS, load_model
+
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--video-path", required=True)
     p.add_argument("--query", required=True)
@@ -335,7 +365,7 @@ def main(argv=None):
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--model-path", help="an HF-format Vidi checkpoint directory "
                                           "(config.json + *.safetensors)")
-    src.add_argument("--random-weights", choices=["tiny", "9b", "1.5b"],
+    src.add_argument("--random-weights", choices=sorted(CONFIGS),
                      help="random weights at this configuration's widths")
     p.add_argument("--device", default="cuda",
                    help="cuda (raises without a card) or cpu")
@@ -378,7 +408,7 @@ def main(argv=None):
                    help="a small text-only HF checkpoint with the target's "
                         "vocabulary: speculative decoding (greedy output equals "
                         "plain greedy)")
-    p.add_argument("--draft-random-weights", choices=["tiny", "9b", "1.5b"],
+    p.add_argument("--draft-random-weights", choices=sorted(CONFIGS),
                    help="random draft weights at this configuration's widths")
     p.add_argument("--spec-k", type=int, default=4,
                    help="speculative window: draft tokens verified a target pass")
@@ -386,9 +416,6 @@ def main(argv=None):
                    help="speculative decoding drafting from 2-gram matches in "
                         "the prompt and generated history (no draft model)")
     args = p.parse_args(argv)
-
-    from vidi_tpu_torch.infer import quantize
-    from vidi_tpu_torch.infer.loader import load_model
 
     if args.w8a8_prefill is not None:
         quantize.w8a8_min_tokens = args.w8a8_prefill

@@ -23,7 +23,7 @@ each video instead.
     python -m vidi_tpu_torch.infer.run_benchmark --task tr \\
         --gt VUE-TRv2_ground_truth.json --video-dir vids/ \\
         --out results_mine.json [--limit N] [--model-path DIR | \\
-        --random-weights 9b|1.5b|tiny] [--device cuda|cpu] [--dtype ...]
+        --random-weights 9b|1.5b|7b|tiny|tiny7b] [--device cuda|cpu] [--dtype ...]
 """
 from __future__ import annotations
 
@@ -303,7 +303,8 @@ def make_ask_batch(params, cfg, tokenizer, args, draft=(None, None)):
         shared caches -> (video length, [text a query])."""
         length, im, am, media = encode_once(vid_path)
         q = len(queries)
-        ids_list = [pipeline.build_prompt_ids(qy, tokenizer, task=prompt_task,
+        ids_list = [pipeline.build_prompt_ids(qy, tokenizer, cfg.mm_version, length,
+                                              task=prompt_task,
                                               options=(options or [None] * q)[i])
                     for i, qy in enumerate(queries)]
         prompt, mask = pipeline.build_prompt_batch(ids_list)
@@ -328,16 +329,21 @@ def make_ask_batch(params, cfg, tokenizer, args, draft=(None, None)):
         return length, texts
 
     ask_batch.set_schedule = set_schedule
+    ask_batch.mm_version = cfg.mm_version
     return ask_batch
 
 
 def run_task(args, ask_batch):
-    """Run `args.task` over `args.gt` with `ask_batch`, writing `args.out`."""
+    """Run `args.task` over `args.gt` with `ask_batch`, writing `args.out`.
+    TR answers are parsed by `ask_batch.mm_version` (the model's prompt
+    generation; v1.5 when the callable does not say)."""
     from vidi_tpu_torch.infer import pipeline
+
+    mm_version = getattr(ask_batch, "mm_version", "v1.5")
 
     def parse_spans(text: str, length: float) -> List[List[float]]:
         return [[r0 * length, r1 * length]
-                for r0, r1 in pipeline.parse_time_ranges(text)]
+                for r0, r1 in pipeline.parse_time_ranges(text, mm_version)]
 
     if args.task == "tr":
         run_tr(args, ask_batch, parse_spans)
@@ -350,6 +356,8 @@ def run_task(args, ask_batch):
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from vidi_tpu_torch.infer.loader import CONFIGS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--task", choices=["tr", "stg", "vqa", "character"], default="tr")
     ap.add_argument("--gt", required=True)
@@ -357,7 +365,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--video-ext", default=".mp4")
     ap.add_argument("--out", required=True)
     ap.add_argument("--model-path", default=None)
-    ap.add_argument("--random-weights", choices=["tiny", "9b", "1.5b"], default=None,
+    ap.add_argument("--random-weights", choices=sorted(CONFIGS), default=None,
                     help="random weights at this configuration's widths")
     ap.add_argument("--random-weights-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",

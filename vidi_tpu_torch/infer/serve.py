@@ -376,10 +376,10 @@ def serve_loop(
         try:
             tasks = [r.get("task", "tr") for r in group]
             ids_list = [
-                pipeline.build_prompt_ids(r["query"], tokenizer,
+                pipeline.build_prompt_ids(r["query"], tokenizer, cfg.mm_version, length_r,
                                           task="mcq" if t == "vqa" else t,
                                           options=r.get("options"))
-                for (r, _, _), t in zip(rows, tasks)]
+                for (r, length_r, _), t in zip(rows, tasks)]
             prompt, mask = pipeline.build_prompt_batch(ids_list)
             prompt = torch.as_tensor(prompt).long().to(dev)
             mask = torch.as_tensor(mask).to(dev)
@@ -406,7 +406,7 @@ def serve_loop(
                                         skip_special_tokens=True).strip()
                 emit({"id": r.get("id"), "text": text,
                       "parsed": pipeline.parse_task_output(
-                          text, "mcq" if t == "vqa" else t, length_r),
+                          text, "mcq" if t == "vqa" else t, length_r, cfg.mm_version),
                       "video_s": length_r, "cached_media": cached_r})
                 served += 1
                 answered += 1
@@ -425,9 +425,11 @@ def serve_loop(
 
 
 def main(argv: Optional[Iterable[str]] = None) -> dict:
+    from vidi_tpu_torch.infer.loader import CONFIGS
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model-path", default=None)
-    ap.add_argument("--random-weights", choices=["tiny", "9b", "1.5b"], default=None,
+    ap.add_argument("--random-weights", choices=sorted(CONFIGS), default=None,
                     help="random weights at this configuration's widths")
     ap.add_argument("--random-weights-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",

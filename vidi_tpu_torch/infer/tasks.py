@@ -1,5 +1,7 @@
-"""Task prompts and answer parsers for the v1.5 (9B) generation (restated
-from vidi_tpu/infer/tasks.py, whose module imports the JAX pipeline).
+"""Task prompts and answer parsers (restated from vidi_tpu/infer/tasks.py,
+whose module imports the JAX pipeline). `mm_version` "v1" (Vidi-7B) takes
+its own TR prompt, which states the video length, and its looser range
+pattern.
 
 Output contracts: TR gives normalized `a.aaa-b.bbb` ranges (scaled to
 seconds by the video length); chapters and highlights use the same ranges
@@ -11,7 +13,8 @@ from __future__ import annotations
 import re
 from typing import Dict, List, Optional, Tuple
 
-from vidi_tpu_torch.infer.pipeline import TIME_RANGE_RE, TR_PROMPT, parse_time_ranges
+from vidi_tpu_torch.infer.pipeline import (TIME_RANGE_RE, TIME_RANGE_RE_V1, TR_PROMPT,
+                                           TR_PROMPT_V1, parse_time_ranges)
 
 STG_PROMPT = ("During which time segments in the video can we see {}? For "
               "each segment, give the bounding box of the target as "
@@ -37,12 +40,13 @@ CHARACTER_BOX_RE = re.compile(
     r"(\d\.\d+)\s*:\s*([\d.]+)\s*,\s*([\d.]+)\s*,\s*([\d.]+)\s*,\s*([\d.]+)")
 
 
-def build_task_prompt(task: str, query: str = "",
+def build_task_prompt(task: str, query: str = "", *, mm_version: str = "v1.5",
+                      length: float = 0.0,
                       options: Optional[List[str]] = None) -> str:
     """-> the user-turn text (before chat templating / <image> splicing)."""
     q = query[:-1] if query.endswith(".") else query
     if task == "tr":
-        return TR_PROMPT.format(q)
+        return TR_PROMPT_V1.format(length, q) if mm_version == "v1" else TR_PROMPT.format(q)
     if task == "stg":
         return STG_PROMPT.format(q)
     if task == "chapter":
@@ -78,21 +82,27 @@ def parse_character(text: str, duration: float) -> List[Dict]:
     return segs
 
 
-def parse_chapters(text: str, length: float) -> List[Dict]:
+def parse_chapters(text: str, length: float,
+                   mm_version: str = "v1.5") -> List[Dict]:
     """Chaptering output -> [{"start", "end", "title"}] in seconds."""
+    pattern = TIME_RANGE_RE_V1 if mm_version == "v1" else TIME_RANGE_RE
     out = []
     for line in text.splitlines():
-        m = TIME_RANGE_RE.search(line)
+        m = pattern.search(line)
         if not m:
             continue
+        try:
+            t0, t1 = float(m.group(1)), float(m.group(2))
+        except ValueError:  # v1's loose pattern may match '..'
+            continue
         title = line[m.end():].strip(" :–-\t")
-        out.append({"start": float(m.group(1)) * length,
-                    "end": float(m.group(2)) * length, "title": title})
+        out.append({"start": t0 * length, "end": t1 * length, "title": title})
     return out
 
 
-def parse_highlights(text: str, length: float) -> List[Tuple[float, float]]:
-    return [(a * length, b * length) for a, b in parse_time_ranges(text)]
+def parse_highlights(text: str, length: float,
+                     mm_version: str = "v1.5") -> List[Tuple[float, float]]:
+    return [(a * length, b * length) for a, b in parse_time_ranges(text, mm_version)]
 
 
 def extract_answer(text: str) -> str:

@@ -1,6 +1,7 @@
-"""Multimodal adapters, v1.5 (9B) generation (port of
-vidi_tpu/models/adapters.py): Conv2DPool (pad 27->28, optional bilinear
-budget resize, space_to_depth), the token-budget rule, the "mlp2x_gelu"
+"""Multimodal adapters (port of vidi_tpu/models/adapters.py): the v1.5
+(9B) Conv2DPool (pad 27->28, optional bilinear budget resize,
+space_to_depth), the v1 (7B) Conv2DPool (a VALID conv, then an
+align-corners bilinear resize as two fp32 products), the token-budget rule, the "mlp2x_gelu"
 projector, the fractional-sinusoid position MLP and the audio pool conv
 (k = s = pool, no bias) as a reshaped matmul.
 """
@@ -58,6 +59,39 @@ def conv2d_pool(feats: torch.Tensor, hw: Tuple[int, int],
                           mode="bilinear", align_corners=False,
                           antialias=False).permute(0, 2, 3, 1).to(feats.dtype)
     return space_to_depth(x, merge)
+
+
+def _align_corners_matrix(n_out: int, n_in: int, device=None) -> torch.Tensor:
+    """[n_out, n_in] fp32 interpolation matrix of a bilinear resize with
+    align_corners=True: out[i] samples at i * (n_in - 1) / (n_out - 1)."""
+    if n_out == 1:
+        pos = torch.zeros((1,), dtype=torch.float32, device=device)
+    else:
+        pos = (torch.arange(n_out, dtype=torch.float32, device=device)
+               * ((n_in - 1) / (n_out - 1)))
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, n_in - 1)
+    hi = torch.clamp(lo + 1, max=n_in - 1)
+    frac = pos - lo.float()
+    eye = torch.eye(n_in, dtype=torch.float32, device=device)
+    return eye[lo] * (1.0 - frac)[:, None] + eye[hi] * frac[:, None]
+
+
+def bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """[N,H,W,C] -> [N,out_h,out_w,C], bilinear with align_corners=True,
+    as two fp32 products with the interpolation matrices."""
+    ah = _align_corners_matrix(out_hw[0], x.shape[1], x.device)
+    aw = _align_corners_matrix(out_hw[1], x.shape[2], x.device)
+    y = torch.einsum("oh,nhwc->nowc", ah, x.float())
+    y = torch.einsum("pw,nowc->nopc", aw, y)
+    return y.to(x.dtype)
+
+
+def conv2d_pool_v1(params: Params, feats: torch.Tensor, s_out: int) -> torch.Tensor:
+    """[N,S,S,C] -> [N,s_out,s_out,C]: a VALID conv (stride 1, no bias;
+    weight [O,I,KH,KW]), then the align-corners resize (the 7B's pool)."""
+    w = params["w"]
+    y = F.conv2d(feats.to(w.dtype).permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+    return bilinear_align_corners(y, (s_out, s_out)).to(feats.dtype)
 
 
 def mlp_projector(params: Params, x: torch.Tensor, depth: int = 2) -> torch.Tensor:
@@ -126,6 +160,12 @@ def audio_pool(params: Params, x: torch.Tensor, pool: int) -> torch.Tensor:
 
 def _nrm(gen, shape, scale, dtype, device):
     return torch.randn(shape, generator=gen, device=device, dtype=dtype) * scale
+
+
+def init_conv2d_pool_v1(gen, d, s_in, s_out, dtype, device) -> Params:
+    """The 7B's pool conv: [d, d, k, k] with k = ceil(s_in / s_out)."""
+    k = math.ceil(s_in / s_out)
+    return {"w": _nrm(gen, (d, d, k, k), (d * k * k)**-0.5, dtype, device)}
 
 
 def init_mlp_projector(gen, d_in, d_out, depth, dtype, device) -> Params:

@@ -1,5 +1,6 @@
 """Dattn, the decomposed-attention multimodal decoder (port of
-vidi_tpu/models/dattn.py, the v1.5 / Gemma2 inference path).
+vidi_tpu/models/dattn.py: Vidi1.5's Gemma2 decoder with the v1.5 adapters,
+and Vidi-7B's Mistral decoder with the v1 adapters).
 
 Each decoder layer runs
   (1) T2T causal self attention over the short text stream,
@@ -54,10 +55,6 @@ from vidi_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 Params = Dict
 
-# SigLIP processor statistics (vidi_tpu/media/images.py, which imports PIL)
-SIGLIP_MEAN = 0.5
-SIGLIP_STD = 0.5
-
 
 class Caches(NamedTuple):
     """KV caches in the decode-native [L,B,Hk,S,D] layout; img_* / aud_*
@@ -84,26 +81,34 @@ def _layer_slice(cache, i: int):
 # ---------------------------------------------------------------------------
 
 def init_mm_params(cfg: DattnConfig, dtype, device, gen: torch.Generator) -> Params:
-    """v1.5 adapters with the JAX init's shapes and scales."""
-    if cfg.mm_version != "v1.5" or cfg.mm_input_type != "video":
-        raise NotImplementedError("only the v1.5 video adapters are ported")
+    """Video adapters with the JAX init's shapes and scales: v1.5 (9B), or
+    v1 (7B: a conv pool that keeps d_vis, an audio pool that keeps d_aud,
+    projectors that lift both to d_llm)."""
+    if cfg.mm_input_type != "video":
+        raise NotImplementedError("mm_input_type='image' is not ported (ROADMAP Q1.15)")
     d_llm, d_vis, d_aud = cfg.text.hidden_size, cfg.vision.hidden_size, cfg.audio.d_model
     depth = cfg.mm_projector_depth
-    pool2 = cfg.mm_image_pool_size**2
-    return {
-        "llm_norm": adapters.init_rms_norm(d_llm, cfg.mm_std or 1.0, dtype, device),
-        "img_projector": adapters.init_mlp_projector(
-            gen, d_vis * pool2, d_llm, depth, dtype, device),
+    v1 = cfg.mm_version == "v1"
+    mm = {"llm_norm": adapters.init_rms_norm(d_llm, cfg.mm_std or 1.0, dtype, device)}
+    if v1:
+        mm["img_pool"] = adapters.init_conv2d_pool_v1(
+            gen, d_vis, cfg.vision.num_patches_per_side, cfg.mm_image_pool_size,
+            dtype, device)
+    img_in = d_vis if v1 else d_vis * cfg.mm_image_pool_size**2
+    aud_mid = d_aud if v1 else d_llm
+    mm.update({
+        "img_projector": adapters.init_mlp_projector(gen, img_in, d_llm, depth, dtype, device),
         "img_norm": adapters.init_rms_norm(d_llm, 1.0, dtype, device),
         "pos_w": adapters.init_pos_embed(gen, d_llm, device),
         "pos_h": adapters.init_pos_embed(gen, d_llm, device),
         "pos_t": adapters.init_pos_embed(gen, d_llm, device),
         "aud_pool": adapters.init_audio_pool(
-            gen, d_aud, d_llm, cfg.mm_audio_pool_size, dtype, device),
+            gen, d_aud, aud_mid, cfg.mm_audio_pool_size, dtype, device),
         "aud_projector": adapters.init_mlp_projector(
-            gen, d_llm, d_llm, depth, dtype, device),
+            gen, aud_mid, d_llm, depth, dtype, device),
         "aud_norm": adapters.init_rms_norm(d_llm, 1.0, dtype, device),
-    }
+    })
+    return mm
 
 
 def init_params(cfg: DattnConfig, dtype, device, seed: int = 0) -> Params:
@@ -192,10 +197,14 @@ def encode_video_images(params: Params, cfg: DattnConfig, images: torch.Tensor,
 
 def _frame_tokens(params, x, cfg: DattnConfig, hw, use_flash, noise=None):
     """Tower -> pool -> projector -> norm -> h/w positions for one chunk of
-    frames [C,H,W,3] -> [C,h2,w2,d]."""
+    frames [C,H,W,3] -> [C,h2,w2,d]. uint8 frames are normalized with the
+    tower's own processor statistics. v1 pools with its learned conv and
+    the align-corners resize to a fixed side (no token budget: `hw` is
+    not read)."""
     if x.dtype == torch.uint8:
-        from vidi_tpu_torch.ops.preprocess import preprocess_uint8
-        x = preprocess_uint8(x, cfg.vision.image_size, SIGLIP_MEAN, SIGLIP_STD)
+        from vidi_tpu_torch.ops.preprocess import preprocess_uint8, tower_stats
+        mean, std = tower_stats(cfg.vision.arch)
+        x = preprocess_uint8(x, cfg.vision.image_size, mean, std)
     mm = params["mm"]
     noise = noise or {}
     s = cfg.vision.num_patches_per_side
@@ -204,7 +213,10 @@ def _frame_tokens(params, x, cfg: DattnConfig, hw, use_flash, noise=None):
         feats = siglip.forward_features(params["vision"], x, cfg.vision,
                                         use_flash=use_flash)
     feats = feats.reshape(x.shape[0], s, s, cfg.vision.hidden_size)
-    pooled = adapters.conv2d_pool(feats, hw, cfg.mm_image_pool_size)
+    if cfg.mm_version == "v1":
+        pooled = adapters.conv2d_pool_v1(mm["img_pool"], feats, cfg.mm_image_pool_size)
+    else:
+        pooled = adapters.conv2d_pool(feats, hw, cfg.mm_image_pool_size)
     t = adapters.mlp_projector(mm["img_projector"], pooled, cfg.mm_projector_depth)
     t = scaled_rms_norm(t, mm["img_norm"]["weight"], cfg.mm_rms_eps)
     pe_h = adapters.pos_embed(mm["pos_h"], t.shape[1], cfg.mm_image_pool_size,

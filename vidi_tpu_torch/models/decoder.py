@@ -1,4 +1,5 @@
-"""Text-decoder backbone ops, Gemma2 (port of vidi_tpu/models/decoder.py):
+"""Text-decoder backbone ops, Gemma2 or Mistral (port of
+vidi_tpu/models/decoder.py):
 norms, activation, gated MLP, the FFN block, embedding lookup and the
 logits with the final softcap. Weights may be int8 / int4 dicts
 (`infer.quantize`): products go through `qdot`, and a gated MLP with at
@@ -33,11 +34,10 @@ def activation(x, cfg: TextConfig):
 
 
 def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator) -> Params:
-    """Random init with the JAX init's shapes and scales (Gemma2: norm
-    weights are zero, the (1 + w) form makes them identity)."""
-    if cfg.arch != "gemma2" or not cfg.tie_word_embeddings:
-        raise NotImplementedError("only the Gemma2 decoder is ported "
-                                  "(Mistral / 7B waits)")
+    """Random init with the JAX init's shapes and scales. Gemma2: norm
+    weights are zero (the (1 + w) form makes them identity) and the FFN has
+    its own two norms; Mistral: norm weights are ones, and an untied
+    lm_head [d, vocab] when the config asks for one."""
     d, ff = cfg.hidden_size, cfg.intermediate_size
     hq, hk, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -45,11 +45,12 @@ def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator) -> Params:
         return (torch.randn(shape, generator=gen, device=device, dtype=dtype)
                 * scale)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+    def unit(shape):  # the identity norm weight of the arch
+        return torch.full(shape, 0.0 if cfg.arch == "gemma2" else 1.0,
+                          dtype=dtype, device=device)
 
     layers = [{
-        "input_ln": zeros((d,)), "post_attn_ln": zeros((d,)),
+        "input_ln": unit((d,)), "post_attn_ln": unit((d,)),
         "q_w": nrm((d, hq * dh), d**-0.5),
         "k_w": nrm((d, hk * dh), d**-0.5),
         "v_w": nrm((d, hk * dh), d**-0.5),
@@ -57,10 +58,14 @@ def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator) -> Params:
         "gate_w": nrm((d, ff), d**-0.5),
         "up_w": nrm((d, ff), d**-0.5),
         "down_w": nrm((ff, d), ff**-0.5),
-        "pre_ffn_ln": zeros((d,)), "post_ffn_ln": zeros((d,)),
+        **({"pre_ffn_ln": unit((d,)), "post_ffn_ln": unit((d,))}
+           if cfg.double_norms else {}),
     } for _ in range(cfg.num_layers)]
-    return {"embed": nrm((cfg.vocab_size, d), 1.0), "final_ln": zeros((d,)),
-            "layers": layers}
+    params = {"embed": nrm((cfg.vocab_size, d), 1.0), "final_ln": unit((d,)),
+              "layers": layers}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = nrm((d, cfg.vocab_size), d**-0.5)
+    return params
 
 
 def split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""SigLIP vision tower (port of vidi_tpu/models/siglip.py, SigLIP branch).
+"""Vision tower, SigLIP or CLIP ViT (port of vidi_tpu/models/siglip.py).
 
 Patch embedding as patch-extract + matmul, learned position embeddings,
 pre-norm encoder layers run in a Python loop, tapped at `select_layer`
-(-2: the output of the second-to-last layer). Layers with int8 weights
+(-2: the output of the second-to-last layer). CLIP (Vidi-7B, `cfg.arch ==
+"clip"`) has no patch bias, a class token before the patches, a
+LayerNorm after the positions and quick_gelu; its features drop the class
+token. Layers with int8 weights
 (`infer.quantize.quantize_tower_params`) run K5's fused pieces. Parameters are a dict whose
 keys mirror the JAX tree; `layers` is a list of per-layer dicts.
 """
@@ -22,8 +25,6 @@ Params = Dict
 
 def init_params(cfg: VisionConfig, dtype, device, gen: torch.Generator) -> Params:
     """Random init with the JAX init's shapes and scales."""
-    if cfg.arch != "siglip":
-        raise NotImplementedError("only the SigLIP tower is ported (CLIP waits)")
     d, ff = cfg.hidden_size, cfg.intermediate_size
     patch_dim = 3 * cfg.patch_size * cfg.patch_size
 
@@ -44,12 +45,19 @@ def init_params(cfg: VisionConfig, dtype, device, gen: torch.Generator) -> Param
         "fc1_w": nrm((d, ff), d**-0.5), "fc1_b": const((ff,), 0.0),
         "fc2_w": nrm((ff, d), ff**-0.5), "fc2_b": const((d,), 0.0),
     } for _ in range(cfg.num_layers)]
-    return {
+    clip = cfg.arch == "clip"
+    params = {
         "patch_w": nrm((patch_dim, d), patch_dim**-0.5),
-        "patch_b": const((d,), 0.0),
-        "pos_embed": nrm((cfg.num_patches, d), 0.02),
+        "pos_embed": nrm((cfg.num_patches + clip, d), 0.02),
         "layers": layers,
     }
+    if clip:  # no patch bias; a class token and a pre-LayerNorm instead
+        params["cls_embed"] = nrm((d,), d**-0.5)
+        params["pre_ln_scale"] = const((d,), 1.0)
+        params["pre_ln_bias"] = const((d,), 0.0)
+    else:
+        params["patch_b"] = const((d,), 0.0)
+    return params
 
 
 def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
@@ -86,16 +94,21 @@ def _encoder_layer(x, lp, num_heads, eps, hidden_act, use_flash=False):
 def forward_features(params: Params, images: torch.Tensor, cfg: VisionConfig,
                      use_flash: bool = False) -> torch.Tensor:
     """images [B,H,W,3] (processor-normalized) -> patch features [B,N,D]
-    tapped at `cfg.select_layer`."""
-    if cfg.arch != "siglip":
-        raise NotImplementedError("only the SigLIP tower is ported (CLIP waits)")
+    tapped at `cfg.select_layer` (CLIP: the class token dropped)."""
+    clip = cfg.arch == "clip"
     images = images.to(params["patch_w"].dtype)
     x = dense(patchify(images, cfg.patch_size), params["patch_w"],
-              params["patch_b"])
+              params.get("patch_b"))
+    if clip:
+        cls = params["cls_embed"].to(x.dtype).expand(x.shape[0], 1, x.shape[-1])
+        x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)
+    if clip:
+        x = layer_norm(x, params["pre_ln_scale"], params["pre_ln_bias"],
+                       cfg.layer_norm_eps)
     n_run = (cfg.num_layers + 1 + cfg.select_layer if cfg.select_layer < 0
              else cfg.select_layer)
     for lp in params["layers"][:n_run]:
         x = _encoder_layer(x, lp, cfg.num_heads, cfg.layer_norm_eps,
                            cfg.hidden_act, use_flash)
-    return x
+    return x[:, 1:] if clip else x

@@ -2,8 +2,9 @@
 (csrc/decode_attention.cu, csrc/decode_attention_sm90.cuh).
 
 Replaces the Pallas kernel `vidi_tpu.ops.pallas.decode_attention.
-decode_attention`: q [B,Hq,D] against the cache-native k/v [B,Hk,S,D], GQA
-group rows sharing a KV head, kv_mask [B,S], softcap, and the Gemma2
+decode_attention`: q [B,Hq,D] against the cache-native k/v [B,Hk,S,D], the
+G = Hq / Hk rows of a GQA group sharing a KV head (G in GROUPS: 2 for
+Gemma2, 4 for Mistral-7B), kv_mask [B,S], softcap, and the Gemma2
 sliding window through `q_pos` [B] (key s visible iff q_pos - s < window;
 causality rides on kv_mask). Global layers pass `window=None`: the JAX
 caller's `-(1 << 30)` q_pos sentinel existed only because its layer scan
@@ -39,12 +40,12 @@ import torch
 
 from vidi_tpu_torch.ops.cuda import _lib
 
-HEAD_DIMS, GROUP = (128, 256), 2  # the instantiations in csrc/decode_attention*.cu
+HEAD_DIMS, GROUPS = (128, 256), (1, 2, 4, 8)  # the instantiations in csrc/decode_attention*.cu
 CHUNK = 256  # keys per block of the fp32 SIMT kernel
 # The sm90 kernel (csrc/decode_attention_sm90.cuh): keys a ring stage holds
-# (32 KB of K and V at either head dim), blocks resident on an SM (three
-# stages each), keys a block takes at most (its mask bytes sit in shared
-# memory), consumer warps of a block.
+# at G <= 2 (32 KB of K and V at either head dim; `sm90_tile`), blocks
+# resident on an SM (a 96 KB ring each), keys a block takes at most (its
+# mask bytes sit in shared memory), consumer warps of a block.
 SM90_TILE = {128: 64, 256: 32}
 SM90_BLOCKS_PER_SM = 2
 SM90_MAX_CHUNK = 4096
@@ -52,6 +53,14 @@ SM90_CONSUMERS = 4
 BULK_ALIGN = 16  # bytes: a bulk copy's source starts on 16 bytes
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max  # the Pallas kernel's
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
+
+
+def sm90_tile(d: int, g: int) -> int:
+    """Keys a ring stage of the sm90 kernel holds (its `Cfg::kTile`): a
+    warp's tile // SM90_CONSUMERS keys times the g rows must fit the 32
+    lanes of one reduce, so g >= 4 takes 128 // g keys (32 at g = 4, 16 at
+    g = 8) and as many more stages."""
+    return min(SM90_TILE[d], SM90_CONSUMERS * 32 // g)
 
 
 def decode_attention(q, k, v, kv_mask, sm_scale: float,
@@ -113,17 +122,18 @@ def route(dtype: torch.dtype) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def decode_plan(b: int, hk: int, s: int, d: int, sms: int) -> tuple:
-    """(tile, chunk, n_split) of the sm90 kernel on `sms` SMs: `tile` keys a
-    ring stage; n_split splits of S that take its tiles in turn (split i:
+def decode_plan(b: int, hk: int, s: int, d: int, sms: int, *, g: int) -> tuple:
+    """(tile, chunk, n_split) of the sm90 kernel on `sms` SMs for g query
+    rows a KV head: `tile` keys a ring stage (`sm90_tile`); n_split splits of S that take its tiles in turn (split i:
     tiles i, i + n_split, ...), as many as give B * Hk * n_split blocks up
     to one wave of SM90_BLOCKS_PER_SM blocks an SM, each at least one tile;
     `chunk` the keys a split takes at most (whole tiles, at most
     SM90_MAX_CHUNK). Taking tiles in turn spreads a masked tail or the keys
     before a window over every split. The 9B's image cache (8 KV heads,
     23,520 keys) splits 33 ways, its audio cache (1,200 keys) 33 ways, a
-    160-key text cache 5 ways."""
-    tile = SM90_TILE[d]
+    160-key text cache 5 ways; the 7B's image cache (8 KV heads of 128,
+    7,680 keys, g = 4) 33 ways."""
+    tile = sm90_tile(d, g)
     tiles = -(-s // tile)
     n_split = max(1, min(-(-SM90_BLOCKS_PER_SM * sms // (b * hk)), tiles))
     n_split = max(n_split, -(-tiles // (SM90_MAX_CHUNK // tile)))
@@ -138,7 +148,7 @@ def split_tiles(split: int, s: int, plan: tuple) -> range:
 
 def check_shapes(q_shape, k_shape, v_shape) -> None:
     """Raise unless q [B,Hq,D] and k / v [B,Hk,S,D] are shapes the kernels
-    are built for: D in HEAD_DIMS and GROUP query heads per KV head."""
+    are built for: D in HEAD_DIMS and G in GROUPS query heads per KV head."""
     b, hq, d = q_shape
     hk = k_shape[1]
     if len(k_shape) != 4 or k_shape[0] != b or k_shape[3] != d or v_shape != k_shape or hq % hk:
@@ -147,8 +157,8 @@ def check_shapes(q_shape, k_shape, v_shape) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"decode_attention: the kernels are built for head dims "
                          f"{HEAD_DIMS}, got D = {d}")
-    if hq // hk != GROUP:
-        raise ValueError(f"decode_attention: the kernels are built for {GROUP} query "
+    if hq // hk not in GROUPS:
+        raise ValueError(f"decode_attention: the kernels are built for {GROUPS} query "
                          f"heads per KV head, got G = {hq // hk}")
 
 
@@ -359,7 +369,7 @@ def _layout(q, k, v) -> tuple:
         ks = block_strides("decode_attention k", k_shape, k.stride(), 0, 2)
         vs = block_strides("decode_attention v", k_shape, v.stride(), 0, 2)
         ks, vs = (*ks, d), (*vs, d)  # rows D apart (a length-one S included)
-        _, chunk, n_split = decode_plan(b, hk, s, d, _lib.sm_count(dev))
+        _, chunk, n_split = decode_plan(b, hk, s, d, _lib.sm_count(dev), g=hq // hk)
     else:
         _lib.check_operand(k, "decode_attention k", 4, dtype)
         _lib.check_operand(v, "decode_attention v", 4, dtype)

@@ -18,6 +18,22 @@ import torch.nn.functional as F
 
 Stats = Union[float, Sequence[float]]
 
+# The towers' processor statistics, as media/images.py (a verbatim copy of
+# the reference's host module, which imports PIL) has them: the model
+# normalizes uint8 frames on the device without importing PIL.
+SIGLIP_MEAN = 0.5
+SIGLIP_STD = 0.5
+# openai/clip-vit-large-patch14 processor stats (the 7B tower's preprocessing)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def tower_stats(arch: str):
+    """(mean, std) for a tower's processor ('siglip' | 'clip')."""
+    if arch == "clip":
+        return CLIP_MEAN, CLIP_STD
+    return SIGLIP_MEAN, SIGLIP_STD
+
 
 def normalize_uint8(x: torch.Tensor, mean: Stats, std: Stats,
                     dtype=torch.float32) -> torch.Tensor:

@@ -222,12 +222,12 @@ VARIANTS = {
 }
 
 
-def _contiguous_plan(b, hk, s, d, sms):
+def _contiguous_plan(b, hk, s, d, sms, *, g):
     """(tile, chunk, n_split) with each split one contiguous chunk of whole
     tiles: as many as give up to one wave of two blocks an SM."""
     from vidi_tpu_torch.ops.cuda import decode_attention as k3
 
-    tile = k3.SM90_TILE[d]
+    tile = k3.sm90_tile(d, g)
     n = min(-(-2 * sms // (b * hk)), -(-s // tile))
     n = max(1, n, -(-s // k3.SM90_MAX_CHUNK))
     chunk = -(-(-(-s // n)) // tile) * tile
@@ -245,8 +245,8 @@ def _python_side(name: str) -> None:
         if name == "tile64":
             k3.SM90_TILE = {128: 64, 256: 64}
 
-        def plan(b, hk, s, d, sms):
-            tile = k3.SM90_TILE[d]
+        def plan(b, hk, s, d, sms, *, g):
+            tile = k3.sm90_tile(d, g)
             tiles = -(-s // tile)
             n = max(1, min(per_sm * sms // (b * hk), tiles))
             return tile, -(-tiles // n) * tile, n
@@ -305,7 +305,8 @@ def run(tag: str, csrc: Path) -> None:
         torch.cuda.synchronize()
         top = float(ref.float().abs().max())
         ulps = float((out.float() - ref.float()).abs().max()) / 2.0 ** (math.floor(math.log2(top)) - 7)
-        print(f"[{tag}] {label}: plan {k3.decode_plan(1, hk, s, d, sms)}, err {ulps:.1f} ulps, "
+        plan = k3.decode_plan(1, hk, s, d, sms, g=hq // hk)
+        print(f"[{tag}] {label}: plan {plan}, err {ulps:.1f} ulps, "
               f"two runs {'bit-equal' if torch.equal(out, again) else 'DIFFER'}, device "
               f"{_device_us(run_k3):.1f} us a call, events {1e3 * c._time_ms(run_k3):.1f} us",
               flush=True)
@@ -340,11 +341,11 @@ def splits() -> None:
                     window=window,
                     q_pos=None if q_pos is None else torch.tensor([q_pos], device=dev))
         ref = k3.decode_attention_plain(**args)
-        tile = k3.SM90_TILE[d]
+        tile = k3.sm90_tile(d, hq // hk)
         tiles = -(-s // tile)
         for n in counts:
             plan = (tile, -(-tiles // n) * tile, n)
-            k3.decode_plan = lambda *a, plan=plan: plan  # noqa: E731
+            k3.decode_plan = lambda *a, plan=plan, **kw: plan  # noqa: E731
             k3._LAYOUTS.clear()  # the wrapper keeps the plan of a checked layout
             run_k3 = lambda: k3.decode_attention(**args)  # noqa: E731
             err = float((run_k3().float() - ref.float()).abs().max())
