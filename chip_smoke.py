@@ -64,13 +64,20 @@
    K1 / K2 / K4 take bf16 through the sm90 kernels (wgmma, TMA) and fp32
    through the SIMT templates: one fp32 case each holds the SIMT route.
    Each K1 / K2 / K4 case prints its TFLOP/s and its share of the bound;
-   K4's two runs must be bit-equal, and its capless T2A case is timed
-   against SDPA's backward.
+   K4's two runs must be bit-equal, and its capless cases (the 7B's G = 4
+   T2T / T2V / T2A, the 9B's T2A) are timed against SDPA's backward. K1
+   and K4 also run at a --pack row: 4,096 tokens in three segments, with
+   the segment ids ignored as a planted fault, and at the B = 2 shapes the
+   training phases hand them: train_pack's two rows with their own
+   segment ids, and (K4) train_image's T2V over two anyres rows with
+   per-row masks, with every row reading row 0's masks or keys as faults.
 3. Checks small fp32 models end to end, the card (kernels) against the CPU
    (plain PyTorch): a prefill + greedy decode in bf16-layout fp32 at the
    9B's kernel shapes and at the 7B's (Mistral with G = 4, CLIP with its
-   class token, the v1 adapters), on the int8 route, and two training
-   steps.
+   class token, the v1 adapters), on the int8 route, and training steps:
+   the 9B's shapes; image mode with anyres grids (2, 2) and (1, 3) in one
+   batch; remat "dots" on the card against full remat on the CPU;
+   gradient accumulation over k = 2; the 7B's shapes with position noise.
 4. Drives the serving slice: load_model(random_weights="9b") at full width,
    a synthetic 120 s clip (120 frames 384x384, 16 kHz audio), one media
    encode, then three temporal-retrieval queries through prompt ->
@@ -78,9 +85,13 @@
    and one query with use_flash_decode=True (K3). It holds the K3 decode
    route's step-0 logits against the default route's, and a planted fault
    (K3 without its kv_mask) against the same limits, and shows one K3
-   decode step's calls to be as many sm90 kernels (the profiler's count
-   against decode_attention.launches), none of the SIMT route. Then the
-   decoding variants (serve_decoding): verify_step on a window of VERIFY_W
+   decode step's K3 calls to be one launch call and one sm90 kernel each
+   (the profiler, each call in a range of its own, against
+   decode_attention.launches; a session is taken again only when it lost a
+   kernel record whose launch call it holds), none of the SIMT route. Then the
+   decoding variants (serve_decoding, on the slice's first SHALLOW_LAYERS
+   text layers since the training phases grew the script): verify_step
+   on a window of VERIFY_W
    tokens against as many decode steps (logits under the decode routes'
    limits, the window's text-cache slots to cosine CACHE_COS; a planted
    fault: the window written one slot late); greedy speculative decoding
@@ -182,14 +193,36 @@
    Whisper windows, counting K1 / K2 / K4 launches. It then holds the
    gradients of a few leaves on the kernel route against the
    plain-attention route, and a planted fault (K4 without di) against the
-   same limits.
+   same limits. Then, each from a fresh optimizer: remat "dots" against
+   full remat (loss and gradients within one bf16 rounding, step time and
+   peak of each, the ops the policy keeps); gradient accumulation k = 2
+   (parameters untouched until the second optimizer step); image-mode
+   training (the slice's text and towers, fresh image adapters, B = 2
+   anyres samples of 5 and 4 tiles, 3 steps); --pack rows (PackedBatcher,
+   2 x 4,096 tokens: each segment's logits against its sample alone, a
+   planted fault with the segment ids dropped, one backward); each with
+   K1 / K2 / K4 launches held to the reckoned ones. Frees it and trains
+   Vidi-7B at full width with TRAIN_LAYERS text layers (the 120 s clip at
+   224 px, position noise at the v1 side, launches reckoned; the gradient
+   routes at G = 4 with their planted fault), then runs the train CLI on
+   the card as a subprocess (tiny image-mode model, anyres batches,
+   gradient accumulation, remat "dots", a profile trace, tensorboard):
+   its trace must exist and its metrics carry the optimizer steps'
+   learning rates. Draft distillation runs before the checkpoint phase
+   (which replaces the weights), on the full-depth 9B serving slice as
+   the teacher: a 2-layer student
+   of width 512, 16 steps on rollouts of 8 x (32 + 32) tokens, the KL
+   falling on each rollout batch, no kernel launched (as the reference:
+   the plain route), the student saved, reloaded and run as
+   speculative_generate's draft with greedy's tokens.
 9. With --profile, profiles both serving slices' encode, one prefill and
    eight decode steps (each decode route of the bf16 one; the 7B's eight
    on the K3 route), the long-video
    slice's streamed encode, chunked media prefill, shared-cache prefills
    and decode steps (three folded rows, one row), one cache-hit group of
    the daemon (two queries' text prefill on shared caches and the decode
-   steps), and one training step, with torch.profiler.
+   steps), and one training step of the 9B (full remat, remat "dots",
+   image mode, a packed backward) and of the 7B, with torch.profiler.
 
 Exits non-zero on any failure (no CUDA device, a kernel that does not build,
 launch or agree, a planted fault the checks cannot see, a launch count off
@@ -246,6 +279,11 @@ LONG_SECONDS, LONG_DECODE_HW, LONG_CHUNK_FRAMES = 600, (360, 640), 120
 LONG_FRAME_TOKENS = 100
 LONG_IMG_S, LONG_AUD_S = LONG_SECONDS * LONG_FRAME_TOKENS, 6000
 LONG_CHUNK_TOKENS = 32768
+
+# --pack rows (train_pack, and the K1 / K4 packed cases): PackedBatcher rows
+# of 4,096 tokens; the kernel cases take train_pack's two rows, and one row
+# of three segments and 96 pad tokens
+PACK_T, PACK_SEGS = 4096, (1500, 1400, 1100)
 
 K1_SRC = "vidi_tpu_torch/csrc/flash_attention.cu"
 K2_SRC = "vidi_tpu_torch/csrc/tower_attention.cu"
@@ -402,6 +440,16 @@ def _pad_not_zeroed(q, k, v, scale):
     return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(q.dtype)
 
 
+def _segments(dev, t: int, lengths) -> torch.Tensor:
+    """[1, t] int32 segment ids 1, 2, ... of the given lengths, 0 after."""
+    segs = torch.zeros((1, t), dtype=torch.int32, device=dev)
+    start = 0
+    for i, n in enumerate(lengths, start=1):
+        segs[0, start:start + n] = i
+        start += n
+    return segs
+
+
 def _rate(label: str, ops: float, ms: float, bound: dict, unit: str = "TFLOP/s") -> dict:
     """10^12 operations a second (`unit`: TFLOP/s, or TOP/s for int8) and
     share of the bound of one timed case, printed and kept."""
@@ -507,6 +555,8 @@ def kernel_phases(dev) -> dict:
                       "library_ms": lib_ms, **_rate(f"K1 {label}", ops, ms, bound)})
     e, c = k1_cache_cases(dev, gen, t)
     errs, cases = errs + e, cases + c
+    e, c = k1_packed_case(dev, gen)
+    errs, cases = errs + e, cases + c
     # the summary time is the 9B T2V case's, most of K1's time in the slice
     res["flash_attention"] = dict(
         src=K1_SRC, replaces="vidi_tpu/ops/pallas/flash_attention.py:396",
@@ -554,6 +604,79 @@ def kernel_phases(dev) -> dict:
 
     res.update(k3_phase(dev, t, n_real))
     return res
+
+
+def k1_packed_case(dev, gen) -> tuple:
+    """K1 at --pack rows of the training slice (train_pack), causal, window
+    4096, cap 50, the 9B's heads: one row of T = S = 4,096 tokens in three
+    segments (PACK_SEGS) and 96 pad tokens, and the phase's own B = 2 rows
+    (`_pack_layout`: per-row segment ids and pad tails); planted faults:
+    the segment ids ignored, no causal mask, no softcap, and at B = 2 every
+    row read with row 0's segment ids and kv_mask. -> (errs, cases)."""
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+
+    hq, hk, d = 16, 8, 256
+    rows_segs, rows_valid = _pack_layout(dev)
+    errs, cases = [], []
+    for label, segs, valid in (
+            (f"9b packed t2t T=S={PACK_T} {len(PACK_SEGS)} segments cap=50",
+             _segments(dev, PACK_T, PACK_SEGS), [sum(PACK_SEGS)]),
+            (f"9b packed t2t B=2 T=S={PACK_T} {int(rows_segs.max(1).values.sum())} "
+             "segments (train_pack's rows) cap=50", rows_segs, rows_valid)):
+        b = len(valid)
+        kv_mask = torch.cat([_kv_mask(PACK_T, n, dev) for n in valid])
+        args = dict(q=_randn(gen, (b, PACK_T, hq, d), dev, Q_GAIN),
+                    k=_randn(gen, (b, PACK_T, hk, d), dev),
+                    v=_randn(gen, (b, PACK_T, hk, d), dev), kv_mask=kv_mask,
+                    sm_scale=d**-0.5, causal=True, window=4096, softcap=50.0,
+                    q_segs=segs, kv_segs=segs)
+        out, lse = k1.flash_attention(**args)
+        ref, ref_lse = k1.flash_attention_plain(**args)
+        planted = _faults(k1.flash_attention_plain, args, ("causal", "cap"))
+        planted["segment ids ignored"] = k1.flash_attention_plain(
+            **{**args, "q_segs": None, "kv_segs": None})[0]
+        if b > 1:
+            planted["every row read with row 0's segment ids and kv_mask"] = \
+                k1.flash_attention_plain(**{**args, **_row0(args)})[0]
+        errs.append(_check(f"K1 {label}", out, ref, planted))
+        live = ref_lse < k1.EMPTY_ROW_LSE
+        lse_err = float((lse[live] - ref_lse[live]).abs().max())
+        print(f"  K1 {label} lse: max_abs_err={lse_err:.3e} (limit {LSE_ATOL})")
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"K1 {label}: lse disagrees")
+        del ref, ref_lse, planted
+        ms = _time_ms(lambda: k1.flash_attention(**args))
+        plain_ms = _time_ms(lambda: k1.flash_attention_plain(**args))
+        seen = k1.visible_mask(b, PACK_T, PACK_T, kv_mask, True, 4096, segs, segs, dev)
+        ops = 4 * hq * d * int(seen.sum())
+        bound = _bound(ops, _nbytes(args["q"], args["k"], args["v"], out, lse, kv_mask,
+                                    segs), "bf16")
+        call_ms = _call_ms(lambda: k1.flash_attention(**args))
+        print(f"  K1 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), plain "
+              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+              "library None (capped)")
+        cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                      **bound, "library_ms": None, **_rate(f"K1 {label}", ops, ms, bound)})
+    return errs, cases
+
+
+def _pack_layout(dev) -> tuple:
+    """train_pack's B = 2 rows (`_packed_batch` on the 9B's config):
+    -> (segment ids [2, PACK_T] int32 on dev, real tokens per row)."""
+    from vidi_tpu_torch import DattnConfig
+
+    batch = _packed_batch(DattnConfig.vidi15_9b())[0]
+    segs = torch.from_numpy(batch["segment_ids"]).to(dev, torch.int32)
+    return segs, [int(n) for n in batch["text_mask"].sum(1)]
+
+
+def _row0(args: dict) -> dict:
+    """The masks of a kernel that drops the batch stride of kv_mask and of
+    the segment ids: every row reads row 0's."""
+    def first(x):
+        return None if x is None else x[:1].expand_as(x)
+    return {"kv_mask": first(args["kv_mask"]), "q_segs": first(args["q_segs"]),
+            "kv_segs": first(args["kv_segs"])}
 
 
 def k1_cache_cases(dev, gen, t: int) -> tuple:
@@ -972,6 +1095,11 @@ def _k4_faults(k4, args: dict, names) -> dict:
         "gqa": ("GQA rows gathered with the other head's lse and di", gqa_wrong),
         "split": ("a dq split's partial dropped", split_dropped),
         "band": ("the band's tile skip off by one tile", band_off_by_one),
+        "row0": ("every row read with row 0's kv_mask and segment ids",
+                 lambda: plain(**{**args, **_row0(args)})),
+        "kv_row0": ("every row read with row 0's keys and values",
+                    lambda: plain(**{**args, "k": args["k"][:1].expand_as(args["k"]),
+                                     "v": args["v"][:1].expand_as(args["v"])})),
     }
     return {drop[n][0]: drop[n][1]() for n in names}
 
@@ -1002,13 +1130,21 @@ def _past_s_unmasked(k4, args: dict):
 
 def _sdpa_bwd_ms(args: dict):
     """Time of torch's scaled_dot_product_attention backward (autograd
-    through one call with the kv_mask and enable_gqa) on the case's inputs:
-    the one library call that computes K4's function when there is no cap
-    and every row sees a key. The port never calls it."""
+    through one call with enable_gqa and the keys each row sees as its
+    mask: the kv_mask, or the visible pairs of a causal or packed case) on
+    the case's inputs: the one library call that computes K4's function
+    when there is no cap and every row sees a key. The port never calls it."""
+    from vidi_tpu_torch.ops.cuda.flash_attention import visible_mask
+
     q, k, v = (args[n].detach().transpose(1, 2).requires_grad_(True) for n in ("q", "k", "v"))
+    if args["causal"] or args["q_segs"] is not None:
+        mask = visible_mask(q.shape[0], q.shape[2], k.shape[2], args["kv_mask"],
+                            args["causal"], args["window"], args["q_segs"],
+                            args["kv_segs"], q.device)[:, None]
+    else:
+        mask = args["kv_mask"][:, None, None, :]
     out = torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=args["kv_mask"][:, None, None, :], scale=args["sm_scale"],
-        enable_gqa=True)
+        q, k, v, attn_mask=mask, scale=args["sm_scale"], enable_gqa=True)
     do = args["do"].transpose(1, 2)
     return _time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True))
 
@@ -1028,8 +1164,11 @@ def k4_phase(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     t, n_valid = TRAIN_T, TRAIN_T - 20
-    packed = torch.zeros((1, t), dtype=torch.int32, device=dev)
-    packed[0, :90], packed[0, 90:170], packed[0, 170:n_valid] = 1, 2, 3
+    packed = _segments(dev, t, (90, 80, n_valid - 170))
+    packed4k = _segments(dev, PACK_T, PACK_SEGS)
+    pack_segs, pack_valid = _pack_layout(dev)
+    img_valid = [SIGLIP_T * (1 + gw * gh) for gw, gh in IMAGE_GRIDS]
+    img_s = max(img_valid)
     errs, cases = [], []
     bf16, f32 = torch.bfloat16, torch.float32
     for label, hq, hk, d, s, causal, window, cap, n_keys, segs, faults, dtype in (
@@ -1048,17 +1187,41 @@ def k4_phase(dev) -> dict:
             (f"1.5b t2v T={t} S={IMG_S} mask cap=50", 12, 6, 128, IMG_S, False,
              None, 50.0, IMG_VALID, None, ("mask", "di", "cap", "gqa", "split"), bf16),
             (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
-             None, 50.0, AUD_VALID, None, ("mask", "di", "cap"), f32)):
-        q = _randn(gen, (1, t, hq, d), dev, Q_GAIN, dtype)
-        k = _randn(gen, (1, s, hk, d), dev, dtype=dtype)
-        v = _randn(gen, (1, s, hk, d), dev, dtype=dtype)
-        kv_mask = _kv_mask(s, n_keys, dev)
+             None, 50.0, AUD_VALID, None, ("mask", "di", "cap"), f32),
+            # Vidi-7B training (train_7b): 32 query / 8 KV heads of 128 (G = 4),
+            # no softcap; 120 frames at 224 px -> 7,680 image keys
+            (f"7b t2t T=S={t} causal window=4096", 32, 8, 128, t, True, 4096, None,
+             n_valid, None, ("causal", "di", "gqa", "band"), bf16),
+            (f"7b t2v T={t} S={IMG7_S} mask", 32, 8, 128, IMG7_S, False, None, None,
+             IMG7_VALID, None, ("mask", "di", "gqa", "split"), bf16),
+            (f"7b t2a T={t} S={AUD_S} mask", 32, 8, 128, AUD_S, False, None, None,
+             AUD_VALID, None, ("mask", "di", "gqa", "split"), bf16),
+            # --pack rows (train_pack): three segments in 4,096 tokens, and the
+            # phase's own two rows with their per-row segment ids
+            (f"9b packed t2t T=S={PACK_T} {len(PACK_SEGS)} segments cap=50", 16, 8, 256,
+             PACK_T, True, 4096, 50.0, sum(PACK_SEGS), packed4k,
+             ("segs", "di", "cap", "band"), bf16),
+            (f"9b packed t2t B=2 T=S={PACK_T} train_pack's rows cap=50", 16, 8, 256,
+             PACK_T, True, 4096, 50.0, pack_valid, pack_segs,
+             ("segs", "di", "cap", "band", "row0", "kv_row0", "split"), bf16),
+            # image mode (train_image): B = 2 anyres rows against their tiles'
+            # tokens, per-row masks (the (1, 3) sample's pad tile masked)
+            (f"9b image t2v B=2 T={t} S={img_s} per-row mask cap=50", 16, 8, 256, img_s,
+             False, None, 50.0, img_valid, None,
+             ("mask", "di", "cap", "gqa", "split", "row0", "kv_row0"), bf16)):
+        per_row = n_keys if isinstance(n_keys, list) else [n_keys]
+        b = len(per_row)
+        tq = s if causal else t  # a T2T case's rows are its keys
+        q = _randn(gen, (b, tq, hq, d), dev, Q_GAIN, dtype)
+        k = _randn(gen, (b, s, hk, d), dev, dtype=dtype)
+        v = _randn(gen, (b, s, hk, d), dev, dtype=dtype)
+        kv_mask = torch.cat([_kv_mask(s, n, dev) for n in per_row])
         fwd = dict(sm_scale=d**-0.5, causal=causal, window=window, softcap=cap,
                    q_segs=segs, kv_segs=segs)
         out, lse = k1.flash_attention(q, k, v, kv_mask, **fwd)
-        rows = n_valid if causal else t  # T2T rows past the prompt are padding
-        do = _randn(gen, (1, t, hq, d), dev, dtype=dtype)
-        do[:, rows:] = 0
+        do = _randn(gen, (b, tq, hq, d), dev, dtype=dtype)
+        for i, n in enumerate(per_row):
+            do[i, n if causal else tq:] = 0  # T2T rows past the prompt are padding
         args = dict(q=q, k=k, v=v, kv_mask=kv_mask, out=out, lse=lse, do=do, **fwd)
         route = k4.route(dtype)
         before = dict(k4.route_launches)
@@ -1088,7 +1251,7 @@ def k4_phase(dev) -> dict:
         plain_ms = _time_ms(lambda: k4.flash_attention_bwd_plain(**args))
         # five D-long products per visible (row, key) pair: the recomputed
         # scores, dP, dq, dk and dv
-        pairs = int(k1.visible_mask(1, t, s, kv_mask, causal, window, segs, segs,
+        pairs = int(k1.visible_mask(b, tq, s, kv_mask, causal, window, segs, segs,
                                     dev).sum())
         ops = 10 * hq * d * pairs
         bound = _bound(ops, _nbytes(q, k, v, kv_mask, out, lse, do, *got),
@@ -2088,35 +2251,99 @@ def _k3_g2(real):
     return run
 
 
+K3_RANGE = "chip_smoke: K3 call"
+
+
+def _profiled_k3_calls(run) -> tuple:
+    """Runs `run()` under the profiler with each K3 call inside a range of
+    its own, and reads for each range the kernel launch calls the host
+    recorded in it (on its thread, within its time, made by no torch op)
+    and the kernels the device recorded for them (by the launch call's
+    correlation id).
+    -> (run's result, K3 calls by decode_attention.launches,
+        [(launch call names, kernel names)] one entry a range)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+
+    real = k3.decode_attention
+
+    def ranged(*a, **kw):
+        with record_function(K3_RANGE):
+            return real(*a, **kw)
+
+    before = k3.launches
+    k3.decode_attention = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+    finally:
+        k3.decode_attention = real
+    calls = k3.launches - before
+    events = prof.profiler.kineto_results.events()
+    kernels = {}
+    for e in events:
+        if e.device_type().name == "CUDA":
+            kernels.setdefault(e.correlation_id(), []).append(e.name())
+    # direct launch calls: a torch op's launches are linked to the op
+    launches = [(e.start_ns(), e.end_ns(), e.start_thread_id(), e.correlation_id(), e.name())
+                for e in events if e.device_type().name == "CPU"
+                and "LaunchKernel" in e.name() and not e.linked_correlation_id()]
+    per_call = []
+    for r in (e for e in events if e.name() == K3_RANGE and e.device_type().name == "CPU"):
+        inside = [x for x in launches if r.start_ns() <= x[0] and x[1] <= r.end_ns()
+                  and x[2] == r.start_thread_id()]
+        per_call.append(([x[4] for x in inside],
+                         [n for x in inside for n in kernels.get(x[3], [])]))
+    return out, calls, per_call
+
+
+def _k3_launch_reading(calls: int, per_call) -> dict:
+    """What a profiled K3 run shows: calls whose one launch call gave one
+    sm90 kernel, calls with no launch call, calls whose launch call has no
+    kernel record (the trace lost it), and any other kernel names."""
+    sm90 = sum(len(lc) == 1 and len(kn) == 1 and "decode_attention_sm90" in kn[0]
+               for lc, kn in per_call)
+    return {"calls": calls, "ranges": len(per_call), "one sm90 kernel": sm90,
+            "no launch call": sum(not lc for lc, _ in per_call),
+            "kernel record lost": sum(bool(lc) and not kn for lc, kn in per_call),
+            "other kernels": sorted({n[:60] for _, kn in per_call for n in kn
+                                     if "decode_attention_sm90" not in n})}
+
+
 def decode_route_check(sl, fault=("K3 without kv_mask", _k3_without_mask)) -> None:
     """The K3 route's step-0 logits against the default route's on one
     prefill; a planted fault (`fault`: its label and a wrapper of the real
     K3; by default K3 without its kv_mask) must fail the limits."""
-    from torch.profiler import ProfilerActivity, profile
-
     from vidi_tpu_torch.ops.cuda import decode_attention as k3
 
     _, caches, lens, emb = _prefill(sl, QUERIES[0])
     plain = _decode_step(sl, emb, lens, caches, False)
-    for _ in range(3):  # a session that records no kernel at all is taken again
-        before = k3.launches
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step = _decode_step(sl, emb, lens, caches, True)
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        if events:
+    # Each K3 call of one decode step must be one launch call and one
+    # decode_attention_sm90 kernel. The session is taken again only when
+    # the trace lost a kernel record whose launch call it holds; a call
+    # with no launch call fails.
+    for attempt in range(3):
+        step, calls, per_call = _profiled_k3_calls(
+            lambda: _decode_step(sl, emb, lens, caches, True))
+        seen = _k3_launch_reading(calls, per_call)
+        print(f"  K3 route, one decode step (try {attempt + 1}): {seen}")
+        if not seen["kernel record lost"]:
             break
-    calls = k3.launches - before
-    kernels = sum(e.count for e in events if "decode_attention_sm90" in e.key)
-    others = sorted({e.key[:60] for e in events
-                     if "decode_partial" in e.key or "decode_combine" in e.key})
-    print(f"  K3 route, one decode step: {calls} K3 calls (decode_attention.launches), "
-          f"{kernels} decode_attention_sm90 kernels (profiler); SIMT K3 kernels: "
-          f"{others or 'none'}")
-    if calls == 0 or kernels != calls or others:
+    if not calls or seen["ranges"] != calls or seen["one sm90 kernel"] != calls:
         raise AssertionError("a K3 call on the bf16 decode route must be one sm90 kernel")
-    readings = {"K3 route": _logit_gap(step, plain)}
     real = k3.decode_attention
+    k3.decode_attention = lambda q, *a, **kw: torch.empty_like(q)
+    try:
+        _, _, per_call = _profiled_k3_calls(lambda: _decode_step(sl, emb, lens, caches, True))
+    finally:
+        k3.decode_attention = real
+    unlaunched = _k3_launch_reading(0, per_call)
+    print(f"  planted fault, K3 returning without a launch: {unlaunched}")
+    if unlaunched["no launch call"] != seen["ranges"]:
+        raise AssertionError("the launch reading does not see K3 calls that launch nothing")
+    readings = {"K3 route": _logit_gap(step, plain)}
     planted = f"planted fault, {fault[0]}"
     k3.decode_attention = fault[1](real)
     try:
@@ -2559,6 +2786,22 @@ def sampling_check(sl, greedy) -> dict:
     if not (same and greedy_equal):
         raise AssertionError("sampling is not reproducible, or top-k 1 is not greedy")
     return path
+
+
+SHALLOW_LAYERS = 14  # text depth of the decoding-variants phase
+
+
+def _shallow(sl, n_layers: int):
+    """The slice cut to its first `n_layers` text layers: the same towers,
+    adapters, media and tensors (nothing copied), a configuration of that
+    depth."""
+    import dataclasses
+
+    text = {**sl.params["text"], "layers": sl.params["text"]["layers"][:n_layers]}
+    cfg = dataclasses.replace(sl.cfg, text=dataclasses.replace(sl.cfg.text,
+                                                              num_layers=n_layers))
+    return types.SimpleNamespace(**{**vars(sl), "params": {**sl.params, "text": text},
+                                    "cfg": cfg})
 
 
 def serve_decoding_phase(sl) -> dict:
@@ -4540,6 +4783,7 @@ def _train_batch(cfg, step: int, b: int, t: int, n_frames: int, n_windows: int,
     """synthetic_batch(seed=step) -> (numpy batch, hw, tokens counted as the
     training CLI counts them); `ragged` gives row 1 fewer frames, audio
     and text."""
+    from vidi_tpu_torch.models.dattn import frame_side
     from vidi_tpu_torch.train.data import synthetic_batch
     from vidi_tpu_torch.train.train_step import make_batch_hw
 
@@ -4551,8 +4795,8 @@ def _train_batch(cfg, step: int, b: int, t: int, n_frames: int, n_windows: int,
         batch["text_mask"][1, t - 5:] = False
         batch["labels"][1, t - 5:] = -100
     hw = make_batch_hw(cfg, max(int(batch["frame_counts"].sum()), 1))
-    n_tokens = int(batch["text_mask"].sum()) + int(
-        batch["frame_counts"].sum()) * (hw[0] // cfg.mm_image_pool_size) ** 2
+    h2, w2 = frame_side(cfg, hw)
+    n_tokens = int(batch["text_mask"].sum()) + int(batch["frame_counts"].sum()) * h2 * w2
     return batch, hw, n_tokens
 
 
@@ -4566,34 +4810,62 @@ def _noise(cfg, batch, hw, step: int) -> dict:
                           torch.Generator().manual_seed(SEED + step))
 
 
-def training_reference_check(dev) -> None:
-    """Two train_steps of a small fp32 model on the card (K1, K2, K4) and on
-    the CPU (their plain versions), same weights, batches and noise: losses
-    within REF_LOSS_REL, parameters after the second step within
-    REF_PARAM_ATOL."""
-    import dataclasses
+def _image_train_batch(cfg, step: int, b: int, t: int, grids, gen_seed: int):
+    """An anyres image-conversation batch (collate_images' layout):
+    synthetic_image_batch(seed=step) with random tiles for each sample's
+    grid (gw, gh) (1 + gw * gh tiles, padded to the largest count with
+    zeros) and per-sample `grids`; -> (numpy batch, tokens counted as the
+    training CLI counts them: text + s^2 a sample with an image)."""
+    from vidi_tpu_torch.train.data import synthetic_image_batch
 
+    batch = synthetic_image_batch(cfg, b=b, t=t, seed=step)
+    side = cfg.vision.image_size
+    n = [1 + gw * gh for gw, gh in grids]
+    rng = np.random.default_rng(gen_seed + step)
+    images = np.zeros((b, max(n), side, side, 3), np.float32)
+    for i, k in enumerate(n):
+        images[i, :k] = rng.standard_normal((k, side, side, 3))
+    batch["images"], batch["grids"] = images, np.asarray(grids, np.int32)
+    n_tokens = int(batch["text_mask"].sum()) + b * cfg.vision.num_patches_per_side ** 2
+    return batch, n_tokens
+
+
+def _image_noise(cfg, batch, step: int) -> dict:
+    """encode_images' position-noise draws (per-sample grids) from a CPU
+    generator seeded with the step."""
+    from vidi_tpu_torch.models.dattn import draw_image_noise
+
+    b, p = batch["images"].shape[:2]
+    return draw_image_noise(cfg, b, p, torch.Generator().manual_seed(SEED + step),
+                            per_sample=True)
+
+
+def _train_reference(dev, label: str, cfg, batches, steps: int = 2, remat_card=True,
+                     remat_cpu=True, grad_accum: int = 1) -> None:
+    """`steps` train_steps of a small fp32 model on the card (K1, K2, K4)
+    and on the CPU (their plain versions), same weights, batches and noise
+    (`batches(step)` -> (numpy batch, hw, noise)): losses within
+    REF_LOSS_REL, parameters after the last step within REF_PARAM_ATOL and
+    moved by more than 10x that."""
     from vidi_tpu_torch.models import dattn
     from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
     from vidi_tpu_torch.train import data, optimizer, train_step
 
-    cfg = dataclasses.replace(_small_config(), loss_thres=0.1)
     cpu = torch.device("cpu")
     params = dattn.init_params(cfg, torch.float32, cpu, SEED)
     hp = optimizer.TrainHParams(total_steps=4, learning_rate=1e-3, mm_rand_lr=2e-3)
     runs, k4_before = {}, k4.launches
-    for name, d in (("cpu", cpu), ("cuda", dev)):
+    for name, d, remat in (("cpu", cpu, remat_cpu), ("cuda", dev, remat_card)):
         p = _tree_map(lambda x: x.to(d, copy=True), params)
-        tx = optimizer.make_optimizer(p, hp)
+        tx = optimizer.make_optimizer(p, hp, grad_accum=grad_accum)
         state = train_step.opt_init(tx, p)
         losses = []
-        for step in range(2):
-            batch, hw, _ = _train_batch(cfg, step, b=2, t=20, n_frames=3, n_windows=1,
-                                        ragged=True)
-            noise = {k: v.to(d) for k, v in _noise(cfg, batch, hw, step).items()}
+        for step in range(steps):
+            batch, hw, noise = batches(step)
             p, state, loss = train_step.train_step(
-                p, state, data.to_device(batch, d), noise, cfg=cfg, tx=tx, hw=hw,
-                mm_chunks=2, remat=True, use_flash=True, frozen=TRAIN_FROZEN)
+                p, state, data.to_device(batch, d), {k: v.to(d) for k, v in noise.items()},
+                cfg=cfg, tx=tx, hw=hw, mm_chunks=2, remat=remat, use_flash=True,
+                frozen=TRAIN_FROZEN)
             losses.append(float(loss))
         runs[name] = (losses, p)
     (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs["cuda"]
@@ -4603,26 +4875,62 @@ def training_reference_check(dev) -> None:
     moved = max(float((a - b).abs().max()) for a, b in zip(_leaves(p_cpu),
                                                             _leaves(params)))
     ok = loss_rel <= REF_LOSS_REL and err <= REF_PARAM_ATOL
-    print(f"  small fp32 model, 2 train_steps, card (K1/K2/K4) vs cpu (plain): "
+    print(f"  {label}, {steps} train_steps, card (K1/K2/K4) vs cpu (plain): "
           f"losses {l_gpu} vs {l_cpu} (rel {loss_rel:.2e}, limit {REF_LOSS_REL}); "
           f"params max_abs_err {err:.3e} (limit {REF_PARAM_ATOL}; largest move "
           f"{moved:.3e}) {'ok' if ok else 'FAIL'}")
     if not (ok and moved > 10 * REF_PARAM_ATOL):
-        raise AssertionError("training reference check failed")
+        raise AssertionError(f"training reference check failed: {label}")
     if k4.launches == k4_before:
-        raise AssertionError("the card's training step never launched K4")
+        raise AssertionError(f"the card's training step never launched K4: {label}")
 
 
-def load_training_slice(dev):
-    """Vidi1.5-9B at full width with TRAIN_LAYERS text layers, bf16 random
-    weights on the card, and its optimizer state."""
+def training_reference_check(dev) -> None:
+    """Small fp32 models trained on the card and on the CPU
+    (`_train_reference`): the 9B's shapes; image mode with anyres batches
+    of mixed grids; remat "dots" on the card against full remat on the
+    CPU; gradient accumulation over k = 2 (four micro-steps: the first
+    optimizer step's learning rate is 0); the 7B's shapes (G = 4) with
+    position noise at a pool size whose v1 side differs from hw // pool."""
+    import dataclasses
+
+    cfg = dataclasses.replace(_small_config(), loss_thres=0.1)
+
+    def video(c):
+        def batches(step):
+            batch, hw, _ = _train_batch(c, step, b=2, t=20, n_frames=3, n_windows=1,
+                                        ragged=True)
+            return batch, hw, _noise(c, batch, hw, step)
+        return batches
+
+    _train_reference(dev, "small fp32 model", cfg, video(cfg))
+    img = dataclasses.replace(cfg, mm_input_type="image", mm_image_aspect_ratio="anyres")
+
+    def images(step):
+        batch, _ = _image_train_batch(img, step, 2, 20, ((2, 2), (1, 3)), SEED)
+        return batch, (0, 0), _image_noise(img, batch, step)
+
+    _train_reference(dev, "small fp32 image-mode model, anyres grids (2, 2) and (1, 3)", img,
+                     images)
+    _train_reference(dev, 'small fp32 model, remat "dots" on the card, full on the cpu', cfg,
+                     video(cfg), remat_card="dots")
+    _train_reference(dev, "small fp32 model, gradient accumulation k = 2", cfg, video(cfg),
+                     steps=4, grad_accum=2)
+    c7 = dataclasses.replace(_small_config_7b(), mm_image_pool_size=3, loss_thres=0.1)
+    _train_reference(dev, "small fp32 7B-shaped model (G = 4), position noise, pool 3", c7,
+                     video(c7))
+
+
+def load_training_slice(dev, base=None):
+    """`base` (default Vidi1.5-9B) at full width with TRAIN_LAYERS text
+    layers, bf16 random weights on the card, and its optimizer state."""
     import dataclasses
 
     from vidi_tpu_torch import DattnConfig
     from vidi_tpu_torch.models import dattn
     from vidi_tpu_torch.train import optimizer, train_step
 
-    base = DattnConfig.vidi15_9b()
+    base = base or DattnConfig.vidi15_9b()
     cfg = dataclasses.replace(base, text=dataclasses.replace(base.text,
                                                             num_layers=TRAIN_LAYERS))
     t0 = time.perf_counter()
@@ -4633,14 +4941,15 @@ def load_training_slice(dev):
     torch.cuda.synchronize()
     n_all = sum(x.numel() for x in _leaves(params))
     n_train = sum(x.numel() for x in state["mu"].values())
-    print(f"  Vidi1.5-9B, {TRAIN_LAYERS} text layers: {n_all / 1e9:.3f} B params, "
+    name = "Vidi-7B" if cfg.mm_version == "v1" else "Vidi1.5-9B"
+    print(f"  {name}, {TRAIN_LAYERS} text layers: {n_all / 1e9:.3f} B params, "
           f"{n_train / 1e9:.3f} B trainable; params + fp32 moments "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB in "
           f"{time.perf_counter() - t0:.2f} s")
     return types.SimpleNamespace(dev=dev, cfg=cfg, params=params, tx=tx, state=state)
 
 
-def _train_step(tr, step: int):
+def _train_step(tr, step: int, tx=None, state=None, remat=True):
     from vidi_tpu_torch.train import data, train_step
 
     batch, hw, n_tokens = _train_batch(tr.cfg, step, b=1, t=TRAIN_T,
@@ -4650,26 +4959,69 @@ def _train_step(tr, step: int):
 
     def run():
         _, _, loss = train_step.train_step(
-            tr.params, tr.state, batch, noise, cfg=tr.cfg, tx=tr.tx, hw=hw,
-            mm_chunks=4, remat=True, use_flash=True, frozen=TRAIN_FROZEN)
+            tr.params, tr.state if state is None else state, batch, noise, cfg=tr.cfg,
+            tx=tr.tx if tx is None else tx, hw=hw, mm_chunks=4, remat=remat,
+            use_flash=True, frozen=TRAIN_FROZEN)
         return loss
     return run, n_tokens
 
 
-def training_phase(tr) -> dict:
-    """TRAIN_STEPS train_steps of the slice, with the K1 / K2 / K4 launch
-    counts read around them."""
+def _train_counts() -> dict:
     from vidi_tpu_torch.ops.cuda import flash_attention as k1
     from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
     from vidi_tpu_torch.ops.cuda import tower_attention as k2
+    return {"flash_attention": k1.launches, "tower_attention": k2.launches,
+            "flash_attention_bwd": k4.launches}
 
-    text_w = tr.params["text"]["layers"][0]["q_w"]
-    watch = {"text layer 0 q_w": text_w, "mm img_projector w0":
-             tr.params["mm"]["img_projector"]["w0"],
-             "vision patch_w": tr.params["vision"]["patch_w"],
-             "audio conv1_w": tr.params["audio"]["conv1_w"]}
-    before = {k: v.clone() for k, v in watch.items()}
+
+def _reset_train_counts() -> None:
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
+    from vidi_tpu_torch.ops.cuda import tower_attention as k2
     k1.launches = k2.launches = k4.launches = 0
+
+
+def _reckon_train(cfg, steps: int, streams: int, tower_launches: int) -> dict:
+    """K1 / K4 / K2 launches of `steps` loss + backward passes with remat
+    (True or "dots"): each layer's T2T and its `streams` cross attentions
+    launch K1 in the forward and again when the backward recomputes the
+    layer, and K4 once each; the frozen towers launch K2 in the forward
+    only (`tower_launches` a step)."""
+    per_layer = cfg.text.num_layers * (1 + streams)
+    return {"flash_attention": 2 * per_layer * steps, "flash_attention_bwd": per_layer * steps,
+            "tower_attention": tower_launches * steps}
+
+
+def _held_train(label: str, got: dict, want: dict) -> None:
+    print(f"  {label}: kernel launches {got} (reckoned {want})")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, reckoned {want}")
+
+
+WATCH = {"text layer 0 q_w": ("text", "layers", 0, "q_w"),
+         "vision patch_w": ("vision", "patch_w"), "audio conv1_w": ("audio", "conv1_w")}
+
+
+def _watch(params, extra: dict) -> dict:
+    """name -> a copy of each watched tensor (WATCH plus `extra`)."""
+    out = {}
+    for name, path in {**WATCH, **extra}.items():
+        node = params
+        for key in path:
+            node = node[key]
+        out[name] = (node, node.clone())
+    return out
+
+
+def _changed(watched: dict) -> dict:
+    return {k: not torch.equal(x, was) for k, (x, was) in watched.items()}
+
+
+def training_phase(tr, label: str = "training") -> dict:
+    """TRAIN_STEPS train_steps of the slice, with the K1 / K2 / K4 launch
+    counts read around them and held to the reckoned ones."""
+    watched = _watch(tr.params, {"mm img_projector w0": ("mm", "img_projector", "w0")})
+    _reset_train_counts()
     torch.cuda.reset_peak_memory_stats()
     losses = []
     for step in range(TRAIN_STEPS):
@@ -4679,23 +5031,20 @@ def training_phase(tr) -> dict:
         loss = float(run())
         dt = time.perf_counter() - t0
         losses.append(loss)
-        changed = {k: not torch.equal(v, before[k]) for k, v in watch.items()}
+        changed = _changed(watched)
         print(f"  step {step}: loss {loss:.4f}, {dt:.3f} s, {n_tokens / dt:.1f} tok/s "
               f"({n_tokens} tokens), max_memory_allocated "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; changed: "
               + ", ".join(k for k, c in changed.items() if c))
         if step == 1 and not (changed["text layer 0 q_w"] and changed["mm img_projector w0"]):
             raise AssertionError("a trainable tensor did not change after step 1")
-    launches = {"flash_attention": k1.launches, "tower_attention": k2.launches,
-                "flash_attention_bwd": k4.launches}
-    print(f"  kernel launches in {TRAIN_STEPS} training steps: {launches}")
+    launches = _train_counts()
+    _held_train(f"{label}, {TRAIN_STEPS} steps", launches, _reckon_train(
+        tr.cfg, TRAIN_STEPS, 2, _tower_launches(tr.cfg, TRAIN_FRAMES, TRAIN_WINDOWS, 4)))
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
     if changed["vision patch_w"] or changed["audio conv1_w"]:
         raise AssertionError("a frozen tower tensor changed")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the training path was never launched: "
-                             f"{launches}")
     return launches
 
 
@@ -4718,30 +5067,36 @@ ROUTE_LEAVES = (("mm", "img_projector", "w0"), ("mm", "img_projector", "w1"),
                 ("text", "embed"))
 
 
-def _route_grads(tr, use_flash: bool):
-    """(loss, [grad of each ROUTE_LEAVES leaf]); only those leaves take
-    gradients, so no full gradient tree is held."""
-    from vidi_tpu_torch.train import data, train_step
-
-    batch, hw, _ = _train_batch(tr.cfg, 0, b=1, t=TRAIN_T, n_frames=TRAIN_FRAMES,
-                                n_windows=TRAIN_WINDOWS)
-    noise = {k: v.to(tr.dev) for k, v in _noise(tr.cfg, batch, hw, 0).items()}
+def _leaf_grads(params, leaves_at, loss_of):
+    """(loss, [grad of each leaf at `leaves_at`]) of loss_of(); only those
+    leaves take gradients, so no full gradient tree is held."""
     leaves = []
-    for path in ROUTE_LEAVES:
-        node = tr.params
+    for path in leaves_at:
+        node = params
         for key in path:
             node = node[key]
         leaves.append(node.requires_grad_(True))
     try:
         with torch.enable_grad():
-            loss = train_step.loss_fn(tr.params, tr.cfg, data.to_device(batch, tr.dev),
-                                      noise, hw=hw, mm_chunks=4, remat=True,
-                                      use_flash=use_flash, frozen=TRAIN_FROZEN)
+            loss = loss_of()
             grads = torch.autograd.grad(loss, leaves)
     finally:
         for x in leaves:
             x.requires_grad_(False)
     return float(loss.detach()), grads
+
+
+def _route_grads(tr, use_flash: bool, remat=True):
+    """(loss, [grad of each ROUTE_LEAVES leaf]) of the slice's first batch."""
+    from vidi_tpu_torch.train import data, train_step
+
+    batch, hw, _ = _train_batch(tr.cfg, 0, b=1, t=TRAIN_T, n_frames=TRAIN_FRAMES,
+                                n_windows=TRAIN_WINDOWS)
+    noise = {k: v.to(tr.dev) for k, v in _noise(tr.cfg, batch, hw, 0).items()}
+    batch = data.to_device(batch, tr.dev)
+    return _leaf_grads(tr.params, ROUTE_LEAVES, lambda: train_step.loss_fn(
+        tr.params, tr.cfg, batch, noise, hw=hw, mm_chunks=4, remat=remat,
+        use_flash=use_flash, frozen=TRAIN_FROZEN))
 
 
 def gradient_route_check(tr) -> None:
@@ -4776,6 +5131,430 @@ def gradient_route_check(tr) -> None:
         raise AssertionError("the kernel and plain routes disagree on the gradients")
     if passes["planted fault, K4 with di dropped"]:
         raise AssertionError("the gradient limits do not reject the planted fault")
+
+
+def _fresh_optimizer(tr, params, grad_accum: int = 1):
+    """A new AdamW (TRAIN_STEPS schedule; wrapped for gradient
+    accumulation when grad_accum > 1) and its fp32 state over `params`."""
+    from vidi_tpu_torch.train import optimizer, train_step
+
+    tx = optimizer.make_optimizer(params, optimizer.TrainHParams(total_steps=TRAIN_STEPS),
+                                  grad_accum=grad_accum)
+    return tx, train_step.opt_init(tx, params)
+
+
+def _timed(fn):
+    """(fn(), wall s, peak device GiB since the call began)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+
+def remat_phase(tr) -> dict:
+    """remat="dots" against remat=True on the 9B slice: the loss and the
+    ROUTE_LEAVES gradients of the first batch, bit-equal or within one
+    bf16 rounding of each leaf's largest magnitude; then one train_step
+    each from a fresh optimizer (step 0's learning rate is 0, so both see
+    the same weights), timed with its peak memory. The policy's saved ops
+    in one layer are printed. -> launches of the "dots" runs."""
+    from vidi_tpu_torch.models import dattn
+
+    saved, real = {}, dattn.dots_policy
+
+    def recording(ctx, op, *args, **kwargs):
+        decision = real(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute:
+            key = (str(op), decision.name)
+            saved[key] = saved.get(key, 0) + 1
+        return decision
+
+    loss_t, grads_t = _route_grads(tr, True, remat=True)
+    _reset_train_counts()
+    dattn.dots_policy = recording
+    try:
+        loss_d, grads_d = _route_grads(tr, True, remat="dots")
+    finally:
+        dattn.dots_policy = real
+    launches = _train_counts()
+    n_layers = tr.cfg.text.num_layers
+    print('  remat="dots" policy, one layer\'s forward: kept '
+          + ", ".join(f"{op} x{n // n_layers}" for (op, d), n in sorted(saved.items())
+                      if d == "MUST_SAVE")
+          + f"; recomputed {sum(n for (_, d), n in saved.items() if d != 'MUST_SAVE') // n_layers}"
+          " other ops")
+    ok = abs(loss_d - loss_t) <= _bf16_ulp(abs(loss_t))
+    print(f'  loss: remat "dots" {loss_d!r} vs full {loss_t!r} '
+          f"({'bit-equal' if loss_d == loss_t else 'differ'})")
+    for path, g, w in zip(ROUTE_LEAVES, grads_d, grads_t):
+        err = float((g.float() - w.float()).abs().max())
+        top = float(w.float().abs().max())
+        leaf_ok = err <= _bf16_ulp(top)
+        ok = ok and leaf_ok
+        print(f"    {'.'.join(map(str, path))}: max_abs_err {err:.3e} "
+              f"(one bf16 rounding of max|grad| {top:.3e}: {_bf16_ulp(top):.3e}) "
+              f"{'ok' if leaf_ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError('remat="dots" and full remat disagree')
+    _held_train('remat="dots" loss + gradients', launches, _reckon_train(
+        tr.cfg, 1, 2, _tower_launches(tr.cfg, TRAIN_FRAMES, TRAIN_WINDOWS, 4)))
+    tx, state = _fresh_optimizer(tr, tr.params)
+    for mode in (True, "dots", True, "dots"):
+        run, n_tokens = _train_step(tr, 0, tx, state, remat=mode)
+        loss, dt, peak = _timed(run)
+        print(f"  train_step remat={mode!r}: loss {float(loss):.4f}, {dt:.3f} s, "
+              f"{n_tokens / dt:.1f} tok/s, peak {peak:.2f} GiB")
+    del tx, state
+    return launches
+
+
+def grad_accum_phase(tr) -> dict:
+    """Gradient accumulation k = 2 (`optimizer.MultiSteps`) on the 9B slice
+    from a fresh optimizer: four micro-steps; the parameters are
+    bit-unchanged after micro-steps 1 and 3, and after 2 (the first
+    optimizer step, whose learning rate is 0), and the trainable ones
+    changed after micro-step 4 while the frozen towers did not."""
+    tx, state = _fresh_optimizer(tr, tr.params, grad_accum=2)
+    watched = _watch(tr.params, {"mm img_projector w0": ("mm", "img_projector", "w0")})
+    _reset_train_counts()
+    for micro in range(1, 5):
+        run, n_tokens = _train_step(tr, micro, tx, state)
+        loss, dt, peak = _timed(run)
+        changed = _changed(watched)
+        print(f"  micro-step {micro}: loss {float(loss):.4f}, {dt:.3f} s, peak {peak:.2f} "
+              f"GiB, mini_step {state['mini_step']}, optimizer steps "
+              f"{state['gradient_step']}; changed: "
+              + (", ".join(k for k, c in changed.items() if c) or "none"))
+        want_change = micro == 4
+        if any(changed.values()) != want_change or (
+                want_change and not (changed["text layer 0 q_w"]
+                                     and changed["mm img_projector w0"])):
+            raise AssertionError(f"gradient accumulation: micro-step {micro} changed "
+                                 f"{changed}")
+    if changed["vision patch_w"] or changed["audio conv1_w"]:
+        raise AssertionError("a frozen tower tensor changed")
+    launches = _train_counts()
+    _held_train("gradient accumulation, 4 micro-steps", launches, _reckon_train(
+        tr.cfg, 4, 2, _tower_launches(tr.cfg, TRAIN_FRAMES, TRAIN_WINDOWS, 4)))
+    return launches
+
+
+IMAGE_GRIDS = ((2, 2), (1, 3))  # (gw, gh): 1 + 4 and 1 + 3 SigLIP tiles
+IMAGE_STEPS = 3
+
+
+def _image_model(tr):
+    """The training slice as an image-conversation model (mm_input_type
+    "image", anyres): its text and tower weights, fresh image adapters."""
+    import dataclasses
+
+    from vidi_tpu_torch.models import dattn
+
+    cfg = dataclasses.replace(tr.cfg, mm_input_type="image", mm_image_aspect_ratio="anyres")
+    gen = torch.Generator(device=tr.dev).manual_seed(SEED + 7)
+    params = {**tr.params, "mm": dattn.init_mm_params(cfg, torch.bfloat16, tr.dev, gen)}
+    return cfg, params
+
+
+def _image_step(tr, cfg, params, tx, state, step: int):
+    from vidi_tpu_torch.train import data, train_step
+
+    batch, n_tokens = _image_train_batch(cfg, step, 2, TRAIN_T, IMAGE_GRIDS, SEED + 100)
+    noise = {k: v.to(tr.dev) for k, v in _image_noise(cfg, batch, step).items()}
+    batch = data.to_device(batch, tr.dev)
+
+    def run():
+        return train_step.train_step(params, state, batch, noise, cfg=cfg, tx=tx, hw=(0, 0),
+                                     mm_chunks=4, remat=True, use_flash=True,
+                                     frozen=TRAIN_FROZEN)[2]
+    return run, n_tokens
+
+
+def train_image_phase(tr) -> dict:
+    """Image-conversation training on the slice (`_image_model`): B = 2
+    anyres samples with grids (2, 2) and (1, 3) (5 and 4 SigLIP tiles,
+    3,645 and 2,916 image tokens), T = TRAIN_T, IMAGE_STEPS steps; launches
+    held to the reckoned ones, trainable tensors changed and the towers
+    not."""
+    cfg, params = _image_model(tr)
+    tx, state = _fresh_optimizer(tr, params)
+    watched = _watch(params, {"mm projector w0": ("mm", "projector", "w0")})
+    _reset_train_counts()
+    for step in range(IMAGE_STEPS):
+        run, n_tokens = _image_step(tr, cfg, params, tx, state, step)
+        loss, dt, peak = _timed(run)
+        changed = _changed(watched)
+        print(f"  image step {step}: loss {float(loss):.4f}, {dt:.3f} s, "
+              f"{n_tokens / dt:.1f} tok/s ({n_tokens} tokens), peak {peak:.2f} GiB; "
+              "changed: " + (", ".join(k for k, c in changed.items() if c) or "none"))
+        if not math.isfinite(float(loss)):
+            raise AssertionError("non-finite image-mode loss")
+    if not (changed["text layer 0 q_w"] and changed["mm projector w0"]):
+        raise AssertionError("a trainable tensor did not change in image-mode training")
+    if changed["vision patch_w"] or changed["audio conv1_w"]:
+        raise AssertionError("a frozen tower tensor changed")
+    tiles = sum(1 + gw * gh for gw, gh in IMAGE_GRIDS)
+    vis_layers = cfg.vision.num_layers + 1 + cfg.vision.select_layer
+    launches = _train_counts()
+    # T2T and T2V (no audio); the pad tile of the (1, 3) sample is encoded too
+    _held_train(f"image mode, {IMAGE_STEPS} steps", launches, _reckon_train(
+        cfg, IMAGE_STEPS, 1, vis_layers * _map_chunks(2 * (1 + max(
+            gw * gh for gw, gh in IMAGE_GRIDS)), 4)))
+    print(f"  ({tiles} valid tiles a step)")
+    return launches
+
+
+def _packed_batch(cfg):
+    """A PackedBatcher batch: B = 2 rows of PACK_T tokens from synthetic
+    text-only samples of 307-1,535 tokens (0.075-0.375 of a row), fed until
+    one does not fit.
+    -> (numpy batch, the samples by row and segment)."""
+    from vidi_tpu_torch.train.packing import PackedBatcher
+
+    rng = np.random.default_rng(SEED + 8)
+    packer, batch, fed = PackedBatcher(cfg, 2, PACK_T), None, []
+    while batch is None:
+        n = int(rng.integers(PACK_T * 3 // 40, PACK_T * 3 // 8))
+        ids = rng.integers(3, 259, n).astype(np.int32)
+        labels = ids.copy()
+        labels[: n // 3] = -100
+        fed.append({"input_ids": ids, "labels": labels, "has_image": False})
+        batch = packer.add(fed[-1])
+    return batch, fed[:-1]
+
+
+def _packed_hidden(tr, batch, segs=True):
+    """Final hidden states of a packed batch on the kernel route (zero-count
+    media, as packed rows carry), without gradients."""
+    from vidi_tpu_torch.models import dattn, decoder
+    from vidi_tpu_torch.train import data, train_step
+
+    b = data.to_device(batch, tr.dev)
+    hw = train_step.make_batch_hw(tr.cfg, 1)
+    with torch.no_grad():
+        img, im = dattn.encode_video_images(tr.params, tr.cfg, b["images"],
+                                            b["frame_counts"], hw, mm_chunks=4,
+                                            use_flash=True)
+        aud, am = dattn.encode_video_audios(tr.params, tr.cfg, b["mels"], b["audio_sizes"],
+                                            mm_chunks=4, use_flash=True)
+        emb = decoder.embed_tokens(tr.params["text"], b["input_ids"], tr.cfg.text)
+        h, _ = dattn.forward(tr.params, tr.cfg, emb, b["text_mask"], b["positions"],
+                             img=img, img_mask=im, aud=aud, aud_mask=am, mm_chunks=4,
+                             use_flash=True, text_segs=b["segment_ids"] if segs else None)
+    return h
+
+
+def _packed_backward(tr, batch):
+    """A callable: the packed batch's loss and ROUTE_LEAVES' gradients on
+    the kernel route (K1 / K4 with the segment ids)."""
+    from vidi_tpu_torch.train import data, train_step
+
+    b = data.to_device(batch, tr.dev)
+    hw = train_step.make_batch_hw(tr.cfg, 1)
+    noise = {k: v.to(tr.dev) for k, v in _noise(tr.cfg, batch, hw, 0).items()}
+    return lambda: _leaf_grads(tr.params, ROUTE_LEAVES, lambda: train_step.loss_fn(
+        tr.params, tr.cfg, b, noise, hw=hw, mm_chunks=4, remat=True, use_flash=True,
+        frozen=TRAIN_FROZEN))
+
+
+def train_pack_phase(tr) -> dict:
+    """--pack batches on the slice: each segment's logits at its last 32
+    positions against the same sample run alone (LOGIT_REL / LOGIT_COS; a
+    planted fault, the segment ids dropped, must fail), then one loss +
+    backward of the packed rows (ROUTE_LEAVES' gradients: K1 / K4 with the
+    segment ids) with its launches held to the reckoned ones."""
+    from vidi_tpu_torch.models import decoder
+    from vidi_tpu_torch.train.packing import pack_batch
+
+    batch, samples = _packed_batch(tr.cfg)
+    n_segs = int((batch["segment_ids"].max(axis=1)).sum())
+    print(f"  PackedBatcher: {len(samples)} samples in 2 rows of {PACK_T} tokens "
+          f"({n_segs} segments, {int(batch['text_mask'].sum())} real tokens)")
+    h = {"packed": _packed_hidden(tr, batch), "planted fault, segment ids dropped":
+         _packed_hidden(tr, batch, segs=False)}
+    worst = {k: (0.0, 1.0) for k in h}
+    for row in range(2):
+        segs = batch["segment_ids"][row]
+        for seg in range(1, int(segs.max()) + 1):
+            where = np.flatnonzero(segs == seg)
+            alone = pack_batch([{"input_ids": batch["input_ids"][row, where],
+                                 "labels": batch["labels"][row, where]}], tr.cfg,
+                               seq_len=len(where))
+            want_h = _packed_hidden(tr, alone)[0, -32:]
+            want = decoder.lm_logits(tr.params["text"], want_h, tr.cfg.text)
+            for k, hk in h.items():
+                got = decoder.lm_logits(tr.params["text"], hk[row, where[-32:]], tr.cfg.text)
+                rel, cos = _logit_gap(got, want)
+                worst[k] = (max(worst[k][0], rel), min(worst[k][1], cos))
+    for k, (rel, cos) in worst.items():
+        print(f"  {k}: worst segment's logits {rel:.3e} of max|logit| (limit {LOGIT_REL}), "
+              f"cosine {cos:.6f} (limit {LOGIT_COS})")
+    if not (worst["packed"][0] <= LOGIT_REL and worst["packed"][1] >= LOGIT_COS):
+        raise AssertionError("a packed segment's logits differ from its sample alone")
+    bad = worst["planted fault, segment ids dropped"]
+    if bad[0] <= LOGIT_REL and bad[1] >= LOGIT_COS:
+        raise AssertionError("the logit limits do not reject the segment ids dropped")
+    del h
+    _reset_train_counts()
+    (loss, grads), dt, peak = _timed(_packed_backward(tr, batch))
+    launches = _train_counts()
+    n_tokens = int(batch["text_mask"].sum())
+    print(f"  packed loss + backward: loss {loss:.4f}, {dt:.3f} s, {n_tokens / dt:.1f} tok/s, "
+          f"peak {peak:.2f} GiB")
+    if not (math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)):
+        raise AssertionError("non-finite packed loss or gradients")
+    n_frames, n_windows = batch["images"].shape[0] * batch["images"].shape[1], 2
+    _held_train("packed rows, one backward", launches, _reckon_train(
+        tr.cfg, 1, 2, _tower_launches(tr.cfg, n_frames, n_windows, 4)))
+    return launches
+
+
+def train_7b_phase(dev) -> tuple:
+    """Vidi-7B training at full width with TRAIN_LAYERS text layers: the
+    120 s clip's shapes at 224 px (7,680 image + 1,200 audio tokens),
+    T = TRAIN_T, position noise on (the v1 tables' lengths), TRAIN_STEPS
+    steps with launches held to the reckoned ones; the gradient routes at
+    G = 4 with their planted fault. -> (launches, the slice)."""
+    from vidi_tpu_torch import DattnConfig
+
+    tr7 = load_training_slice(dev, DattnConfig.vidi_7b())
+    noise = _noise(tr7.cfg, _train_batch(tr7.cfg, 0, 1, TRAIN_T, TRAIN_FRAMES,
+                                         TRAIN_WINDOWS)[0], (17, 17), 0)
+    print(f"  position noise draws: img_h {tuple(noise['img_h'].shape)}, img_w "
+          f"{tuple(noise['img_w'].shape)} (the v1 side {tr7.cfg.mm_image_pool_size})")
+    launches = training_phase(tr7, "7B training")
+    print("  gradient routes (7B, G = 4):")
+    gradient_route_check(tr7)
+    return launches, tr7
+
+
+def profile_train_extras(tr) -> None:
+    cfg, params = _image_model(tr)
+    tx, state = _fresh_optimizer(tr, params)
+    run, _ = _image_step(tr, cfg, params, tx, state, 0)
+    _region("image-mode train step (Vidi1.5-9B, 8 text layers, grids (2, 2), (1, 3))", run)
+    del tx, state
+    tx, state = _fresh_optimizer(tr, tr.params)
+    run, _ = _train_step(tr, 0, tx, state, remat="dots")
+    _region('train step remat="dots" (Vidi1.5-9B, 8 text layers)', run)
+    del tx, state
+    _region(f"packed rows, loss + backward (2 x {PACK_T} tokens)",
+            _packed_backward(tr, _packed_batch(tr.cfg)[0]))
+
+
+def profile_7b_training(tr7) -> None:
+    run, _ = _train_step(tr7, 0)
+    _region("train step (Vidi-7B, 8 text layers)", run)
+
+
+DISTILL_STEPS, DISTILL_RESAMPLE = 16, 8
+DISTILL_ROWS, DISTILL_PROMPT, DISTILL_GEN = 8, 32, 32
+
+
+def distill_phase(sl) -> dict:
+    """Draft distillation from the serving slice's full-depth 9B (bf16): a
+    2-layer student of width 512 (fp32), DISTILL_STEPS AdamW steps on
+    rollouts of DISTILL_ROWS x (DISTILL_PROMPT + DISTILL_GEN) tokens
+    resampled every DISTILL_RESAMPLE; the KL must fall on each rollout
+    batch; the student saved with save_pretrained, reloaded with
+    load_model, and run as speculative_generate's draft: tokens equal
+    greedy's (the near-tie rule). No kernel runs (as in the reference:
+    rollouts and logits take the plain route)."""
+    import tempfile
+
+    from vidi_tpu_torch.infer.export import save_pretrained
+    from vidi_tpu_torch.infer.generate import generate, speculative_generate
+    from vidi_tpu_torch.infer.loader import load_model
+    from vidi_tpu_torch.models import dattn
+    from vidi_tpu_torch.train import distill
+    from vidi_tpu_torch.train.optimizer import adamw
+
+    dev, cfg = sl.dev, sl.cfg
+    scfg = distill.student_config(cfg, layers=2, hidden=512, heads=8, kv_heads=4,
+                                  head_dim=64, ffn=2048)
+    student = dattn.init_params(scfg, torch.float32, dev, SEED)
+    tx = adamw(student, 3e-4)
+    state = tx.init(student)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    _reset_kernel_counts()
+    _reset_train_counts()
+    losses, t0 = [], time.perf_counter()
+    for i in range(DISTILL_STEPS):
+        if i % DISTILL_RESAMPLE == 0:
+            seqs = distill.sample_trajectories(gen, sl.params, cfg, batch=DISTILL_ROWS,
+                                               prompt_len=DISTILL_PROMPT,
+                                               gen_len=DISTILL_GEN)
+            soft = distill._teacher_targets(sl.params, cfg, seqs)
+        losses.append(float(distill.distill_step(student, scfg, tx, state, seqs, soft)))
+    torch.cuda.synchronize()
+    launches = {**_kernel_counts(), **_train_counts()}
+    print(f"  {DISTILL_STEPS} steps in {time.perf_counter() - t0:.2f} s; kl by step: "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    falls = all(losses[j + DISTILL_RESAMPLE - 1] < losses[j]
+                for j in range(0, DISTILL_STEPS, DISTILL_RESAMPLE))
+    if not falls:
+        raise AssertionError("the distillation KL did not fall on a rollout batch")
+    if any(launches.values()):
+        raise AssertionError(f"distillation launched kernels: {launches}")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pretrained(student, scfg, tmp)
+        draft, dcfg, _ = load_model(tmp, dtype=torch.bfloat16, device=dev)
+    ids = seqs[:2, :DISTILL_PROMPT]
+    mask = torch.ones_like(ids, dtype=torch.bool)
+    with _LogitLog() as log:
+        greedy = generate(sl.params, cfg, ids, mask, max_new_tokens=16, eos_id=-1)
+    spec = speculative_generate(sl.params, cfg, draft, dcfg, ids, mask, max_new_tokens=16,
+                                eos_id=-1, spec_k=SPEC_K)
+    acc, drafted = int(spec.n_accepted.sum()), max(int(spec.n_drafted.sum()), 1)
+    print(f"  the reloaded draft ({dcfg.text.num_layers} layers of {dcfg.text.hidden_size}) "
+          f"in speculative_generate: {spec.n_target_steps} target passes, accepted "
+          f"{acc}/{drafted} ({acc / drafted:.0%})")
+    _near_tie_rule("distilled draft", spec.tokens, greedy.tokens, log)
+    return launches
+
+
+def train_cli_phase(device: str = "cuda") -> None:
+    """The train CLI on the card as a subprocess: the tiny image-mode model
+    with anyres synthetic batches, gradient accumulation 2, remat "dots",
+    a profile of steps 2-4 and tensorboard, 5 steps. The trace file must
+    exist and the metrics lines carry the learning rates of the optimizer
+    steps (step // 2)."""
+    import tempfile
+
+    from vidi_tpu_torch.train.optimizer import TrainHParams, lr_schedule
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = os.path.join(tmp, "prof")
+        cmd = [sys.executable, "-m", "vidi_tpu_torch.train.train", "--tiny",
+               "--mm_input_type", "image", "--mm_image_aspect_ratio", "anyres",
+               "--dataset_type", "image-conv", "--data_path", "synthetic",
+               "--gradient_accumulation_steps", "2", "--remat", "dots", "--profile_dir",
+               prof, "--report_to", "tensorboard", "--max_steps", "5", "--device", device,
+               "--output_dir", os.path.join(tmp, "run")]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"train CLI failed ({res.returncode}): {res.stderr[-2000:]}")
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            lines = [json.loads(x) for x in f]
+        traces = os.listdir(prof) if os.path.isdir(prof) else []
+        sizes = [os.path.getsize(os.path.join(prof, x)) for x in traces]
+        tb = os.path.isdir(os.path.join(tmp, "run", "runs"))
+    sched = lr_schedule(TrainHParams(total_steps=5), 1e-5)
+    want = [sched(s // 2) for s in range(5)]
+    got = [m["learning_rate"] for m in lines]
+    print(f"  {' '.join(cmd[1:])}: {wall:.1f} s, exit 0; learning rates {got} (want {want}); "
+          f"losses {[round(m['loss'], 4) for m in lines]}; trace {traces} ({sizes} bytes); "
+          f"tensorboard events {'written' if tb else 'not written (no tensorboard)'}")
+    if got != want or traces != ["trace_steps_2-4.json"] or not all(sizes):
+        raise AssertionError("the train CLI's metrics or trace are not as expected")
+    warn = [x for x in res.stdout.splitlines() if "tensorboard" in x]
+    if warn:
+        print(f"  {warn[0]}")
 
 
 def main() -> int:
@@ -4828,11 +5607,18 @@ def main() -> int:
         profile_phase(sl)
     print("decode routes:")
     decode_route_check(sl)
-    print("decoding variants (verify_step, speculative, beams, sampling; the 120 s slice):")
-    serve_decoding = serve_decoding_phase(sl)
+    # the decoding variants run the slice's first SHALLOW_LAYERS text
+    # layers (time: the script's limit); the daemon keeps all 42, where its
+    # planted fault (the other video's caches) reads 0.135 of max|logit|
+    # against the limit's 0.1 (0.064 at 14 layers)
+    shallow = _shallow(sl, SHALLOW_LAYERS)
+    print("decoding variants (verify_step, speculative, beams, sampling; the 120 s slice, "
+          f"{SHALLOW_LAYERS} of {sl.cfg.text.num_layers} text layers):")
+    serve_decoding = serve_decoding_phase(shallow)
     if args.profile:
         print("decoding variants' profile:")
-        profile_decoding(sl)
+        profile_decoding(shallow)
+    del shallow
     print(f"serving daemon, batch runner and evals (Vidi1.5-9B bf16, {SERVE_NEW} new tokens, "
           f"a {sl.seconds} s and a {SERVE_B_SECONDS} s mp4):")
     serve_daemon, serve_runner, serve_clips = serve_phase(sl)
@@ -4857,6 +5643,9 @@ def main() -> int:
     del clip
     gc.collect()
     torch.cuda.empty_cache()
+    print("draft distillation (teacher: the full-depth 9B slice, bf16; a 2-layer student "
+          "of width 512):")
+    distill = distill_phase(sl)
     print("checkpoint slice (Vidi1.5-9B at full width: save_pretrained, load_model, ask):")
     ckpt, ckpt_int8, serve_cli_run = checkpoint_phase(sl)
     del sl
@@ -4907,6 +5696,34 @@ def main() -> int:
         profile_training(tr)
     print("gradient routes:")
     gradient_route_check(tr)
+    tr.tx = tr.state = None  # each phase below makes its own optimizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print('remat "dots" against full remat (the 9B slice):')
+    remat = remat_phase(tr)
+    print("gradient accumulation k = 2 (the 9B slice):")
+    grad_accum = grad_accum_phase(tr)
+    print("image-mode training (the 9B slice as an image model, anyres):")
+    train_image = train_image_phase(tr)
+    print(f"packed rows (--pack: 2 rows of {PACK_T} tokens, the 9B slice):")
+    train_pack = train_pack_phase(tr)
+    if args.profile:
+        print("image-mode and remat \"dots\" training profile:")
+        profile_train_extras(tr)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"Vidi-7B training slice ({TRAIN_LAYERS} text layers, random weights, "
+          "the 120 s clip at 224 px):")
+    train_7b, tr7 = train_7b_phase(dev)
+    if args.profile:
+        print("7B training profile:")
+        profile_7b_training(tr7)
+    del tr7
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("train CLI (a subprocess on the card):")
+    train_cli_phase()
 
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
     # training for K4, int8 serving for K5 / K6; K7 is on no path);
@@ -4915,7 +5732,9 @@ def main() -> int:
              "serve_daemon": serve_daemon, "serve_runner": serve_runner,
              "checkpoint": ckpt, "serve_cli": serve_cli_run, "serve_7b": serve_7b,
              "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8,
-             "serve_daemon_int8": serve_daemon_int8, "train": train}
+             "serve_daemon_int8": serve_daemon_int8, "train": train, "remat": remat,
+             "grad_accum": grad_accum, "train_image": train_image, "train_pack": train_pack,
+             "train_7b": train_7b, "distill": distill}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [

@@ -425,10 +425,13 @@ def test_assemble_rejects_bad_layout_and_random_weights(base_ckpts):
                            mm_overrides={"mm_std": MM_STD})
     with pytest.raises(ValueError, match="random weights"):
         tloader.load_model(None, "tiny", device="cpu", mm_vision_tower=str(root / "siglip"))
-    with pytest.raises(NotImplementedError):  # the port's image adapters wait
-        tloader.load_model(str(root / "gemma2"), dtype=F32, device="cpu",
-                           mm_vision_tower=str(root / "siglip"),
-                           mm_overrides={"mm_input_type": "image"})
+    # image mode assembles since the image adapters were ported: fresh image
+    # adapters over the loaded towers
+    params, cfg = tloader.load_model(str(root / "gemma2"), dtype=F32, device="cpu",
+                                     mm_vision_tower=str(root / "siglip"),
+                                     mm_overrides={"mm_input_type": "image"})[:2]
+    assert cfg.mm_input_type == "image"
+    assert set(params["mm"]) == {"llm_norm", "projector", "norm", "pos_w", "pos_h"}
 
 
 # --- the entry points -----------------------------------------------------------

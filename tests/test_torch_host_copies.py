@@ -24,7 +24,8 @@ from vidi_tpu_torch.media import audio, images, text
 
 ROOT = Path(__file__).resolve().parents[1]
 COPIES = ("media/text.py", "media/audio.py", "media/images.py", "media/video.py",
-          "train/data.py", "train/prefetch.py", "utils.py", "constants.py")
+          "train/data.py", "train/prefetch.py", "train/packing.py", "train/samplers.py",
+          "train/tb.py", "utils.py", "constants.py")
 # file -> [(opcode, a text the changed lines contain, why)]: the differences
 # left on purpose, beyond the package name in imports
 EXCEPTIONS = {
@@ -41,6 +42,10 @@ EXCEPTIONS = {
         ("replace", "if lib and native_frames_safe(w)", "load_video: cv2 for such widths"),
         ("replace", 'hasattr(lib, "vm_stream_open") and native_frames_safe(w)',
          "stream_video: cv2 for such widths"),
+    ],
+    "train/tb.py": [
+        ("replace", "Tensorboard scalar reporting", "the docstring's first line names "
+                                                    "the train CLI"),
     ],
     "train/data.py": [
         ("insert", "import torch", "the port's batches become torch tensors"),

@@ -93,6 +93,10 @@ TRAIN_MODULES = [
     "vidi_tpu_torch.train.checkpoint",
     "vidi_tpu_torch.train.train",
     "vidi_tpu_torch.train.prefetch",
+    "vidi_tpu_torch.train.packing",
+    "vidi_tpu_torch.train.samplers",
+    "vidi_tpu_torch.train.tb",
+    "vidi_tpu_torch.train.distill",
     "vidi_tpu_torch.media.images",
     "vidi_tpu_torch.media.video",
 ]
@@ -186,6 +190,17 @@ def test_port_never_imports_safetensors_or_transformers(probe):
 
 def test_training_path_never_imports_jax_or_vidi_tpu():
     assert _run(TRAIN_PROBE.format(modules=TRAIN_MODULES)) == []
+
+
+def test_no_module_imports_tensorboard_at_import():
+    """tensorboard (and the TensorFlow it may pull in) is imported only
+    inside TBReporter, when --report_to tensorboard asks for it."""
+    code = ("import importlib, json, sys\n"
+            f"for m in {MODULES + TRAIN_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('tensorboard', 'tensorflow') or m.startswith('torch.utils.tensorboard'))))")
+    assert _run(code) == []
 
 
 def test_no_kernel_library_at_import(probe):

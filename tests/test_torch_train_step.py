@@ -180,7 +180,25 @@ def test_two_train_steps_match(params):
 
 
 def test_policy_remat_is_not_ported(params):
-    """remat="dots" (save matmul outputs) is queued; it raises rather than
-    running as full remat."""
-    with pytest.raises(NotImplementedError, match="dots"):
-        tdattn.forward(params[1], CFG, None, None, None, remat="dots")
+    """remat="dots" (save the weight products, recompute the rest; ported
+    since the name was given) gives full remat's loss and gradients
+    bit for bit on the CPU; a mode that is neither raises."""
+    _, tp = params
+    batch = to_device(_batch(False), "cpu")
+    got = {}
+    for mode in (True, "dots"):
+        leaves = [p for _, _, p in topt.leaves(tp) if p.dtype.is_floating_point]
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            loss = tstep.loss_fn(tp, CFG, batch, None, hw=HW, mm_chunks=2, remat=mode,
+                                 frozen=FROZEN)
+            got[mode] = (loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True))
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+    assert torch.equal(got[True][0], got["dots"][0])
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got[True][1], got["dots"][1]))
+    with pytest.raises(ValueError, match="dots"):
+        tdattn.forward(tp, CFG, None, None, None, remat="full")

@@ -16,9 +16,17 @@ inputs, fp32 on the CPU.
 - the mm_version text functions on the same strings: equal outputs;
 - `ask` on a `make_video` clip: the same answer and the same generated ids;
   a tiny 7B checkpoint written by each package and read by the other;
-  the CLI with --random-weights tiny7b.
+  the CLI with --random-weights tiny7b;
+- training (a G = 4 variant with 126 px CLIP frames and pool 4, where the
+  v1 side 4 differs from the budget rule's 10 // 4): `draw_pos_noise`'s
+  h / w draws at the v1 side and a train step with them; the loss and
+  every gradient without noise, the towers frozen (test_torch_train_step's
+  limits), and the
+  loss with JAX's draws (1e-5 relative) against vidi_tpu's; the train CLI
+  on a tiny 7B checkpoint through --model_path.
 """
 import dataclasses
+import json
 import math
 import os
 import subprocess
@@ -402,3 +410,153 @@ def test_cli_runs_tiny7b_on_cpu(clip):
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1]
+
+
+# --- training (ROADMAP Q1.19) ----------------------------------------------------
+# v1 pools every frame to a fixed side (mm_image_pool_size), while the v1.5
+# rule sizes a frame's tokens from the budget: hw // pool. With 9 x 9 CLIP
+# patches (126 px) and pool 4 the two differ (4 against 10 // 4 = 2), as
+# they do for the 7B (8 against 17 // 8 = 2), so a position-noise draw of
+# the wrong length cannot broadcast.
+CFG_TRAIN = dataclasses.replace(CFG4, vision=dataclasses.replace(CFG4.vision, image_size=126),
+                                mm_image_pool_size=4, loss_thres=0.1)
+TRAIN_TOL, TRAIN_FLOOR = 1e-4, 1e-7  # test_torch_train_step's leaf limits
+
+
+def _train_batch():
+    from vidi_tpu.train.data import synthetic_batch
+    batch = synthetic_batch(CFG_TRAIN, b=2, t=16, n_frames=2, n_windows=1, seed=5)
+    batch["frame_counts"][1] = 1
+    batch["text_mask"][1, 12:] = False
+    batch["labels"][1, 12:] = -100
+    return batch
+
+
+def _jax_loss(params, batch, hw, rng):
+    """vidi_tpu's training loss (train_step.loss_fn's video branch, the
+    towers frozen by stop_gradient), with `rng` None for no position noise
+    (its loss_fn always draws)."""
+    from vidi_tpu.train.losses import shifted_cross_entropy
+    cfg = CFG_TRAIN
+    params = {k: jax.tree.map(jax.lax.stop_gradient, v) if k in ("vision", "audio") else v
+              for k, v in params.items()}
+    rngs = jax.random.split(rng, 3) if rng is not None else (None,) * 3
+    img, im = jdattn.encode_video_images(params, cfg, batch["images"], batch["frame_counts"],
+                                         hw, pos_rng=rngs[0])
+    aud, am = jdattn.encode_video_audios(params, cfg, batch["mels"], batch["audio_sizes"],
+                                         pos_rng=rngs[1])
+    mask = batch["text_mask"]
+    pos = jnp.maximum(jnp.cumsum(mask, axis=1) - 1, 0).astype(jnp.int32)
+    emb = jdecoder.embed_tokens(params["text"], batch["input_ids"], cfg.text)
+    h, _ = jdattn.forward(params, cfg, emb, mask, pos, img=img, img_mask=im, aud=aud,
+                          aud_mask=am)
+    return shifted_cross_entropy(jdecoder.lm_logits(params["text"], h, cfg.text),
+                                 batch["labels"], cfg.loss_thres)
+
+
+def _port_cfg():
+    base = TConfig.tiny("mistral")
+    return dataclasses.replace(base, text=dataclasses.replace(base.text, num_heads=8),
+                               vision=dataclasses.replace(base.vision, image_size=126),
+                               mm_image_pool_size=4, loss_thres=0.1)
+
+
+def init_both(cfg, seed: int = 0):
+    """(vidi_tpu parameters, the port's) holding the same weights: the
+    port's init, stacked into vidi_tpu's layout (numpy leaves, [L, ...]
+    layers) and read back through params_from_jax. It takes a fraction of a
+    second where vidi_tpu's init takes seconds to compile."""
+    def stacked(tree):
+        if isinstance(tree, dict):
+            return {k: jax.tree.map(lambda *xs: np.stack(xs), *map(stacked, v))
+                    if k == "layers" and isinstance(v, list) else stacked(v)
+                    for k, v in tree.items()}
+        return tree.numpy()
+    jp = stacked(tdattn.init_params(cfg, torch.float32, "cpu", seed))
+    return jp, params_from_jax(jp)
+
+
+def test_v1_train_step_with_position_noise():
+    """draw_pos_noise draws the image h / w noise at the length of the v1
+    table (mm_image_pool_size), and a train step runs with it; without noise
+    the loss and every gradient match vidi_tpu's; fed JAX's draws, the noisy
+    loss matches too."""
+    from vidi_tpu.train.train_step import make_batch_hw
+    from vidi_tpu_torch.train import optimizer as topt
+    from vidi_tpu_torch.train import train_step as tstep
+    from vidi_tpu_torch.train.data import to_device
+
+    cfg = _port_cfg()
+    jp, tp = init_both(CFG_TRAIN)
+    batch = _train_batch()
+    hw = make_batch_hw(CFG_TRAIN, int(batch["frame_counts"].sum()))
+    noise = tdattn.draw_pos_noise(cfg, 2, 2, 1, hw, torch.Generator().manual_seed(0))
+    tx = topt.make_optimizer(tp, topt.TrainHParams(total_steps=4))
+    p = jax.tree.map(torch.clone, tp)
+    _, _, loss = tstep.train_step(p, tstep.opt_init(tx, p), to_device(batch, "cpu"), noise,
+                                  cfg=cfg, tx=tx, hw=hw, mm_chunks=2, frozen=("vision", "audio"))
+    assert torch.isfinite(loss)
+    assert noise["img_h"].shape == noise["img_w"].shape == (4,)
+
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    nkey = jax.random.PRNGKey(3)
+    (want_loss, want), want_noisy = jax.jit(lambda q: (
+        jax.value_and_grad(lambda r: _jax_loss(r, jb, hw, None))(q),
+        _jax_loss(q, jb, hw, nkey)))(jp)
+    leaves = list(topt.leaves(tp))
+    for _, _, x in leaves:
+        x.requires_grad_(True)
+    try:
+        got_loss = tstep.loss_fn(tp, cfg, to_device(batch, "cpu"), None, hw=hw, mm_chunks=2,
+                                 frozen=("vision", "audio"))
+        got = torch.autograd.grad(got_loss, [x for _, _, x in leaves], allow_unused=True)
+    finally:
+        for _, _, x in leaves:
+            x.requires_grad_(False)
+    assert abs(float(got_loss.detach()) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for (key, path, _), g in zip(leaves, got):
+        node, layer = want, None
+        for k in path:
+            layer, node = (k, node) if isinstance(k, int) else (layer, node[k])
+        w = np.asarray(node if layer is None else node[layer])
+        if g is None:  # the frozen towers: JAX's gradient is zero
+            assert path[0] in ("vision", "audio") and not w.any(), key
+            continue
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= TRAIN_TOL * float(np.abs(w).max()) + TRAIN_FLOOR, (key, err)
+
+    rngs = jax.random.split(nkey, 3)
+    img = jax.random.split(rngs[0], 3)
+    n_aud = CFG_TRAIN.audio.max_source_positions // CFG_TRAIN.mm_audio_pool_size
+    draws = {"img_h": jax.random.normal(img[0], (4,)), "img_w": jax.random.normal(img[1], (4,)),
+             "img_t": jax.random.normal(img[2], (2, 2)),
+             "aud_t": jax.random.normal(rngs[1], (2, n_aud))}
+    want_noisy = float(want_noisy)
+    got_noisy = float(tstep.loss_fn(tp, cfg, to_device(batch, "cpu"),
+                                    {k: _t(v) for k, v in draws.items()}, hw=hw, mm_chunks=2,
+                                    frozen=("vision", "audio")))
+    assert abs(got_noisy - want_noisy) <= 1e-5 * abs(want_noisy)
+    assert got_noisy != float(got_loss.detach())
+
+
+def test_train_cli_trains_a_tiny7b_checkpoint(tmp_path):
+    """A tiny 7B-shaped checkpoint (save_pretrained) through the train CLI's
+    --model_path: two steps with position noise, the v1 model and its
+    config kept in the export."""
+    from vidi_tpu_torch.train import train as tcli
+
+    cfg = dataclasses.replace(_port_cfg(), loss_thres=None)
+    texport.save_pretrained(tdattn.init_params(cfg, torch.float32, "cpu", 0), cfg,
+                            str(tmp_path / "ckpt"))
+    out = tmp_path / "run"
+    tcli.main(["--model_path", str(tmp_path / "ckpt"), "--data_path", "synthetic",
+               "--max_steps", "2", "--output_dir", str(out), "--device", "cpu",
+               "--dtype", "float32", "--use_flash", "--export_hf", str(tmp_path / "hf")])
+    lines = [json.loads(x) for x in open(out / "metrics.jsonl")]
+    assert [m["step"] for m in lines] == [0, 1] and all(np.isfinite(m["loss"]) for m in lines)
+    # tokens a step: 64 text + 4 frames x the v1 side 4 x 4 (hw // pool would
+    # count 2 x 2 a frame: 80)
+    assert abs(lines[0]["tokens_per_sec"] * lines[0]["step_time_s"] - 128) < 1
+    _, cfg2, _ = tloader.load_model(str(tmp_path / "hf"), dtype=torch.float32, device="cpu")
+    assert cfg2.mm_version == "v1" and cfg2.mm_image_pool_size == 4
+    assert cfg2.text.arch == "mistral" and cfg2.vision.image_size == 126

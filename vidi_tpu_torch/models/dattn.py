@@ -81,13 +81,20 @@ def _layer_slice(cache, i: int):
 # ---------------------------------------------------------------------------
 
 def init_mm_params(cfg: DattnConfig, dtype, device, gen: torch.Generator) -> Params:
-    """Video adapters with the JAX init's shapes and scales: v1.5 (9B), or
-    v1 (7B: a conv pool that keeps d_vis, an audio pool that keeps d_aud,
-    projectors that lift both to d_llm)."""
-    if cfg.mm_input_type != "video":
-        raise NotImplementedError("mm_input_type='image' is not ported (ROADMAP Q1.15)")
+    """Adapters with the JAX init's shapes and scales: the image branch
+    (mm_input_type "image": a projector straight off the tower, its norm
+    and the h / w position MLPs; no pooling, no audio), or the video
+    adapters of v1.5 (9B) or v1 (7B: a conv pool that keeps d_vis, an
+    audio pool that keeps d_aud, projectors that lift both to d_llm)."""
     d_llm, d_vis, d_aud = cfg.text.hidden_size, cfg.vision.hidden_size, cfg.audio.d_model
     depth = cfg.mm_projector_depth
+    if cfg.mm_input_type == "image":
+        return {"llm_norm": adapters.init_rms_norm(d_llm, cfg.mm_std or 1.0, dtype, device),
+                "projector": adapters.init_mlp_projector(gen, d_vis, d_llm, depth, dtype,
+                                                         device),
+                "norm": adapters.init_rms_norm(d_llm, 1.0, dtype, device),
+                "pos_w": adapters.init_pos_embed(gen, d_llm, device),
+                "pos_h": adapters.init_pos_embed(gen, d_llm, device)}
     v1 = cfg.mm_version == "v1"
     mm = {"llm_norm": adapters.init_rms_norm(d_llm, cfg.mm_std or 1.0, dtype, device)}
     if v1:
@@ -146,20 +153,51 @@ def _embed_scale(x: torch.Tensor, tcfg: TextConfig) -> torch.Tensor:
 # Modality encoders
 # ---------------------------------------------------------------------------
 
+def frame_side(cfg: DattnConfig, hw: Tuple[int, int]) -> Tuple[int, int]:
+    """(h2, w2): a frame's token grid after the image pool. v1 resizes to
+    a fixed side (mm_image_pool_size); v1.5 merges pool x pool cells of
+    the budget size hw (space_to_depth)."""
+    pool = cfg.mm_image_pool_size
+    if cfg.mm_version == "v1":
+        return pool, pool
+    return hw[0] // pool, hw[1] // pool
+
+
+def _draw(generator: torch.Generator, *shape) -> torch.Tensor:
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
 def draw_pos_noise(cfg: DattnConfig, b: int, n_frames: int, n_windows: int,
                    hw: Tuple[int, int], generator: torch.Generator) -> Dict:
     """Standard-normal draws for one training step's position noise, on the
     generator's device: {"img_h": [h2], "img_w": [w2], "img_t": [B,N],
-    "aud_t": [B,A]}. One h and one w vector serve every frame chunk, as the
+    "aud_t": [B,A]}, (h2, w2) = `frame_side`, the lengths of the tables
+    they jitter. One h and one w vector serve every frame chunk, as the
     JAX encoder's fixed key per chunk does."""
-    pool = cfg.mm_image_pool_size
+    h2, w2 = frame_side(cfg, hw)
     n_aud = n_windows * cfg.audio.max_source_positions // cfg.mm_audio_pool_size
+    return {"img_h": _draw(generator, h2), "img_w": _draw(generator, w2),
+            "img_t": _draw(generator, b, n_frames), "aud_t": _draw(generator, b, n_aud)}
 
-    def draw(*shape):
-        return torch.randn(shape, generator=generator, device=generator.device)
 
-    return {"img_h": draw(hw[0] // pool), "img_w": draw(hw[1] // pool),
-            "img_t": draw(b, n_frames), "aud_t": draw(b, n_aud)}
+def draw_image_noise(cfg: DattnConfig, b: int, n_tiles: int, generator: torch.Generator,
+                     grid_shape: Optional[Tuple[int, int]] = None,
+                     per_sample: bool = False) -> Dict:
+    """Standard-normal draws for `encode_images`' position noise, of the
+    JAX encoder's shapes: {"img_h": [s], "img_w": [s]} for the plain path
+    and the anyres base view, plus the plane's {"plane_h": [gh*s],
+    "plane_w": [gw*s]} (static anyres, `grid_shape` (gw, gh)) or
+    {"plane_h": [B,P,s], "plane_w": [B,P,s]} (`per_sample` grids, P =
+    n_tiles - 1 tiles a sample)."""
+    s = cfg.vision.num_patches_per_side
+    out = {"img_h": _draw(generator, s), "img_w": _draw(generator, s)}
+    if per_sample:
+        out.update(plane_h=_draw(generator, b, n_tiles - 1, s),
+                   plane_w=_draw(generator, b, n_tiles - 1, s))
+    elif grid_shape is not None:
+        gw, gh = grid_shape
+        out.update(plane_h=_draw(generator, gh * s), plane_w=_draw(generator, gw * s))
+    return out
 
 
 def _needs_grad(tree) -> bool:
@@ -219,9 +257,10 @@ def _frame_tokens(params, x, cfg: DattnConfig, hw, use_flash, noise=None):
         pooled = adapters.conv2d_pool(feats, hw, cfg.mm_image_pool_size)
     t = adapters.mlp_projector(mm["img_projector"], pooled, cfg.mm_projector_depth)
     t = scaled_rms_norm(t, mm["img_norm"]["weight"], cfg.mm_rms_eps)
-    pe_h = adapters.pos_embed(mm["pos_h"], t.shape[1], cfg.mm_image_pool_size,
+    h2, w2 = frame_side(cfg, hw)
+    pe_h = adapters.pos_embed(mm["pos_h"], h2, cfg.mm_image_pool_size,
                               d, device=t.device, noise=noise.get("img_h"))
-    pe_w = adapters.pos_embed(mm["pos_w"], t.shape[2], cfg.mm_image_pool_size,
+    pe_w = adapters.pos_embed(mm["pos_w"], w2, cfg.mm_image_pool_size,
                               d, device=t.device, noise=noise.get("img_w"))
     t = adapters.add_pos(t, pe_h, axis=1, eps=cfg.mm_rms_eps)
     return adapters.add_pos(t, pe_w, axis=2, eps=cfg.mm_rms_eps)
@@ -301,6 +340,118 @@ def encode_video_audios(params: Params, cfg: DattnConfig, mels: torch.Tensor,
     mask = mask & (tok_len > 0)[:, None]
     tok = scaled_rms_norm(tok, mm["llm_norm"]["weight"], cfg.mm_rms_eps)
     return tok * mask[..., None], mask
+
+
+def encode_images(params: Params, cfg: DattnConfig, images: torch.Tensor, *,
+                  grid_shape: Optional[Tuple[int, int]] = None,
+                  grids: Optional[torch.Tensor] = None, mm_chunks: int = 1,
+                  use_flash: bool = False, pos_noise: Optional[Dict] = None):
+    """The image path (mm_input_type "image") -> (tokens [B,L,d_llm], mask
+    [B,L]). images [B,H,W,3] (processor-normalized) take the plain path:
+    projector -> norm -> h / w positions over the s x s grid. Anyres
+    images [B,P,H,W,3] hold the base view at [:, 0] and the grid tiles
+    after it; the tiles are laid out as one (gh*s, gw*s) plane, and both
+    views are position-embedded with anchors s * max(grid_points), the
+    base view without the norm. `grid_shape` (gw, gh) is one grid for the
+    whole batch; `grids` [B,2] gives each sample its own (`_anyres_dynamic`).
+    A sample whose image is all zero carries no modality. `pos_noise`
+    (training) holds the draws of `draw_image_noise`."""
+    mm = params["mm"]
+    s = cfg.vision.num_patches_per_side
+    d = cfg.text.hidden_size
+    anyres = images.dim() == 5
+    b = images.shape[0]
+    n_tiles = images.shape[1] if anyres else 1
+    noise = pos_noise or {}
+    flat = images.reshape(-1, *images.shape[-3:])
+    with _tower_grad(params["vision"]):
+        feats = chunked_map(lambda x: siglip.forward_features(
+            params["vision"], x, cfg.vision, use_flash=use_flash), flat, mm_chunks)
+    feats = adapters.mlp_projector(mm["projector"], feats, cfg.mm_projector_depth)
+    dev = feats.device
+
+    def add_pos(x, view, n_anchors):
+        """Rows (axis 1) take pos_h, columns (axis 2) pos_w, with the noise
+        draws of `view` ("img": the s x s grid, "plane": the tile plane)."""
+        for axis, hw in ((1, "h"), (2, "w")):
+            pe = adapters.pos_embed(mm[f"pos_{hw}"], x.shape[axis], n_anchors, d,
+                                    device=dev, noise=noise.get(f"{view}_{hw}"))
+            x = adapters.add_pos(x, pe, axis=axis, eps=cfg.mm_rms_eps)
+        return x
+
+    if not anyres:
+        x = scaled_rms_norm(feats.reshape(b, s, s, d), mm["norm"]["weight"], cfg.mm_rms_eps)
+        x = add_pos(x, "img", s)
+        tok = x.reshape(b, s * s, d)
+        mask = torch.ones((b, s * s), dtype=torch.bool, device=dev)
+    else:
+        anchors = s * max(max(p) for p in cfg.mm_image_grid_points)
+        feats = feats.reshape(b, n_tiles, s, s, d)
+        # the base view skips mm["norm"], as the reference does
+        base = add_pos(feats[:, 0], "img", anchors)
+        if grids is not None:
+            tok, mask = _anyres_dynamic(mm, cfg, base, feats[:, 1:], grids.to(dev),
+                                        anchors, noise)
+        else:
+            if cfg.mm_image_aspect_ratio != "anyres":
+                raise ValueError("anyres images need mm_image_aspect_ratio='anyres'")
+            gw, gh = grid_shape
+            if 1 + gw * gh != n_tiles:
+                raise ValueError(f"grid {grid_shape} does not make {n_tiles} tiles")
+            tiles = feats[:, 1:].reshape(b, gh, gw, s, s, d).permute(0, 1, 3, 2, 4, 5)
+            tiles = tiles.reshape(b, gh * s, gw * s, d)
+            tiles = add_pos(tiles, "plane", anchors)
+            tok = torch.cat([base.reshape(b, s * s, d),
+                             tiles.reshape(b, gh * s * gw * s, d)], dim=1)
+            mask = torch.ones(tok.shape[:2], dtype=torch.bool, device=dev)
+    nonzero = images.reshape(b, -1).abs().sum(dim=-1) != 0
+    mask = mask & nonzero.to(dev)[:, None]
+    tok = scaled_rms_norm(tok, mm["llm_norm"]["weight"], cfg.mm_rms_eps)
+    return tok * mask[..., None], mask
+
+
+def _anyres_dynamic(mm, cfg: DattnConfig, base, tiles, grids, anchors: int, noise: Dict):
+    """Anyres with per-sample grids (gw, gh) = grids[b]: tiles [B,P,s,s,d]
+    padded to the batch's largest count. Tile t sits at (r, c) = (t // gw,
+    t % gw); its row i / column j is plane row r*s + i / column c*s + j,
+    where the position MLPs are evaluated pointwise (noise [B,P,s]:
+    jittered by +-0.45 and clipped to [0, L - 1] per sample). The tokens
+    are then permuted into the plane-row-major order of the static path,
+    the base view first and padding tiles last, with a validity mask."""
+    b, p_tiles, s, _, d = tiles.shape
+    dev = tiles.device
+    gw = torch.clamp(grids[:, 0].long(), min=1)
+    gh = torch.clamp(grids[:, 1].long(), min=1)
+    t_idx = torch.arange(p_tiles, device=dev)
+    ii = torch.arange(s, device=dev)
+    row_g = (t_idx[None, :] // gw[:, None])[..., None] * s + ii  # [B,P,s]
+    col_g = (t_idx[None, :] % gw[:, None])[..., None] * s + ii
+    lh = (gh * s).float()[:, None, None]
+    lw = (gw * s).float()[:, None, None]
+    rows, cols = row_g.float(), col_g.float()
+    if "plane_h" in noise:
+        rows = adapters.jitter(rows, noise["plane_h"], lh - 1.0)
+        cols = adapters.jitter(cols, noise["plane_w"], lw - 1.0)
+    frac_h = rows / torch.clamp(lh - 1.0, min=1.0) * (anchors - 1)
+    frac_w = cols / torch.clamp(lw - 1.0, min=1.0) * (anchors - 1)
+    pe_h = rms_norm(adapters.pos_mlp(mm["pos_h"], frac_h, d), cfg.mm_rms_eps)
+    pe_w = rms_norm(adapters.pos_mlp(mm["pos_w"], frac_w, d), cfg.mm_rms_eps)
+    tiles = tiles + pe_h[:, :, :, None, :].to(tiles.dtype)
+    tiles = tiles + pe_w[:, :, None, :, :].to(tiles.dtype)
+
+    l_base, l_max = s * s, (1 + p_tiles) * s * s
+    n_valid = gw * gh
+    dest = row_g[..., :, None] * (gw[:, None, None, None] * s) + col_g[..., None, :]
+    pad_dest = l_max + torch.arange(p_tiles * s * s, device=dev).reshape(1, p_tiles, s, s)
+    dest = torch.where((t_idx[None, :] < n_valid[:, None])[..., None, None],
+                       l_base + dest, pad_dest)
+    dest = torch.cat([torch.arange(l_base, device=dev).expand(b, l_base),
+                      dest.reshape(b, -1)], dim=1)
+    tok = torch.cat([base.reshape(b, l_base, d), tiles.reshape(b, -1, d)], dim=1)
+    perm = torch.argsort(dest, dim=1)  # destinations are distinct
+    tok = torch.gather(tok, 1, perm[..., None].expand(-1, -1, d))
+    mask = torch.arange(l_max, device=dev)[None, :] < (l_base + n_valid * s * s)[:, None]
+    return tok, mask
 
 
 # ---------------------------------------------------------------------------
@@ -579,6 +730,27 @@ def _write_cache_slice(buf, i: int, piece, start: int) -> None:
         buf[i, ..., start:start + n, :].copy_(piece[..., :n, :])
 
 
+# remat="dots": the counterpart of jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable. A product of a [.., K] activation with a
+# [K, N] weight reaches aten as mm (or addmm with a bias) after its leading
+# dims are flattened; these outputs are kept. Batched products (bmm: the
+# attention scores and P @ V of the plain route, the GQA einsums),
+# elementwise ops, norms and the K1 autograd.Function (its kernel launch is
+# not an aten op, so it reruns with its inputs) are recomputed.
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
             positions, img=None, img_mask=None, aud=None, aud_mask=None, *,
             mm_chunks: int = 1, return_caches: bool = False,
@@ -590,10 +762,11 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
     token layer by layer, so only one layer's full-precision modality KV is
     ever live. `remat=True` recomputes each layer in the backward pass
     (non-reentrant checkpoint) instead of keeping its activations;
-    `text_segs` [B,T] are packing segment ids for the T2T attention."""
-    if remat not in (False, True):
-        raise NotImplementedError(f"remat={remat!r}: only full remat (True) or "
-                                  "none (False) is ported")
+    `remat="dots"` keeps the layer's weight products (`DOTS_SAVED`) and
+    recomputes the rest (`dots_policy`); `text_segs` [B,T] are packing
+    segment ids for the T2T attention."""
+    if remat not in (False, True, "dots"):
+        raise ValueError(f"remat must be False, True or 'dots', got {remat!r}")
     tcfg = cfg.text
     h = inputs_embeds
     if tcfg.embed_scale:
@@ -611,7 +784,9 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
             img_mask=img_mask, aud_mask=aud_mask, mm_chunks=mm_chunks,
             use_flash=use_flash, text_segs=text_segs)
         if remat and torch.is_grad_enabled():
-            h, img, aud, caches = checkpoint(layer, h, img, aud, use_reentrant=False)
+            h, img, aud, caches = checkpoint(
+                layer, h, img, aud, use_reentrant=False,
+                **({"context_fn": _dots_context} if remat == "dots" else {}))
         else:
             h, img, aud, caches = layer(h, img, aud)
         if return_caches:

@@ -15,7 +15,8 @@ plain torch:
   -> scale(-1).
 `torch.optim.AdamW` does not qualify: it keeps its moments in the parameter
 dtype (bf16 here), which is not JAX's arithmetic. The moments are updated
-in place, and `apply` writes the parameters in place.
+in place, and `apply` writes the parameters in place. `MultiSteps` adds
+gradient accumulation (optax.MultiSteps).
 """
 from __future__ import annotations
 
@@ -111,13 +112,16 @@ class AdamW:
     State: {"count": int, "mu": {key: fp32}, "nu": {key: fp32}} over the
     trainable leaves."""
 
-    def __init__(self, labels: Dict[str, str], hp: TrainHParams):
+    def __init__(self, labels: Dict[str, str], hp: TrainHParams,
+                 lr_fn: Optional[Callable[[int], float]] = None):
+        """`lr_fn` (count -> rate) serves every group in place of the
+        warmup-cosine schedules."""
         self.labels, self.hp = labels, hp
         lrs = {"base": hp.learning_rate,
                "mm_rand": hp.mm_rand_lr or hp.learning_rate,
                "mm_vis": hp.mm_vis_lr or hp.learning_rate,
                "mm_aud": hp.mm_aud_lr or hp.learning_rate}
-        self.schedules = {mod: lr_schedule(hp, lr) for mod, lr in lrs.items()}
+        self.schedules = {mod: lr_fn or lr_schedule(hp, lr) for mod, lr in lrs.items()}
 
     def init(self, params) -> Dict:
         """Zero fp32 moments for every trainable leaf."""
@@ -169,5 +173,53 @@ class AdamW:
         state["count"] = count + 1
 
 
-def make_optimizer(params, hp: TrainHParams) -> AdamW:
-    return AdamW(param_labels(params, hp), hp)
+class MultiSteps:
+    """Gradient accumulation over k micro-steps: the counterpart of
+    `optax.MultiSteps(tx, k)` with its default `use_grad_mean`, as the JAX
+    CLI wraps its optimizer. Each micro-step folds its gradients into fp32
+    running means, acc += (g - acc) / (mini_step + 1) (optax's Welford
+    form, in its order of operations); the k-th applies the inner AdamW to
+    the means and zeroes them, and the micro-steps in between leave the
+    parameters untouched. The inner schedules count optimizer steps.
+
+    State: {"mini_step": int, "gradient_step": int, "acc": {key: fp32},
+    "inner": the inner state}, accumulators for the trainable leaves only."""
+
+    def __init__(self, inner: AdamW, k: int):
+        if k < 1:
+            raise ValueError(f"gradient accumulation needs k >= 1, got {k}")
+        self.inner, self.k = inner, k
+        self.labels = inner.labels
+
+    def init(self, params) -> Dict:
+        inner = self.inner.init(params)
+        return {"mini_step": 0, "gradient_step": 0, "inner": inner,
+                "acc": {key: torch.zeros_like(m) for key, m in inner["mu"].items()}}
+
+    @torch.no_grad()
+    def apply(self, params, grads: Dict[str, torch.Tensor], state: Dict) -> None:
+        n = state["mini_step"]
+        for key, acc in state["acc"].items():
+            acc.add_((grads[key].float() - acc) / (n + 1))
+        if n == self.k - 1:
+            self.inner.apply(params, state["acc"], state["inner"])
+            for acc in state["acc"].values():
+                acc.zero_()
+            state["gradient_step"] += 1
+        state["mini_step"] = (n + 1) % self.k
+
+
+def adamw(params, lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 1e-4) -> AdamW:
+    """optax.adamw(lr) with its defaults: every leaf trains and decays, at
+    a constant rate (the distillation student's optimizer)."""
+    hp = TrainHParams(weight_decay=weight_decay, beta1=b1, beta2=b2, eps=eps)
+    return AdamW({key: f"{_module_of(path)}_decay" for key, path, _ in leaves(params)}, hp,
+                 lr_fn=lambda count: lr)
+
+
+def make_optimizer(params, hp: TrainHParams, grad_accum: int = 1):
+    """AdamW over the parameter groups; `grad_accum` > 1 wraps it in
+    `MultiSteps`."""
+    tx = AdamW(param_labels(params, hp), hp)
+    return MultiSteps(tx, grad_accum) if grad_accum > 1 else tx

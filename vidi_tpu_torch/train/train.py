@@ -1,5 +1,5 @@
-"""Finetune CLI of the port (the flags of vidi_tpu/train/train.py
-that the port implements, plus --device and --dtype).
+"""Finetune CLI of the port: the 46 flags of vidi_tpu/train/train.py, plus
+--device and --dtype.
 
     python -m vidi_tpu_torch.train.train --tiny --data_path synthetic \
         --max_steps 2 --device cpu --output_dir out/
@@ -8,17 +8,27 @@ that the port implements, plus --device and --dtype).
     python -m vidi_tpu_torch.train.train --model_path gemma2/ \
         --mm_vision_tower siglip/ --mm_audio_tower whisper/ --mm_std 0.029 \
         --data_path synthetic --export_hf out/hf
+    python -m vidi_tpu_torch.train.train --tiny --mm_input_type image \
+        --mm_image_aspect_ratio anyres --dataset_type image-conv \
+        --data_path synthetic --gradient_accumulation_steps 2 --remat dots \
+        --profile_dir prof/ --report_to tensorboard --device cpu
 
-Each step writes one metrics.jsonl line with the JAX CLI's keys; the
-run saves every --save_steps steps and at the end, and resumes from the
-newest readable checkpoint under --output_dir.
+Each step writes one metrics.jsonl line with the JAX CLI's keys (the
+learning rate of the optimizer step, step // gradient_accumulation_steps);
+the run saves every --save_steps steps and at the end, and resumes from
+the newest readable checkpoint under --output_dir. --profile_dir writes a
+torch.profiler Chrome trace of steps start+2 to start+4. The mesh flags
+(--sp_mode, --seq_parallel_size, --model_parallel_size) take only their
+one-device values: the port has no multi-card mesh yet (ROADMAP Q1.16).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
+import types
 
 import numpy as np
 import torch
@@ -28,7 +38,7 @@ def _flag(s: str) -> bool:
     return s == "true"
 
 
-def parse_args():
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model_path", type=str, default=None,
                    help="a full Vidi checkpoint, or (with --mm_vision_tower) a "
@@ -51,16 +61,36 @@ def parse_args():
     p.add_argument("--model_max_length", type=int, default=None)
     p.add_argument("--data_path", type=str, required=True,
                    help="conversation JSON, or 'synthetic'")
+    p.add_argument("--dataset_type", choices=["video-conv", "image-conv"],
+                   default="video-conv")
     p.add_argument("--video_folder", type=str, default=".")
+    p.add_argument("--image_folder", type=str, default=None,
+                   help="image root for --dataset_type image-conv")
     p.add_argument("--output_dir", type=str, default="checkpoint/run")
     p.add_argument("--max_steps", type=int, default=100)
     p.add_argument("--per_device_train_batch_size", type=int, default=1)
+    p.add_argument("--gradient_accumulation_steps", type=int, default=1,
+                   help="micro-steps per optimizer step (fp32 gradient means)")
+    p.add_argument("--group_by_length", action="store_true",
+                   help="modality-aware length-grouped batch order")
+    p.add_argument("--pack", action="store_true",
+                   help="pack text-only conversations into dense rows with "
+                        "segment-id block-diagonal attention")
+    p.add_argument("--pack_seq_len", type=int, default=None,
+                   help="packed row length (default model_max_length)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of steps start+2 to "
+                        "start+4 here")
     p.add_argument("--use_flash", action="store_true",
                    help="the CUDA attention kernels (K1 forward, K4 backward, "
                         "K2 in the towers)")
-    p.add_argument("--remat", choices=["full", "none"], default="full",
-                   help="recompute each decoder layer in the backward pass "
-                        "(reference gradient checkpointing), or keep everything")
+    p.add_argument("--remat", choices=["full", "dots", "none"], default="full",
+                   help="per decoder layer in the backward pass: recompute "
+                        "everything (reference gradient checkpointing), keep the "
+                        "weight products and recompute the rest, or keep everything")
+    p.add_argument("--sp_mode", choices=["gspmd", "ring", "ulysses"], default="gspmd",
+                   help="sequence parallelism of the modality cross attention; "
+                        "one card takes only the default (ROADMAP Q1.16)")
     p.add_argument("--learning_rate", type=float, default=1e-5)
     p.add_argument("--mm_rand_lr", type=float, default=2e-5)
     p.add_argument("--mm_vis_lr", type=float, default=None)
@@ -77,24 +107,56 @@ def parse_args():
     p.add_argument("--save_total_limit", type=int, default=2)
     p.add_argument("--video_fps", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=45678)
-    p.add_argument("--device", default="cuda",
-                   help="torch device; 'cuda' without a card raises")
-    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
+    p.add_argument("--seq_parallel_size", type=int, default=1)
+    p.add_argument("--model_parallel_size", type=int, default=1)
+    p.add_argument("--report_to", choices=["none", "tensorboard"], default="none",
+                   help="metric sink beyond metrics.jsonl; tensorboard events land "
+                        "in <output_dir>/runs")
     p.add_argument("--export_hf", type=str, default=None, metavar="DIR",
                    help="after training, also write HF-format safetensors + "
                         "config.json to DIR (loadable with --model-path)")
-    return p.parse_args()
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cuda' without a card raises")
+    p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
+    return p
 
 
-def main():
-    args = parse_args()
+def _step_profiler(out_dir, start_step: int, device: torch.device):
+    """torch.profiler over steps start+2 to start+4 (the JAX CLI's trace
+    window; step start+1 warms it up), written as a Chrome trace into
+    `out_dir` when the window closes or the run ends; `.step()` after each
+    step. A no-op without `out_dir`."""
+    if not out_dir:
+        return contextlib.nullcontext(types.SimpleNamespace(step=lambda: None))
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    path = os.path.join(out_dir, f"trace_steps_{start_step + 2}-{start_step + 4}.json")
+
+    def write(prof):
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}")
+
+    return torch.profiler.profile(
+        activities=acts, on_trace_ready=write,
+        schedule=torch.profiler.schedule(wait=1, warmup=1, active=3, repeat=1))
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.sp_mode != "gspmd" or max(args.seq_parallel_size, args.model_parallel_size) > 1:
+        raise NotImplementedError(
+            "--sp_mode ring / ulysses, --seq_parallel_size or --model_parallel_size > 1: "
+            "the port has no multi-card mesh yet (ROADMAP Q1.16)")
     from vidi_tpu_torch.train.prefetch import Prefetcher
     from vidi_tpu_torch.utils import StepMeter, build_logger
     from vidi_tpu_torch.infer.loader import load_model, resolve_device
-    from vidi_tpu_torch.models.dattn import draw_pos_noise
+    from vidi_tpu_torch.models.dattn import draw_image_noise, draw_pos_noise, frame_side
     from vidi_tpu_torch.train import data as data_mod
     from vidi_tpu_torch.train.checkpoint import Checkpointer
     from vidi_tpu_torch.train.optimizer import TrainHParams, lr_schedule, make_optimizer
+    from vidi_tpu_torch.train.tb import TBReporter
     from vidi_tpu_torch.train.train_step import make_batch_hw, opt_init, train_step
 
     if args.model_path is None and not args.tiny:
@@ -109,6 +171,18 @@ def main():
         seed=args.seed, mm_vision_tower=args.mm_vision_tower,
         mm_audio_tower=args.mm_audio_tower, mm_overrides=mm_overrides)
     cfg = dataclasses.replace(cfg, loss_thres=args.loss_thres)
+    image_ds = args.dataset_type == "image-conv"
+    if image_ds and cfg.mm_input_type != "image":
+        raise ValueError("--dataset_type image-conv needs an image-mode model "
+                         "(--mm_input_type image, or an image-type checkpoint); "
+                         f"got mm_input_type={cfg.mm_input_type!r}")
+    if image_ds and args.pack:
+        raise ValueError("--pack is for text / video-conv data")
+    if not image_ds and cfg.mm_input_type != "video":
+        raise ValueError("video-conv data needs a video-mode model; got "
+                         f"mm_input_type={cfg.mm_input_type!r} (pass --dataset_type "
+                         "image-conv for image models)")
+    ga = args.gradient_accumulation_steps
     hp = TrainHParams(
         learning_rate=args.learning_rate, mm_rand_lr=args.mm_rand_lr,
         mm_vis_lr=args.mm_vis_lr, mm_aud_lr=args.mm_aud_lr,
@@ -116,7 +190,7 @@ def main():
         total_steps=args.max_steps, train_rand=args.train_rand,
         train_vis=args.train_vis, train_aud=args.train_aud,
         train_llm=args.train_llm)
-    tx = make_optimizer(params, hp)
+    tx = make_optimizer(params, hp, grad_accum=ga)
     frozen = tuple(mod for flag, mod in (
         (args.train_llm, "text"), (args.train_vis, "vision"),
         (args.train_aud, "audio"), (args.train_rand, "mm")) if not flag)
@@ -129,57 +203,113 @@ def main():
         print(f"resumed from step {start_step}")
 
     synthetic = args.data_path == "synthetic"
-    if not synthetic:
-        ds = data_mod.VideoConvDataset(args.data_path, args.video_folder, tokenizer,
-                                       cfg, fps=args.video_fps)
-        order = np.random.default_rng(args.seed).permutation(len(ds))
     bsz = args.per_device_train_batch_size
+    if not synthetic:
+        if image_ds:
+            ds = data_mod.ImageConvDataset(args.data_path,
+                                           args.image_folder or args.video_folder,
+                                           tokenizer, cfg)
+        else:
+            ds = data_mod.VideoConvDataset(args.data_path, args.video_folder, tokenizer,
+                                           cfg, fps=args.video_fps)
+        if args.group_by_length:
+            from vidi_tpu_torch.train.samplers import length_grouped_epoch_indices
+            order = np.asarray(length_grouped_epoch_indices(
+                ds.lengths, bsz, world_size=1, grad_accum=ga, sp_size=1, dp_size=1,
+                seed=args.seed))
+        else:
+            order = np.random.default_rng(args.seed).permutation(len(ds))
 
     def batch_source():
         """Host-side batch prep on the prefetch thread."""
+        pack_cursor, packer = 0, None
         for step in range(start_step, args.max_steps):
             if synthetic:
-                batch = data_mod.synthetic_batch(cfg, b=bsz, seed=step)
+                batch = (data_mod.synthetic_image_batch(cfg, b=bsz, seed=step) if image_ds
+                         else data_mod.synthetic_batch(cfg, b=bsz, seed=step))
+            elif args.pack:
+                # stream samples into the packer until a batch flushes
+                from vidi_tpu_torch.train.packing import PackedBatcher
+                if packer is None:
+                    packer = PackedBatcher(cfg, bsz, args.pack_seq_len)
+                batch = None
+                while batch is None:
+                    i = int(order[pack_cursor % len(order)])
+                    pack_cursor += 1
+                    batch = packer.add(ds[i])
             else:
                 idx = [int(order[(step * bsz + j) % len(order)]) for j in range(bsz)]
-                batch = data_mod.collate([ds[i] for i in idx], cfg)
-            # the token budget counts real frames, not the padded bucket
-            hw = make_batch_hw(cfg, max(int(batch["frame_counts"].sum()), 1))
-            n_tokens = int(batch["text_mask"].sum()) + int(
-                batch["frame_counts"].sum()) * (hw[0] // cfg.mm_image_pool_size) ** 2
+                collate = data_mod.collate_images if image_ds else data_mod.collate
+                batch = collate([ds[i] for i in idx], cfg)
+            if "frame_counts" in batch:
+                # the token budget counts real frames, not the padded bucket;
+                # a frame's tokens follow the adapter's rule (`frame_side`:
+                # the JAX CLI's hw // pool undercounts v1's fixed 8 x 8 side)
+                hw = make_batch_hw(cfg, max(int(batch["frame_counts"].sum()), 1))
+                h2, w2 = frame_side(cfg, hw)
+                n_tokens = int(batch["text_mask"].sum()) + int(
+                    batch["frame_counts"].sum()) * h2 * w2
+            else:
+                hw = make_batch_hw(cfg, 1)  # not read by the image path
+                has_img = np.abs(batch["images"]).reshape(
+                    len(batch["images"]), -1).sum(axis=1) > 0
+                n_tokens = int(batch["text_mask"].sum()) + int(
+                    has_img.sum()) * cfg.vision.num_patches_per_side ** 2
             yield batch, hw, n_tokens
 
     meter = StepMeter()
     logger = build_logger("vidi_tpu_torch.train", "train.log",
                           log_dir=os.path.join(args.output_dir, "logs"))
     os.makedirs(args.output_dir, exist_ok=True)
-    lr_fn = lr_schedule(hp, hp.learning_rate)
+    tb = TBReporter(args.output_dir, enabled=args.report_to == "tensorboard")
+    # every configured parameter group's schedule, at the optimizer step
+    lr_fns = {"learning_rate": lr_schedule(hp, hp.learning_rate),
+              "learning_rate_mm_rand": lr_schedule(hp, hp.mm_rand_lr or hp.learning_rate)}
+    if hp.mm_vis_lr is not None:
+        lr_fns["learning_rate_mm_vis"] = lr_schedule(hp, hp.mm_vis_lr)
+    if hp.mm_aud_lr is not None:
+        lr_fns["learning_rate_mm_aud"] = lr_schedule(hp, hp.mm_aud_lr)
+    remat = {"full": True, "dots": "dots", "none": False}[args.remat]
     gen = torch.Generator(device=dev)
     batches = iter(Prefetcher(batch_source(), depth=2))
-    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as metrics_f:
+    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as metrics_f, \
+            _step_profiler(args.profile_dir, start_step, dev) as prof:
         for step in range(start_step, args.max_steps):
             meter.start()
             batch, hw, n_tokens = next(batches)
             batch = data_mod.to_device(batch, dev)
             gen.manual_seed(args.seed + step)  # the same noise on a resumed run
-            b, n = batch["images"].shape[:2]
-            noise = draw_pos_noise(cfg, b, n, batch["mels"].shape[1], hw, gen)
+            images = batch["images"]
+            if image_ds:
+                anyres = images.dim() == 5
+                noise = draw_image_noise(cfg, images.shape[0],
+                                         images.shape[1] if anyres else 1, gen,
+                                         per_sample=anyres and "grids" in batch)
+            else:
+                noise = draw_pos_noise(cfg, images.shape[0], images.shape[1],
+                                       batch["mels"].shape[1], hw, gen)
             params, opt_state, loss = train_step(
                 params, opt_state, batch, noise, cfg=cfg, tx=tx, hw=hw,
-                mm_chunks=args.mm_splits, remat=args.remat == "full",
-                use_flash=args.use_flash, frozen=frozen)
+                mm_chunks=args.mm_splits, remat=remat, use_flash=args.use_flash,
+                frozen=frozen)
             loss = float(loss)
             dt = meter.stop(n_tokens)
             logger.info(f"step {step}  loss {loss:.4f}  {dt:.2f}s  "
                         f"[{meter.summary()}]  (device={dev})")
+            # the schedules advance once per optimizer step
+            lrs = {k: fn(step // ga) for k, fn in lr_fns.items()}
             metrics_f.write(json.dumps({
                 "step": step, "loss": loss, "step_time_s": round(dt, 4),
                 "tokens_per_sec": round(meter.tokens_per_sec, 1),
-                "learning_rate": lr_fn(step)}) + "\n")
+                "learning_rate": lrs["learning_rate"]}) + "\n")
             metrics_f.flush()
+            tb.report({"loss": loss, **lrs, "step_time_s": dt,
+                       "tokens_per_sec": meter.tokens_per_sec}, step)
+            prof.step()
             if (step + 1) % args.save_steps == 0 or step + 1 == args.max_steps:
                 ckpt.save(step + 1, params, opt_state)
     ckpt.close()
+    tb.close()
     if args.export_hf:
         from vidi_tpu_torch.infer.export import save_pretrained
         save_pretrained(params, cfg, args.export_hf, tokenizer_src=args.model_path)

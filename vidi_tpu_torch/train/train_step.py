@@ -4,8 +4,12 @@ Batch layout as in JAX (dense, mask-based), as torch tensors (`data.to_device`):
   input_ids [B,T], labels [B,T] (IGNORE_INDEX-masked), text_mask [B,T] bool,
   images [B,N,S,S,3], frame_counts [B], mels [B,W,n_mels,3000],
   audio_sizes [B]; packed batches add positions [B,T] and segment_ids [B,T].
-The position noise comes as explicit draws (`dattn.draw_pos_noise`), not
-as a key. `remat=True` checkpoints each decoder layer.
+Image-conversation batches (`data.collate_images`, mm_input_type "image")
+have no frame_counts: images [B,S,S,3], or anyres [B,P,S,S,3] with
+per-sample grids [B,2], and no audio.
+The position noise comes as explicit draws (`dattn.draw_pos_noise`, or
+`dattn.draw_image_noise` for image batches), not as a key. `remat=True`
+checkpoints each decoder layer, `remat="dots"` keeps its weight products.
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ from vidi_tpu_torch.core.config import DattnConfig
 from vidi_tpu_torch.models import dattn, decoder
 from vidi_tpu_torch.models.adapters import budget_hw
 from vidi_tpu_torch.train.losses import shifted_cross_entropy
-from vidi_tpu_torch.train.optimizer import AdamW, leaves
+from vidi_tpu_torch.train.optimizer import leaves
 
 
 def _detached(tree):
@@ -29,21 +33,24 @@ def _detached(tree):
 
 
 def loss_fn(params, cfg: DattnConfig, batch: Dict, pos_noise: Optional[Dict], *,
-            hw: Tuple[int, int], mm_chunks: int = 1, remat: bool = True,
+            hw: Tuple[int, int], mm_chunks: int = 1, remat=True,
             use_flash: bool = False, frozen: Tuple[str, ...] = ()) -> torch.Tensor:
     """Scalar loss of one batch. Frozen top-level modules ("vision",
     "audio", "text", "mm") are detached, the counterpart of JAX's
     stop_gradient; a detached tower then runs under no_grad."""
-    if "frame_counts" not in batch:
-        raise NotImplementedError("image-conversation batches are not ported; "
-                                  "the port trains on video-conv batches")
     params = {k: (_detached(v) if k in frozen else v) for k, v in params.items()}
-    img, img_mask = dattn.encode_video_images(
-        params, cfg, batch["images"], batch["frame_counts"], hw,
-        mm_chunks=mm_chunks, use_flash=use_flash, pos_noise=pos_noise)
-    aud, aud_mask = dattn.encode_video_audios(
-        params, cfg, batch["mels"], batch["audio_sizes"], mm_chunks=mm_chunks,
-        use_flash=use_flash, pos_noise=pos_noise)
+    if "frame_counts" in batch:
+        img, img_mask = dattn.encode_video_images(
+            params, cfg, batch["images"], batch["frame_counts"], hw,
+            mm_chunks=mm_chunks, use_flash=use_flash, pos_noise=pos_noise)
+        aud, aud_mask = dattn.encode_video_audios(
+            params, cfg, batch["mels"], batch["audio_sizes"], mm_chunks=mm_chunks,
+            use_flash=use_flash, pos_noise=pos_noise)
+    else:
+        img, img_mask = dattn.encode_images(
+            params, cfg, batch["images"], grids=batch.get("grids"),
+            mm_chunks=mm_chunks, use_flash=use_flash, pos_noise=pos_noise)
+        aud = aud_mask = None
     mask = batch["text_mask"]
     positions = batch.get("positions")
     if positions is None:
@@ -57,19 +64,20 @@ def loss_fn(params, cfg: DattnConfig, batch: Dict, pos_noise: Optional[Dict], *,
     return shifted_cross_entropy(logits, batch["labels"], cfg.loss_thres)
 
 
-def opt_init(tx: AdamW, params) -> Dict:
+def opt_init(tx, params) -> Dict:
     """fp32 optimizer state (the reference accumulates in fp32 under ZeRO-3)."""
     return tx.init(params)
 
 
 def train_step(params, opt_state, batch: Dict, pos_noise: Optional[Dict], *,
-               cfg: DattnConfig, tx: AdamW, hw: Tuple[int, int],
-               mm_chunks: int = 1, remat: bool = True, use_flash: bool = False,
+               cfg: DattnConfig, tx, hw: Tuple[int, int],
+               mm_chunks: int = 1, remat=True, use_flash: bool = False,
                frozen: Tuple[str, ...] = ()):
-    """One step -> (params, opt_state, loss). Gradients of the trainable
-    leaves (the optimizer's non-frozen labels) are cast to fp32, the update
-    is made in fp32 and written back in each parameter's dtype, in place:
-    the returned params and state are the objects passed in."""
+    """One step -> (params, opt_state, loss). `tx` is an `optimizer.AdamW`
+    or `optimizer.MultiSteps`. Gradients of the trainable leaves (the
+    optimizer's non-frozen labels) are cast to fp32, the update is made in
+    fp32 and written back in each parameter's dtype, in place: the
+    returned params and state are the objects passed in."""
     train = [(key, p) for key, _, p in leaves(params) if tx.labels[key] != "frozen"]
     for _, p in train:
         p.requires_grad_(True)
