@@ -215,7 +215,20 @@
    falling on each rollout batch, no kernel launched (as the reference:
    the plain route), the student saved, reloaded and run as
    speculative_generate's draft with greedy's tokens.
-9. With --profile, profiles both serving slices' encode, one prefill and
+9. Last, the parallel slice (parallel/): the 9B's T2V at full width (T =
+   128, S = 23,520 with the last 30 frames padding) cut into PAR_SEQ
+   virtual seq ranks of 5,880 keys in one process: the ring's flash
+   partials (K1 on each shard) merged in shard order against K1 on the
+   whole cache, the ring backward (K4 on each shard against the final out
+   / lse) against K4 on the whole cache, with planted faults (a shard's lse
+   left at K1's sentinel, a shard dropped, dk / dv handed to the wrong
+   owner), the ring's K1 / K4 launches read around its run alone, its
+   times beside one call on the whole cache; Ulysses' head slices (K1 on 4
+   query / 2 KV heads each) stitched against K1 on all heads; the train
+   CLI (tiny, --sp_mode ring) under `torchrun --nproc_per_node 1` (a
+   one-rank NCCL world) against the plain CLI, losses within CLI_LOSS_REL.
+   One card holds no multi-rank collective.
+10. With --profile, profiles both serving slices' encode, one prefill and
    eight decode steps (each decode route of the bf16 one; the 7B's eight
    on the K3 route), the long-video
    slice's streamed encode, chunked media prefill, shared-cache prefills
@@ -5557,6 +5570,206 @@ def train_cli_phase(device: str = "cuda") -> None:
         print(f"  {warn[0]}")
 
 
+# ---------------------------------------------------------------------------
+# Parallelism (parallel/): the ring's and Ulysses' local steps on virtual
+# ranks, and the train CLI in a one-rank NCCL world
+# ---------------------------------------------------------------------------
+
+# The 9B's T2V at full width: 128 text rows against a 120 s clip's 23,520
+# image keys, of which the last 30 frames (5,880 keys) are padding (a 90 s
+# clip batched with a 120 s one), cut into PAR_SEQ shards of 5,880 keys: the
+# last virtual rank holds no valid key.
+PAR_SEQ, PAR_T = 4, 128
+PAR_S, PAR_VALID = IMG_S, IMG_S - 30 * 196
+CLI_LOSS_REL = 1e-6
+
+
+def _ring_virtual(q, shards, dout, scale: float, cap, fault=None):
+    """One ring rank's work at PAR_SEQ virtual ranks, through the ring's own
+    helpers: the flash partial of every shard (K1), merged in shard order,
+    then the backward of every shard against the final out / lse (K4) ->
+    (out, lse, dq, dk, dv), dk / dv concatenated in shard order. `fault`:
+    "sentinel" (a shard's empty-row lse left at K1's sentinel), "dropped"
+    (shard 1 left out of the merge and of dq), "owner" (dk / dv handed to
+    the next shard's owner)."""
+    from vidi_tpu_torch.ops.cuda.flash_attention import EMPTY_ROW_LSE
+    from vidi_tpu_torch.parallel import ring_attention as ra
+
+    partials = [ra._local_attn_lse(q, k, v, m, scale, cap, True) for k, v, m in shards]
+    if fault == "sentinel":
+        partials = [(o, torch.where(torch.isinf(l), EMPTY_ROW_LSE, l)) for o, l in partials]
+    keep = [i for i in range(len(shards)) if not (fault == "dropped" and i == 1)]
+    out, lse = ra.merge([partials[i] for i in keep])
+    grads = [ra.shard_grads(q, k, v, m, out, lse, dout, scale, cap, True)
+             for k, v, m in shards]
+    dq = sum(grads[i][0].float() for i in keep).to(q.dtype)
+    order = list(range(len(shards)))
+    if fault == "owner":
+        order = order[1:] + order[:1]
+    dk = torch.cat([grads[i][1] for i in order], dim=1)
+    dv = torch.cat([grads[i][2] for i in order], dim=1)
+    return out, lse, dq, dk, dv
+
+
+def parallel_phase(dev) -> dict:
+    """The parallel slice on one card. (a) The ring at the 9B's full width,
+    PAR_SEQ virtual ranks in one process: `_local_attn_lse` (K1) on each
+    shard merged by `_combine`, against K1 on the whole cache within ULPS
+    bf16 ulps; the ring backward (K4 on each shard with the final out /
+    lse) against K4 on the whole cache at the K4 rows' limits; planted
+    faults: a shard's lse left at the sentinel, one shard dropped, dk / dv
+    handed to the wrong owner. Launches: PAR_SEQ K1 and PAR_SEQ K4 calls
+    (each a dq and a dk / dv kernel), read around the ring's run alone.
+    (b) Ulysses' local step: K1 on each Hq / PAR_SEQ head slice (G = 2),
+    stitched, against K1 on all heads. (c) The train CLI under torchrun in a
+    one-rank NCCL world (tiny, --sp_mode ring) against the same CLI without
+    torchrun: losses within CLI_LOSS_REL. -> K1 / K4 launches of the ring's
+    run, and the shard shapes' cases for the kernel line."""
+    from vidi_tpu_torch.ops.cuda import _lib
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
+    from vidi_tpu_torch.parallel import ring_attention as ra
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    hq, hk, d, t, s, cap = 16, 8, 256, PAR_T, PAR_S, 50.0
+    scale, n = d**-0.5, PAR_S // PAR_SEQ
+    q = _randn(gen, (1, t, hq, d), dev, Q_GAIN)
+    k = _randn(gen, (1, s, hk, d), dev)
+    v = _randn(gen, (1, s, hk, d), dev)
+    mask = _kv_mask(s, PAR_VALID, dev)
+    dout = _randn(gen, (1, t, hq, d), dev)
+    shards = [(k[:, i * n:(i + 1) * n], v[:, i * n:(i + 1) * n], mask[:, i * n:(i + 1) * n])
+              for i in range(PAR_SEQ)]
+    label = f"9b t2v T={t} S={s} mask cap=50, {PAR_SEQ} virtual ranks of {n} keys"
+
+    # (a) the ring's run, its launches read around it alone
+    _reset_train_counts()
+    out, lse, dq, dk, dv = _ring_virtual(q, shards, dout, scale, cap)
+    torch.cuda.synchronize()
+    counts = _train_counts()
+    launches = {"flash_attention": counts["flash_attention"],
+                "flash_attention_bwd": counts["flash_attention_bwd"]}
+    print(f"  ring {label}: launches {launches}")
+    if launches != {"flash_attention": PAR_SEQ, "flash_attention_bwd": PAR_SEQ}:
+        raise AssertionError(f"the ring's launches {launches}, expected {PAR_SEQ} each")
+    whole_out, whole_lse = k1.flash_attention(q, k, v, mask, scale, False, None, cap)
+    whole = k4.flash_attention_bwd(q, k, v, mask, whole_out, whole_lse, dout, scale,
+                                   False, None, cap)
+    faults = {f: _ring_virtual(q, shards, dout, scale, cap, f)
+              for f in ("sentinel", "dropped", "owner")}
+    errs = [_check(f"ring out {label}", out, whole_out,
+                   {"shard lse left at the sentinel": faults["sentinel"][0],
+                    "shard 1 dropped": faults["dropped"][0]}),
+            _check(f"ring dq {label}", dq, whole[0],
+                   {"shard 1 dropped": faults["dropped"][2]})]
+    for i, name in ((3, "dk"), (4, "dv")):
+        errs.append(_check(f"ring {name} {label}", (out, lse, dq, dk, dv)[i], whole[i - 2],
+                           {"dk / dv to the wrong owner": faults["owner"][i]}))
+    lse_gap = float((lse.transpose(1, 2) - whole_lse).abs().max())
+    print(f"  ring lse against K1's on the whole cache: {lse_gap:.3e} (limit {LSE_ATOL})")
+    if not lse_gap <= LSE_ATOL:
+        raise AssertionError(f"ring lse {lse_gap:.3e} over {LSE_ATOL}")
+    del faults
+
+    # times: the ring's forward and backward against one K1 / K4 call on the
+    # whole cache, and K1 / K4 at one shard's shape (the new case rows)
+    ring_fwd_ms = _time_ms(lambda: ra.merge(
+        [ra._local_attn_lse(q, kk, vv, m, scale, cap, True) for kk, vv, m in shards]))
+    ring_bwd_ms = _time_ms(lambda: [ra.shard_grads(q, kk, vv, m, out, lse, dout, scale, cap,
+                                                   True) for kk, vv, m in shards])
+    whole_fwd_ms = _time_ms(lambda: k1.flash_attention(q, k, v, mask, scale, False, None, cap))
+    whole_bwd_ms = _time_ms(lambda: k4.flash_attention_bwd(q, k, v, mask, whole_out,
+                                                           whole_lse, dout, scale, False,
+                                                           None, cap))
+    print(f"  ring forward {ring_fwd_ms:.4f} ms ({PAR_SEQ} K1 calls + merges) against K1 on "
+          f"the whole cache {whole_fwd_ms:.4f} ms; ring backward {ring_bwd_ms:.4f} ms "
+          f"({PAR_SEQ} K4 calls) against K4 on the whole cache {whole_bwd_ms:.4f} ms "
+          f"[{_card()}]")
+    kq, kv_, km = shards[0]
+    sh_out, sh_lse = k1.flash_attention(q, kq, kv_, km, scale, False, None, cap)
+    visible = t * int(km.sum())
+    cases = {}
+    for name, run, plain, ops, nbytes in (
+            ("flash_attention",
+             lambda: k1.flash_attention(q, kq, kv_, km, scale, False, None, cap),
+             lambda: k1.flash_attention_plain(q, kq, kv_, km, scale, False, None, cap),
+             4 * hq * d * visible, _nbytes(q, kq, kv_, km, sh_out, sh_lse)),
+            ("flash_attention_bwd",
+             lambda: k4.flash_attention_bwd(q, kq, kv_, km, sh_out, sh_lse, dout, scale,
+                                            False, None, cap),
+             lambda: k4.flash_attention_bwd_plain(q, kq, kv_, km, sh_out, sh_lse, dout,
+                                                  scale, False, None, cap),
+             10 * hq * d * visible, 2 * _nbytes(q, kq, kv_, km, sh_out, sh_lse, dout))):
+        ms, plain_ms = _time_ms(run), _time_ms(plain)
+        bound = _bound(ops, nbytes, "bf16")
+        shape = f"9b ring shard t2v T={t} S={n} mask cap=50"
+        print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        cases[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, **bound,
+                       "library_ms": None, **_rate(f"{name} {shape}", ops, ms, bound)}
+
+    # (b) Ulysses' local step: each virtual rank's head slice over the whole
+    # stream (its k / v heads after the all-to-all), stitched
+    g = hq // hk
+    hq_r, hk_r = hq // PAR_SEQ, hk // PAR_SEQ
+    heads = torch.cat([k1.flash_attention(q[:, :, r * hq_r:(r + 1) * hq_r],
+                                          k[:, :, r * hk_r:(r + 1) * hk_r],
+                                          v[:, :, r * hk_r:(r + 1) * hk_r], mask, scale,
+                                          False, None, cap)[0]
+                       for r in range(PAR_SEQ)], dim=2)
+    same = torch.equal(heads, whole_out)
+    sms = _lib.sm_count(dev)
+    plans = (k1.sm90_plan(1, t, s, hq, hk, d, sms), k1.sm90_plan(1, t, s, hq_r, hk_r, d, sms))
+    wrong = torch.cat([heads[:, :, hq_r:], heads[:, :, :hq_r]], dim=2)
+    errs.append(_check(f"Ulysses head slices (G = {g}, {hq_r} query / {hk_r} KV heads a rank) "
+                       f"stitched, {label}", heads, whole_out,
+                       {"slices stitched one rank off": wrong}))
+    diff = int((heads != whole_out).sum())
+    print(f"  Ulysses slices {'bit-equal' if same else 'not bit-equal'} to K1 on all heads "
+          f"({diff} of {heads.numel()} elements differ; sm90_plan (splits, keys a split): "
+          f"all heads {plans[0]}, a slice {plans[1]})")
+
+    # (c) the train CLI under torchrun in a one-rank NCCL world
+    cli = train_cli_ranks_check()
+    return {"launches": launches, "max_abs_err": max(errs), "cases": cases,
+            "ulysses_bit_equal": same, "cli": cli,
+            "ring_ms": {"forward": ring_fwd_ms, "backward": ring_bwd_ms,
+                        "whole_forward": whole_fwd_ms, "whole_backward": whole_bwd_ms}}
+
+
+def train_cli_ranks_check(device: str = "cuda") -> dict:
+    """The train CLI (tiny, --sp_mode ring, 2 steps) under `torchrun
+    --standalone --nproc_per_node 1` (a one-rank NCCL world: mesh (1, 1, 1))
+    and as a plain process: the two runs' losses within CLI_LOSS_REL."""
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    losses, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["-m", "vidi_tpu_torch.train.train", "--tiny", "--data_path", "synthetic",
+                "--sp_mode", "ring", "--max_steps", "2", "--device", device]
+        for name, pre in (("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                                        "--standalone", "--nproc_per_node", "1"]),
+                          ("plain", [sys.executable])):
+            out = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            res = subprocess.run([*pre, *args, "--output_dir", out], capture_output=True,
+                                 text=True, timeout=300, cwd=root)
+            walls[name] = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"train CLI ({name}) failed ({res.returncode}): "
+                                     f"{res.stderr[-2000:]}")
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                losses[name] = [json.loads(x)["loss"] for x in f]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses["torchrun"], losses["plain"]))
+    print(f"  train CLI --sp_mode ring: torchrun (one rank) losses {losses['torchrun']} "
+          f"in {walls['torchrun']:.1f} s, plain {losses['plain']} in {walls['plain']:.1f} s; "
+          f"largest relative gap {gap:.2e} (limit {CLI_LOSS_REL})")
+    if len(losses["torchrun"]) != 2 or not gap <= CLI_LOSS_REL:
+        raise AssertionError("the one-rank torchrun CLI's losses differ from the plain CLI's")
+    return {"losses": losses, "rel_gap": gap, "wall_s": walls}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5724,6 +5937,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("train CLI (a subprocess on the card):")
     train_cli_phase()
+    print(f"parallel slice (the 9B's T2V at full width on {PAR_SEQ} virtual seq ranks: the "
+          "ring, Ulysses' local step; the train CLI in a one-rank NCCL world):")
+    parallel = parallel_phase(dev)
+    for name, case in parallel["cases"].items():
+        kern[name]["cases"].append(case)
 
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
     # training for K4, int8 serving for K5 / K6; K7 is on no path);
@@ -5734,7 +5952,7 @@ def main() -> int:
              "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8,
              "serve_daemon_int8": serve_daemon_int8, "train": train, "remat": remat,
              "grad_accum": grad_accum, "train_image": train_image, "train_pack": train_pack,
-             "train_7b": train_7b, "distill": distill}
+             "train_7b": train_7b, "distill": distill, "parallel": parallel["launches"]}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [

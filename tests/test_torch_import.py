@@ -30,6 +30,12 @@ MODULES = [
     "vidi_tpu_torch.ops.cuda.fused_rmsnorm",
     "vidi_tpu_torch.constants",
     "vidi_tpu_torch.core.config",
+    "vidi_tpu_torch.core.mesh",
+    "vidi_tpu_torch.core.tree",
+    "vidi_tpu_torch.parallel",
+    "vidi_tpu_torch.parallel.sharding",
+    "vidi_tpu_torch.parallel.ring_attention",
+    "vidi_tpu_torch.parallel.ulysses",
     "vidi_tpu_torch.media.text",
     "vidi_tpu_torch.media.audio",
     "vidi_tpu_torch.utils",

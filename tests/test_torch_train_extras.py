@@ -18,8 +18,8 @@
 - the train CLI's new flags, run in process: image-conv anyres batches with
   gradient accumulation, remat "dots", a profile trace and tensorboard;
   --pack and --group_by_length on conversation files; the reference's mode
-  checks as ValueErrors; the Q1.16 mesh flags raising; all 46 of the
-  reference CLI's flags accepted.
+  checks as ValueErrors; the mesh flags that a process without torchrun
+  cannot serve raising; all 46 of the reference CLI's flags accepted.
 """
 import dataclasses
 import functools
@@ -445,10 +445,15 @@ def test_cli_mode_checks_raise(tmp_path, argv, match):
         _cli(tmp_path, "--data_path", "synthetic", "--max_steps", "1", *argv)
 
 
-@pytest.mark.parametrize("flag", [["--sp_mode", "ring"], ["--seq_parallel_size", "2"],
+@pytest.mark.parametrize("flag", [["--sp_mode", "ring", "--seq_parallel_size", "2"],
+                                  ["--seq_parallel_size", "2"],
                                   ["--model_parallel_size", "2"]])
 def test_cli_mesh_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="Q1.16"):
+    """A seq mesh needs ranks (torchrun; tests/test_torch_parallel.py runs
+    one); tensor parallelism is ROADMAP Q1.16b."""
+    err, match = ((NotImplementedError, "Q1.16b") if "--model_parallel_size" in flag
+                  else (SystemExit, "torchrun"))
+    with pytest.raises(err, match=match):
         _cli(tmp_path, "--data_path", "synthetic", *flag)
 
 

@@ -391,7 +391,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "chunks (0: decode each video fully first)")
     for flag in ("--seq-parallel", "--model-parallel", "--data-parallel"):
         ap.add_argument(flag, type=int, default=1, metavar="N",
-                        help="multi-card meshes are not ported yet (ROADMAP Q1.16)")
+                        help="inference meshes are not ported yet (ROADMAP Q1.16b)")
     ap.add_argument("--spec-ngram", action="store_true",
                     help="model-free speculative decoding (output equals greedy)")
     ap.add_argument("--spec-k", type=int, default=4,
@@ -406,8 +406,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if max(args.seq_parallel, args.model_parallel, args.data_parallel) > 1:
         raise NotImplementedError(
-            "--seq-parallel / --model-parallel / --data-parallel > 1: the port "
-            "has no multi-card mesh yet (ROADMAP Q1.16)")
+            "--seq-parallel / --model-parallel / --data-parallel > 1: the port's "
+            "inference has no mesh yet (ROADMAP Q1.16b)")
 
     from vidi_tpu_torch.infer import quantize
     from vidi_tpu_torch.infer.loader import load_model

@@ -33,6 +33,16 @@ with `quantize_caches` the image / audio caches are per-token int8 dicts
 `quantized_cache_cross_attention`. Layer weights may be int8 / int4 dicts
 (`infer.quantize`); every projection goes through `qdot`.
 All `*_mask` arguments are bool [B,S]; `*_counts` are int [B].
+
+Under a mesh with seq > 1 (`parallel.sharding.use_mesh`) the modality
+streams are cut over the seq group: the encoders encode this rank's
+contiguous frames / audio windows (an uneven cut padded with masked
+tokens; global positions) and return its slice of the stream, which stays
+cut through every layer (the diagonal update is per token); the T2V / T2A
+cross attention runs as `sp_mode` says ("gspmd", "ring" or "ulysses",
+parallel/). The batch rows are this rank's "data" rows. Layer weights
+sharded by `sharding.shard_params` are gathered one layer at a time inside
+the layer (and again in remat's recompute).
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ from vidi_tpu_torch.ops.attention import (cross_attention,
                                           self_attention)
 from vidi_tpu_torch.ops.norms import rms_norm, scaled_rms_norm
 from vidi_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from vidi_tpu_torch.parallel import ring_attention, sharding, ulysses
 
 Params = Dict
 
@@ -221,16 +232,22 @@ def encode_video_images(params: Params, cfg: DattnConfig, images: torch.Tensor,
                         pos_noise: Optional[Dict] = None):
     """images [B,N,H,W,3] (uint8 at image_size, or normalized float) ->
     (image features [B, N*h2*w2, d_llm], image mask [B, N*h2*w2]).
-    `pos_noise` (training) holds the draws of `draw_pos_noise`."""
+    `pos_noise` (training) holds the draws of `draw_pos_noise`. Under a
+    seq mesh: this rank's ceil(N / seq) frames and their slice of the
+    stream."""
     b, n, h_img, w_img, _ = images.shape
     d = cfg.text.hidden_size
-    flat = images.reshape(b * n, h_img, w_img, 3)
+    first, n_loc = sharding.seq_cut(n)
+    if n_loc != n:
+        images = sharding.take_padded(images, 1, first, n_loc)
+    flat = images.reshape(b * n_loc, h_img, w_img, 3)
     noise = pos_noise or {}
     tok = chunked_map(lambda x: _frame_tokens(params, x, cfg, hw, use_flash, noise),
                       flat, mm_chunks)
     h2, w2 = tok.shape[1], tok.shape[2]
-    return finish_video_tokens(params, cfg, tok.reshape(b, n, h2, w2, d),
-                               frame_counts, t_noise=noise.get("img_t"))
+    return finish_video_tokens(params, cfg, tok.reshape(b, n_loc, h2, w2, d),
+                               frame_counts, t_noise=noise.get("img_t"),
+                               frames=(first, n))
 
 
 def _frame_tokens(params, x, cfg: DattnConfig, hw, use_flash, noise=None):
@@ -278,19 +295,25 @@ def frame_tokens_chunk(params: Params, x: torch.Tensor, cfg: DattnConfig,
 
 def finish_video_tokens(params: Params, cfg: DattnConfig, tok: torch.Tensor,
                         frame_counts: torch.Tensor, *,
-                        t_noise: Optional[torch.Tensor] = None):
+                        t_noise: Optional[torch.Tensor] = None,
+                        frames: Optional[Tuple[int, int]] = None):
     """Temporal positions + final norms + validity mask over per-frame
     tokens [B,N,h2,w2,d] -> ([B,N*h2*w2,d], mask). `t_noise` [B,N]:
-    training position noise draws."""
+    training position noise draws. `frames` (first, total): the N frames
+    are frames first.. of a video of `total` (a seq rank's cut; frames
+    past the end are padding)."""
     mm = params["mm"]
     d = cfg.text.hidden_size
     b, n, h2, w2, _ = tok.shape
+    first, total = frames or (0, n)
     counts = frame_counts.to(tok.device)
-    pe_t = _pos_embed_batch(mm["pos_t"], n, counts, cfg.mm_time_interval, d,
-                            t_noise)
-    tok = tok + rms_norm(pe_t, cfg.mm_rms_eps)[:, :, None, None, :].to(tok.dtype)
+    pe_t = rms_norm(_pos_embed_batch(mm["pos_t"], total, counts, cfg.mm_time_interval,
+                                     d, t_noise), cfg.mm_rms_eps)
+    if (first, total) != (0, n):
+        pe_t = sharding.take_padded(pe_t, 1, first, n)
+    tok = tok + pe_t[:, :, None, None, :].to(tok.dtype)
     tok = tok.reshape(b, n * h2 * w2, d)
-    frame_valid = torch.arange(n, device=tok.device)[None, :] < counts[:, None]
+    frame_valid = (first + torch.arange(n, device=tok.device))[None, :] < counts[:, None]
     mask = frame_valid.repeat_interleave(h2 * w2, dim=1) & (counts > 0)[:, None]
     tok = scaled_rms_norm(tok, mm["llm_norm"]["weight"], cfg.mm_rms_eps)
     return tok * mask[..., None], mask
@@ -313,30 +336,44 @@ def encode_video_audios(params: Params, cfg: DattnConfig, mels: torch.Tensor,
                         use_flash: bool = False, pos_noise: Optional[Dict] = None):
     """mels [B,W,n_mels,3000] Whisper windows, audio_sizes [B] real mel
     frames -> (audio features [B, W*1500//pool, d_llm], audio mask).
-    `pos_noise["aud_t"]` [B,A]: training position noise draws."""
+    `pos_noise["aud_t"]` [B,A]: training position noise draws. Under a
+    seq mesh: this rank's ceil(W / seq) windows and their slice of the
+    stream (1500 % pool == 0, so a window pools alone)."""
     b, w, n_mels, t_mel = mels.shape
     mm = params["mm"]
     d = cfg.text.hidden_size
-    flat = mels.reshape(b * w, n_mels, t_mel)
+    per_window = cfg.audio.max_source_positions
+    pool = cfg.mm_audio_pool_size
+    first, w_loc = sharding.seq_cut(w)
+    if w_loc != w:
+        if per_window % pool:
+            raise ValueError(f"a seq cut of the audio needs {per_window} % pool "
+                             f"{pool} == 0")
+        mels = sharding.take_padded(mels, 1, first, w_loc)
+    flat = mels.reshape(b * w_loc, n_mels, t_mel)
     with _tower_grad(params["audio"]):
         enc = chunked_map(lambda x: whisper.forward(params["audio"], x, cfg.audio,
                                                     use_flash=use_flash),
                           flat, mm_chunks)
-    enc = enc.reshape(b, w * cfg.audio.max_source_positions, cfg.audio.d_model)
+    enc = enc.reshape(b, w_loc * per_window, cfg.audio.d_model)
     ratio = cfg.audio.max_source_positions / cfg.audio.nb_max_frames
     sizes = audio_sizes.to(enc.device)
     enc_len = torch.floor(sizes.float() * ratio).to(torch.int32)
-    enc_valid = torch.arange(enc.shape[1], device=enc.device)[None, :] < enc_len[:, None]
-    enc = enc * enc_valid[..., None]
+    enc_pos = first * per_window + torch.arange(enc.shape[1], device=enc.device)
+    enc = enc * (enc_pos[None, :] < enc_len[:, None])[..., None]
 
-    tok = adapters.audio_pool(mm["aud_pool"], enc, cfg.mm_audio_pool_size)
-    tok_len = enc_len // cfg.mm_audio_pool_size
+    tok = adapters.audio_pool(mm["aud_pool"], enc, pool)
+    tok_len = enc_len // pool
     tok = adapters.mlp_projector(mm["aud_projector"], tok, cfg.mm_projector_depth)
     tok = scaled_rms_norm(tok, mm["aud_norm"]["weight"], cfg.mm_rms_eps)
-    pe_t = _pos_embed_batch(mm["pos_t"], tok.shape[1], tok_len,
-                            cfg.mm_time_interval, d, (pos_noise or {}).get("aud_t"))
-    tok = tok + rms_norm(pe_t, cfg.mm_rms_eps).to(tok.dtype)
-    mask = torch.arange(tok.shape[1], device=tok.device)[None, :] < tok_len[:, None]
+    a_first, a_total = first * per_window // pool, w * per_window // pool
+    pe_t = rms_norm(_pos_embed_batch(mm["pos_t"], a_total, tok_len, cfg.mm_time_interval,
+                                     d, (pos_noise or {}).get("aud_t")), cfg.mm_rms_eps)
+    if w_loc != w:
+        pe_t = sharding.take_padded(pe_t, 1, a_first, tok.shape[1])
+    tok = tok + pe_t.to(tok.dtype)
+    tok_pos = a_first + torch.arange(tok.shape[1], device=tok.device)
+    mask = tok_pos[None, :] < tok_len[:, None]
     mask = mask & (tok_len > 0)[:, None]
     tok = scaled_rms_norm(tok, mm["llm_norm"]["weight"], cfg.mm_rms_eps)
     return tok * mask[..., None], mask
@@ -355,7 +392,9 @@ def encode_images(params: Params, cfg: DattnConfig, images: torch.Tensor, *,
     base view without the norm. `grid_shape` (gw, gh) is one grid for the
     whole batch; `grids` [B,2] gives each sample its own (`_anyres_dynamic`).
     A sample whose image is all zero carries no modality. `pos_noise`
-    (training) holds the draws of `draw_image_noise`."""
+    (training) holds the draws of `draw_image_noise`. Under a seq mesh the
+    tower's images are fanned out over the seq group (features
+    all-gathered) and this rank's slice of the tokens is returned."""
     mm = params["mm"]
     s = cfg.vision.num_patches_per_side
     d = cfg.text.hidden_size
@@ -365,8 +404,8 @@ def encode_images(params: Params, cfg: DattnConfig, images: torch.Tensor, *,
     noise = pos_noise or {}
     flat = images.reshape(-1, *images.shape[-3:])
     with _tower_grad(params["vision"]):
-        feats = chunked_map(lambda x: siglip.forward_features(
-            params["vision"], x, cfg.vision, use_flash=use_flash), flat, mm_chunks)
+        feats = sharding.fan_out(lambda part: chunked_map(lambda x: siglip.forward_features(
+            params["vision"], x, cfg.vision, use_flash=use_flash), part, mm_chunks), flat)
     feats = adapters.mlp_projector(mm["projector"], feats, cfg.mm_projector_depth)
     dev = feats.device
 
@@ -406,6 +445,10 @@ def encode_images(params: Params, cfg: DattnConfig, images: torch.Tensor, *,
             mask = torch.ones(tok.shape[:2], dtype=torch.bool, device=dev)
     nonzero = images.reshape(b, -1).abs().sum(dim=-1) != 0
     mask = mask & nonzero.to(dev)[:, None]
+    first, size = sharding.seq_cut(tok.shape[1])
+    if size != tok.shape[1]:
+        tok = sharding.take_padded(tok, 1, first, size)
+        mask = sharding.take_padded(mask, 1, first, size)
     tok = scaled_rms_norm(tok, mm["llm_norm"]["weight"], cfg.mm_rms_eps)
     return tok * mask[..., None], mask
 
@@ -495,14 +538,27 @@ def _unfold_rows(out: torch.Tensor, bq: int, tq: int) -> torch.Tensor:
     return out.reshape(bq, tq, out.shape[-1])
 
 
+_SP_ATTENTION = {"gspmd": ring_attention.gspmd_cross_attention,
+                 "ring": ring_attention.ring_cross_attention,
+                 "ulysses": ulysses.ulysses_cross_attention_sharded}
+
+
 def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
-                 kv=None, use_flash: bool = False):
+                 kv=None, use_flash: bool = False, sp_mode: str = "gspmd"):
     """T2V / T2A cross attention plus the diagonal stream update. Returns
     (xattn out [B,T,d], updated stream, (k, v)). With `kv` (the
     cache-native [Bc,Hk,S,D] layer slices: decode, or a text prefill against
     shared caches) the stream update is skipped; a cache batch Bc that
-    divides B without equalling it serves B / Bc rows each (folded)."""
+    divides B without equalling it serves B / Bc rows each (folded). Under a
+    seq mesh `stream` is this rank's slice and the attention runs as
+    `sp_mode` says (`_SP_ATTENTION`)."""
+    mesh = sharding.get_mesh()
+    cut = mesh is not None and mesh.shape["seq"] > 1
     has = stream_mask.any(dim=-1)  # [B] sample has this modality
+    if cut:
+        if kv is not None:
+            raise NotImplementedError("cache reads under a seq mesh are ROADMAP Q1.16b")
+        has = sharding.seq_any(has)
     # samples without the modality attend everywhere (finite), then zeroed;
     # this also keeps every row non-empty before K1 / K3 see it
     kv_valid = torch.where(has[:, None], stream_mask, torch.ones_like(stream_mask))
@@ -547,7 +603,10 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
         return out, stream, (mk, mv)
 
     mk, mv = _stream_kv(lp, stream, tcfg)
-    if use_flash:
+    if cut:
+        attn = _SP_ATTENTION[sp_mode](q, mk, mv, kv_valid, mesh, sm_scale=tcfg.q_scale,
+                                      softcap=tcfg.attn_softcap, use_flash=use_flash)
+    elif use_flash:
         from vidi_tpu_torch.ops.cuda.flash_attention import flash_attention
         attn = flash_attention(q, mk, mv, kv_valid, tcfg.q_scale, False, None,
                                tcfg.attn_softcap)[0]
@@ -616,8 +675,10 @@ def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
                 rope_cs, q_positions, kv_positions, text_mask, img_mask,
                 aud_mask, mm_chunks: int = 1, text_kv=None, img_kv=None,
                 aud_kv=None, write_at=None, use_flash: bool = False,
-                text_segs=None):
-    """One Dattn decoder layer -> (h, img, aud, (text_kv, img_kv, aud_kv))."""
+                text_segs=None, sp_mode: str = "gspmd"):
+    """One Dattn decoder layer -> (h, img, aud, (text_kv, img_kv, aud_kv)).
+    The layer's sharded weights are gathered here (`sharding.gathered`)."""
+    lp = sharding.gathered(lp)
     res = h
     hn = decoder.norm(h, lp["input_ln"], tcfg)
     q, k, v = _qkv(lp, hn, tcfg)
@@ -663,11 +724,13 @@ def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
     img_kv_out = aud_kv_out = None
     if img is not None or img_kv is not None:
         t2v, img, img_kv_out = _xattn_block(lp, q, img, img_mask, tcfg, mm_chunks,
-                                            kv=img_kv, use_flash=use_flash)
+                                            kv=img_kv, use_flash=use_flash,
+                                            sp_mode=sp_mode)
         out = out + t2v
     if aud is not None or aud_kv is not None:
         t2a, aud, aud_kv_out = _xattn_block(lp, q, aud, aud_mask, tcfg, mm_chunks,
-                                            kv=aud_kv, use_flash=use_flash)
+                                            kv=aud_kv, use_flash=use_flash,
+                                            sp_mode=sp_mode)
         out = out + t2a
 
     if tcfg.double_norms:
@@ -755,7 +818,7 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
             positions, img=None, img_mask=None, aud=None, aud_mask=None, *,
             mm_chunks: int = 1, return_caches: bool = False,
             use_flash: bool = False, remat: bool = False, text_segs=None,
-            quantize_caches: bool = False):
+            quantize_caches: bool = False, sp_mode: str = "gspmd"):
     """Run all layers -> (final hidden [B,T,d] pre-lm_head, Caches or None).
     The caches are written layer by layer into preallocated [L,B,Hk,S,D]
     buffers; with `quantize_caches` the image / audio ones are quantized per
@@ -764,9 +827,12 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
     (non-reentrant checkpoint) instead of keeping its activations;
     `remat="dots"` keeps the layer's weight products (`DOTS_SAVED`) and
     recomputes the rest (`dots_policy`); `text_segs` [B,T] are packing
-    segment ids for the T2T attention."""
+    segment ids for the T2T attention. `sp_mode` ("gspmd", "ring",
+    "ulysses") picks the cross attention's plan under a seq mesh."""
     if remat not in (False, True, "dots"):
         raise ValueError(f"remat must be False, True or 'dots', got {remat!r}")
+    if sp_mode not in _SP_ATTENTION:
+        raise ValueError(f"sp_mode must be one of {sorted(_SP_ATTENTION)}, got {sp_mode!r}")
     tcfg = cfg.text
     h = inputs_embeds
     if tcfg.embed_scale:
@@ -782,7 +848,7 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
             dattn_layer, lp, _is_sliding(i, tcfg), tcfg=tcfg, rope_cs=rope_cs,
             q_positions=positions, kv_positions=positions, text_mask=text_mask,
             img_mask=img_mask, aud_mask=aud_mask, mm_chunks=mm_chunks,
-            use_flash=use_flash, text_segs=text_segs)
+            use_flash=use_flash, text_segs=text_segs, sp_mode=sp_mode)
         if remat and torch.is_grad_enabled():
             h, img, aud, caches = checkpoint(
                 layer, h, img, aud, use_reentrant=False,

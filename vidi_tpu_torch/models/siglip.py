@@ -19,6 +19,7 @@ from vidi_tpu_torch.core.config import VisionConfig
 from vidi_tpu_torch.infer.quantize import is_quantized
 from vidi_tpu_torch.ops.basic import dense, layer_norm, mha, tower_act
 from vidi_tpu_torch.ops.cuda import fused_tower_layer as ftl
+from vidi_tpu_torch.parallel import sharding
 
 Params = Dict
 
@@ -109,6 +110,6 @@ def forward_features(params: Params, images: torch.Tensor, cfg: VisionConfig,
     n_run = (cfg.num_layers + 1 + cfg.select_layer if cfg.select_layer < 0
              else cfg.select_layer)
     for lp in params["layers"][:n_run]:
-        x = _encoder_layer(x, lp, cfg.num_heads, cfg.layer_norm_eps,
+        x = _encoder_layer(x, sharding.gathered(lp), cfg.num_heads, cfg.layer_norm_eps,
                            cfg.hidden_act, use_flash)
     return x[:, 1:] if clip else x

@@ -17,6 +17,7 @@ from vidi_tpu_torch.core.config import AudioConfig
 from vidi_tpu_torch.infer.quantize import is_quantized
 from vidi_tpu_torch.ops.basic import dense, gelu_exact, layer_norm, mha
 from vidi_tpu_torch.ops.cuda import fused_tower_layer as ftl
+from vidi_tpu_torch.parallel import sharding
 
 Params = Dict
 
@@ -100,6 +101,6 @@ def forward(params: Params, mel: torch.Tensor, cfg: AudioConfig,
     x = gelu_exact(_conv1d(x, params["conv2_w"], params["conv2_b"], 2))
     x = x + params["pos_embed"][: x.shape[1]].to(x.dtype)
     for lp in params["layers"]:
-        x = _encoder_layer(x, lp, cfg.num_heads, use_flash)
+        x = _encoder_layer(x, sharding.gathered(lp), cfg.num_heads, use_flash)
     return layer_norm(x, params["final_ln_scale"], params["final_ln_bias"],
                       eps=1e-5)

@@ -7,6 +7,12 @@ newest is unreadable (a run that died mid-save). The on-disk format is the
 port's own, not orbax's (a jax library): one `torch.save` file per step,
 `<output_dir>/checkpoints/step_<N>.pt` holding {"step", "params",
 "opt_state"}, written to a temporary name and renamed into place.
+
+Under a mesh of several ranks (`parallel.sharding.use_mesh`) `save` is
+collective: every sharded leaf and moment is gathered whole, one leaf at a
+time, and only rank 0 copies it to its host and writes the tree. `restore`
+reads the whole tree (memory-mapped with `mmap`, so the ranks of a host
+share its pages); the caller cuts it again (`sharding.shard_params`, `shard_state`).
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import re
 from typing import Any, List, Optional, Tuple
 
 import torch
+
+from vidi_tpu_torch.parallel import sharding
 
 _NAME = re.compile(r"step_(\d+)\.pt$")
 
@@ -33,6 +41,12 @@ class Checkpointer:
                       if m)
 
     def save(self, step: int, params: Any, opt_state: Any) -> None:
+        mesh = sharding.get_mesh()
+        if mesh is not None and mesh.size > 1:
+            opt_state = sharding.full_state(opt_state, params)
+            params = sharding.full_tree(params)
+            if mesh.rank != 0:
+                return
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save({"step": step, "params": params, "opt_state": opt_state}, tmp)
@@ -44,7 +58,7 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, map_location=None) -> Tuple[int, Any, Any]:
+    def restore(self, map_location=None, mmap: bool = False) -> Tuple[int, Any, Any]:
         """(step, params, opt_state) of the newest readable checkpoint."""
         steps = self.all_steps()[::-1]
         if not steps:
@@ -53,7 +67,7 @@ class Checkpointer:
         for step in steps:
             try:
                 state = torch.load(self._path(step), map_location=map_location,
-                                   weights_only=True)
+                                   weights_only=True, mmap=mmap)
             except Exception as e:  # noqa: BLE001 -- torn save: try the older one
                 last_err = e
                 continue

@@ -22,9 +22,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import torch
+
+from vidi_tpu_torch.core.tree import leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,19 +46,6 @@ class TrainHParams:
     train_aud: bool = False
     train_llm: bool = True
     grad_clip: Optional[float] = None
-
-
-def leaves(tree, path: Tuple = ()) -> Iterator[Tuple[str, Tuple, torch.Tensor]]:
-    """(key, path, tensor) of every leaf of a parameter tree (dicts, and
-    lists for per-layer params); key is the path joined by '/'."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from leaves(v, path + (k,))
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from leaves(v, path + (i,))
-    else:
-        yield "/".join(map(str, path)), path, tree
 
 
 def _module_of(path) -> str:
@@ -149,7 +138,11 @@ class AdamW:
         hp = self.hp
         clip = None
         if hp.grad_clip:
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+            # the global norm: a sharded leaf's slices (and a leaf held
+            # whole on every rank) counted once over the mesh
+            from vidi_tpu_torch.parallel.sharding import get_mesh, sq_norm
+            norm = torch.sqrt(sq_norm([(p, grads[key]) for key, _, p in leaves(params)
+                                       if key in grads], get_mesh()))
             if not bool(norm < hp.grad_clip):
                 clip = hp.grad_clip / norm
         count = state["count"]

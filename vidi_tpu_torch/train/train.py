@@ -12,14 +12,29 @@
         --mm_image_aspect_ratio anyres --dataset_type image-conv \
         --data_path synthetic --gradient_accumulation_steps 2 --remat dots \
         --profile_dir prof/ --report_to tensorboard --device cpu
+    torchrun --standalone --nproc_per_node 8 -m vidi_tpu_torch.train.train \
+        --tiny --data_path synthetic --seq_parallel_size 2 --sp_mode ring
 
 Each step writes one metrics.jsonl line with the JAX CLI's keys (the
 learning rate of the optimizer step, step // gradient_accumulation_steps);
 the run saves every --save_steps steps and at the end, and resumes from
 the newest readable checkpoint under --output_dir. --profile_dir writes a
-torch.profiler Chrome trace of steps start+2 to start+4. The mesh flags
-(--sp_mode, --seq_parallel_size, --model_parallel_size) take only their
-one-device values: the port has no multi-card mesh yet (ROADMAP Q1.16).
+torch.profiler Chrome trace of steps start+2 to start+4.
+
+Under torchrun (RANK / WORLD_SIZE / LOCAL_RANK in the environment) each
+process is one rank of a (data, seq, 1) mesh (`core.mesh.make_mesh`: NCCL
+for cuda, gloo for cpu; data = ranks / --seq_parallel_size): parameters
+and optimizer state are ZeRO-3 slices (`parallel.sharding.shard_params`),
+every rank decodes only its data rows of the global batch of
+per_device_train_batch_size x data rows (the seq ranks of a data group
+the same ones; with --pack each data group packs its own share of the
+samples), padded to the global batch's sizes (one all-gather over "data"
+a step, which also counts the global batch's frames and tokens); the
+modality streams are cut over "seq" and cross-attended as --sp_mode says.
+The step is the same function of the global batch as one process's. Rank 0 alone logs, writes metrics,
+tensorboard and traces, and saves (the gathered tree; a resume cuts it
+again). --seq_parallel_size > 1 needs torchrun; --model_parallel_size > 1
+(tensor parallelism) is ROADMAP Q1.16b.
 """
 from __future__ import annotations
 
@@ -29,6 +44,7 @@ import dataclasses
 import json
 import os
 import types
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -89,8 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "everything (reference gradient checkpointing), keep the "
                         "weight products and recompute the rest, or keep everything")
     p.add_argument("--sp_mode", choices=["gspmd", "ring", "ulysses"], default="gspmd",
-                   help="sequence parallelism of the modality cross attention; "
-                        "one card takes only the default (ROADMAP Q1.16)")
+                   help="the modality cross attention's plan when "
+                        "--seq_parallel_size > 1 (parallel/)")
     p.add_argument("--learning_rate", type=float, default=1e-5)
     p.add_argument("--mm_rand_lr", type=float, default=2e-5)
     p.add_argument("--mm_vis_lr", type=float, default=None)
@@ -145,23 +161,95 @@ def _step_profiler(out_dir, start_step: int, device: torch.device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.sp_mode != "gspmd" or max(args.seq_parallel_size, args.model_parallel_size) > 1:
+    if args.model_parallel_size > 1:
         raise NotImplementedError(
-            "--sp_mode ring / ulysses, --seq_parallel_size or --model_parallel_size > 1: "
-            "the port has no multi-card mesh yet (ROADMAP Q1.16)")
+            "--model_parallel_size > 1: tensor parallelism on the 'model' axis is "
+            "ROADMAP Q1.16b")
+    import torch.distributed as dist
+    from vidi_tpu_torch.core.mesh import init_from_env, make_mesh
+    from vidi_tpu_torch.infer.loader import resolve_device
+    from vidi_tpu_torch.parallel import sharding
+
+    dev = resolve_device(args.device)
+    launched = init_from_env(dev.type)
+    if launched is None and args.seq_parallel_size > 1:
+        raise SystemExit("--seq_parallel_size > 1 needs ranks: launch with torchrun "
+                         "--nproc_per_node N")
+    dev = launched or dev
+    mesh = make_mesh(seq=args.seq_parallel_size, model=1, device_type=dev.type)
+    sharding.set_mesh(mesh)
+    try:
+        _run(args, dev, mesh)
+    finally:
+        sharding.set_mesh(None)
+    # reached only when this rank's run ended well: a failing rank exits at
+    # once, unblocked by its peers, and torchrun tears the job down
+    if launched is not None:
+        # no rank tears its groups down while another still uses them (rank
+        # 0 writing the last checkpoint): without the barrier a gloo rank
+        # could abort at exit
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _global_batch(batch: Dict, cfg, mesh, dev) -> Tuple[Dict, Tuple[int, int], int]:
+    """This rank's rows of a global batch, padded along dim 1 to the global
+    batch's sizes (the largest over the data ranks: the bucket of a global
+    collate), with the global batch's `hw` token budget and token count.
+    One all-gather over "data" when it has several ranks."""
+    from vidi_tpu_torch.constants import IGNORE_INDEX
+    from vidi_tpu_torch.models.dattn import frame_side
+    from vidi_tpu_torch.parallel import sharding
+    from vidi_tpu_torch.train.train_step import make_batch_hw
+
+    padded = sorted(k for k, x in batch.items() if x.ndim >= 2)
+    video = "frame_counts" in batch
+    if video:
+        real = int(batch["frame_counts"].sum())
+    else:  # the images that carry the modality
+        real = int((np.abs(batch["images"]).reshape(len(batch["images"]), -1)
+                    .sum(axis=1) > 0).sum())
+    local = [batch[k].shape[1] for k in padded] + [real, int(batch["text_mask"].sum())]
+    group, n = mesh.group(("data",)), mesh.shape["data"]
+    if group is None:
+        sizes, (real, text) = local[:-2], local[-2:]
+    else:
+        got = sharding.all_gather_dim(torch.tensor([local], dtype=torch.int64, device=dev),
+                                      0, group, n).cpu()
+        sizes = got[:, :-2].max(dim=0).values.tolist()
+        real, text = got[:, -2:].sum(dim=0).tolist()
+        for k, size in zip(padded, sizes):
+            x = batch[k]
+            if x.shape[1] < size:
+                pad = np.full((x.shape[0], size - x.shape[1], *x.shape[2:]),
+                              IGNORE_INDEX if k == "labels" else 0, x.dtype)
+                batch[k] = np.concatenate([x, pad], axis=1)
+    if video:
+        # the token budget counts real frames, not the padded bucket; a
+        # frame's tokens follow the adapter's rule (`frame_side`: the JAX
+        # CLI's hw // pool undercounts v1's fixed 8 x 8 side)
+        hw = make_batch_hw(cfg, max(real, 1))
+        h2, w2 = frame_side(cfg, hw)
+        return batch, hw, text + real * h2 * w2
+    # hw is not read by the image path
+    return batch, make_batch_hw(cfg, 1), text + real * cfg.vision.num_patches_per_side ** 2
+
+
+def _run(args, dev: torch.device, mesh):
+    from vidi_tpu_torch.parallel import sharding
     from vidi_tpu_torch.train.prefetch import Prefetcher
     from vidi_tpu_torch.utils import StepMeter, build_logger
-    from vidi_tpu_torch.infer.loader import load_model, resolve_device
-    from vidi_tpu_torch.models.dattn import draw_image_noise, draw_pos_noise, frame_side
+    from vidi_tpu_torch.infer.loader import load_model
+    from vidi_tpu_torch.models.dattn import draw_image_noise, draw_pos_noise
     from vidi_tpu_torch.train import data as data_mod
     from vidi_tpu_torch.train.checkpoint import Checkpointer
     from vidi_tpu_torch.train.optimizer import TrainHParams, lr_schedule, make_optimizer
     from vidi_tpu_torch.train.tb import TBReporter
-    from vidi_tpu_torch.train.train_step import make_batch_hw, opt_init, train_step
+    from vidi_tpu_torch.train.train_step import opt_init, train_step
 
     if args.model_path is None and not args.tiny:
         raise SystemExit("pass --tiny (random weights) or --model_path")
-    dev = resolve_device(args.device)
+    rank0, sharded = mesh.rank == 0, mesh.size > 1
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
     mm_overrides = {k: getattr(args, k) for k in (
         "mm_std", "mm_image_pool_size", "mm_audio_pool_size", "mm_time_interval",
@@ -183,6 +271,8 @@ def main(argv=None):
                          f"mm_input_type={cfg.mm_input_type!r} (pass --dataset_type "
                          "image-conv for image models)")
     ga = args.gradient_accumulation_steps
+    if sharded:
+        params = sharding.shard_params(params, mesh)
     hp = TrainHParams(
         learning_rate=args.learning_rate, mm_rand_lr=args.mm_rand_lr,
         mm_vis_lr=args.mm_vis_lr, mm_aud_lr=args.mm_aud_lr,
@@ -199,11 +289,22 @@ def main(argv=None):
     ckpt = Checkpointer(args.output_dir, args.save_total_limit)
     start_step = 0
     if ckpt.latest_step() is not None:  # auto-resume
-        start_step, params, opt_state = ckpt.restore(map_location=dev)
-        print(f"resumed from step {start_step}")
+        if sharded:  # the whole tree, memory-mapped, cut again for this rank
+            start_step, full, full_state = ckpt.restore(map_location="cpu", mmap=True)
+            params = sharding.shard_params(full, mesh, device=dev)
+            opt_state = sharding.shard_state(full_state, params)
+            del full, full_state
+        else:
+            start_step, params, opt_state = ckpt.restore(map_location=dev)
+        if rank0:
+            print(f"resumed from step {start_step}")
 
     synthetic = args.data_path == "synthetic"
-    bsz = args.per_device_train_batch_size
+    # the global batch; this rank trains on its data rows of it
+    n_data, data_rank = mesh.shape["data"], mesh.coord("data")
+    bsz = args.per_device_train_batch_size * n_data
+    rows = slice(data_rank * args.per_device_train_batch_size,
+                 (data_rank + 1) * args.per_device_train_batch_size)
     if not synthetic:
         if image_ds:
             ds = data_mod.ImageConvDataset(args.data_path,
@@ -221,47 +322,38 @@ def main(argv=None):
             order = np.random.default_rng(args.seed).permutation(len(ds))
 
     def batch_source():
-        """Host-side batch prep on the prefetch thread."""
-        pack_cursor, packer = 0, None
+        """Host-side prep of this rank's rows on the prefetch thread: only
+        they are decoded."""
+        pack_cursor, packer = data_rank, None
         for step in range(start_step, args.max_steps):
             if synthetic:
                 batch = (data_mod.synthetic_image_batch(cfg, b=bsz, seed=step) if image_ds
                          else data_mod.synthetic_batch(cfg, b=bsz, seed=step))
+                batch = {k: x[rows] for k, x in batch.items()}
             elif args.pack:
-                # stream samples into the packer until a batch flushes
+                # stream this data group's share of the samples (every
+                # n_data-th) into its packer until a batch flushes
                 from vidi_tpu_torch.train.packing import PackedBatcher
                 if packer is None:
-                    packer = PackedBatcher(cfg, bsz, args.pack_seq_len)
+                    packer = PackedBatcher(cfg, args.per_device_train_batch_size,
+                                           args.pack_seq_len)
                 batch = None
                 while batch is None:
                     i = int(order[pack_cursor % len(order)])
-                    pack_cursor += 1
+                    pack_cursor += n_data
                     batch = packer.add(ds[i])
             else:
                 idx = [int(order[(step * bsz + j) % len(order)]) for j in range(bsz)]
                 collate = data_mod.collate_images if image_ds else data_mod.collate
-                batch = collate([ds[i] for i in idx], cfg)
-            if "frame_counts" in batch:
-                # the token budget counts real frames, not the padded bucket;
-                # a frame's tokens follow the adapter's rule (`frame_side`:
-                # the JAX CLI's hw // pool undercounts v1's fixed 8 x 8 side)
-                hw = make_batch_hw(cfg, max(int(batch["frame_counts"].sum()), 1))
-                h2, w2 = frame_side(cfg, hw)
-                n_tokens = int(batch["text_mask"].sum()) + int(
-                    batch["frame_counts"].sum()) * h2 * w2
-            else:
-                hw = make_batch_hw(cfg, 1)  # not read by the image path
-                has_img = np.abs(batch["images"]).reshape(
-                    len(batch["images"]), -1).sum(axis=1) > 0
-                n_tokens = int(batch["text_mask"].sum()) + int(
-                    has_img.sum()) * cfg.vision.num_patches_per_side ** 2
-            yield batch, hw, n_tokens
+                batch = collate([ds[i] for i in idx[rows]], cfg)
+            yield batch
 
     meter = StepMeter()
-    logger = build_logger("vidi_tpu_torch.train", "train.log",
-                          log_dir=os.path.join(args.output_dir, "logs"))
     os.makedirs(args.output_dir, exist_ok=True)
-    tb = TBReporter(args.output_dir, enabled=args.report_to == "tensorboard")
+    if rank0:
+        logger = build_logger("vidi_tpu_torch.train", "train.log",
+                              log_dir=os.path.join(args.output_dir, "logs"))
+    tb = TBReporter(args.output_dir, enabled=rank0 and args.report_to == "tensorboard")
     # every configured parameter group's schedule, at the optimizer step
     lr_fns = {"learning_rate": lr_schedule(hp, hp.learning_rate),
               "learning_rate_mm_rand": lr_schedule(hp, hp.mm_rand_lr or hp.learning_rate)}
@@ -272,30 +364,36 @@ def main(argv=None):
     remat = {"full": True, "dots": "dots", "none": False}[args.remat]
     gen = torch.Generator(device=dev)
     batches = iter(Prefetcher(batch_source(), depth=2))
-    with open(os.path.join(args.output_dir, "metrics.jsonl"), "a") as metrics_f, \
-            _step_profiler(args.profile_dir, start_step, dev) as prof:
+    metrics_path = os.path.join(args.output_dir, "metrics.jsonl")
+    with (open(metrics_path, "a") if rank0 else contextlib.nullcontext()) as metrics_f, \
+            _step_profiler(args.profile_dir if rank0 else None, start_step, dev) as prof:
         for step in range(start_step, args.max_steps):
             meter.start()
-            batch, hw, n_tokens = next(batches)
+            batch, hw, n_tokens = _global_batch(next(batches), cfg, mesh, dev)
             batch = data_mod.to_device(batch, dev)
             gen.manual_seed(args.seed + step)  # the same noise on a resumed run
             images = batch["images"]
+            # the global batch's draws, of which this rank takes its rows
             if image_ds:
                 anyres = images.dim() == 5
-                noise = draw_image_noise(cfg, images.shape[0],
-                                         images.shape[1] if anyres else 1, gen,
+                noise = draw_image_noise(cfg, bsz, images.shape[1] if anyres else 1, gen,
                                          per_sample=anyres and "grids" in batch)
             else:
-                noise = draw_pos_noise(cfg, images.shape[0], images.shape[1],
+                noise = draw_pos_noise(cfg, bsz, images.shape[1],
                                        batch["mels"].shape[1], hw, gen)
+            noise = sharding.data_rows(noise, bsz, min_ndim=2)
             params, opt_state, loss = train_step(
                 params, opt_state, batch, noise, cfg=cfg, tx=tx, hw=hw,
                 mm_chunks=args.mm_splits, remat=remat, use_flash=args.use_flash,
-                frozen=frozen)
+                frozen=frozen, sp_mode=args.sp_mode)
             loss = float(loss)
             dt = meter.stop(n_tokens)
+            if (step + 1) % args.save_steps == 0 or step + 1 == args.max_steps:
+                ckpt.save(step + 1, params, opt_state)  # collective under a mesh
+            if not rank0:
+                continue
             logger.info(f"step {step}  loss {loss:.4f}  {dt:.2f}s  "
-                        f"[{meter.summary()}]  (device={dev})")
+                        f"[{meter.summary()}]  (device={dev}, ranks={mesh.size})")
             # the schedules advance once per optimizer step
             lrs = {k: fn(step // ga) for k, fn in lr_fns.items()}
             metrics_f.write(json.dumps({
@@ -306,15 +404,17 @@ def main(argv=None):
             tb.report({"loss": loss, **lrs, "step_time_s": dt,
                        "tokens_per_sec": meter.tokens_per_sec}, step)
             prof.step()
-            if (step + 1) % args.save_steps == 0 or step + 1 == args.max_steps:
-                ckpt.save(step + 1, params, opt_state)
     ckpt.close()
     tb.close()
     if args.export_hf:
         from vidi_tpu_torch.infer.export import save_pretrained
-        save_pretrained(params, cfg, args.export_hf, tokenizer_src=args.model_path)
-        print(f"exported HF checkpoint to {args.export_hf}")
-    print("training done")
+        if sharded:
+            params = sharding.full_tree(params)  # collective
+        if rank0:
+            save_pretrained(params, cfg, args.export_hf, tokenizer_src=args.model_path)
+            print(f"exported HF checkpoint to {args.export_hf}")
+    if rank0:
+        print("training done")
 
 
 if __name__ == "__main__":

@@ -10,6 +10,17 @@ per-sample grids [B,2], and no audio.
 The position noise comes as explicit draws (`dattn.draw_pos_noise`, or
 `dattn.draw_image_noise` for image batches), not as a key. `remat=True`
 checkpoints each decoder layer, `remat="dots"` keeps its weight products.
+
+Under a mesh (`parallel.sharding.use_mesh`) the step is the same function
+of the global batch: each rank is given its "data" rows (`sharding.
+data_rows`, the same rows on every rank of a seq group), its parameters and
+optimizer state are its ZeRO-3 slices (`sharding.shard_params`), and the
+encoders cut the modality streams over "seq". Each rank's loss is its rows'
+token sum over the global token count, and its backward is seeded with
+loss / seq: the text path and the queries are computed alike on every
+rank of a seq group while each stream slice lives on one, so the sums of
+the gradients over the world (the gathers' reduce-scatters, `sync_grads`)
+count the text part once and every stream slice once.
 """
 from __future__ import annotations
 
@@ -20,8 +31,10 @@ import torch
 from vidi_tpu_torch.core.config import DattnConfig
 from vidi_tpu_torch.models import dattn, decoder
 from vidi_tpu_torch.models.adapters import budget_hw
+from vidi_tpu_torch.parallel import sharding
+from vidi_tpu_torch.core.mesh import AXES
 from vidi_tpu_torch.train.losses import shifted_cross_entropy
-from vidi_tpu_torch.train.optimizer import leaves
+from vidi_tpu_torch.core.tree import leaves
 
 
 def _detached(tree):
@@ -29,16 +42,20 @@ def _detached(tree):
         return {k: _detached(v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_detached(v) for v in tree]
-    return tree.detach()
+    return sharding.detached(tree)
 
 
 def loss_fn(params, cfg: DattnConfig, batch: Dict, pos_noise: Optional[Dict], *,
             hw: Tuple[int, int], mm_chunks: int = 1, remat=True,
-            use_flash: bool = False, frozen: Tuple[str, ...] = ()) -> torch.Tensor:
+            use_flash: bool = False, frozen: Tuple[str, ...] = (),
+            sp_mode: str = "gspmd") -> torch.Tensor:
     """Scalar loss of one batch. Frozen top-level modules ("vision",
     "audio", "text", "mm") are detached, the counterpart of JAX's
-    stop_gradient; a detached tower then runs under no_grad."""
+    stop_gradient; a detached tower then runs under no_grad. Sharded
+    leaves outside the layer lists are gathered here, the layers' in
+    their loops."""
     params = {k: (_detached(v) if k in frozen else v) for k, v in params.items()}
+    params = sharding.gathered(params, skip_layers=True)
     if "frame_counts" in batch:
         img, img_mask = dattn.encode_video_images(
             params, cfg, batch["images"], batch["frame_counts"], hw,
@@ -59,9 +76,10 @@ def loss_fn(params, cfg: DattnConfig, batch: Dict, pos_noise: Optional[Dict], *,
     h, _ = dattn.forward(params, cfg, embeds, mask, positions, img=img,
                          img_mask=img_mask, aud=aud, aud_mask=aud_mask,
                          mm_chunks=mm_chunks, remat=remat, use_flash=use_flash,
-                         text_segs=batch.get("segment_ids"))
+                         text_segs=batch.get("segment_ids"), sp_mode=sp_mode)
     logits = decoder.lm_logits(params["text"], h, cfg.text)
-    return shifted_cross_entropy(logits, batch["labels"], cfg.loss_thres)
+    return shifted_cross_entropy(logits, batch["labels"], cfg.loss_thres,
+                                 total=lambda n: sharding.axis_sum(n, ("data",)))
 
 
 def opt_init(tx, params) -> Dict:
@@ -69,23 +87,25 @@ def opt_init(tx, params) -> Dict:
     return tx.init(params)
 
 
-def train_step(params, opt_state, batch: Dict, pos_noise: Optional[Dict], *,
-               cfg: DattnConfig, tx, hw: Tuple[int, int],
-               mm_chunks: int = 1, remat=True, use_flash: bool = False,
-               frozen: Tuple[str, ...] = ()):
-    """One step -> (params, opt_state, loss). `tx` is an `optimizer.AdamW`
-    or `optimizer.MultiSteps`. Gradients of the trainable leaves (the
-    optimizer's non-frozen labels) are cast to fp32, the update is made in
-    fp32 and written back in each parameter's dtype, in place: the
-    returned params and state are the objects passed in."""
-    train = [(key, p) for key, _, p in leaves(params) if tx.labels[key] != "frozen"]
+def value_and_grads(params, batch: Dict, pos_noise: Optional[Dict], *, labels: Dict,
+                    cfg: DattnConfig, hw: Tuple[int, int], mm_chunks: int = 1, remat=True,
+                    use_flash: bool = False, frozen: Tuple[str, ...] = (),
+                    sp_mode: str = "gspmd"):
+    """-> (loss of the whole batch, {key: gradient}) for the leaves whose
+    `labels` entry is not "frozen", each gradient this rank's slice of the
+    whole batch's (see the module docstring)."""
+    mesh = sharding.get_mesh()
+    sp = mesh.shape["seq"] if mesh is not None else 1
+    train = [(key, p) for key, _, p in leaves(params) if labels[key] != "frozen"]
     for _, p in train:
         p.requires_grad_(True)
     try:
         with torch.enable_grad():
             loss = loss_fn(params, cfg, batch, pos_noise, hw=hw, mm_chunks=mm_chunks,
-                           remat=remat, use_flash=use_flash, frozen=frozen)
-            got = torch.autograd.grad(loss, [p for _, p in train], allow_unused=True)
+                           remat=remat, use_flash=use_flash, frozen=frozen,
+                           sp_mode=sp_mode)
+            got = torch.autograd.grad(loss / sp if sp > 1 else loss,
+                                      [p for _, p in train], allow_unused=True)
     finally:
         for _, p in train:
             p.requires_grad_(False)
@@ -93,8 +113,28 @@ def train_step(params, opt_state, batch: Dict, pos_noise: Optional[Dict], *,
     grads = {key: torch.zeros_like(p) if g is None else g
              for (key, p), g in zip(train, got)}
     del got
+    sharding.sync_grads([(p, grads[key]) for key, p in train], mesh)
+    loss = loss.detach()
+    if mesh is not None and mesh.size > 1:
+        loss = sharding.axis_sum(loss / sp, AXES)
+    return loss, grads
+
+
+def train_step(params, opt_state, batch: Dict, pos_noise: Optional[Dict], *,
+               cfg: DattnConfig, tx, hw: Tuple[int, int],
+               mm_chunks: int = 1, remat=True, use_flash: bool = False,
+               frozen: Tuple[str, ...] = (), sp_mode: str = "gspmd"):
+    """One step -> (params, opt_state, loss). `tx` is an `optimizer.AdamW`
+    or `optimizer.MultiSteps`. Gradients of the trainable leaves (the
+    optimizer's non-frozen labels) are cast to fp32, the update is made in
+    fp32 and written back in each parameter's dtype, in place: the
+    returned params and state are the objects passed in. `sp_mode` is the
+    cross attention's plan under a seq mesh (`dattn.forward`)."""
+    loss, grads = value_and_grads(params, batch, pos_noise, labels=tx.labels, cfg=cfg,
+                                  hw=hw, mm_chunks=mm_chunks, remat=remat,
+                                  use_flash=use_flash, frozen=frozen, sp_mode=sp_mode)
     tx.apply(params, grads, opt_state)
-    return params, opt_state, loss.detach()
+    return params, opt_state, loss
 
 
 def make_batch_hw(cfg: DattnConfig, total_frames: int) -> Tuple[int, int]:
