@@ -227,7 +227,19 @@
    query / 2 KV heads each) stitched against K1 on all heads; the train
    CLI (tiny, --sp_mode ring) under `torchrun --nproc_per_node 1` (a
    one-rank NCCL world) against the plain CLI, losses within CLI_LOSS_REL.
-   One card holds no multi-rank collective.
+   Then the parallel inference slice: K3 with its lse (`return_lse`) at
+   the 9B's image, audio and text caches and the 7B's image cache, lse
+   within LSE_ATOL of the plain version's (planted fault: one split's lse
+   for the merged one), out bit-equal to the call without lse; the 9B
+   image cache cut into PAR_SEQ virtual seq ranks, each shard's K3 partial
+   merged in shard order as `sharding.seq_merge` merges (against K3 on the
+   whole cache; faults: the lse dropped, a shard dropped, the empty
+   shard's sentinel unmapped; PAR_SEQ K3 launches); one 9B Dattn decode
+   step cut over "model" on MODEL_RANKS virtual ranks in threads (the
+   partials summed in rank order) against the uncut step (fault: one
+   rank's partial alone); and the serving path as two processes on the
+   card over gloo, seq 2 and model 2, against one process. One card
+   holds no multi-card collective.
 10. With --profile, profiles both serving slices' encode, one prefill and
    eight decode steps (each decode route of the bf16 one; the 7B's eight
    on the K3 route), the long-video
@@ -246,6 +258,7 @@ object with one entry per kernel function; the last line is {"ok": true,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -5770,6 +5783,364 @@ def train_cli_ranks_check(device: str = "cuda") -> dict:
     return {"losses": losses, "rel_gap": gap, "wall_s": walls}
 
 
+# ---------------------------------------------------------------------------
+# The parallel inference slice on one card: K3 with its lse, the read of a
+# seq-cut cache on PAR_SEQ virtual ranks, and one Dattn decode step of the
+# 9B cut over "model" on MODEL_RANKS virtual ranks
+# ---------------------------------------------------------------------------
+
+MODEL_RANKS = 2
+PAR_IMG_VALID = IMG_S - 30 * 196  # the last of PAR_SEQ shards holds padding only
+
+
+def _lse_cases(t: int, n_real: int):
+    """(label, b, hq, hk, d, s, n_valid, window, q_pos, cap) of K3's lse
+    cases: the 9B's image, audio and text caches (the K3 rows' shapes) and
+    the 7B's image cache (G = 4)."""
+    return ((f"9b image cache S={IMG_S} global", 1, 16, 8, 256, IMG_S, IMG_VALID, None,
+             None, 50.0),
+            (f"9b audio cache S={AUD_S} global", 1, 16, 8, 256, AUD_S, AUD_VALID, None,
+             None, 50.0),
+            (f"9b text cache S={t + 32} window=4096", 1, 16, 8, 256, t + 32, n_real + 6,
+             4096, n_real + 5, 50.0),
+            (f"7b image cache S={IMG7_S} mask", 1, 32, 8, 128, IMG7_S, IMG7_VALID, None,
+             None, None))
+
+
+def _check_lse(name: str, got, want, faults: dict) -> float:
+    """lse [B,Hq] against the plain version's within LSE_ATOL; every planted
+    fault must land outside it."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    seen = {lab: float((f - want).abs().max()) for lab, f in faults.items()}
+    print(f"  {name}: lse max_abs_err={err:.3e}, limit {LSE_ATOL} "
+          f"{'ok' if err <= LSE_ATOL else 'FAIL'}; planted faults: "
+          + ", ".join(f"{lab} {e:.3e}" for lab, e in seen.items()))
+    if not err <= LSE_ATOL:
+        raise AssertionError(f"{name}: lse max_abs_err {err:.3e} over {LSE_ATOL}")
+    blind = [lab for lab, e in seen.items() if not e > LSE_ATOL]
+    if blind:
+        raise AssertionError(f"{name}: the lse limit does not reject {blind}")
+    return err
+
+
+def k3_lse_cases(dev) -> tuple:
+    """K3 with `return_lse` at the K3 rows' shapes: lse against the plain
+    version's within LSE_ATOL (planted fault: one split's lse, the keys of
+    its tiles alone, in place of the merged one), out bit-equal to the call
+    without lse; the device time a call with and without lse. -> (cases,
+    largest lse error)."""
+    from vidi_tpu_torch.ops.cuda import _lib
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    n_real, t = _prompt_lengths()
+    sms = _lib.sm_count(dev)
+    cases, errs = [], []
+    for label, b, hq, hk, d, s, n_valid, window, q_pos, cap in _lse_cases(t, n_real):
+        if q_pos is not None:
+            q_pos = torch.full((b,), q_pos, dtype=torch.int64, device=dev)
+        args = dict(q=_randn(gen, (b, hq, d), dev, Q_GAIN), k=_randn(gen, (b, hk, s, d), dev),
+                    v=_randn(gen, (b, hk, s, d), dev), kv_mask=_kv_mask(s, n_valid, dev),
+                    sm_scale=d**-0.5, softcap=cap, window=window, q_pos=q_pos)
+        plan = k3.decode_plan(b, hk, s, d, sms, g=hq // hk)
+        out, lse = k3.decode_attention(**args, return_lse=True)
+        same = torch.equal(out, k3.decode_attention(**args))
+        _, want = k3.decode_attention_plain(**args, return_lse=True)
+        # a split other than the one holding row 0's largest logit: its
+        # keys' lse alone is what a merge that wrote one split's lse gives
+        tile, _, n_split = plan
+        seen = k3.visible_keys(b, s, args["kv_mask"], window, q_pos, dev)
+        logits = torch.einsum("d,sd->s", args["q"][0, 0].float(), args["k"][0, 0].float())
+        top = int(logits.masked_fill(~seen[0], -math.inf).argmax()) // tile % n_split
+        split = (top + 1) % n_split
+        others = [(i * tile, (i + 1) * tile) for i in range(-(-s // tile))
+                  if i % n_split != split]
+        _, one = k3.decode_attention_plain(**_k3_hidden(args, others), return_lse=True)
+        errs.append(_check_lse(f"K3 lse {label}", lse, want,
+                               {f"split {split}'s lse in place of the merged one": one}))
+        print(f"  K3 lse {label}: out {'bit-equal' if same else 'DIFFERS'} to the call "
+              f"without lse; plan {plan}")
+        if not same:
+            raise AssertionError(f"K3 lse {label}: out differs from the call without lse")
+        with_lse = lambda: k3.decode_attention(**args, return_lse=True)  # noqa: E731
+        ms, plain_ms = _time_ms(with_lse), _time_ms(
+            lambda: k3.decode_attention_plain(**args, return_lse=True))
+        dev_us = _device_us(with_lse)
+        dev_us_no = _device_us(lambda: k3.decode_attention(**args))
+        n_seen = int(seen.sum())
+        row = 2 * hk * d * 2
+        bound = _bound(4 * hq * d * n_seen, _nbytes(args["q"], out, lse, args["kv_mask"])
+                       + row * n_seen, "bf16")
+        print(f"  K3 lse {label}: events {ms:.4f} ms, device {dev_us:.2f} us a call with lse, "
+              f"{dev_us_no:.2f} us without ({dev_us - dev_us_no:+.2f} us), plain "
+              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({n_seen} visible keys) "
+              f"[{_card()}]")
+        cases.append({"shape": f"lse {label}", "ms": ms, "plain_ms": plain_ms,
+                      "device_ms": dev_us / 1e3, "device_ms_without_lse": dev_us_no / 1e3,
+                      **bound, "library_ms": None, "plan": plan})
+    return cases, max(errs)
+
+
+def _seq_merge_virtual(q, shards, scale: float, cap, fault=None):
+    """One seq rank group's read of a seq-cut cache at PAR_SEQ virtual ranks,
+    through the path's own helpers: each shard's (out, lse) from
+    `dattn.cache_partial` (K3 with its lse, the empty-row sentinel mapped to
+    -inf), merged in shard order by `ring_attention.merge` (what
+    `sharding.seq_merge` runs after its all-gather). `fault`: "no lse"
+    (every lse 0: equal weights), "dropped" (shard 1 left out), "sentinel"
+    (the empty shard's lse left at K3's sentinel)."""
+    from vidi_tpu_torch.models import dattn
+    from vidi_tpu_torch.ops.cuda.flash_attention import EMPTY_ROW_LSE
+    from vidi_tpu_torch.parallel import ring_attention as ra
+
+    tcfg = types.SimpleNamespace(q_scale=scale, attn_softcap=cap)
+    parts = [dattn.cache_partial(q[:, None], k, v, m, tcfg, True) for k, v, m in shards]
+    if fault == "no lse":
+        parts = [(o, torch.zeros_like(l)) for o, l in parts]
+    if fault == "sentinel":
+        parts = [(o, torch.where(torch.isinf(l), EMPTY_ROW_LSE, l)) for o, l in parts]
+    if fault == "dropped":
+        parts = parts[:1] + parts[2:]
+    return ra.merge(parts)[0][:, 0]
+
+
+def seq_read_check(dev) -> tuple:
+    """The 9B image cache (23,520 keys, the last 30 frames padding) cut into
+    PAR_SEQ shards of 5,880 keys, one decode token: each shard's K3 with its
+    lse merged in shard order against K3 on the whole cache within ULPS bf16
+    ulps of max|want|; planted faults: the lse dropped (equal weights), a
+    shard dropped, the empty shard's sentinel left unmapped. -> (launches
+    of the shards' run, case rows, error, times)."""
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    hq, hk, d, s, cap = 16, 8, 256, IMG_S, 50.0
+    scale, n = d**-0.5, s // PAR_SEQ
+    q = _randn(gen, (1, hq, d), dev, Q_GAIN)
+    k = _randn(gen, (1, hk, s, d), dev)
+    v = _randn(gen, (1, hk, s, d), dev)
+    mask = _kv_mask(s, PAR_IMG_VALID, dev)
+    # each virtual rank's cache is its own tensor, as a rank's would be
+    shards = [(k[:, :, i * n:(i + 1) * n].contiguous(), v[:, :, i * n:(i + 1) * n].contiguous(),
+               mask[:, i * n:(i + 1) * n].contiguous()) for i in range(PAR_SEQ)]
+    label = f"9b image cache S={s}, {PAR_SEQ} virtual seq ranks of {n} keys"
+    before = k3.launches
+    out = _seq_merge_virtual(q, shards, scale, cap)
+    torch.cuda.synchronize()
+    launches = {"decode_attention": k3.launches - before}
+    print(f"  seq-cut read {label}: launches {launches}")
+    if launches["decode_attention"] != PAR_SEQ:
+        raise AssertionError(f"the seq-cut read launched K3 {launches}, not {PAR_SEQ} times")
+    whole = k3.decode_attention(q, k, v, mask, scale, cap)
+    err = _check(f"seq-cut read {label}", out, whole,
+                 {f: _seq_merge_virtual(q, shards, scale, cap, f)
+                  for f in ("no lse", "dropped", "sentinel")})
+    merged_ms = _time_ms(lambda: _seq_merge_virtual(q, shards, scale, cap))
+    whole_ms = _time_ms(lambda: k3.decode_attention(q, k, v, mask, scale, cap))
+    cases = []
+    for i in (0, PAR_SEQ - 1):
+        kk, vv, mm = shards[i]
+        run = lambda: k3.decode_attention(q, kk, vv, mm, scale, cap, return_lse=True)  # noqa
+        o, l = run()
+        n_seen = int(mm.sum())
+        bound = _bound(4 * hq * d * n_seen, _nbytes(q, o, l, mm) + 2 * hk * d * 2 * n_seen,
+                       "bf16")
+        ms, dev_ms = _time_ms(run), _device_us(run) / 1e3
+        plain_ms = _time_ms(lambda: k3.decode_attention_plain(q, kk, vv, mm, scale, cap,
+                                                              return_lse=True))
+        shape = f"lse 9b seq shard {i} of {PAR_SEQ}: S={n}, {n_seen} visible keys"
+        print(f"  K3 {shape}: events {ms:.4f} ms, device {dev_ms:.4f} ms a call, plain "
+              f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+              f"[{_card()}]")
+        cases.append({"shape": shape, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                      **bound, "library_ms": None})
+    print(f"  seq-cut read: {PAR_SEQ} K3 calls with lse + merge {merged_ms:.4f} ms against "
+          f"K3 on the whole cache {whole_ms:.4f} ms [{_card()}]")
+    return launches, cases, err, {"merged": merged_ms, "whole": whole_ms}
+
+
+def _layer_9b(dev, gen, cfg):
+    """One random text layer of the 9B at full width (bf16)."""
+    from vidi_tpu_torch.models import decoder
+
+    tc = dataclasses.replace(cfg.text, num_layers=1, vocab_size=8)
+    lp = decoder.init_params(tc, torch.bfloat16, dev, gen)["layers"][0]
+    for name in ("input_ln", "post_attn_ln", "pre_ffn_ln", "post_ffn_ln"):
+        lp[name] = 0.1 * _randn(gen, lp[name].shape, dev)
+    return lp
+
+
+def _model_slice(lp, r: int, n: int) -> dict:
+    """Rank r of n's leaves of a text layer under the "model" cut: the
+    `_TP_DIM` leaves' slice, the norms whole."""
+    from vidi_tpu_torch.parallel import sharding
+
+    out = {}
+    for name, t in lp.items():
+        dim = sharding._TP_DIM.get(name)
+        out[name] = t if dim is None else t.chunk(n, dim=dim - 1)[r].contiguous()
+    return out
+
+
+def _model_ranks(run, n: int, alone=None):
+    """`run(r)` for the n virtual ranks in n threads, `sharding.model_sum`
+    standing in for the collective: each rank's partial is handed to the
+    others and summed in rank order in fp32 (what the all-gather and sum
+    give every rank). `alone`: that rank keeps its own partial (the planted
+    fault). -> the ranks' results."""
+    import threading
+
+    from vidi_tpu_torch.parallel import sharding
+
+    slots, results, errors = [None] * n, [None] * n, []
+    barrier = threading.Barrier(n)
+    local = threading.local()
+    real = sharding.model_sum
+
+    def exchange(x, w=None):
+        r = local.rank
+        slots[r] = x
+        barrier.wait()
+        total = slots[0].float()
+        for p in slots[1:]:
+            total = total + p.float()
+        barrier.wait()  # every rank has read the slots before the next exchange
+        return x if r == alone else total.to(x.dtype)
+
+    def body(r):
+        local.rank = r
+        try:
+            results[r] = run(r)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+            barrier.abort()
+
+    sharding.model_sum = exchange
+    try:
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sharding.model_sum = real
+    if errors:
+        raise errors[0]
+    return results
+
+
+def model_cut_check(dev) -> tuple:
+    """One Dattn decode step of the 9B at full width (a global layer: T2T on
+    a text cache, T2V on the 120 s clip's image cache, T2A on its audio
+    cache, one query token, K3 for all three) uncut, and cut over "model" on
+    MODEL_RANKS virtual ranks: each rank's q / k / v heads, its KV heads of
+    every cache, its o / down rows and gate / up columns, the o_proj and FFN
+    row partials summed in rank order (`_model_ranks`). The cut layer's
+    output against the uncut one within ULPS bf16 ulps of max|want|;
+    planted fault: rank 0's partials alone. -> (K3 launches of the cut
+    step, error)."""
+    from vidi_tpu_torch.core.config import DattnConfig
+    from vidi_tpu_torch.models import dattn
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+    from vidi_tpu_torch.ops.rope import rope_cos_sin
+
+    cfg = DattnConfig.vidi15_9b()
+    tcfg = cfg.text
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    n_real, t = _prompt_lengths()
+    hk, d, tc = tcfg.num_kv_heads, tcfg.head_dim, t + 32
+    lp = _layer_9b(dev, gen, cfg)
+    h = _randn(gen, (1, 1, tcfg.hidden_size), dev)
+    caches = {name: (_randn(gen, (1, hk, s, d), dev), _randn(gen, (1, hk, s, d), dev))
+              for name, s in (("text", tc), ("img", IMG_S), ("aud", AUD_S))}
+    cur = torch.tensor([n_real], device=dev)
+    masks = {"text": torch.arange(tc, device=dev)[None] <= cur[:, None],
+             "img": _kv_mask(IMG_S, IMG_VALID, dev), "aud": _kv_mask(AUD_S, AUD_VALID, dev)}
+    rope = rope_cos_sin(cur[:, None], d, tcfg.rope_theta)
+
+    def step(layer, heads: slice):
+        kv = {n: (k[:, heads].clone(), v[:, heads].clone()) for n, (k, v) in caches.items()}
+        out, *_ = dattn.dattn_layer(
+            layer, False, h, None, None, tcfg=tcfg, rope_cs=rope,
+            q_positions=cur[:, None],
+            kv_positions=torch.arange(tc, device=dev)[None], text_mask=masks["text"],
+            img_mask=masks["img"], aud_mask=masks["aud"], text_kv=kv["text"],
+            img_kv=kv["img"], aud_kv=kv["aud"], write_at=cur, use_flash=True)
+        return out
+
+    n = MODEL_RANKS
+    with torch.no_grad():
+        whole = step(lp, slice(None))
+        parts = [_model_slice(lp, r, n) for r in range(n)]
+        heads = [slice(r * hk // n, (r + 1) * hk // n) for r in range(n)]
+        before = k3.launches
+        cut = _model_ranks(lambda r: step(parts[r], heads[r]), n)
+        torch.cuda.synchronize()
+        launches = k3.launches - before
+        same = all(torch.equal(c, cut[0]) for c in cut[1:])
+        alone = _model_ranks(lambda r: step(parts[r], heads[r]), n, alone=0)[0]
+    label = (f"9b Dattn decode step cut over model on {n} virtual ranks ({hk // n} KV heads, "
+             f"{tcfg.intermediate_size // n} FFN columns a rank)")
+    print(f"  {label}: {launches} K3 launches (T2T, T2V, T2A a rank); ranks "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    if not same or launches != 3 * n:
+        raise AssertionError(f"{label}: ranks differ or {launches} K3 launches, not {3 * n}")
+    err = _check(label, cut[0], whole, {"rank 0's partials alone": alone})
+    return launches, err
+
+
+GLOO_LAYERS, GLOO_SECONDS, GLOO_NEW = 2, 16, 4
+
+
+def gloo_ranks_check() -> dict:
+    """The 9B's serving path (full width, GLOO_LAYERS text layers, a
+    GLOO_SECONDS s clip, GLOO_NEW greedy tokens on K1 / K2 / K3) as two
+    processes on the one card over gloo (NCCL refuses two ranks on one
+    GPU), with --seq-parallel 2 and with --model-parallel 2
+    (`vidi_tpu_torch/tools/ranks_one_card.compare`), against one process:
+    each rank's step-0 logits within LOGIT_REL of max|logit| and cosine
+    LOGIT_COS (the decode-route check's limits), its tokens equal but from
+    a near tie (the reference's top-2 gap there within LOGIT_REL of
+    max|logit|, as `_near_tie_rule`)."""
+    from vidi_tpu_torch.tools import ranks_one_card
+
+    report = ranks_one_card.compare(layers=GLOO_LAYERS, new=GLOO_NEW, seconds=GLOO_SECONDS,
+                                    mm_chunks=1)
+    for mode, ranks in report.items():
+        if isinstance(ranks, dict):
+            raise AssertionError(f"two ranks over gloo, {mode}: a rank failed: {ranks}")
+        for r, got in enumerate(ranks):
+            tokens_ok = got["tokens_equal"] or got["gap_there"] <= LOGIT_REL
+            if not (got["rel"] <= LOGIT_REL and got["cos"] >= LOGIT_COS and tokens_ok):
+                raise AssertionError(f"two ranks over gloo, {mode} rank {r}: {got} (limits "
+                                     f"{LOGIT_REL} of max|logit|, cosine {LOGIT_COS}, "
+                                     "tokens equal but from a near tie)")
+    print(f"  two ranks over gloo on one card: within {LOGIT_REL} / {LOGIT_COS}, tokens "
+          f"equal or from a near tie [{_card()}]")
+    return report
+
+
+def parallel_infer_phase(dev) -> dict:
+    """The inference half of the parallel slice on one card: K3's lse cases
+    (`k3_lse_cases`), the seq-cut cache read on PAR_SEQ virtual ranks
+    (`seq_read_check`), the 9B's decode step cut over "model" on
+    MODEL_RANKS virtual ranks (`model_cut_check`), and the serving path as
+    two processes over gloo (`gloo_ranks_check`). -> K3's launches on the
+    seq-cut read, its new case rows, the largest error."""
+    t0 = time.perf_counter()
+    cases, lse_err = k3_lse_cases(dev)
+    launches, shard_cases, seq_err, times = seq_read_check(dev)
+    tp_launches, tp_err = model_cut_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gloo = gloo_ranks_check()
+    print(f"  parallel inference phase: {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "cases": cases + shard_cases, "lse_err": lse_err,
+            "max_abs_err": max(seq_err, tp_err), "seq_read_ms": times,
+            "model_cut_launches": tp_launches, "gloo": gloo}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5942,6 +6313,11 @@ def main() -> int:
     parallel = parallel_phase(dev)
     for name, case in parallel["cases"].items():
         kern[name]["cases"].append(case)
+    print(f"parallel inference slice (K3 with its lse; the 9B image cache read on {PAR_SEQ} "
+          f"virtual seq ranks; a 9B decode step cut over model on {MODEL_RANKS} virtual "
+          "ranks):")
+    parallel_infer = parallel_infer_phase(dev)
+    kern["decode_attention"]["cases"].extend(parallel_infer["cases"])
 
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
     # training for K4, int8 serving for K5 / K6; K7 is on no path);
@@ -5952,7 +6328,8 @@ def main() -> int:
              "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8,
              "serve_daemon_int8": serve_daemon_int8, "train": train, "remat": remat,
              "grad_accum": grad_accum, "train_image": train_image, "train_pack": train_pack,
-             "train_7b": train_7b, "distill": distill, "parallel": parallel["launches"]}
+             "train_7b": train_7b, "distill": distill, "parallel": parallel["launches"],
+             "parallel_infer": parallel_infer["launches"]}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [

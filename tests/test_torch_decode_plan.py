@@ -268,11 +268,12 @@ def test_launch_passes_the_operands_as_they_come(monkeypatch, dtype):
     assert _lib._SIGNATURES[entry] == [ctypes.c_void_p, ctypes.c_void_p]
     assert len(k3.ARGS.pack(*args)) == k3.ARGS.size  # the block the C entry reads
     assert args[3] == mask.data_ptr() and args[4] == q_pos.data_ptr()
-    assert args[15] == 1  # q_pos read as int64
+    assert args[10] == 0  # no lse asked for: a null pointer
+    assert args[16] == 1  # q_pos read as int64
     assert args[5:9] == args2[5:9]  # the same workspace
     n_split, chunk = args[-2:]
     if dtype == torch.bfloat16:
         assert (chunk, n_split) == k3.decode_plan(1, 8, 160, 256, SMS, g=2)[1:]
-        assert args[18] == 0 and args[20] == 256  # batch stride 0, rows D apart
+        assert args[19] == 0 and args[21] == 256  # batch stride 0, rows D apart
     else:
         assert (chunk, n_split) == (k3.CHUNK, 1)

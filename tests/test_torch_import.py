@@ -59,6 +59,7 @@ MODULES = [
     "vidi_tpu_torch.evals.vue_stg",
     "vidi_tpu_torch.evals.plots",
     "vidi_tpu_torch.evals.visualize",
+    "vidi_tpu_torch.tools.ranks_one_card",
 ]
 
 PROBE = """

@@ -33,7 +33,7 @@ CPU, inputs from numpy seeds, fp32:
 (v) the train CLI under `torchrun --nproc_per_node 4` (gloo, seq 2, ring)
     writes a checkpoint that a restart resumes onto the mesh, its losses
     those of one process on the same global batch; --model_parallel_size 2
-    raises.
+    raises (training under tensor parallelism is ROADMAP Q1.16c).
 
 One spawn of 4 ranks a mesh layout serves every case (module fixtures);
 the ranks import no jax and run one thread each.
@@ -461,7 +461,7 @@ def test_cli_under_torchrun_resumes_and_matches_one_process(tmp_path):
     want = [m["loss"] for m in _metrics(one)]
     for a, b in zip(got, want):
         assert abs(a - b) <= LOSS_TOL * abs(b), (got, want)
-    with pytest.raises(NotImplementedError, match="Q1.16b"):
+    with pytest.raises(NotImplementedError, match="Q1.16c"):
         tcli.main([*common, "--output_dir", str(one), "--model_parallel_size", "2"])
 
 

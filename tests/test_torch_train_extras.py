@@ -450,8 +450,8 @@ def test_cli_mode_checks_raise(tmp_path, argv, match):
                                   ["--model_parallel_size", "2"]])
 def test_cli_mesh_flags_raise(tmp_path, flag):
     """A seq mesh needs ranks (torchrun; tests/test_torch_parallel.py runs
-    one); tensor parallelism is ROADMAP Q1.16b."""
-    err, match = ((NotImplementedError, "Q1.16b") if "--model_parallel_size" in flag
+    one); training under tensor parallelism is ROADMAP Q1.16c."""
+    err, match = ((NotImplementedError, "Q1.16c") if "--model_parallel_size" in flag
                   else (SystemExit, "torchrun"))
     with pytest.raises(err, match=match):
         _cli(tmp_path, "--data_path", "synthetic", *flag)

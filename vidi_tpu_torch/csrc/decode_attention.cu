@@ -6,7 +6,10 @@
 // kv_mask, logit softcap and the Gemma2 sliding window through q_pos
 // (int32 or int64; key visible iff q_pos - key < window). Rows with no
 // visible key give zeros. As in `_kernel`, each probability is rounded to
-// the cache dtype before it weights V, and the row sum stays fp32.
+// the cache dtype before it weights V, and the row sum stays fp32. Asked
+// for it (a non-null lse), both routes also write each row's log-sum-exp
+// (K1's units; kEmptyRowLse for a row with no visible key), which the
+// merge of a seq-cut cache's shards weights them by.
 //
 // What bounds it on an H100: every step reads the visible cache once (2*S*D
 // elements per KV head) for 2*g*S*D FMAs, so it is bound by device-memory
@@ -45,6 +48,7 @@ struct DecodeParams {
   float* part_l;       // [B, Hq, n_split]
   float* part_acc;     // [B, Hq, n_split, D]
   void* out;           // [B, Hq, D] contiguous
+  float* lse;          // [B, Hq] contiguous, or nullptr: not written
   int B, Hq, Hk, S, n_split, chunk, qpos64;
   long long q_sb, q_sh;
   long long k_sb, k_sh, k_ss;
@@ -172,6 +176,7 @@ __global__ void decode_combine(DecodeParams p) {
   }
   T* out = static_cast<T*>(p.out) + (long long)row * D;
   const float o = lsum == 0.f ? 0.f : a / lsum;
+  if (p.lse != nullptr && d == 0) p.lse[row] = lsum == 0.f ? vidi::kEmptyRowLse : mx + logf(lsum);
   if constexpr (sizeof(T) == 4) {
     out[d] = o;
   } else {
@@ -227,8 +232,8 @@ cudaError_t dispatch_sm90(const vidi::decode_sm90::Params& p, cudaStream_t s) {
 }  // namespace
 
 // The arguments of a K3 call, packed by the wrapper into one block
-// (ops/cuda/decode_attention.py, `ARGS`: struct format "<10Q6i10q2f3i") so
-// that a call crosses ctypes with two arguments instead of 32.
+// (ops/cuda/decode_attention.py, `ARGS`: struct format "<11Q6i10q2f3i") so
+// that a call crosses ctypes with two arguments instead of 33.
 struct DecodeArgs {
   const void* q;
   const void* k;
@@ -240,13 +245,14 @@ struct DecodeArgs {
   float* part_acc;
   unsigned int* counters;
   void* out;
+  float* lse;  // nullptr: no lse asked for
   int B, Hq, Hk, S, D, qpos64;
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, mask_sb, qpos_s;
   float scale, softcap;
   int window, n_split, chunk;
 };
-static_assert(sizeof(DecodeArgs) == 208 && offsetof(DecodeArgs, q_sb) == 104 &&
-                  offsetof(DecodeArgs, scale) == 184 && offsetof(DecodeArgs, chunk) == 200,
+static_assert(sizeof(DecodeArgs) == 216 && offsetof(DecodeArgs, q_sb) == 112 &&
+                  offsetof(DecodeArgs, scale) == 192 && offsetof(DecodeArgs, chunk) == 208,
               "DecodeArgs must match the wrapper's packing");
 
 // fp32 operands: the two-pass SIMT kernels (counters unused)
@@ -254,6 +260,7 @@ extern "C" int vidi_decode_attention(const DecodeArgs* a, void* stream) {
   DecodeParams p;
   p.q = a->q; p.k = a->k; p.v = a->v; p.kv_mask = a->kv_mask; p.q_pos = a->q_pos;
   p.part_m = a->part_m; p.part_l = a->part_l; p.part_acc = a->part_acc; p.out = a->out;
+  p.lse = a->lse;
   p.B = a->B; p.Hq = a->Hq; p.Hk = a->Hk; p.S = a->S; p.n_split = a->n_split;
   p.chunk = a->chunk; p.qpos64 = a->qpos64;
   p.q_sb = a->q_sb; p.q_sh = a->q_sh;
@@ -277,6 +284,7 @@ extern "C" int vidi_decode_attention_sm90(const DecodeArgs* a, void* stream) {
   p.part_m = a->part_m; p.part_l = a->part_l; p.part_acc = a->part_acc;
   p.counters = a->counters;
   p.out = static_cast<__nv_bfloat16*>(a->out);
+  p.lse = a->lse;
   p.B = a->B; p.Hq = a->Hq; p.Hk = a->Hk; p.S = a->S; p.n_split = a->n_split;
   p.chunk = a->chunk; p.qpos64 = a->qpos64;
   p.q_sb = a->q_sb; p.q_sh = a->q_sh; p.k_sb = a->k_sb; p.k_sh = a->k_sh;

@@ -42,7 +42,10 @@
 //   partials in shared memory (one bulk copy for as many splits as the
 //   ring holds), merges them in split order (so the result does not depend
 //   on which block came last), writes the output and resets the counter to
-//   0 for the next call.
+//   0 for the next call. Asked for it (a non-null `lse`), the merge also
+//   writes each row's log-sum-exp m + log(l), or kEmptyRowLse for a row
+//   with no visible key: a read of a seq-cut cache merges the shards'
+//   outputs with it.
 //
 // Measured on an H100 (PERF.md, vidi_tpu_torch/tools/k3_variants.py): the copies alone
 // stream the 9B image cache at ~3 TB/s; the arithmetic adds ~4 us and the
@@ -76,6 +79,7 @@ struct Params {
   float* part_acc;               // [B, Hk, n_split, G, D]
   unsigned int* counters;        // [B, Hk], 0 between calls
   __nv_bfloat16* out;            // [B, Hq, D] contiguous
+  float* lse;                    // [B, Hq] contiguous, or nullptr: not written
   int B, Hq, Hk, S, n_split, chunk, qpos64;
   long long q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, mask_sb, qpos_s;
   float scale, softcap;
@@ -422,6 +426,8 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
     if (single) {
       p.out[(b * (long long)p.Hq + hk * kG + g) * D + d] =
           __float2bfloat16(ls == 0.f ? 0.f : a / ls);
+      if (p.lse != nullptr && d == 0)
+        p.lse[b * (long long)p.Hq + hk * kG + g] = ls == 0.f ? kEmptyRowLse : mx + logf(ls);
     } else {
       const long long row = (head * p.n_split + split) * kG + g;
       p.part_acc[row * D + d] = a;
@@ -532,6 +538,11 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
       store2(o + 2, ls == 0.f ? 0.f : a[i].z / ls, ls == 0.f ? 0.f : a[i].w / ls);
     }
   }
+  // the merged rows' log-sum-exp, in the units of K1's (scaled, softcapped
+  // scores): what a merge of seq-cut caches weights this partial by
+  if (p.lse != nullptr && tid < kG)
+    p.lse[b * (long long)p.Hq + hk * kG + tid] =
+        sLs[tid] == 0.f ? kEmptyRowLse : sMx[tid] + logf(sLs[tid]);
   if (tid == 0) p.counters[head] = 0;  // ready for the next call on this stream
 }
 

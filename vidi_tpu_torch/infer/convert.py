@@ -203,17 +203,19 @@ def convert_mm_adapters(sd: Index, cfg: DattnConfig, dtype=torch.bfloat16,
 
 
 def convert_dattn(sd: Index, cfg: DattnConfig, dtype=torch.bfloat16, *, device,
-                  text_layer_fn: LayerFn = None, tower_layer_fn: LayerFn = None) -> Dict:
+                  text_layer_fn: LayerFn = None, tower_layer_fn: LayerFn = None,
+                  audio_layer_fn: LayerFn = None) -> Dict:
     """A full Vidi checkpoint (DattnGemma2ForCausalLM / Mistral state_dict)
     -> dattn.init_params layout. The towers live under model.mm_vis /
-    model.mm_aud."""
+    model.mm_aud; `audio_layer_fn` (default `tower_layer_fn`) maps the audio
+    tower's layers."""
     conv_vis = convert_clip if cfg.vision.arch == "clip" else convert_siglip
     return {
         "text": convert_text(sd, cfg.text, dtype, device=device, layer_fn=text_layer_fn),
         "vision": conv_vis(sd, cfg.vision, dtype, "model.mm_vis.vision_model.",
                            device=device, layer_fn=tower_layer_fn),
         "audio": convert_whisper(sd, cfg.audio, dtype, "model.mm_aud.encoder.",
-                                 device=device, layer_fn=tower_layer_fn),
+                                 device=device, layer_fn=audio_layer_fn or tower_layer_fn),
         "mm": convert_mm_adapters(sd, cfg, dtype, device=device),
     }
 

@@ -21,6 +21,14 @@ from a small text-only draft model), verifies them in one target pass
 (`dattn.verify_step`) and commits the accepted prefix and one token of the
 target's: greedy output equals greedy `generate`'s, sampled output follows
 sampled `generate`'s law.
+
+Under a mesh (`parallel.sharding.use_mesh`) the inputs are this rank's
+data rows and stream slice and the parameters its shards: each entry
+gathers the non-layer leaves once, every rank of a (seq, model) group
+computes the same bits (its merges and sums run in a fixed order) and so
+picks the same tokens, and a loop runs until every rank's rows are done
+(`sharding.all_ranks`: the layers' gathers span the data axis; a row that
+is done only appends eos).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 
 from vidi_tpu_torch.core.config import DattnConfig
 from vidi_tpu_torch.models import dattn, decoder
+from vidi_tpu_torch.parallel import sharding
 
 
 class GenerateResult(NamedTuple):
@@ -212,6 +221,7 @@ def generate(params, cfg: DattnConfig, prompt_ids, prompt_mask, img=None,
     With `temperature > 0` each step draws one token a row from the warped
     distribution (`_warp_logits`) with `generator` (on the model's device,
     required then), in step order."""
+    params = sharding.gathered(params, skip_layers=True)
     tcfg = cfg.text
     dev = prompt_ids.device
     b = prompt_ids.shape[0]
@@ -240,7 +250,7 @@ def generate(params, cfg: DattnConfig, prompt_ids, prompt_mask, img=None,
 
     cur_len = lens.clone()
     step = 1
-    while step < max_new_tokens and not bool(done.all()):
+    while step < max_new_tokens and not sharding.all_ranks(done.all()):
         emb = decoder.embed_tokens(params["text"], tok[:, None], tcfg)
         logits, caches = dattn.decode_step(
             params, cfg, emb, cur_len, caches, img_mask=img_mask,
@@ -296,6 +306,7 @@ def beam_generate(params, cfg: DattnConfig, prompt_ids, prompt_mask, img=None,
     frozen (its only continuation is eos at zero added log-prob); scores
     are summed log-probs, normalized by length**length_penalty at the final
     pick, finished hypotheses preferred. Arguments as `generate`'s."""
+    params = sharding.gathered(params, skip_layers=True)
     tcfg = cfg.text
     dev = prompt_ids.device
     b, k = prompt_ids.shape[0], num_beams
@@ -324,7 +335,7 @@ def beam_generate(params, cfg: DattnConfig, prompt_ids, prompt_mask, img=None,
     t1 = time.perf_counter()
 
     step = 1
-    while step < max_new_tokens and not bool(done.all()):
+    while step < max_new_tokens and not sharding.all_ranks(done.all()):
         emb = decoder.embed_tokens(params["text"], cur_tok[:, None], tcfg)
         logits, caches = dattn.decode_step(
             params, cfg, emb, cur_len, caches, img_mask=img_mask,
@@ -422,6 +433,9 @@ def speculative_generate(params, cfg: DattnConfig, draft_params,
     is grown by max_new_tokens + K + 1 slots; a rollback is not advancing
     cur_len (stale slots lie past the validity mask). Other arguments as
     `generate`'s."""
+    params = sharding.gathered(params, skip_layers=True)
+    if draft_params is not None:
+        draft_params = sharding.gathered(draft_params, skip_layers=True)
     tcfg = cfg.text
     dev = prompt_ids.device
     b, k = prompt_ids.shape[0], spec_k
@@ -467,7 +481,7 @@ def speculative_generate(params, cfg: DattnConfig, draft_params,
     _sync(dev)
     t1 = time.perf_counter()
 
-    while not bool(done.all()):
+    while not sharding.all_ranks(done.all()):
         qs = []
         if use_ngram:
             drafts, found = _ngram_drafts(hist, lens + out_len, k)

@@ -22,6 +22,12 @@ towers to int8 (the reference's bitsandbytes options), layer by layer as
 each layer arrives, so the full-precision model never lies whole on the
 device beside its quantized copy.
 
+`load_model(..., mesh=)` (a `core.mesh.Mesh` of several ranks) returns
+this rank's shards (`parallel.sharding.shard_params`): each layer is cut
+as it is drawn or read (`sharding.layer_sharder`) and every other leaf
+once it is made, so a model larger than one card never stages whole on
+one. Quantized weights under such a mesh are ROADMAP Q1.16c.
+
 Tokenizer: a directory without tokenizer files gives the byte tokenizer,
 with a printed note; one with them needs `transformers`, imported only
 then, and raises ImportError naming it when it is missing.
@@ -259,14 +265,21 @@ def load_model(model_path: Optional[str] = None,
                load_8bit_towers: bool = False, load_4bit: bool = False,
                mm_vision_tower: Optional[str] = None,
                mm_audio_tower: Optional[str] = None,
-               mm_overrides: Optional[dict] = None):
+               mm_overrides: Optional[dict] = None, mesh=None):
     """-> (params, cfg, tokenizer). See the module docstring.
     `mm_overrides` (the finetune model arguments: mm_std, mm_image_pool_size,
     mm_input_type, ...; None values ignored) override the configuration in
-    every branch."""
+    every branch. `mesh`: cut the weights to this rank's shards."""
     dev = resolve_device(device)
     text_fn, tower_fn = _quantizers(load_8bit, load_8bit_towers, load_4bit)
     overrides = _drop_none(mm_overrides)
+    if mesh is not None and mesh.size > 1:
+        if text_fn is not None or tower_fn is not None:
+            raise NotImplementedError(
+                "--load-8bit / --load-4bit / --load-8bit-towers under a mesh of "
+                "several ranks are ROADMAP Q1.16c")
+    else:
+        mesh = None
 
     if random_weights is not None:
         if mm_vision_tower is not None:
@@ -276,6 +289,9 @@ def load_model(model_path: Optional[str] = None,
             raise ValueError(f"random_weights must be one of {sorted(CONFIGS)}, "
                              f"got {random_weights!r}")
         cfg = dataclasses.replace(CONFIGS[random_weights](), **overrides)
+        if mesh is not None:
+            params = dattn.init_params(cfg, dtype, dev, seed, layer_fns=_sharders(cfg, mesh))
+            return _shard_rest(params, cfg, mesh), cfg, ByteTokenizer()
         params = dattn.init_params(cfg, dtype, dev, seed)
         for module, fn in (("text", text_fn), ("vision", tower_fn), ("audio", tower_fn)):
             if fn is not None:
@@ -287,6 +303,15 @@ def load_model(model_path: Optional[str] = None,
 
     if model_path is None:
         raise ValueError("need model_path or random_weights")
+    audio_fn = None
+    if mesh is not None:
+        if mm_vision_tower is not None:
+            raise NotImplementedError("assembly under a mesh of several ranks: assemble "
+                                      "in one process and export the model first")
+        # the sharders need the layer counts before any layer is read
+        fns = _sharders(dataclasses.replace(config_from_hf(_read_json(model_path)),
+                                            **overrides), mesh)
+        text_fn, tower_fn, audio_fn = fns["text"], fns["vision"], fns["audio"]
     for attempt in range(1, MAX_TRIES + 1):
         try:
             if mm_vision_tower is not None:
@@ -298,7 +323,8 @@ def load_model(model_path: Optional[str] = None,
                 cfg = dataclasses.replace(config_from_hf(_read_json(model_path)),
                                           **overrides)
                 params = convert_dattn(load_safetensors_dir(model_path), cfg, dtype,
-                                       device=dev, text_layer_fn=text_fn, tower_layer_fn=tower_fn)
+                                       device=dev, text_layer_fn=text_fn,
+                                       tower_layer_fn=tower_fn, audio_layer_fn=audio_fn)
             break
         except (FileNotFoundError, KeyError, ValueError, NotImplementedError,
                 torch.OutOfMemoryError):
@@ -309,8 +335,29 @@ def load_model(model_path: Optional[str] = None,
             print(f"load_model try {attempt} of {MAX_TRIES} failed: {e!r}")
             if attempt == MAX_TRIES:
                 raise
+    if mesh is not None:
+        return _shard_rest(params, cfg, mesh), cfg, load_tokenizer(model_path, cfg)
     _quantize_lm_head(params, text_fn, load_4bit)
     return params, cfg, load_tokenizer(model_path, cfg)
+
+
+def _sharders(cfg: DattnConfig, mesh) -> dict:
+    """{"text" | "vision" | "audio": fn cutting a layer of that module to
+    this rank's shards as it arrives}; raises ValueError unless the mesh's
+    "model" size divides the KV heads."""
+    from vidi_tpu_torch.parallel import sharding
+
+    sharding.check_model_cut(mesh, cfg.text.num_kv_heads)
+    return {m: sharding.layer_sharder(m, getattr(cfg, c).num_layers, mesh)
+            for m, c in (("text", "text"), ("vision", "vision"), ("audio", "audio"))}
+
+
+def _shard_rest(params, cfg: DattnConfig, mesh):
+    """The leaves outside the layers cut to this rank's shards (the layers
+    were cut as they arrived)."""
+    from vidi_tpu_torch.parallel import sharding
+
+    return sharding.shard_params(params, mesh, kv_heads=cfg.text.num_kv_heads)
 
 
 def _quantize_lm_head(params, text_fn, load_4bit: bool) -> None:

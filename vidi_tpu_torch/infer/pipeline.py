@@ -24,10 +24,17 @@ chunks at decode resolution and resizes them on the device.
         [--random-weights-seed N] [--temperature T [--top-k K] [--top-p P] [--seed N]] \
         [--num-beams K] [--spec-ngram | --draft-model-path DIR | \
          --draft-random-weights 9b|1.5b|7b|tiny|tiny7b] [--spec-k K]
+
+On N ranks (`torchrun --nproc_per_node N -m vidi_tpu_torch.infer.pipeline
+... --seq-parallel S --model-parallel M`, N = S * M): the weights are
+loaded as each rank's shards, the encode and the caches are cut over seq,
+the text decoder's heads over model; every rank answers the same and rank
+0 alone prints.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import re
 import sys
 import threading
@@ -44,6 +51,7 @@ from vidi_tpu_torch.infer.generate import (beam_generate, generate, speculative_
                                            tokenize_stop_keywords)
 from vidi_tpu_torch.models import dattn
 from vidi_tpu_torch.models.adapters import budget_hw
+from vidi_tpu_torch.parallel import sharding
 
 TIME_RANGE_RE = re.compile(r"(\d\.\d+)-(\d\.\d+)")
 TR_PROMPT = "During which time segments in the video can we see {}?"
@@ -146,24 +154,39 @@ def _encode_frame_chunks(params, cfg: DattnConfig, chunks, n_frames: int, *,
     grid is fixed from `n_frames` before the first frame arrives
     (`budget_hw`). With `device_resize` the chunks ship at their decode
     resolution and are resized on the device; otherwise the host's PIL
-    resize runs on each chunk first."""
+    resize runs on each chunk first. Under a seq mesh only this rank's
+    ceil(N / seq) frames are encoded (the rest are decoded and dropped)
+    and its slice of the stream is returned, as `encode_video_images`
+    gives it."""
     dev = params["text"]["embed"].device
+    params = sharding.gathered(params, skip_layers=True)
     hw = budget_hw(n_frames, cfg.mm_image_pool_size, cfg.vision.num_patches_per_side,
                    cfg.mm_max_tokens_base)
-    toks = []
+    first, n_loc = sharding.seq_cut(n_frames)
+    toks, seen = [], 0
     for chunk in chunks:
+        start, seen = seen, seen + len(chunk)
+        mine = chunk[max(first - start, 0):max(first + n_loc - start, 0)]
+        if len(mine) == 0:
+            continue
         if device_resize:
-            pixels = np.ascontiguousarray(chunk)
+            pixels = np.ascontiguousarray(mine)
         else:
             from vidi_tpu_torch.media.images import resize_frames_uint8
-            pixels = resize_frames_uint8(chunk, cfg.vision.image_size)
+            pixels = resize_frames_uint8(mine, cfg.vision.image_size)
         toks.append(dattn.frame_tokens_chunk(params, torch.as_tensor(pixels).to(dev),
                                              cfg, hw, use_flash))
-    tok = torch.cat(toks)[None]  # [1, N, h2, w2, d]
-    if tok.shape[1] != n_frames:
-        raise ValueError(f"the chunks held {tok.shape[1]} frames, not {n_frames}")
-    return dattn.finish_video_tokens(params, cfg, tok,
-                                     torch.tensor([n_frames], device=dev))
+    if seen != n_frames:
+        raise ValueError(f"the chunks held {seen} frames, not {n_frames}")
+    if toks:
+        tok = torch.cat(toks)[None]  # [1, frames of this rank, h2, w2, d]
+    else:  # a rank past the last frame
+        emb = params["text"]["embed"]
+        tok = emb.new_zeros((1, 0, *dattn.frame_side(cfg, hw), emb.shape[-1]))
+    if tok.shape[1] < n_loc:  # an uneven cut's last rank: padding frames
+        tok = sharding.take_padded(tok, 1, 0, n_loc)
+    return dattn.finish_video_tokens(params, cfg, tok, torch.tensor([n_frames], device=dev),
+                                     frames=(first, n_frames))
 
 
 def encode_frame_stream(params, cfg: DattnConfig, chunks, n_frames: int, mels,
@@ -316,9 +339,10 @@ def ask(question: str, vid_path: str, params, cfg: DattnConfig, tokenizer, *,
         result = speculative_generate(params, cfg, d_params, d_cfg, *args[2:],
                                       spec_k=spec_k, **kw, **sampling)
         n_acc, n_draft = int(result.n_accepted.sum()), int(result.n_drafted.sum())
-        print(f"speculative: {result.n_target_steps} target passes, accept "
-              f"{n_acc}/{max(n_draft, 1)} ({n_acc / max(n_draft, 1):.0%})",
-              file=sys.stderr)
+        if sharding.is_root():
+            print(f"speculative: {result.n_target_steps} target passes, accept "
+                  f"{n_acc}/{max(n_draft, 1)} ({n_acc / max(n_draft, 1):.0%})",
+                  file=sys.stderr)
     elif num_beams > 1:
         result = beam_generate(*args, num_beams=num_beams, **kw)
     else:
@@ -415,30 +439,66 @@ def main(argv=None):
     p.add_argument("--spec-ngram", action="store_true",
                    help="speculative decoding drafting from 2-gram matches in "
                         "the prompt and generated history (no draft model)")
+    p.add_argument("--seq-parallel", type=int, default=1, metavar="N",
+                   help="ranks (torchrun) over which the modality streams and "
+                        "their KV caches are cut (data stays 1)")
+    p.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                   help="ranks (torchrun) over which the text decoder's heads and "
+                        "FFN columns are cut (tensor parallelism)")
     args = p.parse_args(argv)
 
     if args.w8a8_prefill is not None:
         quantize.w8a8_min_tokens = args.w8a8_prefill
     dtype = getattr(torch, args.dtype)
-    params, cfg, tokenizer = load_model(
-        args.model_path, args.random_weights, dtype=dtype, device=args.device,
-        seed=args.random_weights_seed, load_8bit=args.load_8bit,
-        load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit)
-    draft = "ngram" if args.spec_ngram else None
-    if args.draft_model_path or args.draft_random_weights:
-        d_params, d_cfg, _ = load_model(
-            args.draft_model_path, args.draft_random_weights, dtype=dtype,
-            device=args.device, seed=args.random_weights_seed,
-            load_8bit=args.load_8bit)
-        draft = (d_params, d_cfg)
-    out = ask(args.query, args.video_path, params, cfg, tokenizer,
-              task=args.task, fps=args.fps, max_new_tokens=args.max_new_tokens,
-              mm_chunks=args.mm_splits, quantize_caches=args.quantize_kv,
-              stream_chunk=args.stream_chunk, device_resize=args.device_resize,
-              temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-              seed=args.seed, num_beams=args.num_beams, draft=draft,
-              spec_k=args.spec_k)
-    print(out if out else "(no parsed output)")
+    with mesh_from_flags(args.device, 1, args.seq_parallel, args.model_parallel) as (dev, mesh):
+        params, cfg, tokenizer = load_model(
+            args.model_path, args.random_weights, dtype=dtype, device=dev,
+            seed=args.random_weights_seed, load_8bit=args.load_8bit,
+            load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit, mesh=mesh)
+        draft = "ngram" if args.spec_ngram else None
+        if args.draft_model_path or args.draft_random_weights:
+            d_params, d_cfg, _ = load_model(
+                args.draft_model_path, args.draft_random_weights, dtype=dtype,
+                device=dev, seed=args.random_weights_seed,
+                load_8bit=args.load_8bit, mesh=mesh)
+            draft = (d_params, d_cfg)
+        out = ask(args.query, args.video_path, params, cfg, tokenizer,
+                  task=args.task, fps=args.fps, max_new_tokens=args.max_new_tokens,
+                  mm_chunks=args.mm_splits, quantize_caches=args.quantize_kv,
+                  stream_chunk=args.stream_chunk, device_resize=args.device_resize,
+                  temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                  seed=args.seed, num_beams=args.num_beams, draft=draft,
+                  spec_k=args.spec_k)
+        if sharding.is_root():
+            print(out if out else "(no parsed output)")
+
+
+@contextlib.contextmanager
+def mesh_from_flags(device, data: int, seq: int, model: int):
+    """The CLIs' mesh: -> (this rank's device, the (data, seq, model) mesh
+    over torchrun's ranks, active for the block; None for one process).
+    More than one rank needs torchrun (SystemExit otherwise): NCCL on
+    cuda, gloo on cpu. The process group is torn down after the block."""
+    from vidi_tpu_torch.core.mesh import init_from_env, make_mesh
+    from vidi_tpu_torch.infer.loader import resolve_device
+
+    dev = resolve_device(device)
+    if data * seq * model == 1:
+        yield dev, None
+        return
+    launched = init_from_env(dev.type)
+    if launched is None:
+        raise SystemExit("--data-parallel / --seq-parallel / --model-parallel > 1 need "
+                         "ranks: launch with torchrun --nproc_per_node N")
+    import torch.distributed as dist
+
+    mesh = make_mesh(data=data, seq=seq, model=model, device_type=dev.type)
+    with sharding.use_mesh(mesh):
+        yield launched, mesh
+    # reached only when this rank's run ended well (a failing rank exits at
+    # once and torchrun tears the job down)
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -24,6 +24,13 @@ each video instead.
         --gt VUE-TRv2_ground_truth.json --video-dir vids/ \\
         --out results_mine.json [--limit N] [--model-path DIR | \\
         --random-weights 9b|1.5b|7b|tiny|tiny7b] [--device cuda|cpu] [--dtype ...]
+
+On N ranks (`torchrun --nproc_per_node N -m vidi_tpu_torch.infer.run_benchmark
+... --data-parallel D --seq-parallel S --model-parallel M`, N = D * S * M):
+each data rank takes its rows of every same-video query batch (padded to
+a multiple of D), each data group prefills the video's shared caches cut
+over seq, the text decoder runs cut over model; rank 0 gathers the rows
+and alone prints and writes the predictions.
 """
 from __future__ import annotations
 
@@ -32,9 +39,12 @@ import csv
 import json
 import os
 import re
+import sys
 from typing import List, Tuple
 
 import torch
+
+from vidi_tpu_torch.parallel import sharding
 
 STG_SEG_RE = re.compile(
     r"(\d\.\d+)-(\d\.\d+)\s*:\s*"
@@ -97,11 +107,16 @@ def video_batches(gts, batch_size):
 def ask_group(ask_batch, group, vid):
     """Run one same-video batch; on failure retry each query alone, so one
     bad query costs one prediction, not the group's. Returns (video
-    length, [text a query])."""
+    length, [text a query]). Under a mesh of several ranks a failure is
+    raised: a rank that retried alone would leave its peers' collectives
+    waiting, and a fault of the mesh path would hide behind the retries."""
     try:
         return ask_batch([g["query"] for g in group], vid,
                          options=[g.get("_options") for g in group])
     except Exception as e:  # noqa: BLE001 -- keep the sweep going
+        mesh = sharding.get_mesh()
+        if mesh is not None and mesh.size > 1:
+            raise
         print(f"batch {group[0]['video_id']} x{len(group)}: {e!r}; "
               "retrying queries individually")
     length, texts = 0.0, []
@@ -114,6 +129,12 @@ def ask_group(ask_batch, group, vid):
             text = ""
         texts.append(text)
     return length, texts
+
+
+def _out_path(args) -> str:
+    """Where this rank writes the predictions: `args.out` on rank 0, the
+    null device on the others (every rank computes them all)."""
+    return args.out if sharding.is_root() else os.devnull
 
 
 def _load_gts(args):
@@ -140,7 +161,7 @@ def run_tr(args, ask_batch, parse_spans):
                 "task": g.get("task", "temporal_retrieval"),
             })
             print(f"[{len(out)}/{len(gts)}] {g['query_id']} -> {spans}")
-    with open(args.out, "w") as f:
+    with open(_out_path(args), "w") as f:
         json.dump(out, f)
     print(f"wrote {args.out} ({len(out)} predictions)")
 
@@ -172,7 +193,7 @@ def run_vqa(args, ask_batch):
             out.append(rec)
             print(f"[{len(out)}/{len(gts)}] {g['query_id']} -> "
                   f"{rec['pred_answer']!r}")
-    with open(args.out, "w") as f:
+    with open(_out_path(args), "w") as f:
         json.dump(out, f)
     print(f"wrote {args.out} ({len(out)} predictions)")
 
@@ -204,7 +225,7 @@ def run_character(args, ask_batch):
                         "duration": duration})
             print(f"[{len(out)}/{len(gts)}] {g['query_id']}: "
                   f"{len(segs)} segments")
-    with open(args.out, "w") as f:
+    with open(_out_path(args), "w") as f:
         json.dump(out, f)
     print(f"wrote {args.out} ({len(out)} predictions)")
 
@@ -214,7 +235,7 @@ def run_stg(args, ask_batch):
     gts = group_by_video(_load_gts(args))
     schedule_videos(ask_batch, gts, args)
     done = 0
-    with open(args.out, "w", newline="") as f:
+    with open(_out_path(args), "w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["query_id", "time_ms", "x0", "y0", "x1", "y1"])
         for group in video_batches(gts, args.batch_queries):
@@ -308,8 +329,8 @@ def make_ask_batch(params, cfg, tokenizer, args, draft=(None, None)):
                                               options=(options or [None] * q)[i])
                     for i, qy in enumerate(queries)]
         prompt, mask = pipeline.build_prompt_batch(ids_list)
-        prompt = torch.as_tensor(prompt).long().to(dev)
-        mask = torch.as_tensor(mask).to(dev)
+        prompt, mask = _data_rows(torch.as_tensor(prompt).long().to(dev),
+                                  torch.as_tensor(mask).to(dev))
         kw = dict(img_mask=im, aud_mask=am, media_caches=media,
                   max_new_tokens=args.max_new_tokens,
                   eos_id=pipeline.pick_eos(cfg, tokenizer), use_flash=use_flash,
@@ -322,8 +343,8 @@ def make_ask_batch(params, cfg, tokenizer, args, draft=(None, None)):
                   f"{int(res.n_accepted.sum())}/{drafted}")
         else:
             res = generate(params, cfg, prompt, mask, **kw)
-        toks = res.tokens.cpu().numpy()
-        lens = res.lengths.cpu().numpy()
+        toks = _gather_rows(res.tokens)[:q].cpu().numpy()
+        lens = _gather_rows(res.lengths)[:q].cpu().numpy()
         texts = [tokenizer.decode(toks[r, : lens[r]], skip_special_tokens=True).strip()
                  for r in range(q)]
         return length, texts
@@ -331,6 +352,30 @@ def make_ask_batch(params, cfg, tokenizer, args, draft=(None, None)):
     ask_batch.set_schedule = set_schedule
     ask_batch.mm_version = cfg.mm_version
     return ask_batch
+
+
+def _data_rows(prompt, mask):
+    """This data rank's rows of a query batch (prompt, mask [Q,T]), the
+    batch padded to a multiple of the data axis with copies of its last
+    row; the whole batch without a data axis."""
+    mesh = sharding.get_mesh()
+    if mesh is None or mesh.shape["data"] == 1:
+        return prompt, mask
+    pad = -prompt.shape[0] % mesh.shape["data"]
+    if pad:
+        prompt = torch.cat([prompt, prompt[-1:].expand(pad, -1)])
+        mask = torch.cat([mask, mask[-1:].expand(pad, -1)])
+    rows = sharding.data_rows({"prompt": prompt, "mask": mask}, prompt.shape[0])
+    return rows["prompt"], rows["mask"]
+
+
+def _gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The data ranks' rows of x, all-gathered in rank order (x without a
+    data axis)."""
+    mesh = sharding.get_mesh()
+    if mesh is None or mesh.shape["data"] == 1:
+        return x
+    return sharding.all_gather_dim(x, 0, mesh.group(("data",)), mesh.shape["data"])
 
 
 def run_task(args, ask_batch):
@@ -389,9 +434,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream-chunk", type=int, default=0, metavar="FRAMES",
                     help="overlap host decode with the encode in FRAMES-frame "
                          "chunks (0: decode each video fully first)")
-    for flag in ("--seq-parallel", "--model-parallel", "--data-parallel"):
-        ap.add_argument(flag, type=int, default=1, metavar="N",
-                        help="inference meshes are not ported yet (ROADMAP Q1.16b)")
+    ap.add_argument("--seq-parallel", type=int, default=1, metavar="N",
+                    help="ranks (torchrun) over which the modality streams and "
+                         "their KV caches are cut")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="N",
+                    help="ranks (torchrun) over which the text decoder's heads and "
+                         "FFN columns are cut (tensor parallelism)")
+    ap.add_argument("--data-parallel", type=int, default=1, metavar="N",
+                    help="ranks (torchrun) over which a same-video query batch's "
+                         "rows are spread")
     ap.add_argument("--spec-ngram", action="store_true",
                     help="model-free speculative decoding (output equals greedy)")
     ap.add_argument("--spec-k", type=int, default=4,
@@ -403,28 +454,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
-    if max(args.seq_parallel, args.model_parallel, args.data_parallel) > 1:
-        raise NotImplementedError(
-            "--seq-parallel / --model-parallel / --data-parallel > 1: the port's "
-            "inference has no mesh yet (ROADMAP Q1.16b)")
+    import contextlib
 
     from vidi_tpu_torch.infer import quantize
     from vidi_tpu_torch.infer.loader import load_model
+    from vidi_tpu_torch.infer.pipeline import mesh_from_flags
 
+    args = build_parser().parse_args(argv)
     if args.w8a8_prefill is not None:
         quantize.w8a8_min_tokens = args.w8a8_prefill
     dtype = getattr(torch, args.dtype)
-    params, cfg, tokenizer = load_model(
-        args.model_path, args.random_weights, dtype=dtype, device=args.device,
-        seed=args.random_weights_seed, load_8bit=args.load_8bit,
-        load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit)
-    draft = (None, None)
-    if args.draft_model_path:
-        d_params, d_cfg, _ = load_model(args.draft_model_path, dtype=dtype,
-                                        device=args.device)
-        draft = (d_params, d_cfg)
-    run_task(args, make_ask_batch(params, cfg, tokenizer, args, draft))
+    with mesh_from_flags(args.device, args.data_parallel, args.seq_parallel,
+                         args.model_parallel) as (dev, mesh):
+        params, cfg, tokenizer = load_model(
+            args.model_path, args.random_weights, dtype=dtype, device=dev,
+            seed=args.random_weights_seed, load_8bit=args.load_8bit,
+            load_8bit_towers=args.load_8bit_towers, load_4bit=args.load_4bit, mesh=mesh)
+        draft = (None, None)
+        if args.draft_model_path:
+            d_params, d_cfg, _ = load_model(args.draft_model_path, dtype=dtype,
+                                            device=dev, mesh=mesh)
+            draft = (d_params, d_cfg)
+        # rank 0 alone prints (and writes, `_out_path`)
+        with open(os.devnull, "w") as null, contextlib.redirect_stdout(
+                sys.stdout if sharding.is_root() else null):
+            run_task(args, make_ask_batch(params, cfg, tokenizer, args, draft))
 
 
 if __name__ == "__main__":

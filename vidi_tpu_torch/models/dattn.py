@@ -40,9 +40,18 @@ contiguous frames / audio windows (an uneven cut padded with masked
 tokens; global positions) and return its slice of the stream, which stays
 cut through every layer (the diagonal update is per token); the T2V / T2A
 cross attention runs as `sp_mode` says ("gspmd", "ring" or "ulysses",
-parallel/). The batch rows are this rank's "data" rows. Layer weights
-sharded by `sharding.shard_params` are gathered one layer at a time inside
-the layer (and again in remat's recompute).
+parallel/). The image / audio caches any entry point builds from such a
+stream (`forward`, `media_prefill`, `media_prefill_chunked`,
+`stream_chunk_caches`) are the rank's slice of S, and their masks the
+slice's; every read of them (`_cache_attention`: decode, the text prefill
+on shared caches, `verify_step`, folded rows, int8 caches) merges the
+slices' (out, lse) over the seq group. The batch rows are this rank's
+"data" rows. Layer weights sharded by `sharding.shard_params` are gathered
+one layer at a time inside the layer (and again in remat's recompute), the
+other leaves once at each entry point. Under a "model" cut of the text
+layers (tensor parallelism, inference only) each rank runs its q / k / v
+heads and its FFN columns, holds its KV heads of every cache, and the o /
+down row partials are summed over the model group.
 """
 from __future__ import annotations
 
@@ -129,14 +138,18 @@ def init_mm_params(cfg: DattnConfig, dtype, device, gen: torch.Generator) -> Par
     return mm
 
 
-def init_params(cfg: DattnConfig, dtype, device, seed: int = 0) -> Params:
+def init_params(cfg: DattnConfig, dtype, device, seed: int = 0,
+                layer_fns: Optional[Dict] = None) -> Params:
     """Random weights drawn directly on `device` in `dtype` from one
-    generator seeded with `seed`."""
+    generator seeded with `seed`. `layer_fns` ({"text" | "vision" |
+    "audio": fn}) maps each layer dict of those modules as it is drawn
+    (the loader cuts it to a rank's shards there)."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    fns = layer_fns or {}
     return {
-        "text": decoder.init_params(cfg.text, dtype, device, gen),
-        "vision": siglip.init_params(cfg.vision, dtype, device, gen),
-        "audio": whisper.init_params(cfg.audio, dtype, device, gen),
+        "text": decoder.init_params(cfg.text, dtype, device, gen, fns.get("text")),
+        "vision": siglip.init_params(cfg.vision, dtype, device, gen, fns.get("vision")),
+        "audio": whisper.init_params(cfg.audio, dtype, device, gen, fns.get("audio")),
         "mm": init_mm_params(cfg, dtype, device, gen),
     }
 
@@ -235,6 +248,7 @@ def encode_video_images(params: Params, cfg: DattnConfig, images: torch.Tensor,
     `pos_noise` (training) holds the draws of `draw_pos_noise`. Under a
     seq mesh: this rank's ceil(N / seq) frames and their slice of the
     stream."""
+    params = sharding.gathered(params, skip_layers=True)
     b, n, h_img, w_img, _ = images.shape
     d = cfg.text.hidden_size
     first, n_loc = sharding.seq_cut(n)
@@ -290,6 +304,7 @@ def frame_tokens_chunk(params: Params, x: torch.Tensor, cfg: DattnConfig,
     position noise (inference). The streamed pipeline concatenates the
     chunks and passes them to `finish_video_tokens` (JAX:
     `frame_tokens_chunk` and `finish_video_tokens_jit`)."""
+    params = sharding.gathered(params, skip_layers=True)
     return _frame_tokens(params, x, cfg, hw, use_flash)
 
 
@@ -302,6 +317,7 @@ def finish_video_tokens(params: Params, cfg: DattnConfig, tok: torch.Tensor,
     training position noise draws. `frames` (first, total): the N frames
     are frames first.. of a video of `total` (a seq rank's cut; frames
     past the end are padding)."""
+    params = sharding.gathered(params, skip_layers=True)
     mm = params["mm"]
     d = cfg.text.hidden_size
     b, n, h2, w2, _ = tok.shape
@@ -339,6 +355,7 @@ def encode_video_audios(params: Params, cfg: DattnConfig, mels: torch.Tensor,
     `pos_noise["aud_t"]` [B,A]: training position noise draws. Under a
     seq mesh: this rank's ceil(W / seq) windows and their slice of the
     stream (1500 % pool == 0, so a window pools alone)."""
+    params = sharding.gathered(params, skip_layers=True)
     b, w, n_mels, t_mel = mels.shape
     mm = params["mm"]
     d = cfg.text.hidden_size
@@ -395,6 +412,7 @@ def encode_images(params: Params, cfg: DattnConfig, images: torch.Tensor, *,
     (training) holds the draws of `draw_image_noise`. Under a seq mesh the
     tower's images are fanned out over the seq group (features
     all-gathered) and this rank's slice of the tokens is returned."""
+    params = sharding.gathered(params, skip_layers=True)
     mm = params["mm"]
     s = cfg.vision.num_patches_per_side
     d = cfg.text.hidden_size
@@ -501,24 +519,29 @@ def _anyres_dynamic(mm, cfg: DattnConfig, base, tiles, grids, anchors: int, nois
 # Decoder layer
 # ---------------------------------------------------------------------------
 
+def _heads(x: torch.Tensor, tcfg: TextConfig) -> torch.Tensor:
+    """[..., n*D] -> [..., n, D]: n the heads this rank holds (all of them,
+    or its slice under a "model" cut of the weights)."""
+    return decoder.split_heads(x, -1, tcfg.head_dim)
+
+
 def _qkv(lp, x, tcfg: TextConfig):
-    q = decoder.split_heads(qdot(x, lp["q_w"]), tcfg.num_heads, tcfg.head_dim)
-    k = decoder.split_heads(qdot(x, lp["k_w"]), tcfg.num_kv_heads, tcfg.head_dim)
-    v = decoder.split_heads(qdot(x, lp["v_w"]), tcfg.num_kv_heads, tcfg.head_dim)
-    return q, k, v
+    """q, k, v on the heads of the rank's q_w / k_w / v_w columns."""
+    return (_heads(qdot(x, lp["q_w"]), tcfg), _heads(qdot(x, lp["k_w"]), tcfg),
+            _heads(qdot(x, lp["v_w"]), tcfg))
 
 
 def _fold_o_w(o_w, tcfg: TextConfig):
     """[H*D, d] o_proj -> [Hk*D, d] with the g GQA row blocks of each KV head
     summed in fp32 and re-rounded once to o_w's dtype (repeat(v, g) @ o_w ==
-    v @ folded o_w). A quantized o_w is dequantized to fp32, folded and
+    v @ folded o_w); a "model" slice of o_w (whole KV heads' rows) folds
+    the same way. A quantized o_w is dequantized to fp32, folded and
     requantized in its own format."""
     g = tcfg.num_heads // tcfg.num_kv_heads
     hd = tcfg.head_dim
 
     def fold(wf):
-        wf = wf.reshape(tcfg.num_kv_heads, g, hd, -1).sum(1)
-        return wf.reshape(tcfg.num_kv_heads * hd, -1)
+        return wf.reshape(-1, g, hd, wf.shape[-1]).sum(1).reshape(-1, wf.shape[-1])
 
     if qz.is_quantized(o_w):
         if qz.QUANT4_KEY in o_w:
@@ -550,53 +573,31 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
     cache-native [Bc,Hk,S,D] layer slices: decode, or a text prefill against
     shared caches) the stream update is skipped; a cache batch Bc that
     divides B without equalling it serves B / Bc rows each (folded). Under a
-    seq mesh `stream` is this rank's slice and the attention runs as
-    `sp_mode` says (`_SP_ATTENTION`)."""
+    seq mesh `stream` (or the cache) is this rank's slice: the stream's
+    attention runs as `sp_mode` says (`_SP_ATTENTION`), a cache read as
+    `_cache_attention`. Under a "model" cut the out is this rank's row
+    partial (its heads' o_w rows), summed by the caller."""
     mesh = sharding.get_mesh()
     cut = mesh is not None and mesh.shape["seq"] > 1
     has = stream_mask.any(dim=-1)  # [B] sample has this modality
     if cut:
-        if kv is not None:
-            raise NotImplementedError("cache reads under a seq mesh are ROADMAP Q1.16b")
         has = sharding.seq_any(has)
     # samples without the modality attend everywhere (finite), then zeroed;
     # this also keeps every row non-empty before K1 / K3 see it
     kv_valid = torch.where(has[:, None], stream_mask, torch.ones_like(stream_mask))
     if kv is not None:
         mk, mv = kv
-        quantized = qz.is_quantized(mk)
         # shared media: a cache of batch kb serving bq = kb * G query rows
         # (rows [b*G, (b+1)*G) read cache b; kb == 1 is one video's caches
         # prefilled once, media_prefill) folds the rows into the query axis:
         # cross attention is non-causal, so rows stay independent and the
         # cache is read once, never replicated per row
         bq, tq = q.shape[0], q.shape[1]
-        kb = (mk[qz.QUANT_KEY] if quantized else mk).shape[0]
+        kb = (mk[qz.QUANT_KEY] if qz.is_quantized(mk) else mk).shape[0]
         folded = kb != bq and bq % kb == 0
         if folded:
             q = _fold_rows(q, kb)
-        if quantized:
-            # int8 per-token caches, read as they are (ahead of K3, which
-            # reads bf16 caches)
-            attn = quantized_cache_cross_attention(q, mk, mv, kv_valid=kv_valid,
-                                                   scale=tcfg.q_scale,
-                                                   softcap=tcfg.attn_softcap)
-        elif use_flash and q.shape[1] == 1:
-            # one query token a row: the decode kernel
-            from vidi_tpu_torch.ops.cuda.decode_attention import decode_attention
-            attn = decode_attention(q[:, 0], mk, mv, kv_valid, tcfg.q_scale,
-                                    tcfg.attn_softcap)[:, None]
-        elif use_flash:
-            # several query tokens (a text prefill, or folded rows) against
-            # the cache: K1 reads the transposed view in place
-            from vidi_tpu_torch.ops.cuda.flash_attention import flash_attention
-            attn = flash_attention(q, mk.transpose(1, 2), mv.transpose(1, 2),
-                                   kv_valid, tcfg.q_scale, False, None,
-                                   tcfg.attn_softcap)[0]
-        else:
-            attn = cross_attention(q, mk.transpose(1, 2), mv.transpose(1, 2),
-                                   kv_valid=kv_valid, scale=tcfg.q_scale,
-                                   softcap=tcfg.attn_softcap)
+        attn = _cache_attention(q, mk, mv, kv_valid, tcfg, use_flash, cut)
         out = qdot(decoder.merge_heads(attn), lp["o_w"]) * has[:, None, None]
         if folded:
             out = _unfold_rows(out, bq, tq)
@@ -629,12 +630,55 @@ def _xattn_block(lp, q, stream, stream_mask, tcfg: TextConfig, mm_chunks: int,
     return out, new, (mk, mv)
 
 
+def _cache_attention(q, mk, mv, kv_valid, tcfg: TextConfig, use_flash: bool, cut: bool):
+    """q [B,T,H,D] against one layer's cache [B,Hk,S,D] -> [B,T,H,D]: int8
+    caches read as they are (ahead of K3, which reads bf16 caches); with
+    `use_flash` K3 for one query token a row, K1 for several (a text
+    prefill, or folded rows; it reads the transposed view in place); else
+    the reference math. With `cut` (a seq mesh) the cache is this rank's
+    slice of S: `cache_partial` gives its (out, lse) and
+    `sharding.seq_merge` merges the seq group's partials in shard order."""
+    if cut:
+        return sharding.seq_merge(*cache_partial(q, mk, mv, kv_valid, tcfg, use_flash))
+    scale, cap = tcfg.q_scale, tcfg.attn_softcap
+    if qz.is_quantized(mk):
+        return quantized_cache_cross_attention(q, mk, mv, kv_valid=kv_valid, scale=scale,
+                                               softcap=cap)
+    if use_flash and q.shape[1] == 1:
+        from vidi_tpu_torch.ops.cuda.decode_attention import decode_attention
+        return decode_attention(q[:, 0], mk, mv, kv_valid, scale, cap)[:, None]
+    if use_flash:
+        from vidi_tpu_torch.ops.cuda.flash_attention import flash_attention
+        return flash_attention(q, mk.transpose(1, 2), mv.transpose(1, 2), kv_valid,
+                               scale, False, None, cap)[0]
+    return cross_attention(q, mk.transpose(1, 2), mv.transpose(1, 2),
+                           kv_valid=kv_valid, scale=scale, softcap=cap)
+
+
+def cache_partial(q, mk, mv, kv_valid, tcfg: TextConfig, use_flash: bool):
+    """One shard's partial of `_cache_attention`, by the same routes: (out
+    [B,T,H,D], lse [B,T,H] fp32), -inf where the shard has no visible key
+    (K1's / K3's empty-row sentinel mapped, as `ring_attention.
+    _local_attn_lse` maps K1's), so that such a shard weighs nothing in
+    `ring_attention.merge`."""
+    scale, cap = tcfg.q_scale, tcfg.attn_softcap
+    if qz.is_quantized(mk):
+        return quantized_cache_cross_attention(q, mk, mv, kv_valid=kv_valid, scale=scale,
+                                               softcap=cap, return_lse=True)
+    if use_flash and q.shape[1] == 1:
+        from vidi_tpu_torch.ops.cuda.decode_attention import decode_attention
+        from vidi_tpu_torch.ops.cuda.flash_attention import EMPTY_ROW_LSE
+        out, lse = decode_attention(q[:, 0], mk, mv, kv_valid, scale, cap, return_lse=True)
+        return out[:, None], torch.where(lse >= EMPTY_ROW_LSE, float("-inf"), lse)[:, None]
+    return ring_attention._local_attn_lse(q, mk.transpose(1, 2), mv.transpose(1, 2),
+                                          kv_valid, scale, cap, use_flash)
+
+
 def _stream_kv(lp, stream, tcfg: TextConfig):
-    """A stream's k / v [B,S,Hk,D] (its cache entries) from the input norm."""
+    """A stream's k / v [B,S,Hk,D] (its cache entries, on the rank's KV
+    heads) from the input norm."""
     sn = decoder.norm(stream, lp["input_ln"], tcfg)
-    mk = decoder.split_heads(qdot(sn, lp["k_w"]), tcfg.num_kv_heads, tcfg.head_dim)
-    mv = decoder.split_heads(qdot(sn, lp["v_w"]), tcfg.num_kv_heads, tcfg.head_dim)
-    return mk, mv
+    return _heads(qdot(sn, lp["k_w"]), tcfg), _heads(qdot(sn, lp["v_w"]), tcfg)
 
 
 def _diag_o_w(lp, tcfg: TextConfig):
@@ -646,8 +690,9 @@ def _diag_o_w(lp, tcfg: TextConfig):
 
 def _diag_update(lp, stream, v, o_w, tcfg: TextConfig):
     """The stream's diagonal update, token by token: its values through
-    `o_w` (`_diag_o_w`), the post-attention norm, then the FFN."""
-    dv = qdot(decoder.merge_heads(v), o_w)
+    `o_w` (`_diag_o_w`; under a "model" cut the rank's KV heads' rows, the
+    partials summed), the post-attention norm, then the FFN."""
+    dv = sharding.model_sum(qdot(decoder.merge_heads(v), o_w), lp["o_w"])
     if tcfg.double_norms:
         dv = decoder.norm(dv, lp["post_attn_ln"], tcfg)
     return decoder.ffn_block(lp, stream + dv, tcfg)
@@ -677,7 +722,11 @@ def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
                 aud_kv=None, write_at=None, use_flash: bool = False,
                 text_segs=None, sp_mode: str = "gspmd"):
     """One Dattn decoder layer -> (h, img, aud, (text_kv, img_kv, aud_kv)).
-    The layer's sharded weights are gathered here (`sharding.gathered`)."""
+    The layer's sharded weights are gathered here (`sharding.gathered`).
+    Under a "model" cut the attention runs on the rank's heads (its text
+    cache holds those) and the three o_proj partials are summed once
+    (`sharding.model_sum`) before the post-attention norm; the FFN sums
+    its own (`decoder.mlp`)."""
     lp = sharding.gathered(lp)
     res = h
     hn = decoder.norm(h, lp["input_ln"], tcfg)
@@ -732,6 +781,7 @@ def dattn_layer(lp: Params, is_sliding: bool, h, img, aud, *, tcfg: TextConfig,
                                             kv=aud_kv, use_flash=use_flash,
                                             sp_mode=sp_mode)
         out = out + t2a
+    out = sharding.model_sum(out, lp["o_w"])
 
     if tcfg.double_norms:
         h = res + decoder.norm(out, lp["post_attn_ln"], tcfg)
@@ -829,6 +879,7 @@ def forward(params: Params, cfg: DattnConfig, inputs_embeds, text_mask,
     recomputes the rest (`dots_policy`); `text_segs` [B,T] are packing
     segment ids for the T2T attention. `sp_mode` ("gspmd", "ring",
     "ulysses") picks the cross attention's plan under a seq mesh."""
+    params = sharding.gathered(params, skip_layers=True)
     if remat not in (False, True, "dots"):
         raise ValueError(f"remat must be False, True or 'dots', got {remat!r}")
     if sp_mode not in _SP_ATTENTION:
@@ -900,6 +951,7 @@ def _stream_chunk_layers(params: Params, cfg: DattnConfig, chunk: torch.Tensor,
     tcfg = cfg.text
     s = _embed_scale(chunk, tcfg) if tcfg.embed_scale else chunk
     for lp in params["text"]["layers"]:
+        lp = sharding.gathered(lp)
         k, v = _stream_kv(lp, s, tcfg)
         s = _diag_update(lp, s, v, _diag_o_w(lp, tcfg), tcfg)
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
@@ -914,6 +966,7 @@ def stream_chunk_caches(params: Params, cfg: DattnConfig, chunk: torch.Tensor, *
     (k, v) cache slices [L,B,Hk,c,D] (per-token int8 dicts with
     `quantize_caches`). The stream update is per token, so chunks of a
     stream can run one after another with the same result."""
+    params = sharding.gathered(params, skip_layers=True)
     n_layers = len(params["text"]["layers"])
     ks = vs = None
     for i, (k, v) in enumerate(_stream_chunk_layers(params, cfg, chunk, quantize_caches)):
@@ -936,6 +989,7 @@ def media_prefill_chunked(params: Params, cfg: DattnConfig, img=None, aud=None, 
     cache entries are not written. Peak memory: the caches plus one
     chunk's transients. Masks are not needed: a masked token's entries are
     computed and never attended."""
+    params = sharding.gathered(params, skip_layers=True)
     n_layers = len(params["text"]["layers"])
 
     def run_stream(stream):
@@ -968,6 +1022,7 @@ def text_prefill_with_caches(params: Params, cfg: DattnConfig, inputs_embeds,
     (folded when their batch is 1), the stream work skipped. -> (final
     hidden [B,T,d], Caches with a fresh text cache [L,B,Hk,T,D] and the
     media caches passed through)."""
+    params = sharding.gathered(params, skip_layers=True)
     tcfg = cfg.text
     h = _embed_scale(inputs_embeds, tcfg) if tcfg.embed_scale else inputs_embeds
     rope_cs = rope_cos_sin(positions, tcfg.head_dim, tcfg.rope_theta)
@@ -1035,6 +1090,7 @@ def decode_step(params: Params, cfg: DattnConfig, token_embeds, cur_len,
     """One greedy-decode step: token_embeds [B,1,d], cur_len [B] tokens
     already cached -> (logits [B,V] fp32, caches). The text cache is updated
     in place; the returned Caches is the same object."""
+    params = sharding.gathered(params, skip_layers=True)
     h = _cached_layers(params, cfg, token_embeds, cur_len, caches, img_mask,
                        aud_mask, use_flash)
     return decoder.lm_logits(params["text"], h[:, 0], cfg.text), caches
@@ -1052,6 +1108,7 @@ def verify_step(params: Params, cfg: DattnConfig, token_embeds, cur_len,
     advancing cur_len. T2T runs dense (see `dattn_layer`); with
     `use_flash` the image / audio reads take K1 (W query tokens a row, or
     the rows folded onto a shared cache)."""
+    params = sharding.gathered(params, skip_layers=True)
     h = _cached_layers(params, cfg, token_embeds, cur_len, caches, img_mask,
                        aud_mask, use_flash)
     return decoder.lm_logits(params["text"], h, cfg.text), caches

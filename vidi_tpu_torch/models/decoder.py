@@ -3,7 +3,10 @@ vidi_tpu/models/decoder.py):
 norms, activation, gated MLP, the FFN block, embedding lookup and the
 logits with the final softcap. Weights may be int8 / int4 dicts
 (`infer.quantize`): products go through `qdot`, and a gated MLP with at
-least `w8a8_min_tokens` rows takes K6's `quant_gated_mlp`.
+least `w8a8_min_tokens` rows takes K6's `quant_gated_mlp`. Under a "model"
+cut of the layer weights (`parallel.sharding`) the MLP runs on the rank's
+gate / up columns and down rows and sums the row partials
+(`sharding.model_sum`).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from vidi_tpu_torch.core.config import TextConfig
 from vidi_tpu_torch.infer import quantize as qz
 from vidi_tpu_torch.ops.basic import gelu_tanh, matmul_f32
 from vidi_tpu_torch.ops.norms import gemma_rms_norm, mistral_rms_norm
+from vidi_tpu_torch.parallel import sharding
 
 Params = Dict
 
@@ -33,7 +37,8 @@ def activation(x, cfg: TextConfig):
     return F.silu(x)
 
 
-def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator) -> Params:
+def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator,
+                layer_fn=None) -> Params:
     """Random init with the JAX init's shapes and scales. Gemma2: norm
     weights are zero (the (1 + w) form makes them identity) and the FFN has
     its own two norms; Mistral: norm weights are ones, and an untied
@@ -49,7 +54,8 @@ def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator) -> Params:
         return torch.full(shape, 0.0 if cfg.arch == "gemma2" else 1.0,
                           dtype=dtype, device=device)
 
-    layers = [{
+    layer_fn = layer_fn or (lambda lp: lp)  # applied to each layer as it is drawn
+    layers = [layer_fn({
         "input_ln": unit((d,)), "post_attn_ln": unit((d,)),
         "q_w": nrm((d, hq * dh), d**-0.5),
         "k_w": nrm((d, hk * dh), d**-0.5),
@@ -60,7 +66,7 @@ def init_params(cfg: TextConfig, dtype, device, gen: torch.Generator) -> Params:
         "down_w": nrm((ff, d), ff**-0.5),
         **({"pre_ffn_ln": unit((d,)), "post_ffn_ln": unit((d,))}
            if cfg.double_norms else {}),
-    } for _ in range(cfg.num_layers)]
+    }) for _ in range(cfg.num_layers)]
     params = {"embed": nrm((cfg.vocab_size, d), 1.0), "final_ln": unit((d,)),
               "layers": layers}
     if not cfg.tie_word_embeddings:
@@ -85,7 +91,10 @@ def mlp(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
         from vidi_tpu_torch.ops.cuda.quant_matmul import quant_gated_mlp
         return quant_gated_mlp(x, *(lp[k] for k in keys), cfg.hidden_act)
     gate = qz.qdot(x, lp["gate_w"])
-    return qz.qdot(activation(gate, cfg) * qz.qdot(x, lp["up_w"]), lp["down_w"])
+    out = qz.qdot(activation(gate, cfg) * qz.qdot(x, lp["up_w"]), lp["down_w"])
+    # under a "model" cut: the rank's gate / up columns and down rows give a
+    # row partial, summed over the model group
+    return sharding.model_sum(out, lp["down_w"])
 
 
 def ffn_block(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:

@@ -24,7 +24,8 @@ from vidi_tpu_torch.parallel import sharding
 Params = Dict
 
 
-def init_params(cfg: VisionConfig, dtype, device, gen: torch.Generator) -> Params:
+def init_params(cfg: VisionConfig, dtype, device, gen: torch.Generator,
+                layer_fn=None) -> Params:
     """Random init with the JAX init's shapes and scales."""
     d, ff = cfg.hidden_size, cfg.intermediate_size
     patch_dim = 3 * cfg.patch_size * cfg.patch_size
@@ -36,7 +37,8 @@ def init_params(cfg: VisionConfig, dtype, device, gen: torch.Generator) -> Param
     def const(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
-    layers = [{
+    layer_fn = layer_fn or (lambda lp: lp)  # applied to each layer as it is drawn
+    layers = [layer_fn({
         "ln1_scale": const((d,), 1.0), "ln1_bias": const((d,), 0.0),
         "q_w": nrm((d, d), d**-0.5), "q_b": const((d,), 0.0),
         "k_w": nrm((d, d), d**-0.5), "k_b": const((d,), 0.0),
@@ -45,7 +47,7 @@ def init_params(cfg: VisionConfig, dtype, device, gen: torch.Generator) -> Param
         "ln2_scale": const((d,), 1.0), "ln2_bias": const((d,), 0.0),
         "fc1_w": nrm((d, ff), d**-0.5), "fc1_b": const((ff,), 0.0),
         "fc2_w": nrm((ff, d), ff**-0.5), "fc2_b": const((d,), 0.0),
-    } for _ in range(cfg.num_layers)]
+    }) for _ in range(cfg.num_layers)]
     clip = cfg.arch == "clip"
     params = {
         "patch_w": nrm((patch_dim, d), patch_dim**-0.5),

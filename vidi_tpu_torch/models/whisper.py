@@ -31,7 +31,8 @@ def sinusoidal_positions(length: int, d: int) -> np.ndarray:
     return np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
 
 
-def init_params(cfg: AudioConfig, dtype, device, gen: torch.Generator) -> Params:
+def init_params(cfg: AudioConfig, dtype, device, gen: torch.Generator,
+                layer_fn=None) -> Params:
     """Random init with the JAX init's shapes and scales."""
     d, ff = cfg.d_model, cfg.ffn_dim
 
@@ -42,7 +43,8 @@ def init_params(cfg: AudioConfig, dtype, device, gen: torch.Generator) -> Params
     def const(shape, value):
         return torch.full(shape, value, dtype=dtype, device=device)
 
-    layers = [{
+    layer_fn = layer_fn or (lambda lp: lp)  # applied to each layer as it is drawn
+    layers = [layer_fn({
         "ln1_scale": const((d,), 1.0), "ln1_bias": const((d,), 0.0),
         "q_w": nrm((d, d), d**-0.5), "q_b": const((d,), 0.0),
         "k_w": nrm((d, d), d**-0.5),
@@ -51,7 +53,7 @@ def init_params(cfg: AudioConfig, dtype, device, gen: torch.Generator) -> Params
         "ln2_scale": const((d,), 1.0), "ln2_bias": const((d,), 0.0),
         "fc1_w": nrm((d, ff), d**-0.5), "fc1_b": const((ff,), 0.0),
         "fc2_w": nrm((ff, d), ff**-0.5), "fc2_b": const((d,), 0.0),
-    } for _ in range(cfg.num_layers)]
+    }) for _ in range(cfg.num_layers)]
     return {
         "conv1_w": nrm((d, cfg.num_mel_bins, 3), 0.02),  # [O, I, K]
         "conv1_b": const((d,), 0.0),

@@ -76,14 +76,18 @@ def cross_attention(q, k, v, *, kv_valid, scale: float,
 
 
 def quantized_cache_cross_attention(q, kq, vq, *, kv_valid, scale: float,
-                                    softcap: Optional[float] = None) -> torch.Tensor:
+                                    softcap: Optional[float] = None,
+                                    return_lse: bool = False):
     """Cross attention over per-token int8 KV caches: q [B,T,Hq,D]; kq / vq
     {qi8 [B,Hk,S,D] int8, scale [B,Hk,S,1] fp32} (decode-native); kv_valid
     [B,S] bool. The k scale folds into the logits (q . (k s) == (q . k) s)
     and the v scale into the probabilities, so the int8 values enter the
     products as they are (int8 -> float is exact). Eager PyTorch converts
     the int8 cache to fp32 on every call, where XLA fused the convert into
-    the dot's operand read."""
+    the dot's operand read. With `return_lse`, (out, lse [B,T,Hq] fp32):
+    the rows' log-sum-exp over the visible keys, -inf for a row with none
+    (a shard of a seq-cut cache then weighs nothing in the merge); out is
+    the same bits either way."""
     ki, ks = kq["qi8"], kq["scale"]
     vi, vs = vq["qi8"], vq["scale"]
     b, t, hq, d = q.shape
@@ -93,8 +97,16 @@ def quantized_cache_cross_attention(q, kq, vq, *, kv_valid, scale: float,
     logits = _soft_cap(logits * (ks[..., 0][:, :, None, None, :] * scale), softcap)
     if kv_valid is not None:
         logits = logits.masked_fill(~kv_valid[:, None, None, None, :], NEG_INF)
-    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
+    m = logits.amax(dim=-1, keepdim=True)
+    probs = torch.exp(logits - m)
+    l = probs.sum(dim=-1, keepdim=True)
+    probs = probs / l
     probs = probs * vs[..., 0][:, :, None, None, :]
     out = torch.einsum("bhgts,bhsd->bthgd", probs.to(q.dtype).float(), vi.float())
-    return out.reshape(b, t, hq, d).to(q.dtype)
+    out = out.reshape(b, t, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(l))[..., 0]  # [B,Hk,G,T]
+    if kv_valid is not None:
+        lse = lse.masked_fill(~kv_valid.any(dim=-1)[:, None, None, None], float("-inf"))
+    return out, lse.permute(0, 3, 1, 2).reshape(b, t, hq)

@@ -9,6 +9,10 @@ sliding window through `q_pos` [B] (key s visible iff q_pos - s < window;
 causality rides on kv_mask). Global layers pass `window=None`: the JAX
 caller's `-(1 << 30)` q_pos sentinel existed only because its layer scan
 made the sliding flag a traced value. Rows with no visible key give zeros.
+With `return_lse` each row's log-sum-exp comes back too (K1's units and
+empty-row sentinel): a decode read of a cache cut over the mesh's seq axis
+merges the shards' outputs by it (`parallel.sharding.seq_merge`). The
+Pallas kernel has no such output; no other call asks for it.
 
 Two routes, by dtype (`route`):
 - bf16: the Hopper kernel. `decode_plan` splits S so that the blocks fill
@@ -39,6 +43,7 @@ from typing import Optional
 import torch
 
 from vidi_tpu_torch.ops.cuda import _lib
+from vidi_tpu_torch.ops.cuda.flash_attention import EMPTY_ROW_LSE
 
 HEAD_DIMS, GROUPS = (128, 256), (1, 2, 4, 8)  # the instantiations in csrc/decode_attention*.cu
 CHUNK = 256  # keys per block of the fp32 SIMT kernel
@@ -65,15 +70,19 @@ def sm90_tile(d: int, g: int) -> int:
 
 def decode_attention(q, k, v, kv_mask, sm_scale: float,
                      softcap: Optional[float] = None,
-                     window: Optional[int] = None, q_pos=None):
+                     window: Optional[int] = None, q_pos=None, *,
+                     return_lse: bool = False):
     """q [B,Hq,D], k/v [B,Hk,S,D], kv_mask [B,S] or None, q_pos [B] (needed
-    with `window`) -> [B,Hq,D]."""
+    with `window`) -> out [B,Hq,D]; with `return_lse`, (out, lse [B,Hq]
+    fp32): each row's log-sum-exp of its scaled, softcapped scores over
+    the visible keys (K1's units), EMPTY_ROW_LSE for a row with none. The
+    out is the same bits either way."""
     if window is not None and q_pos is None:
         raise ValueError("decode_attention: window needs q_pos")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, kv_mask, sm_scale, softcap,
-                                      window, q_pos)
-    return _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos)
+                                      window, q_pos, return_lse=return_lse)
+    return _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos, return_lse)
 
 
 def visible_keys(b: int, s: int, kv_mask, window, q_pos, device):
@@ -87,12 +96,18 @@ def visible_keys(b: int, s: int, kv_mask, window, q_pos, device):
     return valid
 
 
+def _lse(m, l):
+    """m + log(l) of merged softmax states, EMPTY_ROW_LSE where l is 0."""
+    return torch.where(l == 0, torch.full_like(l, EMPTY_ROW_LSE), m + torch.log(l))
+
+
 def decode_attention_plain(q, k, v, kv_mask, sm_scale: float,
                            softcap: Optional[float] = None,
-                           window: Optional[int] = None, q_pos=None):
+                           window: Optional[int] = None, q_pos=None, *,
+                           return_lse: bool = False):
     """Plain PyTorch version with the kernel's semantics: fp32 scores,
     unnormalised probabilities cast to v's dtype for P @ V, zeros for rows
-    with no visible key."""
+    with no visible key; with `return_lse` also the rows' lse [B,Hq]."""
     b, hq, d = q.shape
     hk, s = k.shape[1], k.shape[2]
     g = hq // hk
@@ -108,7 +123,10 @@ def decode_attention_plain(q, k, v, kv_mask, sm_scale: float,
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.einsum("bhgs,bhsd->bhgd", p.to(v.dtype).float(), v.float())
     out = torch.where(l == 0, torch.zeros_like(acc), acc / l)
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, _lse(m[..., 0], l[..., 0]).reshape(b, hq)
 
 
 def route(dtype: torch.dtype) -> str:
@@ -260,7 +278,7 @@ def _merge(states):
 def decode_attention_schedule(q, k, v, kv_mask, sm_scale: float,
                               softcap: Optional[float] = None,
                               window: Optional[int] = None, q_pos=None, *,
-                              plan: tuple):
+                              plan: tuple, return_lse: bool = False):
     """The sm90 kernel's schedule in plain PyTorch (tested against
     `decode_attention_plain`, never run on a path): for each row and split
     of `plan` = (tile, chunk, n_split), the split's tiles in order
@@ -268,7 +286,8 @@ def decode_attention_schedule(q, k, v, kv_mask, sm_scale: float,
     SM90_CONSUMERS warps running online softmax over its tile //
     SM90_CONSUMERS keys of every tile (scores, softcap, MASK_VALUE for
     hidden keys, running max, p rounded to v's dtype for P @ V, l in fp32);
-    the warps merged per split, the splits in split order."""
+    the warps merged per split, the splits in split order; with
+    `return_lse` the merged rows' m + log(l) too."""
     tile, _, n_split = plan
     b, hq, d = q.shape
     hk, s = k.shape[1], k.shape[2]
@@ -277,6 +296,7 @@ def decode_attention_schedule(q, k, v, kv_mask, sm_scale: float,
     qf = q.reshape(b, hk, g, d).float()
     seen = visible_keys(b, s, kv_mask, window, q_pos, q.device)
     out = torch.zeros((b, hk, g, d), dtype=torch.float32, device=q.device)
+    lse = torch.zeros((b, hk, g), dtype=torch.float32, device=q.device)
     for bi in range(b):
         parts = []
         for sp in range(n_split):
@@ -308,9 +328,11 @@ def decode_attention_schedule(q, k, v, kv_mask, sm_scale: float,
                     warps[w] = (m_new, l * alpha + p.sum(dim=-1),
                                 acc * alpha[..., None] + pv)
             parts.append(_merge(warps))
-        _, l, acc = _merge(parts)
+        mx, l, acc = _merge(parts)
         out[bi] = torch.where(l[..., None] == 0, torch.zeros_like(acc), acc / l[..., None])
-    return out.reshape(b, hq, d).to(q.dtype)
+        lse[bi] = _lse(mx, l)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    return (out, lse.reshape(b, hq)) if return_lse else out
 
 
 def same_device(q, k, v) -> tuple:
@@ -327,11 +349,11 @@ def same_device(q, k, v) -> tuple:
 
 # The C entries' arguments, packed into one block (csrc/decode_attention.cu,
 # `DecodeArgs`): q, k, v, kv_mask, q_pos, part_m, part_l, part_acc, counters,
-# out (pointers); B, Hq, Hk, S, D, q_pos is int64; the strides of q (batch,
-# head), k and v (batch, head, key), the mask's rows and q_pos; scale,
-# softcap; window, n_split, chunk.
-ARGS = struct.Struct("<10Q6i10q2f3i")
-_args = ctypes.create_string_buffer(208)  # sizeof(DecodeArgs); read during the call only
+# out, lse (pointers; lse 0 when not asked for); B, Hq, Hk, S, D, q_pos is
+# int64; the strides of q (batch, head), k and v (batch, head, key), the
+# mask's rows and q_pos; scale, softcap; window, n_split, chunk.
+ARGS = struct.Struct("<11Q6i10q2f3i")
+_args = ctypes.create_string_buffer(216)  # sizeof(DecodeArgs); read during the call only
 
 
 def _call(entry: str, dev, stream: int, values: tuple) -> None:
@@ -381,7 +403,7 @@ def _layout(q, k, v) -> tuple:
 _LAYOUTS = {}  # _layout's result by the metadata it reads
 
 
-def _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos):
+def _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos, return_lse=False):
     """Check the operands, plan and launch. Decode makes 126 of these calls a
     step, so host time counts: a layout checked once (same devices, dtypes,
     shapes and strides) is looked up, and only the pointers are checked."""
@@ -409,10 +431,12 @@ def _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos):
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     ws = WORKSPACE.get(dev, stream, b * hq * n_split, d, b * hk)
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lse else None
     _call(entry, dev, stream, (
         q_ptr, k_ptr, v_ptr, 0 if mask is None else mask.data_ptr(),
         0 if qpos is None else qpos.data_ptr(), *ws["ptrs"], out.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
         b, hq, hk, s, d, qpos64, *q_st, *ks, *vs, mask_sb, qpos_s,
         float(sm_scale), float(softcap or 0.0), int(window or 0), n_split, chunk))
     launches += 1
-    return out
+    return out if lse is None else (out, lse)

@@ -17,6 +17,8 @@ seq group. Non-causal (the Dattn T2V / T2A pattern).
 - `gspmd_cross_attention`: what XLA emits for a softmax reduced over a
   sharded axis: each rank's partial on its own shard, one all-gather of the
   (out, lse) partials, the same merge.
+- `merge_gathered`: that all-gather and merge without autograd, for
+  inference's reads of seq-cut caches (`sharding.seq_merge`).
 
 Both are `torch.autograd.Function`s (P2P ops have no gradient). Their
 backward is the flash backward of each shard against the final merged
@@ -90,6 +92,24 @@ def merge(partials: List[Tuple[torch.Tensor, torch.Tensor]]):
     for o, l in partials[1:]:
         out, lse = _combine(out, lse, o, l)
     return out.to(dtype), lse
+
+
+def _gather_merge(out, lse, group, n: int):
+    """The group's partials (out [B,T,H,D], lse [B,T,H]) all-gathered and
+    merged in group order -> (out, lse)."""
+    from vidi_tpu_torch.parallel.sharding import all_gather_dim
+    outs = all_gather_dim(out[None], 0, group, n)
+    lses = all_gather_dim(lse[None], 0, group, n)
+    return merge(list(zip(outs.unbind(0), lses.unbind(0))))
+
+
+@torch.no_grad()
+def merge_gathered(out, lse, group, n: int) -> torch.Tensor:
+    """Inference's merge, without autograd: this rank's partial (out
+    [B,T,H,D], lse [B,T,H] fp32, -inf where its shard has no visible key)
+    all-gathered over `group` (n ranks) and merged in shard order -> the
+    output over every shard, the same bits on every rank."""
+    return _gather_merge(out, lse, group, n)[0]
 
 
 def shard_grads(q, k, v, kv_mask, out, lse, dout, sm_scale: float,
@@ -199,12 +219,8 @@ class _GatherCombine(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, group, sm_scale, softcap, use_flash):
-        from vidi_tpu_torch.parallel.sharding import all_gather_dim
-        n = dist.get_world_size(group)
         o, l = _local_attn_lse(q, k, v, mask, sm_scale, softcap, use_flash)
-        outs = all_gather_dim(o[None], 0, group, n)
-        lses = all_gather_dim(l[None], 0, group, n)
-        out, lse = merge(list(zip(outs.unbind(0), lses.unbind(0))))
+        out, lse = _gather_merge(o, l, group, dist.get_world_size(group))
         ctx.save_for_backward(q, k, v, mask, out, lse)
         ctx.args = (group, sm_scale, softcap, use_flash)
         return out

@@ -4,11 +4,10 @@ vidi_tpu/parallel/sharding.py).
 JAX annotates shardings and lets GSPMD insert the collectives. PyTorch has
 no GSPMD, so this module states them:
 
-- the spec rules, ported whole (TP dims included, for ROADMAP Q1.16b):
-  `_fit_spec`, `fsdp_param_spec`, `_TP_DIM` / `_text_layer_spec`,
-  `_param_spec_for_path`. A spec is a tuple with one entry a dim: None, an
-  axis name, or a tuple of axes sharded jointly (the entries of JAX's
-  PartitionSpec);
+- the spec rules, ported whole: `_fit_spec`, `fsdp_param_spec`, `_TP_DIM`
+  / `_text_layer_spec`, `_param_spec_for_path`. A spec is a tuple with one
+  entry a dim: None, an axis name, or a tuple of axes sharded jointly (the
+  entries of JAX's PartitionSpec);
 - ZeRO-3 storage: `shard_params` keeps on each rank only its slice of
   every leaf along the dim its spec shards; small leaves (< 2**14
   elements) and `pos_embed` stay whole. The port's layers are lists of
@@ -16,10 +15,18 @@ no GSPMD, so this module states them:
   the spec of its stacked leaf with the L entry dropped (it never shards
   L at the shapes of the supported models; if it did, the leaf stays
   whole);
-- gather at use: `gathered(tree)` rebuilds the sharded leaves of a tree
-  (one layer's dict inside the layer loops of dattn / siglip / whisper,
-  the rest of the model once per loss), so the full model never exists on
-  a rank, as XLA gathers one layer per iteration of the JAX scan;
+- tensor parallelism on "model" (Megatron): a text layer's q / k / v /
+  gate / up keep their "model" slice of the output features and o / down
+  of the input features (`_TP_DIM`), their other matmul dim ZeRO-3-cut
+  over ("data", "seq"); `model_cut` marks such a leaf. The layer then runs
+  on the rank's heads and FFN columns, and the row partials of o / down
+  are summed over the model group (`model_sum`). `model` must divide the
+  KV heads (`check_model_cut`): JAX's GSPMD would also cut a head;
+- gather at use: `gathered(tree)` rebuilds the ZeRO-3-sharded leaves of a
+  tree (one layer's dict inside the layer loops of dattn / siglip /
+  whisper, the rest of the model once per loss or generate call), so the
+  full model never exists on a rank, as XLA gathers one layer per
+  iteration of the JAX scan; a "model" slice stays a slice;
 - gradients: the gather's backward reduce-scatters the full gradient onto
   the owning slice over the spec's axes, then sums it over the ranks that
   hold the same slice (`_Gather`); a whole leaf's gradient is summed over
@@ -34,6 +41,10 @@ gather placed inside the (rematerialised) layer it serves and two reduces
 chosen by its spec: a dozen lines of collectives, where DTensor would wrap
 every leaf and every op that reads one.
 
+Inference reads the seq-cut caches shard by shard: each rank's (out, lse)
+partial over its slice, all-gathered over "seq" and merged in shard order
+(`seq_merge`, no autograd).
+
 The 20 `constrain(` sites of vidi_tpu (models/dattn.py, models/decoder.py
 and train/train_step.py) and what the port does at each:
 
@@ -44,19 +55,22 @@ and train/train_step.py) and what the port does at each:
 | dattn.py:304 audio windows    | (data,seq),-,-               | cut: each seq rank encodes its windows |
 | dattn.py:312 audio encoder    | data,seq,-                   | cut: the rank's windows' positions     |
 | dattn.py:372 image tiles      | (data,seq),-,-,-,-           | cut + all-gather of tower features     |
-| dattn.py:520-522 q / k / v    | data,-,model,-               | no-op: batch rows local, model = 1     |
+| dattn.py:520-522 q / k / v    | data,-,model,-               | cut: the rank's heads (`model_cut`)    |
 | dattn.py:566 stream           | data,seq,-                   | no-op: the stream arrives cut          |
-| dattn.py:600 int8 caches      | data,model,seq,-             | no-op: decode under a mesh is Q1.16b   |
-| dattn.py:608-609 caches       | data,model,seq,-             | no-op: decode under a mesh is Q1.16b   |
-| dattn.py:645-646 stream k / v | data,seq,model,-             | no-op: k / v of the rank's slice       |
+| dattn.py:600 int8 caches      | data,model,seq,-             | cut: rank's heads + slice, `seq_merge` |
+| dattn.py:608-609 caches       | data,model,seq,-             | cut: rank's heads + slice, `seq_merge` |
+| dattn.py:645-646 stream k / v | data,seq,model,-             | cut: the rank's heads of its slice     |
 | dattn.py:747 text hidden      | data,-,-                     | no-op: batch rows local                |
 | dattn.py:908-909 rope tables  | data,-,-                     | no-op: batch rows local                |
-| decoder.py:103-104 gate / up  | data,(-/seq),model           | no-op: model = 1                       |
+| decoder.py:103-104 gate / up  | data,(-/seq),model           | cut: the rank's columns, `model_sum`   |
 | train_step.py:68 input ids    | data,-                       | no-op: the rank reads its data rows    |
 
 The batch is cut on "data" before the step: every rank decodes only its
 data rows of the global batch, the seq ranks of a data group the same ones
-(train/train.py; `data_rows` cuts a batch, or draws, built whole).
+(train/train.py; `data_rows` cuts a batch, or draws, built whole). The
+backward of the "model" cut is ROADMAP Q1.16c: `_Gather`'s gradient sums
+and `sync_grads` assume no leaf is cut on "model", and the train step
+refuses such a mesh.
 """
 from __future__ import annotations
 
@@ -67,7 +81,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from vidi_tpu_torch.core.mesh import AXES, Mesh
+from vidi_tpu_torch.core.mesh import AXES, MODEL_AXIS as MODEL, Mesh
 from vidi_tpu_torch.core.tree import leaves
 
 # one mesh a process, not a thread-local as in JAX: the backward (and
@@ -203,20 +217,9 @@ class Shard(NamedTuple):
 def storage_spec(path, shape, depth, mesh: Mesh) -> Optional[Tuple[int, Tuple[str, ...]]]:
     """(dim, axes) of the port's leaf at `path`, or None (kept whole): the
     JAX spec of its stacked shape, with the L entry dropped for a per-layer
-    leaf. Axes of size one are dropped (they cut nothing)."""
-    spec = _param_spec_for_path(path, types.SimpleNamespace(shape=shape), mesh)
-    if depth is not None:
-        if spec and spec[0] is not None:
-            return None
-        spec = spec[1:]
-    for d, s in enumerate(spec):
-        if s is None:
-            continue
-        axes = tuple(a for a in (s if isinstance(s, tuple) else (s,))
-                     if mesh.shape[a] > 1)
-        if axes:
-            return d, axes
-    return None
+    leaf. Axes of size one are dropped (they cut nothing). This is the
+    ZeRO-3 cut of `storage_cuts`."""
+    return storage_cuts(path, shape, depth, mesh)[0]
 
 
 def param_specs(params, mesh: Mesh) -> Dict[str, Optional[Tuple[int, Tuple[str, ...]]]]:
@@ -225,23 +228,89 @@ def param_specs(params, mesh: Mesh) -> Dict[str, Optional[Tuple[int, Tuple[str, 
             for p, shape, depth in _stacked_paths(params)}
 
 
+def _tp_leaf(path) -> bool:
+    """Whether `path` names a text-decoder layer weight of `_TP_DIM`."""
+    names = [k for k in path if isinstance(k, str)]
+    return bool(names) and names[-1] in _TP_DIM and "layers" in names and "text" in names
+
+
+def storage_cuts(path, shape, depth, mesh: Mesh) -> Tuple[Optional[Tuple[int, Tuple[str, ...]]],
+                                                          Optional[int]]:
+    """(ZeRO-3 cut, "model" cut) of the port's leaf at `path` (`shape` the
+    JAX stacked shape): the first as `storage_spec`'s (dim, axes), the axes
+    gathered at use, or None; the second the dim a text layer weight keeps
+    cut on "model" (its TP dim), or None. Under model > 1 every `_TP_DIM`
+    leaf is cut on "model", the small ones too, where JAX's spec keeps
+    them whole and GSPMD cuts them at use: a layer's q / k / v / o and
+    gate / up / down then always hold the same heads and columns."""
+    spec = _param_spec_for_path(path, types.SimpleNamespace(shape=shape), mesh)
+    tp = mesh.shape[MODEL] > 1 and _tp_leaf(path)
+    model = None
+    if tp:
+        dim = _TP_DIM[[k for k in path if isinstance(k, str)][-1]]
+        if shape[dim] % mesh.shape[MODEL]:
+            raise ValueError(f"{'/'.join(map(str, path))}: dim {dim} of {tuple(shape)} "
+                             f"does not split over model = {mesh.shape[MODEL]}")
+        model = dim - (depth is not None)
+        spec = tuple(None if s == MODEL else s for s in spec)
+    if depth is not None:
+        if spec and spec[0] is not None:
+            return None, model
+        spec = spec[1:]
+    zero = None
+    for d, s in enumerate(spec):
+        if s is None:
+            continue
+        axes = tuple(a for a in (s if isinstance(s, tuple) else (s,)) if mesh.shape[a] > 1)
+        if axes:
+            zero = (d, axes)
+            break
+    return zero, model
+
+
+def check_model_cut(mesh: Mesh, num_kv_heads: Optional[int]) -> None:
+    """Raise ValueError unless the mesh's "model" size divides the KV heads
+    (each rank takes whole KV heads, and the GQA query heads that read
+    them; JAX's GSPMD would cut a head of the tiny config's k_w at model
+    4, ROADMAP Q3.3)."""
+    m = mesh.shape[MODEL]
+    if m > 1 and (num_kv_heads is None or num_kv_heads % m):
+        raise ValueError(f"model = {m} must divide the text decoder's KV heads "
+                         f"({num_kv_heads})")
+
+
 # ---------------------------------------------------------------------------
 # ZeRO-3 storage and the gather at use
 # ---------------------------------------------------------------------------
+
+class ModelCut(NamedTuple):
+    """A text layer weight's tensor-parallel cut: its `dim` cut into
+    mesh.shape["model"] slices, this rank holding slice coord("model")."""
+    dim: int
+    mesh: Mesh
+
 
 def shard_of(t: torch.Tensor) -> Optional[Shard]:
     return getattr(t, "_vidi_shard", None)
 
 
-def _mark(t: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+def model_cut(t) -> Optional[ModelCut]:
+    """The "model" cut of a leaf (kept by `gather`), or None."""
+    return getattr(t, "_vidi_model", None)
+
+
+def _mark(t: torch.Tensor, shard: Optional[Shard],
+          model: Optional[ModelCut] = None) -> torch.Tensor:
     if shard is not None:
         t._vidi_shard = shard
+    if model is not None:
+        t._vidi_model = model
     return t
 
 
 def detached(t: torch.Tensor) -> torch.Tensor:
     """t.detach(), still known as the shard it is."""
-    return _mark(t.detach(), shard_of(t))
+    return _mark(t.detach(), shard_of(t), model_cut(t))
 
 
 def _local_slice(t: torch.Tensor, dim: int, axes, mesh: Mesh) -> torch.Tensor:
@@ -258,25 +327,63 @@ def _map_tree(fn, tree, path=()):
     return fn(path, tree)
 
 
-def shard_params(params, mesh: Mesh, device=None):
+def _cut_leaf(t: torch.Tensor, cuts, mesh: Mesh, device) -> torch.Tensor:
+    """This rank's slice of a whole leaf under `cuts` (`storage_cuts`): a
+    contiguous copy on `device`, marked; a leaf kept whole moved there."""
+    zero, mdim = cuts
+    if zero is None and mdim is None:
+        return t.to(device)
+    local = t
+    if zero is not None:
+        local = _local_slice(local, zero[0], zero[1], mesh)
+    if mdim is not None:
+        local = _local_slice(local, mdim, (MODEL,), mesh)
+    return _mark(local.to(device, copy=True).contiguous(),
+                 None if zero is None else Shard(zero[0], zero[1], mesh),
+                 None if mdim is None else ModelCut(mdim, mesh))
+
+
+def _is_cut(t: torch.Tensor) -> bool:
+    return shard_of(t) is not None or model_cut(t) is not None
+
+
+def shard_params(params, mesh: Mesh, device=None, kv_heads: Optional[int] = None):
     """A new tree holding this rank's slice of every sharded leaf (a
     contiguous copy on `device`, default the leaf's own, marked with its
-    `Shard`) and the whole leaves as they are (moved to `device`). With
-    model > 1 it raises: the TP dims are ROADMAP Q1.16b."""
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError("tensor parallelism on 'model' is ROADMAP Q1.16b")
-    specs = param_specs(params, mesh)
+    `Shard` and `ModelCut`) and the whole leaves as they are (moved to
+    `device`). Leaves already cut (`layer_sharder`) are kept. With
+    model > 1, `kv_heads` (the text decoder's) must be a multiple of it
+    (`check_model_cut`)."""
+    check_model_cut(mesh, kv_heads)
+    cuts = {"/".join(map(str, p)): storage_cuts(p, shape, depth, mesh)
+            for p, shape, depth in _stacked_paths(params)}
 
     def one(path, t):
+        if _is_cut(t):
+            return t
         dev = t.device if device is None else device
-        spec = specs["/".join(map(str, path))]
-        if spec is None:
-            return t.to(dev)
-        dim, axes = spec
-        local = _local_slice(t, dim, axes, mesh).to(dev, copy=True).contiguous()
-        return _mark(local, Shard(dim, axes, mesh))
+        return _cut_leaf(t, cuts["/".join(map(str, path))], mesh, dev)
 
     return _map_tree(one, params)
+
+
+def layer_sharder(module: str, n_layers: int, mesh: Mesh, device=None):
+    """fn(layer dict) -> the layer with every leaf cut as `shard_params`
+    cuts layer i of params[module]["layers"] (n_layers long): the loaders
+    cut each layer as it is drawn or read, so the whole model never lies
+    on one rank."""
+    def fn(lp):
+        out = {}
+        for name, t in lp.items():
+            if isinstance(t, dict):
+                raise NotImplementedError(
+                    "quantized weights under a mesh of several ranks are ROADMAP Q1.16c")
+            path = (module, "layers", 0, name)
+            cuts = storage_cuts(path, (n_layers, *t.shape), n_layers, mesh)
+            out[name] = _cut_leaf(t, cuts, mesh, t.device if device is None else device)
+        return out
+
+    return fn
 
 
 def _stack(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -336,15 +443,30 @@ def all_gather_grad(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 
 
 def gather(t: torch.Tensor, shard: Optional[Shard] = None) -> torch.Tensor:
-    """The full leaf of a sharded one (differentiable, see `_Gather`); a
-    whole leaf as it is. `shard` stands in for t's own mark."""
+    """The leaf rebuilt along its ZeRO-3 cut (differentiable, see
+    `_Gather`): the full leaf, or its "model" slice (still marked) for a
+    leaf cut on "model"; a leaf with no ZeRO-3 cut as it is. `shard`
+    stands in for t's own mark."""
     shard = shard or shard_of(t)
     if shard is None:
         return t
     mesh = shard.mesh
     rest = [a for a in AXES if a not in shard.axes]
-    return _Gather.apply(t, shard.dim, mesh.group(shard.axes), mesh.count(shard.axes),
-                         mesh.group(rest))
+    out = _Gather.apply(t, shard.dim, mesh.group(shard.axes), mesh.count(shard.axes),
+                        mesh.group(rest))
+    return _mark(out, None, model_cut(t))
+
+
+def whole(t: torch.Tensor, shard: Optional[Shard] = None) -> torch.Tensor:
+    """The whole leaf, on every rank: `gather`, then the "model" slices
+    all-gathered (no gradient). Collective over the leaf's groups. `shard`
+    stands in for t's own mark."""
+    cut = model_cut(t)
+    t = gather(t, shard)
+    if cut is None:
+        return t
+    with torch.no_grad():
+        return all_gather_dim(t, cut.dim, cut.mesh.group((MODEL,)), cut.mesh.shape[MODEL])
 
 
 def gathered(tree, skip_layers: bool = False):
@@ -370,7 +492,7 @@ def _gathered(tree, skip_layers: bool):
     return tree if same else out  # nothing sharded: the same object (caches key on it)
 
 
-def _is_root() -> bool:
+def is_root() -> bool:
     return _MESH is None or _MESH.rank == 0
 
 
@@ -380,10 +502,13 @@ def _to_root(t: torch.Tensor, root: bool,
     the ranks whose gather group holds rank 0 gather (they differ from it
     only along the shard's axes), and only rank 0 keeps what they gather."""
     shard = shard or shard_of(t)
-    if shard is not None:
-        if any(shard.mesh.coord(a) for a in AXES if a not in shard.axes):
+    cut = model_cut(t)
+    if shard is not None or cut is not None:
+        mesh = (shard or cut).mesh
+        held = (shard.axes if shard is not None else ()) + ((MODEL,) if cut else ())
+        if any(mesh.coord(a) for a in AXES if a not in held):
             return None
-        t = gather(t, shard)
+        t = whole(t, shard)
     return t.cpu() if root else None
 
 
@@ -392,7 +517,7 @@ def full_tree(tree):
     gradient), and None leaves on the other ranks: what a checkpoint
     stores. Collective: every rank calls it."""
     with torch.no_grad():
-        root = _is_root()
+        root = is_root()
         return _map_tree(lambda _, t: _to_root(t, root), tree)
 
 
@@ -416,7 +541,7 @@ def full_state(state, params):
     Collective."""
     shards = _key_shards(params)
     with torch.no_grad():
-        root = _is_root()
+        root = is_root()
         return _map_state(lambda key, t: _to_root(t, root, shards[key]), state, shards)
 
 
@@ -484,6 +609,48 @@ def axis_sum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     x = x.detach().clone()
     dist.all_reduce(x, group=group)
     return x
+
+
+def model_sum(x: torch.Tensor, w) -> torch.Tensor:
+    """x, this rank's row partial of a product with `w` (o or down), summed
+    over the model group when `w` is cut on "model": the partials
+    all-gathered and added in rank order in fp32, so that every rank of
+    the group holds the same bits (no gradient). x itself otherwise (model
+    1, or weights kept whole)."""
+    mesh = _MESH
+    if mesh is None or mesh.shape[MODEL] == 1 or model_cut(w) is None:
+        return x
+    with torch.no_grad():
+        parts = all_gather_dim(x[None], 0, mesh.group((MODEL,)), mesh.shape[MODEL])
+        out = parts[0].float()
+        for p in parts[1:]:
+            out = out + p.float()
+        return out.to(x.dtype)
+
+
+def seq_merge(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """(out [B,T,H,D], lse [B,T,H] fp32, -inf for a row with no visible
+    key) of this rank's slice of a seq-cut cache -> the attention over the
+    whole cache: the seq group's partials all-gathered and merged in shard
+    order (`ring_attention.merge_gathered`), the same bits on every rank
+    (no gradient). out itself without a seq group."""
+    mesh = _MESH
+    if mesh is None or mesh.shape["seq"] == 1:
+        return out
+    from vidi_tpu_torch.parallel.ring_attention import merge_gathered
+    return merge_gathered(out, lse, mesh.group(("seq",)), mesh.shape["seq"])
+
+
+def all_ranks(flag: torch.Tensor) -> bool:
+    """A bool tensor `flag` AND-ed over every rank of the active mesh: a
+    decode loop runs until every data group is done, because each layer's
+    ZeRO-3 gather spans the data axis. bool(flag) without a mesh."""
+    mesh = _MESH
+    if mesh is None or mesh.size == 1:
+        return bool(flag)
+    pending = (~flag).to(torch.int32).reshape(1)
+    dist.all_reduce(pending)
+    return int(pending) == 0
 
 
 def seq_any(x: torch.Tensor) -> torch.Tensor:

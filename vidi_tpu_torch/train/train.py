@@ -34,7 +34,7 @@ modality streams are cut over "seq" and cross-attended as --sp_mode says.
 The step is the same function of the global batch as one process's. Rank 0 alone logs, writes metrics,
 tensorboard and traces, and saves (the gathered tree; a resume cuts it
 again). --seq_parallel_size > 1 needs torchrun; --model_parallel_size > 1
-(tensor parallelism) is ROADMAP Q1.16b.
+(the backward of tensor parallelism) is ROADMAP Q1.16c.
 """
 from __future__ import annotations
 
@@ -163,8 +163,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.model_parallel_size > 1:
         raise NotImplementedError(
-            "--model_parallel_size > 1: tensor parallelism on the 'model' axis is "
-            "ROADMAP Q1.16b")
+            "--model_parallel_size > 1: training under tensor parallelism on the "
+            "'model' axis is ROADMAP Q1.16c")
     import torch.distributed as dist
     from vidi_tpu_torch.core.mesh import init_from_env, make_mesh
     from vidi_tpu_torch.infer.loader import resolve_device

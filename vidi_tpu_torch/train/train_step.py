@@ -95,6 +95,10 @@ def value_and_grads(params, batch: Dict, pos_noise: Optional[Dict], *, labels: D
     `labels` entry is not "frozen", each gradient this rank's slice of the
     whole batch's (see the module docstring)."""
     mesh = sharding.get_mesh()
+    if mesh is not None and mesh.shape["model"] > 1:
+        # the model cut's partial sums carry no gradient (sharding.model_sum)
+        raise NotImplementedError("training under tensor parallelism on the 'model' "
+                                  "axis is ROADMAP Q1.16c")
     sp = mesh.shape["seq"] if mesh is not None else 1
     train = [(key, p) for key, _, p in leaves(params) if labels[key] != "frozen"]
     for _, p in train:
