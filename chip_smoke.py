@@ -238,8 +238,19 @@
    step cut over "model" on MODEL_RANKS virtual ranks in threads (the
    partials summed in rank order) against the uncut step (fault: one
    rank's partial alone); and the serving path as two processes on the
-   card over gloo, seq 2 and model 2, against one process. One card
-   holds no multi-card collective.
+   card over gloo, seq 2 and model 2, against one process. Then the rest
+   of the parallel slice: K6's row-scale mode (each row quantized by a
+   given absmax, and `row_amax`, its reduction alone) at a model-2 rank's
+   half of the 9B's o and down, bit-equal to today's K6 given its own
+   absmax and to its plain version given the shared one, the halves
+   summed within ULPS bf16 ulps of the uncut call (fault: each half's own
+   absmax); a 9B text layer's forward and backward cut over "model" on
+   MODEL_RANKS virtual ranks in threads, every gradient within
+   TP_GRAD_REL of the uncut layer's (fault: the copy to the model group
+   summing no gradient); and the 9B's int8 serving path (W8A8 from 512
+   rows) and the train CLI at --model_parallel_size 2 as two processes
+   over gloo against one process, K6's row-scale mode launched on each
+   rank. One card holds no multi-card collective.
 10. With --profile, profiles both serving slices' encode, one prefill and
    eight decode steps (each decode route of the bf16 one; the 7B's eight
    on the K3 route), the long-video
@@ -1345,8 +1356,9 @@ def _check_rel(name: str, got, want, faults: dict, limit: float = INT8_REL,
     return err, float((got - want).abs().max())
 
 
-def _per_tensor_act(x):
-    """The planted 'per-tensor scale' fault: one amax for the whole tensor."""
+def _per_tensor_act(x, amax=None):
+    """The planted 'per-tensor scale' fault: one amax for the whole tensor
+    (`amax`, the row-scale mode's absmax, is ignored)."""
     xf = x.float()
     amax = xf.abs().amax()
     scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
@@ -1750,10 +1762,12 @@ def k6_phase(dev) -> dict:
              "last k-step dropped": lambda: _last_step_dropped(k6, x, w)},
             2 * m * k * n, _nbytes(x) + _qbytes(w) + m * n * x.element_size(), exact=True)
         case["cold_ms"] = _time_ms(_cold(k6, lambda: k6.quant_matmul(*args)))
+        case["queued_ms"] = _queued_ms(lambda: k6.quant_matmul(*args))
         case["int_mm_ms"], why = _int_mm_ms(x, w)
         print(f"  K6 quant_matmul {label}: {plan.tiles_m} x {plan.tiles_n} tiles on a grid of "
               f"{plan.grid}, {plan.steps} k-steps; K-major cache cold {case['cold_ms']:.4f} ms; "
-              f"torch._int_mm (product only) "
+              f"queued {case['queued_ms']:.4f} ms a call (device time); torch._int_mm "
+              "(product only) "
               + (f"{case['int_mm_ms']:.4f} ms" if why is None else f"none ({why})"))
         res["quant_matmul"]["cases"].append(case)
     _kmajor_faults(k6, _rows(gen, (IMG_CHUNK_ROWS, 2048), dev), lambda: wq(2048, 3584))
@@ -1786,7 +1800,14 @@ def k6_phase(dev) -> dict:
             3 * 2 * IMG_CHUNK_ROWS * d * ff,
             2 * _nbytes(x) + _qbytes(gate) + _qbytes(up) + _qbytes(down), exact=True)
         case["cold_ms"] = _time_ms(_cold(k6, run))
-        print(f"  {name}: K-major cache cold {case['cold_ms']:.4f} ms (three copies of 51 MB)")
+        # torch._int_mm on the three products alone (gate, up, and down on a
+        # hidden of the same rows), no quantize, activation or rescale
+        times = [_int_mm_ms(x.to(torch.bfloat16), w)[0] for w in (gate, up)]
+        times.append(_int_mm_ms(_rows(gen, (IMG_CHUNK_ROWS, ff), dev), down)[0])
+        case["int_mm_ms"] = None if None in times else sum(times)
+        print(f"  {name}: K-major cache cold {case['cold_ms']:.4f} ms (three copies of 51 MB); "
+              "torch._int_mm (the three products only) "
+              + ("none" if case["int_mm_ms"] is None else f"{case['int_mm_ms']:.4f} ms"))
         res["quant_gated_mlp"]["cases"].append(case)
     res["quant_matmul"].update(src=K6_SRC, kernel="K6",
                                replaces="vidi_tpu/ops/pallas/quant_matmul.py:145",
@@ -1833,6 +1854,24 @@ def _device_us(fn, reps: int = 10) -> float:
         if us > 0:
             return us
     raise AssertionError("torch.profiler recorded no kernel in three sessions")
+
+
+def _queued_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of `fn` in ms, without the profiler: CUDA
+    events around `reps` calls that the host queues while a spin kernel
+    holds the card (`torch.cuda._sleep`), so that they run back to back
+    with no wait on the host between them; over `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at 1.98 GHz: longer than queuing the calls
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def k7_phase(dev) -> dict:
@@ -4063,7 +4102,8 @@ def reckon_int8_launches(cfg, n_frames: int, n_windows: int, streams, prompt_row
     three times (T2T, T2V, T2A); a stream of at least `w8a8` rows takes two
     quant_matmul calls for its k / v, and each diagonal-update chunk of at
     least `w8a8` rows a quant_matmul (folded o) and a quant_gated_mlp, whose
-    down projection is one more quant_matmul. Decode runs none of them."""
+    down projection is one more quant_matmul. Decode runs none of them, and
+    one process never the row-scale mode (a row cut on "model")."""
     assert prompt_rows < w8a8, "the text prefill must stay weight-only"
     tower = _tower_launches(cfg, n_frames, n_windows, mm_chunks)
     qm = gated = 0
@@ -4076,7 +4116,8 @@ def reckon_int8_launches(cfg, n_frames: int, n_windows: int, streams, prompt_row
     return {"flash_attention": 3 * layers * n_queries, "tower_attention": tower,
             "ln_qkv": tower, "o_residual": tower, "ln_ffn": tower,
             "quant_matmul": layers * qm * n_queries,
-            "quant_gated_mlp": layers * gated * n_queries}
+            "quant_gated_mlp": layers * gated * n_queries,
+            "quant_matmul_amax": 0, "row_amax": 0}
 
 
 def _param_bytes(params) -> dict:
@@ -6141,6 +6182,337 @@ def parallel_infer_phase(dev) -> dict:
             "model_cut_launches": tp_launches, "gloo": gloo}
 
 
+# ---------------------------------------------------------------------------
+# The rest of parallelism on one card: K6's row-scale mode at the 9B's
+# row-cut shapes, a 9B text layer's forward and backward cut over "model"
+# on virtual ranks, and the int8 serving path and the train CLI as two
+# processes over gloo
+# ---------------------------------------------------------------------------
+
+# o and down of the 9B cut over MODEL_RANKS: contraction dims 4,096 (16
+# heads of 256) and 14,336, a rank's half of a diagonal-update chunk's rows
+K6_CUT = (("o", 4096), ("down", 14336))
+K6_SPIKE = 40.0  # a row's outlier channel, in units of the row's gain
+TP_T, TP_S = 128, IMG_CHUNK_ROWS  # the cut layer's text rows and image stream
+TP_GRAD_REL = 2e-2  # relative (Frobenius) error of each gradient, cut vs uncut
+TP_LOSS_REL = 2e-3  # the train CLI's bf16 losses, two ranks vs one process
+# the train CLI's AdamW first moments after its steps (linear in the
+# gradients that cross the cut text layers' backward), two ranks vs one
+# process: the largest relative (Frobenius) error of a trained leaf. The
+# bf16 losses barely move under the adapters' updates, so the moments are
+# what sees a wrong backward (the planted fault: to_model summing nothing)
+TP_MOMENT_REL = 0.1
+
+
+def _spiked_rows(gen, m: int, k: int, dev):
+    """`_rows` activations with one outlier channel a row in the first half
+    of k (K6_SPIKE times the row's gain): the whole row's absmax sits in one
+    rank's slice, as an LLM's outlier features put it, so that the other
+    slice's own absmax is far smaller than the shared one."""
+    gains = torch.exp(torch.rand((m, 1), generator=gen, device=dev) * 3 - 2)
+    x = _randn(gen, (m, k), dev, 1.0, torch.float32) * gains
+    col = torch.randint(0, k // 2, (m,), generator=gen, device=dev)
+    sign = torch.where(torch.rand((m,), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    x[torch.arange(m, device=dev), col] = K6_SPIKE * gains[:, 0] * sign
+    return x.to(torch.bfloat16)
+
+
+def k6_row_scale_cases(dev) -> dict:
+    """K6's row-scale mode at the 9B's row-cut shapes for model 2 (o and
+    down, each rank's half of K): given the absmax it would take itself,
+    bit-equal to the call without one; with the shared absmax (the max of
+    both halves' `row_amax`) bit-equal to its plain version, the planted
+    fault (its own absmax) rejected; `row_amax` bit-equal to its plain
+    version; the two halves' outputs summed in fp32 within ULPS bf16 ulps
+    of max|out| of the uncut call, the fault (each half's own absmax)
+    outside. Times beside the uncut call, the bound and torch._int_mm's
+    product alone. -> {"quant_matmul_amax": ..., "row_amax": ...} kernel
+    entries."""
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    m, n = IMG_CHUNK_ROWS, 3584
+    res = {"quant_matmul_amax": {"cases": []}, "row_amax": {"cases": []}}
+    for label, k in K6_CUT:
+        h = k // MODEL_RANKS
+        x = _spiked_rows(gen, m, k, dev)
+        w = qz.quantize_weight(_randn(gen, (k, n), dev, k ** -0.5, torch.float32))
+        xs = [x[:, r * h:(r + 1) * h].contiguous() for r in range(MODEL_RANKS)]
+        ws = [w["qi8"][r * h:(r + 1) * h].contiguous() for r in range(MODEL_RANKS)]
+        sc = w["scale"]
+        own = k6.row_amax(xs[0])
+        given = k6.quant_matmul(xs[0], ws[0], sc, amax=own)
+        today = k6.quant_matmul(xs[0], ws[0], sc)
+        torch.cuda.synchronize()
+        if not (torch.equal(given, today) and torch.equal(own, k6.row_amax_plain(xs[0]))):
+            raise AssertionError(f"K6 {label}: given its own absmax, the row-scale mode is "
+                                 "not bit-equal to the call without one")
+        print(f"  K6 {label}: row-scale mode given its own absmax bit-equal to today's K6")
+        shared = torch.maximum(*[k6.row_amax(a) for a in xs])
+        # the second half: no outlier, its own absmax ~K6_SPIKE / 3 times smaller
+        args = (xs[1], ws[1], sc)
+        ops, nb = 2 * m * h * n, _nbytes(xs[1], ws[1], sc, shared) + m * n * 2
+        case = _int8_case(
+            f"K6 quant_matmul row-scale mode, {label}'s rank half [{m}, {h}] . [{h}, {n}]",
+            lambda: k6.quant_matmul(*args, amax=shared),
+            lambda: k6.quant_matmul_plain(*args, amax=shared),
+            {"its own absmax": lambda: k6.quant_matmul_plain(*args)}, ops, nb, exact=True)
+
+        def halves(amax):
+            outs = [k6.quant_matmul(a, b, sc, amax=amax) for a, b in zip(xs, ws)]
+            return sum(o.float() for o in outs).to(torch.bfloat16)
+
+        case["split_err"] = _check(f"K6 {label} cut in {MODEL_RANKS} along K, the halves "
+                                   "summed, vs the uncut call", halves(shared),
+                                   k6.quant_matmul(x, w["qi8"], sc),
+                                   {"each half's own absmax": halves(None)})
+        case["uncut_ms"] = _time_ms(lambda: k6.quant_matmul(x, w["qi8"], sc))
+        case["queued_ms"] = _queued_ms(lambda: k6.quant_matmul(*args, amax=shared))
+        case["uncut_queued_ms"] = _queued_ms(lambda: k6.quant_matmul(x, w["qi8"], sc))
+        case["int_mm_ms"], why = _int_mm_ms(xs[1], {"qi8": ws[1]})
+        print(f"  K6 {label} half: uncut call {case['uncut_ms']:.4f} ms; queued (device "
+              f"time) {case['queued_ms']:.4f} ms a call, uncut {case['uncut_queued_ms']:.4f} "
+              "ms; "
+              "torch._int_mm (product only) " + (f"{case['int_mm_ms']:.4f} ms" if why is None
+                                                 else f"none ({why})"))
+        res["quant_matmul_amax"]["cases"].append(case)
+        rcase = _int8_case(
+            f"K6 row_amax {label}'s rank half [{m}, {h}]", lambda: k6.row_amax(xs[1]),
+            lambda: k6.row_amax_plain(xs[1]),
+            {"abs dropped": lambda: xs[1].float().amax(dim=-1)}, m * h,
+            _nbytes(xs[1]) + 4 * m, kind="bf16", exact=True)
+        rcase["library_ms"] = _time_ms(lambda: torch.linalg.vector_norm(
+            xs[1], float("inf"), dim=-1, dtype=torch.float32))
+        print(f"  K6 row_amax: torch.linalg.vector_norm(inf) {rcase['library_ms']:.4f} ms")
+        res["row_amax"]["cases"].append(rcase)
+    for name, prefix in (("quant_matmul_amax", "K6 quant_matmul row-scale mode, o"),
+                         ("row_amax", "K6 row_amax o")):
+        r = res[name]
+        r.update(src=K6_SRC, kernel="K6", replaces="vidi_tpu/ops/pallas/quant_matmul.py:145",
+                 **_times(r["cases"], prefix))
+        r["max_abs_err"] = max(c["max_abs_err"] for c in r["cases"])
+    return res
+
+
+def _virtual_model_ranks(run, n: int):
+    """`run(r)` for n virtual "model" ranks in n threads, the sums over the
+    model group (`sharding._rank_sum`: model_sum's forward, to_model's
+    backward) an exchange among the threads in rank order, and every
+    backward run on its caller's thread (the device's own autograd thread
+    would serve one rank at a time, and the exchange waits for both)."""
+    import threading
+
+    from vidi_tpu_torch.parallel import sharding
+
+    slots, results, errors = [None] * n, [None] * n, []
+    barrier = threading.Barrier(n)
+    local = threading.local()
+    real = sharding._rank_sum
+
+    def exchange(x, mesh):
+        r = local.rank
+        slots[r] = x
+        barrier.wait()
+        total = slots[0].float()
+        for p in slots[1:]:
+            total = total + p.float()
+        barrier.wait()
+        return total.to(x.dtype)
+
+    def body(r):
+        local.rank = r
+        try:
+            with torch.autograd.set_multithreading_enabled(False):
+                results[r] = run(r)
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            errors.append(e)
+            barrier.abort()
+
+    sharding._rank_sum = exchange
+    try:
+        threads = [threading.Thread(target=body, args=(i,)) for i in range(n)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        sharding._rank_sum = real
+    if errors:
+        raise errors[0]
+    return results
+
+
+def tp_layer_check(dev, t: int = TP_T, s: int = TP_S) -> tuple:
+    """A 9B text layer (global attention, full width, bf16, K1 forward and
+    K4 backward) on `t` text rows and an image stream of `s` tokens:
+    forward and backward uncut, and cut over "model" on MODEL_RANKS virtual
+    ranks (`_virtual_model_ranks`: each rank's heads and FFN columns, the
+    row partials summed by `sharding.model_sum`, the column-cut products'
+    input gradients by `sharding.to_model`). Each rank's gradients (its
+    slice of each cut weight, the norms whole, the text rows and the
+    stream) against the uncut layer's within TP_GRAD_REL relative error;
+    planted fault: to_model's backward summing nothing. -> (K1, K4
+    launches of the cut run, the largest relative error)."""
+    from vidi_tpu_torch.core.config import DattnConfig
+    from vidi_tpu_torch.core.mesh import Mesh
+    from vidi_tpu_torch.models import dattn
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
+    from vidi_tpu_torch.ops.rope import rope_cos_sin
+    from vidi_tpu_torch.parallel import sharding
+
+    cfg = DattnConfig.vidi15_9b()
+    tcfg = cfg.text
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    lp = _layer_9b(dev, gen, cfg)
+    h0 = _randn(gen, (1, t, tcfg.hidden_size), dev)
+    img0 = _randn(gen, (1, s, tcfg.hidden_size), dev)
+    dh, dimg = _randn(gen, h0.shape, dev), _randn(gen, img0.shape, dev)
+    pos = torch.arange(t, device=dev)[None]
+    rope = rope_cos_sin(pos, tcfg.head_dim, tcfg.rope_theta)
+    text_mask = torch.ones((1, t), dtype=torch.bool, device=dev)
+    img_mask = _kv_mask(s, s - 35, dev)
+    n = MODEL_RANKS
+    mesh = Mesh({"model": n})
+
+    def grads(layer):
+        """(d layer leaves, d h, d img) of sum(h' dh) + sum(img' dimg)."""
+        leaves = {k: v.detach().requires_grad_(True) for k, v in layer.items()}
+        for k, v in layer.items():
+            sharding.mark_model_cut(leaves[k], sharding.model_cut(v))
+        h, img = h0.clone().requires_grad_(True), img0.clone().requires_grad_(True)
+        out, img_out, *_ = dattn.dattn_layer(
+            leaves, False, h, img, None, tcfg=tcfg, rope_cs=rope, q_positions=pos,
+            kv_positions=pos, text_mask=text_mask, img_mask=img_mask, aud_mask=None,
+            use_flash=True)
+        loss = (out.float() * dh.float()).sum() + (img_out.float() * dimg.float()).sum()
+        names = list(leaves)
+        got = torch.autograd.grad(loss, [leaves[k] for k in names] + [h, img])
+        return {**dict(zip(names, got[:-2])), "h": got[-2], "img": got[-1]}
+
+    def parts(r):
+        out = _model_slice(lp, r, n)
+        for name, v in out.items():
+            dim = sharding._TP_DIM.get(name)
+            if dim is not None:
+                sharding.mark_model_cut(v, sharding.ModelCut(dim - 1, mesh))
+        return out
+
+    whole = grads(lp)
+    sharded = [parts(r) for r in range(n)]
+    with sharding.use_mesh(mesh):
+        before = (k1.launches, k4.launches)
+        cut = _virtual_model_ranks(lambda r: grads(sharded[r]), n)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": k1.launches - before[0],
+                    "flash_attention_bwd": k4.launches - before[1]}
+        keep = sharding._ToModel.backward
+        sharding._ToModel.backward = staticmethod(lambda ctx, g: (g, None))
+        try:
+            fault = _virtual_model_ranks(lambda r: grads(sharded[r]), n)
+        finally:
+            sharding._ToModel.backward = keep
+
+    def worst(ranks):
+        errs = {}
+        for r, got in enumerate(ranks):
+            for key, g in got.items():
+                dim = sharding._TP_DIM.get(key)
+                want = whole[key] if dim is None else whole[key].chunk(n, dim - 1)[r]
+                e = float((g.float() - want.float()).norm() / want.float().norm())
+                errs[key] = max(errs.get(key, 0.0), e)
+        return errs
+
+    errs, faults = worst(cut), worst(fault)
+    top, ftop = max(errs, key=errs.get), max(faults, key=faults.get)
+    label = (f"9b text layer forward + backward cut over model on {n} virtual ranks "
+             f"({t} text rows, a {s}-token image stream)")
+    print(f"  {label}: largest relative gradient error {errs[top]:.3e} ({top}; limit "
+          f"{TP_GRAD_REL}); d h {errs['h']:.3e}, d img {errs['img']:.3e}; planted fault "
+          f"(to_model summing nothing) {faults[ftop]:.3e} ({ftop}); launches {launches}")
+    if not errs[top] <= TP_GRAD_REL:
+        raise AssertionError(f"{label}: {top} off by {errs[top]:.3e} over {TP_GRAD_REL}")
+    if not faults[ftop] > TP_GRAD_REL:
+        raise AssertionError(f"{label}: the limit does not reject the planted fault")
+    if not all(launches.values()):
+        raise AssertionError(f"{label}: a kernel was not launched: {launches}")
+    return launches, errs[top]
+
+
+TP_GLOO_W8A8 = 512  # the CLI's --w8a8-prefill 512
+
+
+def tp_gloo_check() -> dict:
+    """The int8 serving path (the 9B at GLOO_LAYERS text layers with
+    --load-8bit, W8A8 products from TP_GLOO_W8A8 rows, --model-parallel 2)
+    and the train CLI (--model_parallel_size 2, the same depth, 2 steps) as
+    two processes on the one card over gloo
+    (`vidi_tpu_torch/tools/ranks_one_card.compare`), against one process:
+    each serving rank within the decode-route check's limits (as
+    `gloo_ranks_check`) with K6's row-scale mode and row_amax launched; the
+    training pair's losses within TP_LOSS_REL and its first moments within
+    TP_MOMENT_REL, the planted fault (the pair with to_model's backward
+    summing nothing) outside. -> the report."""
+    from vidi_tpu_torch.tools import ranks_one_card
+
+    report = ranks_one_card.compare(("model_int8", "train_model", "train_model_fault"),
+                                    layers=GLOO_LAYERS,
+                                    new=GLOO_NEW, seconds=GLOO_SECONDS, mm_chunks=1,
+                                    w8a8=TP_GLOO_W8A8, steps=2)
+    for mode, ranks in report.items():
+        if isinstance(ranks, dict):
+            raise AssertionError(f"two ranks over gloo, {mode}: a rank failed: {ranks}")
+    for r, got in enumerate(report["model_int8"]):
+        tokens_ok = got["tokens_equal"] or got["gap_there"] <= LOGIT_REL
+        fired = got["k6_launches"]
+        if not (got["rel"] <= LOGIT_REL and got["cos"] >= LOGIT_COS and tokens_ok):
+            raise AssertionError(f"two ranks over gloo, model_int8 rank {r}: {got}")
+        if not (fired["quant_matmul_amax"] and fired["row_amax"]):
+            raise AssertionError(f"model_int8 rank {r}: K6's row-scale mode was not launched "
+                                 f"({fired})")
+    def trained(got):
+        return got["steps"] == 2 and got["rel"] <= TP_LOSS_REL and \
+            got["mu_rel"] <= TP_MOMENT_REL
+
+    sound, fault = report["train_model"][0], report["train_model_fault"][0]
+    if not trained(sound):
+        raise AssertionError(f"two ranks over gloo, train_model: {sound} (limits "
+                             f"{TP_LOSS_REL}, {TP_MOMENT_REL})")
+    if trained(fault):
+        raise AssertionError(f"two ranks over gloo: the limits do not reject the planted "
+                             f"fault (to_model summing nothing): {fault}")
+    print(f"  int8 serving and the train CLI, two ranks over gloo on one card: within "
+          f"{LOGIT_REL} / {LOGIT_COS}, and losses {TP_LOSS_REL} / first moments "
+          f"{TP_MOMENT_REL} (sound {sound['mu_rel']:.3e}, planted fault "
+          f"{fault['mu_rel']:.3e}) [{_card()}]")
+    return report
+
+
+def parallel_tp_phase(dev) -> dict:
+    """The rest of the parallel slice on one card: K6's row-scale mode
+    (`k6_row_scale_cases`), a 9B text layer's forward and backward cut over
+    "model" on virtual ranks (`tp_layer_check`), and the int8 serving path
+    and the train CLI as two processes over gloo (`tp_gloo_check`). -> the
+    kernel entries, the launches of the path (the gloo pair's rank 0 for
+    K6's new mode; the virtual ranks for K1 / K4), the largest error."""
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+
+    t0 = time.perf_counter()
+    kern = k6_row_scale_cases(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, err = tp_layer_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6.KMAJOR.clear()
+    report = tp_gloo_check()
+    fired = report["model_int8"][0]["k6_launches"]
+    launches.update(quant_matmul_amax=fired["quant_matmul_amax"], row_amax=fired["row_amax"])
+    print(f"  parallel TP phase: {time.perf_counter() - t0:.1f} s")
+    return {"kernels": kern, "launches": launches, "max_abs_err": err, "gloo": report}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -6150,6 +6522,11 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA card")
     dev = torch.device("cuda", 0)
+    start = time.perf_counter()
+
+    def stage(title: str) -> None:  # a phase's heading, with the seconds so far
+        print(f"[{time.perf_counter() - start:.1f} s] {title}")
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = _card()
@@ -6166,44 +6543,44 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (nvcc build "
           f"{'%.1f s' % _lib.build_seconds if _lib.build_seconds else 'cached'})")
 
-    print("kernel phases:")
+    stage("kernel phases:")
     _ptxas_report(probe_k3, "decode_attention_sm90")
     kern = kernel_phases(dev)
-    print("K4 phase:")
+    stage("K4 phase:")
     kern["flash_attention_bwd"] = k4_phase(dev)
-    print("K5 phase (int8 tower layer):")
+    stage("K5 phase (int8 tower layer):")
     kern.update(k5_phase(dev, probe))
-    print("K6 phase (W8A8 matmuls):")
+    stage("K6 phase (W8A8 matmuls):")
     kern.update(k6_phase(dev))
-    print("K7 phase (fused RMSNorm, on no path):")
+    stage("K7 phase (fused RMSNorm, on no path):")
     kern.update(k7_phase(dev))
-    print("reference check:")
+    stage("reference check:")
     reference_check(dev)
-    print("int8 reference check:")
+    stage("int8 reference check:")
     int8_reference_check(dev)
-    print("training reference check:")
+    stage("training reference check:")
     training_reference_check(dev)
-    print("slice (Vidi1.5-9B, random weights):")
+    stage("slice (Vidi1.5-9B, random weights):")
     sl = load_slice(dev)
     serve = slice_phase(sl)
     if args.profile:
         print("profile:")
         profile_phase(sl)
-    print("decode routes:")
+    stage("decode routes:")
     decode_route_check(sl)
     # the decoding variants run the slice's first SHALLOW_LAYERS text
     # layers (time: the script's limit); the daemon keeps all 42, where its
     # planted fault (the other video's caches) reads 0.135 of max|logit|
     # against the limit's 0.1 (0.064 at 14 layers)
     shallow = _shallow(sl, SHALLOW_LAYERS)
-    print("decoding variants (verify_step, speculative, beams, sampling; the 120 s slice, "
+    stage("decoding variants (verify_step, speculative, beams, sampling; the 120 s slice, "
           f"{SHALLOW_LAYERS} of {sl.cfg.text.num_layers} text layers):")
     serve_decoding = serve_decoding_phase(shallow)
     if args.profile:
         print("decoding variants' profile:")
         profile_decoding(shallow)
     del shallow
-    print(f"serving daemon, batch runner and evals (Vidi1.5-9B bf16, {SERVE_NEW} new tokens, "
+    stage(f"serving daemon, batch runner and evals (Vidi1.5-9B bf16, {SERVE_NEW} new tokens, "
           f"a {sl.seconds} s and a {SERVE_B_SECONDS} s mp4):")
     serve_daemon, serve_runner, serve_clips = serve_phase(sl)
     if args.profile:
@@ -6212,14 +6589,14 @@ def main() -> int:
     del serve_clips
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"mm_chunks reading (ROADMAP Q3.10; the first {MMC_LAYERS} layers):")
+    stage(f"mm_chunks reading (ROADMAP Q3.10; the first {MMC_LAYERS} layers):")
     mm_chunks_reading(sl)
-    print("long-video cache check (the 120 s slice's media):")
+    stage("long-video cache check (the 120 s slice's media):")
     long_cache_check(sl)
     sl.media = None  # the 120 s slice is dropped; its weights serve the long one
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"long-video slice (Vidi1.5-9B, a {LONG_SECONDS} s clip, random weights):")
+    stage(f"long-video slice (Vidi1.5-9B, a {LONG_SECONDS} s clip, random weights):")
     serve_long, clip = long_video_phase(sl)
     if args.profile:
         print("long-video profile:")
@@ -6227,16 +6604,16 @@ def main() -> int:
     del clip
     gc.collect()
     torch.cuda.empty_cache()
-    print("draft distillation (teacher: the full-depth 9B slice, bf16; a 2-layer student "
+    stage("draft distillation (teacher: the full-depth 9B slice, bf16; a 2-layer student "
           "of width 512):")
     distill = distill_phase(sl)
-    print("checkpoint slice (Vidi1.5-9B at full width: save_pretrained, load_model, ask):")
+    stage("checkpoint slice (Vidi1.5-9B at full width: save_pretrained, load_model, ask):")
     ckpt, ckpt_int8, serve_cli_run = checkpoint_phase(sl)
     del sl
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("Vidi-7B slice (Mistral-7B G = 4, CLIP ViT-L/14, v1 adapters; random weights, "
+    stage("Vidi-7B slice (Mistral-7B G = 4, CLIP ViT-L/14, v1 adapters; random weights, "
           f"a {SECONDS_7B} s clip at 224 px):")
     s7 = load_7b(dev)
     serve_7b = serve_7b_phase(s7)
@@ -6248,7 +6625,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     from vidi_tpu_torch.infer import quantize as qz
-    print("int8 slice (Vidi1.5-9B, int8 text + towers, W8A8 prefill from "
+    stage("int8 slice (Vidi1.5-9B, int8 text + towers, W8A8 prefill from "
           f"{W8A8_MIN_TOKENS} rows, int8 caches, random weights):")
     qz.w8a8_min_tokens = W8A8_MIN_TOKENS
     sl = load_slice(dev, int8=True)
@@ -6256,7 +6633,7 @@ def main() -> int:
     if args.profile:
         print("int8 profile:")
         profile_int8(sl)
-    print("int8 routes:")
+    stage("int8 routes:")
     int8_route_check(sl)
     qz.w8a8_min_tokens = None
     from vidi_tpu_torch.ops.cuda import quant_matmul as k6
@@ -6272,24 +6649,24 @@ def main() -> int:
         raise AssertionError("the K-major cache kept copies of a dropped model's weights")
     torch.cuda.empty_cache()
 
-    print(f"training slice (Vidi1.5-9B, {TRAIN_LAYERS} text layers, random weights):")
+    stage(f"training slice (Vidi1.5-9B, {TRAIN_LAYERS} text layers, random weights):")
     tr = load_training_slice(dev)
     train = training_phase(tr)
     if args.profile:
         print("training profile:")
         profile_training(tr)
-    print("gradient routes:")
+    stage("gradient routes:")
     gradient_route_check(tr)
     tr.tx = tr.state = None  # each phase below makes its own optimizer
     gc.collect()
     torch.cuda.empty_cache()
-    print('remat "dots" against full remat (the 9B slice):')
+    stage('remat "dots" against full remat (the 9B slice):')
     remat = remat_phase(tr)
-    print("gradient accumulation k = 2 (the 9B slice):")
+    stage("gradient accumulation k = 2 (the 9B slice):")
     grad_accum = grad_accum_phase(tr)
-    print("image-mode training (the 9B slice as an image model, anyres):")
+    stage("image-mode training (the 9B slice as an image model, anyres):")
     train_image = train_image_phase(tr)
-    print(f"packed rows (--pack: 2 rows of {PACK_T} tokens, the 9B slice):")
+    stage(f"packed rows (--pack: 2 rows of {PACK_T} tokens, the 9B slice):")
     train_pack = train_pack_phase(tr)
     if args.profile:
         print("image-mode and remat \"dots\" training profile:")
@@ -6297,7 +6674,7 @@ def main() -> int:
     del tr
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"Vidi-7B training slice ({TRAIN_LAYERS} text layers, random weights, "
+    stage(f"Vidi-7B training slice ({TRAIN_LAYERS} text layers, random weights, "
           "the 120 s clip at 224 px):")
     train_7b, tr7 = train_7b_phase(dev)
     if args.profile:
@@ -6306,21 +6683,27 @@ def main() -> int:
     del tr7
     gc.collect()
     torch.cuda.empty_cache()
-    print("train CLI (a subprocess on the card):")
+    stage("train CLI (a subprocess on the card):")
     train_cli_phase()
-    print(f"parallel slice (the 9B's T2V at full width on {PAR_SEQ} virtual seq ranks: the "
+    stage(f"parallel slice (the 9B's T2V at full width on {PAR_SEQ} virtual seq ranks: the "
           "ring, Ulysses' local step; the train CLI in a one-rank NCCL world):")
     parallel = parallel_phase(dev)
     for name, case in parallel["cases"].items():
         kern[name]["cases"].append(case)
-    print(f"parallel inference slice (K3 with its lse; the 9B image cache read on {PAR_SEQ} "
+    stage(f"parallel inference slice (K3 with its lse; the 9B image cache read on {PAR_SEQ} "
           f"virtual seq ranks; a 9B decode step cut over model on {MODEL_RANKS} virtual "
           "ranks):")
     parallel_infer = parallel_infer_phase(dev)
     kern["decode_attention"]["cases"].extend(parallel_infer["cases"])
+    stage(f"parallel TP slice (K6's row-scale mode at the 9B's row-cut shapes; a 9B text "
+          f"layer's backward cut over model on {MODEL_RANKS} virtual ranks; int8 serving and "
+          "the train CLI as two ranks over gloo):")
+    parallel_tp = parallel_tp_phase(dev)
+    kern.update(parallel_tp["kernels"])
 
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
-    # training for K4, int8 serving for K5 / K6; K7 is on no path);
+    # training for K4, int8 serving for K5 / K6, the parallel TP slice's
+    # gloo pair for K6's row-scale mode; K7 is on no path);
     # launches_by_path gives every path's count
     paths = {"serve": serve, "serve_decoding": serve_decoding, "serve_long": serve_long,
              "serve_daemon": serve_daemon, "serve_runner": serve_runner,
@@ -6329,13 +6712,17 @@ def main() -> int:
              "serve_daemon_int8": serve_daemon_int8, "train": train, "remat": remat,
              "grad_accum": grad_accum, "train_image": train_image, "train_pack": train_pack,
              "train_7b": train_7b, "distill": distill, "parallel": parallel["launches"],
-             "parallel_infer": parallel_infer["launches"]}
+             "parallel_infer": parallel_infer["launches"],
+             "parallel_tp": parallel_tp["launches"]}
+    first = {"quant_matmul_amax": (parallel_tp["launches"],),
+             "row_amax": (parallel_tp["launches"],)}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",
            "flash_attention_bwd": "K4"}
     print(json.dumps({"kernels": [
         {"name": name, "id": r.get("kernel", ids.get(name)), "route": "cuda",
          "source": r["src"], "replaces": r["replaces"],
-         "launches": next((p[name] for p in (serve, train, serve_int8) if name in p), 0),
+         "launches": next((p[name] for p in first.get(name, (serve, train, serve_int8))
+                           if name in p), 0),
          "launches_by_path": {k: p.get(name, 0) for k, p in paths.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -27,6 +27,7 @@ from vidi_tpu_torch.infer import generate as tgen
 from vidi_tpu_torch.infer import pipeline as tpipe
 from vidi_tpu_torch.infer.convert import params_from_jax
 from vidi_tpu_torch.models import dattn as tdattn
+from torch_init import port_init  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "scripts"))
@@ -48,7 +49,7 @@ def model():
     """The tiny model with its embedding scaled by 0.01: at init the tied
     embedding makes a token predict itself; scaled down, the layers shape
     the logits, greedy output varies and the beams part ways."""
-    jp = jdattn.init_params(jax.random.PRNGKey(1), CFG, jnp.float32)
+    jp = port_init(CFG, 1)
     jp["text"]["embed"] = jp["text"]["embed"] * 0.01
     return jp, params_from_jax(jax.device_get(jp))
 

@@ -36,7 +36,6 @@ from vidi_tpu.core.config import DattnConfig as JConfig
 from vidi_tpu.infer import export as jexport
 from vidi_tpu.infer import loader as jloader
 from vidi_tpu.infer import pipeline as jpipe
-from vidi_tpu.models import dattn as jdattn
 from vidi_tpu_torch.core.config import DattnConfig as TConfig
 from vidi_tpu_torch.infer import export as texport
 from vidi_tpu_torch.infer import loader as tloader
@@ -44,6 +43,7 @@ from vidi_tpu_torch.infer import pipeline as tpipe
 from vidi_tpu_torch.infer import quantize as tq
 from vidi_tpu_torch.infer import safetensors_io as sio
 from vidi_tpu_torch.infer.convert import params_from_jax
+from torch_init import port_init  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -74,11 +74,10 @@ def _assert_trees_equal(got, want, path=""):
 
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
-    """The tiny model's fp32 parameters (vidi_tpu init, seed 0), written by
-    each package's save_pretrained."""
+    """The tiny model's fp32 parameters (the port's init in vidi_tpu's
+    layout, seed 0), written by each package's save_pretrained."""
     root = tmp_path_factory.mktemp("exported")
-    jp = jax.device_get(jdattn.init_params(jax.random.PRNGKey(0), JConfig.tiny(),
-                                           jnp.float32))
+    jp = jax.device_get(port_init(JConfig.tiny(), 0))
     tp = params_from_jax(jp)
     jexport.save_pretrained(jp, JConfig.tiny(), str(root / "ref"))
     texport.save_pretrained(tp, TConfig.tiny(), str(root / "port"))

@@ -23,6 +23,7 @@ from vidi_tpu_torch.infer.convert import params_from_jax
 from vidi_tpu_torch.models import adapters as tadapters
 from vidi_tpu_torch.models import dattn as tdattn
 from vidi_tpu_torch.models import decoder as tdecoder
+from torch_init import port_init  # noqa: E402
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 CFG = DattnConfig.tiny()
@@ -39,7 +40,7 @@ def _close(got, want, tol=TOL):
 
 @pytest.fixture(scope="module")
 def model():
-    jp = jdattn.init_params(jax.random.PRNGKey(0), CFG, jnp.float32)
+    jp = port_init(CFG, 0)
     return jp, params_from_jax(jax.device_get(jp))
 
 

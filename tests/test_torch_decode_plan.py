@@ -239,6 +239,37 @@ def test_workspace_grows_and_keeps_its_buffers():
     assert ws.get(cpu, 8, 64, 256, 8)["m"] is not c["m"]  # another stream
 
 
+def test_packed_arguments_are_each_calls_own(monkeypatch):
+    """Threads that launch K3 at once (virtual ranks, decode-ahead) each
+    hand the C entry the block they packed, though the ctypes call lets the
+    others run between the pack and the read."""
+    import threading
+    import time
+
+    seen, local = [], threading.local()
+
+    def entry(buf, stream):
+        time.sleep(0.002)  # the other threads pack meanwhile
+        seen.append(k3.ARGS.unpack_from(buf) == local.values)
+        return 0
+
+    monkeypatch.setattr(k3._lib, "library", lambda: type("L", (), {"e": staticmethod(entry)}))
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+
+    def launch(i):
+        for j in range(20):
+            local.values = (i, j, *range(9), *range(6), *range(10), 0.5, 1.5, 1, 2, 3)
+            k3._call("e", torch.device("cuda", 0), 0, local.values)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    assert len(seen) == 80 and all(seen)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_launch_passes_the_operands_as_they_come(monkeypatch, dtype):
     """The wrapper's launch, with the C call recorded instead of made: one

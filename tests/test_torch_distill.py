@@ -55,12 +55,15 @@ LR = 1e-2
 
 
 def _stacked(tree):
-    """The port's tree in vidi_tpu's layout (numpy leaves, layers stacked)."""
+    """The port's tree in vidi_tpu's layout (numpy leaves, layers stacked).
+    Each leaf is a copy: `jnp.asarray` may alias a host buffer, and JAX's
+    step still reads it, dispatched asynchronously, while the port's step
+    updates its parameters in place."""
     if isinstance(tree, dict):
         return {k: jax.tree.map(lambda *xs: np.stack(xs), *map(_stacked, v))
                 if k == "layers" and isinstance(v, list) else _stacked(v)
                 for k, v in tree.items()}
-    return tree.detach().numpy()
+    return tree.detach().numpy().copy()
 
 
 def _init(cfg, seed):

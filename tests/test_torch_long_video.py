@@ -32,6 +32,7 @@ from vidi_tpu_torch.models import dattn as tdattn
 from vidi_tpu_torch.models import decoder as tdecoder
 from vidi_tpu_torch.ops.cuda import decode_attention as k3
 from vidi_tpu_torch.ops.cuda import flash_attention as k1
+from torch_init import port_init  # noqa: E402
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 CFG = DattnConfig.tiny()
@@ -69,7 +70,7 @@ def _media_fields(c):
 
 @pytest.fixture(scope="module")
 def model():
-    jp = jdattn.init_params(jax.random.PRNGKey(5), CFG, jnp.float32)
+    jp = port_init(CFG, 5)
     return jp, params_from_jax(jax.device_get(jp))
 
 

@@ -26,7 +26,6 @@ import torch
 from vidi_tpu.core.config import DattnConfig
 from vidi_tpu.infer import pipeline as jpipe
 from vidi_tpu.media.text import ByteTokenizer
-from vidi_tpu.models import dattn as jdattn
 from vidi_tpu.ops import preprocess as jpre
 from vidi_tpu_torch.infer import pipeline as tpipe
 from vidi_tpu_torch.infer.convert import params_from_jax
@@ -36,6 +35,7 @@ from vidi_tpu_torch.ops import preprocess as tpre
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 from make_example import make_video  # noqa: E402
+from torch_init import port_init  # noqa: E402
 
 CFG = DattnConfig.tiny()
 QUERY = "a moving gradient"
@@ -55,7 +55,7 @@ def clip(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def model():
-    jp = jdattn.init_params(jax.random.PRNGKey(7), CFG, jnp.float32)
+    jp = port_init(CFG, 7)
     return jp, params_from_jax(jax.device_get(jp))
 
 

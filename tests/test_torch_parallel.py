@@ -3,8 +3,10 @@ CPU, inputs from numpy seeds, fp32:
 
 (i) spec rules: `_param_spec_for_path` / `fsdp_param_spec` / `_fit_spec`
     pick JAX's dims and axes leaf by leaf, on the tiny tree and the 9B's
-    shapes (`jax.eval_shape` of `init_params`), on mesh shapes (2, 4, 1),
-    (8, 1, 1) and (1, 4, 2); the port's per-layer storage follows its
+    shapes (`jax.eval_shape` of `init_params`, and of `quantize_params`
+    to int8 and int4), on mesh shapes (2, 4, 1), (8, 1, 1) and (1, 4, 2),
+    where the int8 / int4 leaves' "model" and ZeRO-3 cuts follow
+    `sharding._model_dim`; the port's per-layer storage follows its
     stacked JAX leaf. No processes.
 (ii) attention under 4 gloo ranks (tests/torch_parallel_worker.py; data 2
     x seq 2, and seq 4): ring, Ulysses and the "gspmd" plan, on the kernel
@@ -30,10 +32,18 @@ CPU, inputs from numpy seeds, fp32:
     holds a quarter of every leaf of >= 2**14 elements (but pos_embed) and
     of its AdamW moments. The same for an image-conv step (anyres grids
     (2, 2) and (1, 3): 5 tiles fanned out over seq 2, the tower trained).
-(v) the train CLI under `torchrun --nproc_per_node 4` (gloo, seq 2, ring)
-    writes a checkpoint that a restart resumes onto the mesh, its losses
-    those of one process on the same global batch; --model_parallel_size 2
-    raises (training under tensor parallelism is ROADMAP Q1.16c).
+(v) the train CLI under `torchrun --nproc_per_node 4` (gloo, seq 2, ring;
+    and seq 2 x model 2, Ulysses) writes a checkpoint that a restart
+    resumes onto the mesh, its losses those of one process on the same
+    global batch.
+(vi) tensor parallelism in training: two steps under (data 1, seq 2,
+    model 2) in each mode, towers frozen, the gradient clipped, on JAX's
+    position noise draws: each rank's losses, gradient slices and
+    parameter slices against one process's (the tolerances of (iv)), its
+    losses and parameters against JAX's `train_step` under its CPU mesh of
+    the same shape (as `__graft_entry__.dryrun_multichip(4)` runs it);
+    the planted fault of `sharding.to_model` summing nothing fails.
+    Ulysses runs there at one local KV head over seq 2 (`expand_kv`).
 
 One spawn of 4 ranks a mesh layout serves every case (module fixtures);
 the ranks import no jax and run one thread each.
@@ -52,6 +62,7 @@ import torch
 
 from vidi_tpu.core.config import DattnConfig as JConfig
 from vidi_tpu.core.mesh import make_mesh as jmake_mesh
+from vidi_tpu.infer import quantize as jqz
 from vidi_tpu.models import dattn as jdattn
 from vidi_tpu.models import decoder as jdecoder
 from vidi_tpu.parallel import sharding as jsh
@@ -66,12 +77,14 @@ from vidi_tpu_torch.train.train_step import train_step, value_and_grads
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parallel_worker as W  # noqa: E402
+from torch_init import stacked  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = RTOL = 2e-5
 FWD_TOL = 2e-4
 LOSS_TOL, LEAF_TOL, LEAF_FLOOR, PARAM_TOL = 1e-5, 1e-5, 1e-7, 1e-5
 LAYOUTS = ((2, 2), (1, 4))
+MODEL_LAYOUT = (1, 2, 2)  # (data, seq, model): dryrun_multichip(4)'s
 
 
 # ---------------------------------------------------------------------------
@@ -86,25 +99,63 @@ def _both_meshes(shape):
     return jm, Mesh(dict(zip(("data", "seq", "model"), shape)))
 
 
-def _jax_tree(cfg):
-    return jax.eval_shape(lambda k: jdattn.init_params(k, cfg, jnp.bfloat16),
-                          jax.random.PRNGKey(0))
+def _jax_tree(cfg, bits=None):
+    """eval_shape of vidi_tpu's init (and, with `bits`, of its int8 / int4
+    quantize_params of the text decoder, int8 with the embedding too)."""
+    def init(k):
+        p = jdattn.init_params(k, cfg, jnp.bfloat16)
+        return p if bits is None else jqz.quantize_params(p, modules=("text",), bits=bits,
+                                                          quantize_embed=bits == 8)
+    return jax.eval_shape(init, jax.random.PRNGKey(0))
 
 
+def _check_quant_cuts(names, leaf, want, tm):
+    """The port's (ZeRO-3, "model") cuts of a text layer's int8 / int4 leaf
+    (stacked [L, ...]) against JAX's spec `want`: the model dim of
+    `sharding._model_dim`'s rule, the ZeRO-3 cut JAX's spec with "model"
+    dropped."""
+    name, key = names[-2], names[-1]
+    shape, m = tuple(leaf.shape), tm.shape["model"]
+    zero, mdim = sharding.storage_cuts(names, shape, None, tm)
+    tp = sharding._TP_DIM[name]
+    if key != "scale":
+        assert mdim == tp, names
+    elif tp == 2:
+        assert mdim == len(shape) - 1, names
+    elif len(shape) == 4:  # int4 o / down: the groups, where they split
+        assert mdim == (1 if shape[1] % m == 0 else None), names
+    else:
+        assert mdim is None, names
+    spec = [sharding._drop_model(e) if mdim is not None else e for e in want]
+    live = [(d, tuple(a for a in (e if isinstance(e, tuple) else (e,)) if tm.shape[a] > 1))
+            for d, e in enumerate(spec) if e is not None]
+    live = [(d, a) for d, a in live if a]
+    assert zero == (live[0] if live else None), names
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "int8", "int4"])
 @pytest.mark.parametrize("mesh_shape", SPEC_MESHES)
 @pytest.mark.parametrize("model", ["tiny", "vidi15_9b"])
-def test_param_specs_match_jax_leaf_by_leaf(model, mesh_shape):
+def test_param_specs_match_jax_leaf_by_leaf(model, mesh_shape, bits):
+    """Every leaf's spec is JAX's, the quantized trees' too (`jax.eval_shape`
+    of quantize_params); under model > 1 each int8 / int4 leaf of a text
+    layer is cut as `_check_quant_cuts` says."""
     jm, tm = _both_meshes(mesh_shape)
-    tree = _jax_tree(getattr(JConfig, model)())
-    n = 0
+    tree = _jax_tree(getattr(JConfig, model)(), bits)
+    n = quant = 0
     for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
         names = tuple(k.key for k in path)
         want = tuple(jsh._param_spec_for_path(path, leaf, jm))
         assert sharding._param_spec_for_path(names, leaf, tm) == want, names
         assert sharding.fsdp_param_spec(leaf.shape, tm) == tuple(
             jsh.fsdp_param_spec(leaf.shape, jm)), names
+        if tm.shape["model"] > 1 and sharding._tp_leaf(names) and names[-1] in ("qi8", "qi4",
+                                                                             "scale"):
+            _check_quant_cuts(names, leaf, want, tm)
+            quant += 1
         n += 1
     assert n > 50
+    assert quant == (14 if bits and tm.shape["model"] > 1 else 0)
 
 
 @pytest.mark.parametrize("mesh_shape", SPEC_MESHES)
@@ -151,18 +202,38 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _jax_noise(cfg, step: int) -> dict:
+    """The position noise JAX's loss_fn draws from PRNGKey(100 + step) for
+    the step's batch (train_step.py:44, dattn.py:176 / :326), as the
+    port's draws."""
+    b, hw = W.train_arrays(cfg, step)
+    rngs = jax.random.split(jax.random.PRNGKey(100 + step), 3)
+    img = jax.random.split(rngs[0], 3)
+    h2, w2 = dattn.frame_side(cfg, hw)
+    rows, n = b["images"].shape[:2]
+    n_aud = b["mels"].shape[1] * cfg.audio.max_source_positions // cfg.mm_audio_pool_size
+    draws = {"img_h": jax.random.normal(img[0], (h2,)), "img_w": jax.random.normal(img[1], (w2,)),
+             "img_t": jax.random.normal(img[2], (rows, n)),
+             "aud_t": jax.random.normal(rngs[1], (rows, n_aud))}
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+
+
 @pytest.fixture(scope="module")
 def spawned(tmp_path_factory):
-    """The 4 ranks of both layouts, started together: {(data, seq): (out
-    dir, processes)}."""
+    """The 4 ranks of each layout, started together: {(data, seq) or
+    MODEL_LAYOUT: (out dir, processes)}; the model layout's steps take
+    JAX's noise draws (written first)."""
     procs = {}
-    for data, seq in LAYOUTS:
-        out = tmp_path_factory.mktemp(f"mesh{data}x{seq}")
+    for layout in (*LAYOUTS, MODEL_LAYOUT):
+        out = tmp_path_factory.mktemp("mesh" + "x".join(map(str, layout)))
+        if layout == MODEL_LAYOUT:
+            torch.save([_jax_noise(W.tiny_cfg(), step) for step in range(W.TRAIN_STEPS)],
+                       out / "noise.pt")
         port = _free_port()
         env_base = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-        procs[(data, seq)] = (out, [subprocess.Popen(
+        procs[layout] = (out, [subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "tests", "torch_parallel_worker.py"),
-             str(out), str(data), str(seq)], cwd=ROOT,
+             str(out), *map(str, layout)], cwd=ROOT,
             env=dict(env_base, RANK=str(r), WORLD_SIZE="4", LOCAL_RANK=str(r),
                      MASTER_ADDR="localhost", MASTER_PORT=str(port), OMP_NUM_THREADS="1"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(4)])
@@ -175,9 +246,10 @@ def spawned(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def ranks(spawned, jax_attention, forward_refs, single_steps, single_image_steps):
-    """{(data, seq): [rank 0..3 results]}, read once the ranks end (the
-    references are computed while they run)."""
+def ranks(spawned, jax_attention, forward_refs, single_steps, single_image_steps,
+          jax_model_steps, single_model_steps):
+    """{(data, seq) or MODEL_LAYOUT: [rank 0..3 results]}, read once the
+    ranks end (the references are computed while they run)."""
     res = {}
     for key, (out, ps) in spawned.items():
         logs = [p.communicate(timeout=600)[0] for p in ps]
@@ -291,15 +363,6 @@ def test_expand_kv_replicates_heads():
 # (iii) forward
 # ---------------------------------------------------------------------------
 
-def _stacked(tree):
-    """The port's tree in vidi_tpu's layout (layers stacked [L, ...])."""
-    if isinstance(tree, dict):
-        return {k: (jax.tree.map(lambda *xs: np.stack(xs), *map(_stacked, v))
-                    if k == "layers" and isinstance(v, list) else _stacked(v))
-                for k, v in tree.items()}
-    return tree.numpy()
-
-
 @pytest.fixture(scope="module")
 def forward_refs(spawned):
     """(the port's mesh-less hidden, JAX's ring forward under (2, 2))."""
@@ -314,7 +377,7 @@ def forward_refs(spawned):
                              torch.from_numpy(pos.copy()).long(),
                              img=torch.from_numpy(img), img_mask=torch.from_numpy(img_mask))
     jcfg = JConfig.tiny()
-    jp = _stacked(params)
+    jp = stacked(params)
     jmesh = jmake_mesh(jax.devices()[:4], data=2, seq=2, model=1)
     jemb = jdecoder.embed_tokens(jp["text"], jnp.asarray(ids), jcfg.text)
     with jsh.use_mesh(jmesh):
@@ -339,16 +402,16 @@ def test_forward_under_mesh(ranks, forward_refs, mode):
 # (iv) training
 # ---------------------------------------------------------------------------
 
-def _single_steps(cfg, batch_fn):
+def _single_steps(cfg, batch_fn, hp=None, frozen=()):
     """The port's two steps in one process on the global batches of
     `batch_fn`: (losses, first-step gradients, parameters after)."""
     params = dattn.init_params(cfg, torch.float32, "cpu", 0)
-    tx = topt.make_optimizer(params, W.train_hparams())
+    tx = topt.make_optimizer(params, hp or W.train_hparams())
     state = tx.init(params)
     losses = []
     for step in range(W.TRAIN_STEPS):
         batch, noise, hw = batch_fn(cfg, step)
-        kw = dict(cfg=cfg, hw=hw, remat=True)
+        kw = dict(cfg=cfg, hw=hw, remat=True, frozen=frozen)
         if step == 0:
             loss, grads = value_and_grads(params, batch, noise, labels=tx.labels, **kw)
             tx.apply(params, grads, state)
@@ -368,37 +431,146 @@ def single_image_steps(spawned):
     return _single_steps(W.image_cfg(), W.image_batch)
 
 
-def _check_fsdp_steps(ranks, single, run):
+def _rank_cuts(params, layout, r):
+    """{key: (rank r's mesh, the leaf's storage cuts)} under `layout`
+    ((data, seq) or (data, seq, model))."""
+    mesh = Mesh(dict(zip(("data", "seq", "model"), layout)), rank=r)
+    return {"/".join(map(str, p)): (mesh, sharding.storage_cuts(p, shape, depth, mesh))
+            for p, shape, depth in sharding._stacked_paths(params)}
+
+
+def _grad_errors(results, single, run, layout):
+    """max over the ranks and leaves of |rank's gradient - its slice of the
+    one-process gradient| / the leaf's limit (LEAF_TOL of its largest
+    magnitude, floor LEAF_FLOOR)."""
+    _, grads, params = single
+    worst = 0.0
+    for r, res in enumerate(results):
+        for key, (mesh, cuts) in _rank_cuts(params, layout, r).items():
+            if key not in grads:
+                continue
+            g = sharding._local_cut(grads[key], cuts, mesh)
+            limit = max(LEAF_TOL * float(grads[key].abs().max()), LEAF_FLOOR)
+            worst = max(worst, float((res[run]["grads"][key] - g).abs().max()) / limit)
+    return worst
+
+
+def _check_steps(results, single, run, layout=(2, 2)):
     """Each rank's losses, first-step gradient slices and parameter slices
     of the run `run` against the single-process steps."""
     losses, grads, params = single
-    specs = sharding.param_specs(params, Mesh({"data": 2, "seq": 2}))
-    for r, res in enumerate(ranks[(2, 2)]):
+    for r, res in enumerate(results):
         got = res[run]
         for a, b in zip(got["losses"].tolist(), losses):
             assert abs(a - b) <= LOSS_TOL * abs(b), (r, a, b)
-        mesh = Mesh({"data": 2, "seq": 2}, rank=r)
-        for key, _, p in topt.leaves(params):
-            g = grads[key]
-            spec = specs[key]
-            if spec is not None:
-                g = sharding._local_slice(g, *spec, mesh)
-                p = sharding._local_slice(p, *spec, mesh)
-            limit = max(LEAF_TOL * float(grads[key].abs().max()), LEAF_FLOOR)
-            err = float((got["grads"][key] - g).abs().max())
-            assert err <= limit, (r, key, err, limit)
-            np.testing.assert_allclose(got["params"][key].numpy(), p.numpy(), rtol=0,
-                                       atol=PARAM_TOL, err_msg=f"rank {r} {key}")
+        pm = {key: p for key, _, p in topt.leaves(params)}
+        for key, (mesh, cuts) in _rank_cuts(params, layout, r).items():
+            if key in grads:  # a frozen leaf has none
+                g = sharding._local_cut(grads[key], cuts, mesh)
+                limit = max(LEAF_TOL * float(grads[key].abs().max()), LEAF_FLOOR)
+                err = float((got["grads"][key] - g).abs().max())
+                assert err <= limit, (r, key, err, limit)
+            np.testing.assert_allclose(got["params"][key].numpy(),
+                                       sharding._local_cut(pm[key], cuts, mesh).numpy(),
+                                       rtol=0, atol=PARAM_TOL, err_msg=f"rank {r} {key}")
 
 
 @pytest.mark.parametrize("mode", W.MODES)
 def test_fsdp_train_steps_match_one_process(ranks, single_steps, mode):
-    _check_fsdp_steps(ranks, single_steps, f"train/{mode}")
+    _check_steps(ranks[(2, 2)], single_steps, f"train/{mode}")
 
 
 @pytest.mark.parametrize("mode", W.MODES)
 def test_fsdp_image_train_steps_match_one_process(ranks, single_image_steps, mode):
-    _check_fsdp_steps(ranks, single_image_steps, f"train_image/{mode}")
+    _check_steps(ranks[(2, 2)], single_image_steps, f"train_image/{mode}")
+
+
+def _model_batch_fn():
+    return W.model_batch_fn([_jax_noise(W.tiny_cfg(), step) for step in range(W.TRAIN_STEPS)])
+
+
+@pytest.fixture(scope="module")
+def single_model_steps(spawned):
+    return _single_steps(W.tiny_cfg(), _model_batch_fn(), topt.TrainHParams(**W.MODEL_HP),
+                         W.MODEL_FROZEN)
+
+
+@pytest.fixture(scope="module")
+def jax_model_steps(spawned):
+    """JAX's two train steps under make_mesh(data=1, seq=2, model=2) from the
+    port's init, as dryrun_multichip(4) runs them (towers frozen), with
+    MODEL_HP: (losses, {key: parameter after}). After step 0 the tree and
+    state are placed as before it, so that step 1 reuses the compile."""
+    import dataclasses
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from vidi_tpu.train import optimizer as jopt
+    from vidi_tpu.train import train_step as jstep
+
+    cfg = W.tiny_cfg()
+    jcfg = dataclasses.replace(JConfig.tiny(), loss_thres=cfg.loss_thres)
+    init = dattn.init_params(cfg, torch.float32, "cpu", 0)
+    mesh = jmake_mesh(jax.devices()[:4], data=1, seq=2, model=2)
+    losses = []
+    with jsh.use_mesh(mesh):
+        params = jsh.shard_params(jax.tree.map(jnp.asarray, stacked(init)), mesh)
+        tx = jopt.make_optimizer(params, jopt.TrainHParams(**W.MODEL_HP))
+        state = first = jstep.opt_init(tx, params)
+        for step in range(W.TRAIN_STEPS):
+            b, hw = W.train_arrays(cfg, step)
+            b = {k: jax.device_put(a, NamedSharding(mesh, P("data", *([None] * (a.ndim - 1)))))
+                 for k, a in b.items()}
+            params, state, loss = jstep.train_step(
+                params, state, b, jax.random.PRNGKey(100 + step), cfg=jcfg, tx=tx, hw=hw,
+                remat=True, frozen=W.MODEL_FROZEN)
+            losses.append(float(loss))
+            params = jsh.shard_params(params, mesh)
+            state = jax.tree.map(lambda a, f: jax.device_put(a, f.sharding)
+                                 if len(f.sharding.device_set) > 1 else jnp.asarray(np.asarray(a)),
+                                 state, first)
+    host = jax.device_get(params)
+    out = {}
+    for key, path, _ in topt.leaves(init):
+        node, layer = host, None
+        for k in path:
+            if isinstance(k, int):
+                layer = k
+            else:
+                node = node[k]
+        out[key] = np.asarray(node if layer is None else node[layer])
+    return losses, out
+
+
+@pytest.mark.parametrize("mode", W.MODES)
+def test_model_parallel_train_steps_match_jax_and_one_process(
+        ranks, jax_model_steps, single_model_steps, mode):
+    """Two steps under (data 1, seq 2, model 2) with the gradient clipped:
+    each rank's losses, gradients and parameters against one process's,
+    and its losses and parameters against JAX's train_step under its mesh
+    of the same shape."""
+    run = f"train_model/{mode}"
+    _check_steps(ranks[MODEL_LAYOUT], single_model_steps, run, MODEL_LAYOUT)
+    whole = float(sum(g.square().sum() for g in single_model_steps[1].values()))
+    for res in ranks[MODEL_LAYOUT]:  # the clip's norm counts each model slice once
+        assert abs(res[run]["sq_norm"] - whole) <= LOSS_TOL * whole, (res[run]["sq_norm"], whole)
+    losses, want = jax_model_steps
+    params = single_model_steps[2]
+    for r, res in enumerate(ranks[MODEL_LAYOUT]):
+        for a, b in zip(res[run]["losses"].tolist(), losses):
+            assert abs(a - b) <= LOSS_TOL * abs(b), (r, a, b)
+        for key, (mesh, cuts) in _rank_cuts(params, MODEL_LAYOUT, r).items():
+            w = sharding._local_cut(torch.from_numpy(np.array(want[key])), cuts, mesh)
+            np.testing.assert_allclose(res[run]["params"][key].numpy(), w.numpy(), rtol=0,
+                                       atol=PARAM_TOL, err_msg=f"rank {r} {key} vs JAX")
+
+
+def test_model_parallel_dropped_all_reduce_fails(ranks, single_model_steps):
+    """The planted fault: `sharding.to_model`'s backward summing nothing
+    leaves the gradients far outside the limits that the steps meet."""
+    fine = _grad_errors(ranks[MODEL_LAYOUT], single_model_steps, "train_model/gspmd",
+                        MODEL_LAYOUT)
+    fault = _grad_errors(ranks[MODEL_LAYOUT], single_model_steps, "train_model_fault",
+                         MODEL_LAYOUT)
+    assert fine <= 1.0 < fault, (fine, fault)
 
 
 def test_fsdp_storage_is_a_quarter(ranks):
@@ -461,8 +633,40 @@ def test_cli_under_torchrun_resumes_and_matches_one_process(tmp_path):
     want = [m["loss"] for m in _metrics(one)]
     for a, b in zip(got, want):
         assert abs(a - b) <= LOSS_TOL * abs(b), (got, want)
-    with pytest.raises(NotImplementedError, match="Q1.16c"):
-        tcli.main([*common, "--output_dir", str(one), "--model_parallel_size", "2"])
+
+
+def test_cli_model_parallel_resumes_and_matches_one_process(tmp_path):
+    """--model_parallel_size 2 --seq_parallel_size 2 under torchrun (4 ranks,
+    Ulysses at one local KV head over seq 2): a checkpoint saved whole, a
+    restart resuming onto the same mesh, the losses one process's."""
+    from vidi_tpu_torch.train import train as tcli
+
+    out, one = tmp_path / "run", tmp_path / "one"
+    common = ["--tiny", "--data_path", "synthetic", "--device", "cpu", "--dtype", "float32",
+              "--learning_rate", "1e-3", "--mm_rand_lr", "1e-3"]
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "4", "-m", "vidi_tpu_torch.train.train", *common,
+           "--output_dir", str(out), "--seq_parallel_size", "2", "--model_parallel_size", "2",
+           "--sp_mode", "ulysses"]
+    first = subprocess.Popen([*run, "--max_steps", "2"], cwd=ROOT, env=_cli_env(),
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    tcli.main([*common, "--output_dir", str(one), "--max_steps", "3"])
+    stdout, stderr = first.communicate(timeout=300)
+    assert first.returncode == 0, stdout[-2000:] + stderr[-3000:]
+    assert sorted(os.listdir(out / "checkpoints")) == ["step_2.pt"]
+    second = subprocess.run([*run, "--max_steps", "3"], cwd=ROOT, env=_cli_env(),
+                            capture_output=True, text=True, timeout=300)
+    assert second.returncode == 0, second.stdout[-2000:] + second.stderr[-3000:]
+    assert "resumed from step 2" in second.stdout
+    assert [m["step"] for m in _metrics(out)] == [0, 1, 2]
+    ckpt = torch.load(out / "checkpoints" / "step_3.pt", weights_only=True)
+    assert ckpt["params"]["text"]["layers"][0]["q_w"].shape == (64, 64)  # saved whole
+    assert ckpt["opt_state"]["mu"]["text/layers/0/q_w"].shape == (64, 64)
+    got = [m["loss"] for m in _metrics(out)]
+    want = [m["loss"] for m in _metrics(one)]
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert abs(a - b) <= LOSS_TOL * abs(b), (got, want)
 
 
 def test_cli_data_ranks_decode_their_rows(tmp_path):

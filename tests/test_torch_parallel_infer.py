@@ -27,6 +27,14 @@ against one process, on the CPU, inputs from numpy seeds, fp32:
 (iii) the CLIs under torchrun (gloo): `run_benchmark --task tr
     --data-parallel 2 --seq-parallel 2` (4 ranks) and `pipeline --task qa
     --model-parallel 2` (2 ranks) against one process on make_video clips.
+(iv) int8 / int4 weights loaded under (1, 1, 2) (2 ranks) and (1, 2, 2):
+    each rank's quantized leaves cut as `storage_cuts` says (int8 towers
+    kept K-major); weight-only int8, W8A8 with int8 caches and int4 greedy
+    tokens equal to JAX's generate under its (1, 2, 2) mesh on the same
+    quantized tree and to one process's, step-0 logits within 1e-4 of
+    max |logit|; the W8A8 fault of each rank's own row absmax moves them
+    past it; the streamed encode through int8 towers; `value_and_grads`
+    under a "model" mesh of a shape.
 
 Every spawn starts at once (module fixtures), the references are computed
 while they run.
@@ -63,6 +71,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import torch_parallel_infer_worker as W  # noqa: E402
+from torch_init import stacked  # noqa: E402
 from make_example import make_video  # noqa: E402
 
 jda.INTERPRET = True
@@ -71,6 +80,9 @@ LOGIT_TOL = 1e-5
 CACHE_TOL = 1e-6
 LAYOUTS = ((2, 2, 1), (1, 2, 2))
 IDS = ["data2_seq2", "seq2_model2"]
+QUANT_LAYOUTS = ((1, 1, 2), (1, 2, 2))  # the int8 / int4 serving cases
+QUANT_IDS = ["model2", "seq2_model2"]
+QUANT_TOL = 1e-4  # of max |logit|
 
 
 # ---------------------------------------------------------------------------
@@ -245,15 +257,15 @@ def spawned(tmp_path_factory, clips):
     """Every multi-rank run, started together: the worker's layouts and
     the two CLIs."""
     procs = {}
-    for layout in LAYOUTS:
+    for layout in (*LAYOUTS, QUANT_LAYOUTS[0]):
         out = tmp_path_factory.mktemp("mesh" + "x".join(map(str, layout)))
-        port = _free_port()
+        port, n = _free_port(), layout[0] * layout[1] * layout[2]
         procs[layout] = (out, [subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "tests", "torch_parallel_infer_worker.py"),
-             str(out), *map(str, layout)], cwd=ROOT,
-            env=_env(RANK=str(r), WORLD_SIZE="4", LOCAL_RANK=str(r),
-                     MASTER_ADDR="localhost", MASTER_PORT=str(port)),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(4)])
+             str(out), *map(str, layout), *(["quant"] if layout not in LAYOUTS else [])],
+            cwd=ROOT, env=_env(RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r),
+                               MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(n)])
     procs["bench"] = (clips / "mesh_pred.json", [_torchrun(
         4, "vidi_tpu_torch.infer.run_benchmark",
         [*BENCH_ARGS, "--gt", str(clips / "gt.json"), "--video-dir", str(clips),
@@ -279,23 +291,14 @@ def _finish(spawned, key):
 
 
 @pytest.fixture(scope="module")
-def ranks(spawned, jax_refs, single):
-    """{layout: [rank 0..3 results]} (the references first, while the
-    ranks run)."""
+def ranks(spawned, jax_refs, jax_quant, single):
+    """{layout: [rank results]} (the references first, while the ranks
+    run)."""
     res = {}
-    for layout in LAYOUTS:
-        out, _ = _finish(spawned, layout)
-        res[layout] = [torch.load(out / f"rank{r}.pt") for r in range(4)]
+    for layout in (*LAYOUTS, QUANT_LAYOUTS[0]):
+        out, ps = _finish(spawned, layout)
+        res[layout] = [torch.load(out / f"rank{r}.pt") for r in range(len(ps))]
     return res
-
-
-def _stacked(tree):
-    """The port's tree in vidi_tpu's layout (layers stacked [L, ...])."""
-    if isinstance(tree, dict):
-        return {k: (jax.tree.map(lambda *xs: np.stack(xs), *map(_stacked, v))
-                    if k == "layers" and isinstance(v, list) else _stacked(v))
-                for k, v in tree.items()}
-    return tree.numpy()
 
 
 @pytest.fixture(scope="module")
@@ -303,7 +306,7 @@ def jax_refs(spawned):
     """JAX's greedy generate and step-0 / step-1 logits on the port's
     weights (vidi_tpu's tiny config, one device)."""
     cfg = JConfig.tiny()
-    jp = _stacked(dattn.init_params(W.tiny_cfg(), torch.float32, "cpu", 0))
+    jp = stacked(dattn.init_params(W.tiny_cfg(), torch.float32, "cpu", 0))
     ids, mask, img, img_mask = map(jnp.asarray, W.generate_inputs(W.tiny_cfg()))
     res = jgen.generate(jp, cfg, ids, mask, img=img, img_mask=img_mask,
                         max_new_tokens=W.NEW_TOKENS, eos_id=W.EOS)
@@ -315,6 +318,60 @@ def jax_refs(spawned):
     l1, _ = jdattn.decode_step(jp, cfg, emb, lens, caches, img_mask=img_mask)
     return dict(tokens=np.asarray(res.tokens), lengths=np.asarray(res.lengths),
                 logits0=np.asarray(l0), logits1=np.asarray(l1))
+
+
+@pytest.fixture(scope="module")
+def jax_quant(spawned):
+    """JAX's greedy generate and step-0 logits under make_mesh(data=1,
+    seq=2, model=2) on vidi_tpu's quantize_params of the port's weights,
+    for each of the worker's QUANT_CASES (W8A8 through vidi_tpu's
+    w8a8_min_tokens; the jit caches cleared between cases, since that
+    threshold is read while tracing)."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from vidi_tpu.core.mesh import make_mesh as jmake_mesh
+    from vidi_tpu.infer import quantize as jqz
+    from vidi_tpu.parallel import sharding as jsh
+
+    cfg = JConfig.tiny()
+    jp = stacked(dattn.init_params(W.tiny_cfg(), torch.float32, "cpu", 0))
+    ids, mask, img, img_mask = W.generate_inputs(W.tiny_cfg())
+    mesh = jmake_mesh(jax.devices()[:4], data=1, seq=2, model=2)
+
+    def logits0(p, ids, mask, img, img_mask, caches):
+        h, _, lens = jgen._prefill(p, cfg, ids, mask, img, img_mask, None, None,
+                                   max_new_tokens=2, mm_chunks=1, use_flash=False,
+                                   quantize_caches=caches, media_caches=None)
+        return jdecoder.lm_logits(p["text"], h[jnp.arange(ids.shape[0]), lens - 1], cfg.text)
+
+    out = {}
+    keep = jqz.w8a8_min_tokens
+    try:
+        for name, (flag, w8a8, caches) in W.QUANT_CASES.items():
+            jqz.w8a8_min_tokens = w8a8
+            jax.clear_caches()
+            q = jqz.quantize_params(jax.tree.map(jnp.asarray, jp), modules=("text",),
+                                    bits=4 if flag == "load_4bit" else 8)
+            with jsh.use_mesh(mesh):
+                def sh(a, *spec):
+                    return jax.device_put(jnp.asarray(a), NamedSharding(mesh, P(*spec)))
+                args = (sh(ids, "data", None), sh(mask, "data", None),
+                        sh(img, "data", "seq", None), sh(img_mask, "data", "seq"))
+                q = jsh.shard_params(q, mesh)
+
+                def both(p, ids, mask, img, img_mask, caches=caches):
+                    """generate and the step-0 logits, one compile"""
+                    res = jgen.generate(p, cfg, ids, mask, img=img, img_mask=img_mask,
+                                        max_new_tokens=W.NEW_TOKENS, eos_id=W.EOS,
+                                        quantize_caches=caches)
+                    return res.tokens, res.lengths, logits0(p, ids, mask, img, img_mask, caches)
+
+                tokens, lengths, l0 = jax.jit(both)(q, *args)
+            out[name] = dict(tokens=np.asarray(tokens), lengths=np.asarray(lengths),
+                             logits0=np.asarray(l0))
+    finally:
+        jqz.w8a8_min_tokens = keep
+        jax.clear_caches()
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -347,7 +404,18 @@ def single(spawned):
                                       eos_id=W.EOS)
         out["shared_logits"] = W.step_logits(params, cfg, qids.long(), qmask, None,
                                              img_mask[:1], False, media_caches=media)
-    out["load"], _, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu")
+    for flag in W.LOAD_FLAGS:
+        out[f"load/{flag}"], _, _ = load_model(random_weights="tiny", dtype=torch.float32,
+                                               device="cpu", **({flag: True} if flag else {}))
+    ids, mask, img, img_mask = map(W._t, W.generate_inputs(cfg))
+    for name, (flag, w8a8, caches) in W.QUANT_CASES.items():
+        qp, _, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
+                              **{flag: True})
+        out[f"quant/{name}"] = W.quant_generate(qp, cfg, (ids.long(), mask, img, img_mask),
+                                                w8a8, caches)
+    qp, _, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
+                          load_8bit_towers=True)
+    out["quant/towers"] = W.stream_cases(qp, cfg)["stream"]
     from vidi_tpu_torch.infer import pipeline
 
     frames, chunks = W.stream_frames(cfg)
@@ -439,28 +507,33 @@ def test_shared_caches_match_one_process(ranks, single, layout, case):
     _logits_match(layout, ranks[layout], f"shared/{case}", 4, single["shared_logits"])
 
 
+def _check_load(results, single, layout, flag):
+    """Each rank's leaves of `load_model(mesh=, **{flag: True})` are their
+    `storage_cuts` slice of one process's load, stored K-major where it is
+    (the int8 towers), and made whole again they are its leaves, bit for
+    bit. -> the number of cut leaves."""
+    params = single[f"load/{flag}"]
+    want = {key: p for key, _, p in leaves(params)}
+    mesh_shape = dict(zip(("data", "seq", "model"), layout))
+    n_cut = 0
+    for r, res in enumerate(results):
+        got = res[f"load/{flag}"]
+        mesh = Mesh(mesh_shape, rank=r)
+        for path, shape, depth in sharding._stacked_paths(params):
+            key = "/".join(map(str, path))
+            cuts = sharding.storage_cuts(path, shape, depth, mesh)
+            assert torch.equal(got["local"][key], sharding._local_cut(want[key], cuts, mesh)), \
+                (r, key)
+            assert got["kmajor"][key] == sharding._kmajor(want[key]), (r, key)
+            n_cut += cuts != (None, None)
+    for key, w in results[0][f"load/{flag}"]["whole"].items():
+        assert torch.equal(w, want[key]), key
+    return n_cut
+
+
 @pytest.mark.parametrize("layout", LAYOUTS, ids=IDS)
 def test_load_model_cuts_each_leaf(ranks, single, layout):
-    """Each rank's leaves are their `storage_cuts` slice of one process's
-    load, and made whole again they are its leaves, bit for bit."""
-    want = {key: p for key, _, p in leaves(single["load"])}
-    mesh_shape = dict(zip(("data", "seq", "model"), layout))
-    for r, res in enumerate(ranks[layout]):
-        mesh = Mesh(mesh_shape, rank=r)
-        n_cut = 0
-        for path, shape, depth in sharding._stacked_paths(single["load"]):
-            key = "/".join(map(str, path))
-            zero, mdim = sharding.storage_cuts(path, shape, depth, mesh)
-            w = want[key]
-            if zero is not None:
-                w = sharding._local_slice(w, zero[0], zero[1], mesh)
-            if mdim is not None:
-                w = sharding._local_slice(w, mdim, ("model",), mesh)
-            assert torch.equal(res["load"]["local"][key], w), (r, key)
-            n_cut += zero is not None or mdim is not None
-        assert n_cut >= 10
-    for key, w in ranks[layout][0]["load"]["whole"].items():
-        assert torch.equal(w, want[key]), key
+    assert _check_load(ranks[layout], single, layout, "") >= 40
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=IDS)
@@ -512,22 +585,111 @@ def test_pipeline_model_ranks_match_one_process(spawned, clips, capsys, jax_refs
 
 
 # ---------------------------------------------------------------------------
-# the refusals that stay (ROADMAP Q1.16c), and one process asking for ranks
+# (iv) int8 / int4 weights under a mesh, and the train step under "model"
 # ---------------------------------------------------------------------------
 
+def _quant_close(got, want, msg):
+    limit = QUANT_TOL * float(np.abs(np.asarray(want)).max())
+    err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+    assert err <= limit, f"{msg}: max |err| {err:.3e} over {limit:.3e}"
+
+
 @pytest.mark.parametrize("flag", ["load_8bit", "load_4bit", "load_8bit_towers"])
-def test_quantized_weights_under_a_mesh_raise(flag):
-    with pytest.raises(NotImplementedError, match="Q1.16c"):
-        load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
-                   mesh=Mesh({"seq": 2}), **{flag: True})
+def test_quantized_load_cuts_each_leaf(ranks, single, flag):
+    """`load_model(mesh=)` quantizes each layer as it is drawn, then cuts it:
+    under (1, 2, 2) each rank holds the cuts of one process's int8 / int4
+    leaves (their codes and scales cut as `storage_cuts` says), and they
+    rebuild it whole."""
+    assert _check_load(ranks[LAYOUTS[1]], single, LAYOUTS[1], flag) >= 40
 
 
-def test_train_step_under_model_cut_raises():
-    from vidi_tpu_torch.train.train_step import value_and_grads
+@pytest.mark.parametrize("case", list(W.QUANT_CASES))
+@pytest.mark.parametrize("layout", QUANT_LAYOUTS, ids=QUANT_IDS)
+def test_quantized_generate_matches_jax_and_one_process(ranks, single, jax_quant, layout,
+                                                        case):
+    """Weight-only int8, W8A8 with int8 caches (the row-cut products
+    quantized by the model group's row absmax) and int4 loaded under the
+    mesh: greedy tokens equal to JAX's generate under its (1, 2, 2) mesh
+    and to one process's, step-0 logits within QUANT_TOL of max |logit| of
+    both (and step 1's of one process's)."""
+    res = ranks[layout]
+    want, jwant = single[f"quant/{case}"], jax_quant[case]
+    for key in ("tokens", "lengths"):
+        got = _gathered_rows(layout, res, f"quant/{case}", key, 2)
+        assert torch.equal(got, want[key]), (case, key)
+        np.testing.assert_array_equal(got.numpy(), jwant[key])
+    l0 = _gathered_rows(layout, res, f"quant/{case}", "logits0", 2)
+    _quant_close(l0, jwant["logits0"], f"{case} logits0 vs JAX")
+    for key in ("logits0", "logits1"):
+        _quant_close(_gathered_rows(layout, res, f"quant/{case}", key, 2), want[key],
+                     f"{case} {key} vs one process")
 
+
+@pytest.mark.parametrize("layout", QUANT_LAYOUTS, ids=QUANT_IDS)
+def test_w8a8_local_absmax_fault_moves_the_logits(ranks, single, layout):
+    """The planted fault: each rank quantizing its slice of a row-cut
+    product by its own absmax moves the step-0 logits past QUANT_TOL."""
+    got = _gathered_rows(layout, ranks[layout], "quant/w8a8_fault", "logits0", 2)
+    with pytest.raises(AssertionError, match="max |err|"):
+        _quant_close(got, single["quant/w8a8"]["logits0"], "fault")
+
+
+@pytest.mark.parametrize("layout", QUANT_LAYOUTS, ids=QUANT_IDS)
+def test_int8_towers_stream_matches_one_process(ranks, single, layout):
+    """The streamed encode through int8 towers loaded under the mesh: each
+    rank's frames' stream, that slice of one process's."""
+    img, mask = single["quant/towers"]["img"], single["quant/towers"]["mask"]
+    seq = layout[1]
+    per_frame = img.shape[1] // 5
+    for r, res in enumerate(ranks[layout]):
+        s = _coords(layout, r)[1]
+        n = -(-5 // seq)
+        lo, hi = n * s * per_frame, min(n * (s + 1), 5) * per_frame
+        got = res["quant/towers"]
+        np.testing.assert_allclose(got["img"][:, :hi - lo].numpy(), img[:, lo:hi].numpy(),
+                                   rtol=CACHE_TOL, atol=CACHE_TOL)
+        assert torch.equal(got["mask"][:, :hi - lo], mask[:, lo:hi])
+
+
+def test_kmajor_leaf_cut_and_gathered_keeps_its_layout(ranks):
+    """A K-major int8 matrix (a tower weight's layout) cut over the world
+    stays K-major on each rank, and gathered back it is the whole matrix,
+    K-major, so that K5 reads it without a copy."""
+    w = torch.arange(64 * 48, dtype=torch.int8).reshape(48, 64).t()
+    for r, res in enumerate(ranks[LAYOUTS[1]]):
+        got = res["kmajor_cut"]
+        assert got["cut_kmajor"] and got["back_kmajor"]
+        assert torch.equal(got["cut"], w[r * 16:(r + 1) * 16])
+        assert torch.equal(got["back"], w)
+
+
+def test_train_step_under_model_cut_runs():
+    """value_and_grads under Mesh({"model": 2}) (a mesh of a shape, whole
+    weights: no collective is reached) runs, and gives the loss and the
+    gradients of no mesh, bit for bit; "model" must divide the KV heads."""
+    from vidi_tpu_torch.train.optimizer import TrainHParams, make_optimizer
+    from vidi_tpu_torch.train.train_step import make_batch_hw, value_and_grads
+    from vidi_tpu_torch.train.data import synthetic_batch, to_device
+
+    cfg = W.tiny_cfg()
+    params = dattn.init_params(cfg, torch.float32, "cpu", 0)
+    labels = make_optimizer(params, TrainHParams()).labels
+    b = synthetic_batch(cfg, b=1, t=8, n_frames=1, n_windows=1, seed=0)
+    kw = dict(labels=labels, cfg=cfg, hw=make_batch_hw(cfg, 1), frozen=("vision", "audio"))
+    want = value_and_grads(params, to_device(b, "cpu"), None, **kw)
     with sharding.use_mesh(Mesh({"model": 2})):
-        with pytest.raises(NotImplementedError, match="Q1.16c"):
-            value_and_grads({}, {}, None, labels={}, cfg=W.tiny_cfg(), hw=(2, 2))
+        got = value_and_grads(params, to_device(b, "cpu"), None, **kw)
+    assert torch.equal(got[0], want[0])
+    assert got[1].keys() == want[1].keys()
+    assert all(torch.equal(got[1][k], want[1][k]) for k in want[1])
+    with sharding.use_mesh(Mesh({"model": 4})):
+        with pytest.raises(ValueError, match="KV heads"):
+            value_and_grads(params, to_device(b, "cpu"), None, **kw)
+
+
+# ---------------------------------------------------------------------------
+# one process asking for ranks
+# ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("flag", ["--seq-parallel", "--model-parallel"])

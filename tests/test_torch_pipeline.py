@@ -13,16 +13,15 @@ import sys
 
 import numpy as np
 import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
 from vidi_tpu.core.config import DattnConfig
 from vidi_tpu.infer import pipeline as jpipe
 from vidi_tpu.media.text import ByteTokenizer
-from vidi_tpu.models import dattn as jdattn
 from vidi_tpu_torch.infer import pipeline as tpipe
 from vidi_tpu_torch.infer.convert import params_from_jax
+from torch_init import port_init  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -41,7 +40,7 @@ def clip(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def model():
-    jp = jdattn.init_params(jax.random.PRNGKey(3), CFG, jnp.float32)
+    jp = port_init(CFG, 3)
     return jp, params_from_jax(jax.device_get(jp))
 
 

@@ -130,6 +130,40 @@ def test_quant_gated_mlp_matches_pallas(dtype, act):
     np.testing.assert_allclose(got.float().numpy(), _np(want), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_row_scale_mode_with_its_own_absmax_is_bit_equal(dtype):
+    """K6's row-scale mode given the absmax `quantize_act` takes itself (a
+    row of zeros included: its scale is 1) is today's call, bit for bit,
+    and `row_amax_plain` is that absmax."""
+    _, tw = _wq(13, (384, 208))
+    _, tx = _pair(_x(14, (2, 29, 384)), dtype)
+    tx[1, 3] = 0
+    own = tx.float().abs().amax(-1)
+    assert torch.equal(tqm.row_amax_plain(tx), own) and torch.equal(tqm.row_amax(tx), own)
+    for given in (own, tqm.row_amax(tx)):
+        got = tqm.quant_matmul_plain(tx, tw["qi8"], tw["scale"], amax=given)
+        assert torch.equal(got, tqm.quant_matmul(tx, tw["qi8"], tw["scale"]))
+
+
+def test_row_scale_mode_sums_k_halves_to_the_whole_product():
+    """Two halves of K, each quantized by the shared row absmax (the max of
+    the halves' `row_amax`), each rescaled, summed: the whole product
+    within 1e-6 relative; each half's own absmax re-rounds its codes."""
+    _, tw = _wq(15, (512, 96))
+    _, tx = _pair(_x(16, (40, 512)), "float32")
+    tx[:, 7] *= 30  # the row's absmax in the first half
+    halves = [(tx[:, :256], tw["qi8"][:256]), (tx[:, 256:], tw["qi8"][256:])]
+    shared = torch.maximum(*(tqm.row_amax(x) for x, _ in halves))
+    whole = tqm.quant_matmul(tx, tw["qi8"], tw["scale"])
+
+    def summed(amax):
+        return sum(tqm.quant_matmul(x, w, tw["scale"], amax=amax) for x, w in halves)
+
+    rel = float((summed(shared) - whole).norm() / whole.norm())
+    assert rel <= 1e-6, rel
+    assert float((summed(None) - whole).norm() / whole.norm()) > 1e-3
+
+
 def test_int8_dot_is_exact_past_fp32():
     """K = 14,336 rows of +-127: sums up to 2.3e8, past fp32's 2^24."""
     xq = torch.full((2, 14336), 127, dtype=torch.int8)

@@ -12,16 +12,15 @@ import os
 import sys
 
 import jax
-import jax.numpy as jnp
 import pytest
 import torch
 
 from vidi_tpu.core.config import DattnConfig
 from vidi_tpu.infer import run_benchmark as jrb
 from vidi_tpu.media.text import ByteTokenizer
-from vidi_tpu.models import dattn as jdattn
 from vidi_tpu_torch.infer import run_benchmark as trb
 from vidi_tpu_torch.infer.convert import params_from_jax
+from torch_init import port_init  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -50,7 +49,7 @@ def videos(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def model():
-    jp = jdattn.init_params(jax.random.PRNGKey(11), CFG, jnp.float32)
+    jp = port_init(CFG, 11)
     return jp, params_from_jax(jax.device_get(jp))
 
 

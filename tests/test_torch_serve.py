@@ -39,6 +39,7 @@ from vidi_tpu_torch.models import dattn as tdattn
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 from make_example import make_video  # noqa: E402
+from torch_init import port_init  # noqa: E402
 
 CFG = DattnConfig.tiny()
 NEW = 8
@@ -68,10 +69,16 @@ def clips(tmp_path_factory):
     return a, b
 
 
+def _init(cfg, seed):
+    """(vidi_tpu's parameters, the port's): the port's init in vidi_tpu's
+    layout (tests/torch_init.py)."""
+    jp = port_init(cfg, seed)
+    return jp, params_from_jax(jax.device_get(jp))
+
+
 @pytest.fixture(scope="module")
 def model():
-    jp = jdattn.init_params(jax.random.PRNGKey(5), CFG, jnp.float32)
-    return jp, params_from_jax(jax.device_get(jp))
+    return _init(CFG, 5)
 
 
 @pytest.fixture(scope="module")
@@ -79,8 +86,27 @@ def draft():
     t = dataclasses.replace(CFG.text, num_layers=2, hidden_size=32, num_heads=2,
                             num_kv_heads=1, head_dim=8, intermediate_size=64)
     dcfg = dataclasses.replace(CFG, text=t)
-    jd = jdattn.init_params(jax.random.PRNGKey(9), dcfg, jnp.float32)
-    return (jd, dcfg), (params_from_jax(jax.device_get(jd)), dcfg)
+    jd, td = _init(dcfg, 9)
+    return (jd, dcfg), (td, dcfg)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_encodes():
+    """vidi_tpu's encode_media memoized for the module by (weights, clip,
+    options): the reference's loop encodes the same two clips in every
+    case, op by op (~2 s a call), and its features are a function of
+    those alone. The port's loop encodes every time."""
+    real, memo = jpipe.encode_media, {}
+
+    def encode(params, cfg, path, **kw):
+        key = (id(params), cfg, path, tuple(sorted(kw.items())))
+        if key not in memo:
+            memo[key] = real(params, cfg, path, **kw)
+        return memo[key]
+
+    jpipe.encode_media = encode
+    yield
+    jpipe.encode_media = real
 
 
 def _queue(items):

@@ -33,6 +33,7 @@ from vidi_tpu_torch.infer import pipeline as tpipe
 from vidi_tpu_torch.infer.convert import params_from_jax
 from vidi_tpu_torch.models import dattn as tdattn
 from vidi_tpu_torch.models import decoder as tdecoder
+from torch_init import port_init  # noqa: E402
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "scripts"))
@@ -60,7 +61,7 @@ def _embed_scaled(jp):
 
 @pytest.fixture(scope="module")
 def model():
-    jp = _embed_scaled(jdattn.init_params(jax.random.PRNGKey(0), CFG, jnp.float32))
+    jp = _embed_scaled(port_init(CFG, 0))
     return jp, params_from_jax(jax.device_get(jp))
 
 
@@ -71,7 +72,7 @@ def draft():
     text = dataclasses.replace(CFG.text, num_layers=2, hidden_size=32, num_heads=2,
                                num_kv_heads=1, head_dim=8, intermediate_size=64)
     dcfg = dataclasses.replace(CFG, text=text)
-    jp = _embed_scaled(jdattn.init_params(jax.random.PRNGKey(9), dcfg, jnp.float32))
+    jp = _embed_scaled(port_init(dcfg, 9))
     jp = {"text": jp["text"]}
     return (jp, dcfg), (params_from_jax(jax.device_get(jp)), dcfg)
 

@@ -15,12 +15,12 @@ import torch
 
 from vidi_tpu.constants import IGNORE_INDEX
 from vidi_tpu.core.config import DattnConfig
-from vidi_tpu.models import dattn as jdattn
 from vidi_tpu.train import losses as jlosses
 from vidi_tpu.train import optimizer as jopt
 from vidi_tpu_torch.infer.convert import params_from_jax
 from vidi_tpu_torch.train import losses as tlosses
 from vidi_tpu_torch.train import optimizer as topt
+from torch_init import port_init  # noqa: E402
 
 TOL = 1e-6
 CFG = DattnConfig.tiny()
@@ -40,7 +40,7 @@ def _jax_leaf(tree, path):
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jax.device_get(jdattn.init_params(jax.random.PRNGKey(0), CFG, jnp.float32))
+    jp = jax.device_get(port_init(CFG, 0))
     return jp, params_from_jax(jp)
 
 

@@ -24,7 +24,6 @@ import torch
 
 from vidi_tpu.constants import IGNORE_INDEX
 from vidi_tpu.core.config import DattnConfig
-from vidi_tpu.models import dattn as jdattn
 from vidi_tpu.ops.pallas import flash_attention as jfa
 from vidi_tpu.ops.pallas import tower_attention as jta
 from vidi_tpu.train import optimizer as jopt
@@ -35,6 +34,7 @@ from vidi_tpu_torch.models import dattn as tdattn
 from vidi_tpu_torch.train import optimizer as topt
 from vidi_tpu_torch.train import train_step as tstep
 from vidi_tpu_torch.train.data import to_device
+from torch_init import port_init  # noqa: E402
 
 jfa.INTERPRET = True
 jta.INTERPRET = True
@@ -98,7 +98,7 @@ def _noise(rng, batch):
 
 @pytest.fixture(scope="module")
 def params():
-    jp = jax.device_get(jdattn.init_params(jax.random.PRNGKey(0), CFG, jnp.float32))
+    jp = jax.device_get(port_init(CFG, 0))
     return jp, params_from_jax(jp)
 
 

@@ -61,6 +61,7 @@ from vidi_tpu_torch.models import dattn as tdattn
 from vidi_tpu_torch.models import decoder as tdecoder
 from vidi_tpu_torch.models import siglip as tsiglip
 from vidi_tpu_torch.ops import preprocess as tpre
+from torch_init import stacked  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -87,11 +88,12 @@ def _close(got, want, tol=TOL, msg=""):
 
 @pytest.fixture(scope="module")
 def models():
-    """{"G=2" | "G=4": (jax params, port params)}, vidi_tpu's init."""
+    """{"G=2" | "G=4": (jax params, port params)}: the port's init in
+    vidi_tpu's layout (`init_both`), on the device once."""
     out = {}
     for name, cfg in CFGS.items():
-        jp = jdattn.init_params(jax.random.PRNGKey(0), cfg, jnp.float32)
-        out[name] = (jp, params_from_jax(jax.device_get(jp)))
+        jp, tp = init_both(cfg)
+        out[name] = (jax.tree.map(jnp.asarray, jp), tp)
     return out
 
 
@@ -466,12 +468,6 @@ def init_both(cfg, seed: int = 0):
     port's init, stacked into vidi_tpu's layout (numpy leaves, [L, ...]
     layers) and read back through params_from_jax. It takes a fraction of a
     second where vidi_tpu's init takes seconds to compile."""
-    def stacked(tree):
-        if isinstance(tree, dict):
-            return {k: jax.tree.map(lambda *xs: np.stack(xs), *map(stacked, v))
-                    if k == "layers" and isinstance(v, list) else stacked(v)
-                    for k, v in tree.items()}
-        return tree.numpy()
     jp = stacked(tdattn.init_params(cfg, torch.float32, "cpu", seed))
     return jp, params_from_jax(jp)
 

@@ -1,14 +1,15 @@
 """One rank of the multi-rank inference checks of
 tests/test_torch_parallel_infer.py.
 
-    RANK=r WORLD_SIZE=4 MASTER_ADDR=localhost MASTER_PORT=p \\
-        python tests/torch_parallel_infer_worker.py OUT_DIR DATA SEQ MODEL
+    RANK=r WORLD_SIZE=n MASTER_ADDR=localhost MASTER_PORT=p \\
+        python tests/torch_parallel_infer_worker.py OUT_DIR DATA SEQ MODEL [quant]
 
 Builds the (DATA, SEQ, MODEL) gloo mesh (`core.mesh.make_mesh`), cuts the
 tiny model's weights to this rank's shards (`sharding.shard_params`, the
 "model" cut included), runs the serving path on this rank's query rows and
-stream slice, and writes its results to OUT_DIR/rank<r>.pt. It imports the
-port and never jax. The inputs come from numpy seeds (`generate_inputs`,
+stream slice (under MODEL > 1 also on int8 / int4 weights loaded under
+the mesh; with `quant` only those and the loads), and writes its results
+to OUT_DIR/rank<r>.pt. It imports the port and never jax. The inputs come from numpy seeds (`generate_inputs`,
 `query_rows`), which the test calls too.
 """
 from __future__ import annotations
@@ -180,22 +181,96 @@ def stream_cases(params, cfg) -> dict:
     return {"stream": {"img": img, "mask": mask}}
 
 
-def load_cases(mesh) -> dict:
-    """`load_model(random_weights="tiny", mesh=)`: this rank's leaves, and
-    every leaf made whole again (`sharding.whole`) on rank 0."""
+LOAD_FLAGS = ("", "load_8bit", "load_4bit", "load_8bit_towers")
+
+
+def load_cases(mesh, flags=LOAD_FLAGS) -> dict:
+    """`load_model(random_weights="tiny", mesh=)`, plain and with each
+    quantized format of `flags`: this rank's leaves (with whether each is
+    stored K-major), and every leaf made whole again (`sharding.whole`) on
+    rank 0. And a K-major matrix cut over the world and gathered back."""
     from vidi_tpu_torch.core.tree import leaves
     from vidi_tpu_torch.infer.loader import load_model
     from vidi_tpu_torch.parallel import sharding
 
-    params, _, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
-                              mesh=mesh)
-    local = {key: p.clone() for key, _, p in leaves(params)}
-    whole = {key: sharding.whole(p) for key, _, p in leaves(params)}
-    return {"load": {"local": local, "whole": whole if mesh.rank == 0 else None}}
+    out = {}
+    for flag in flags:
+        params, _, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
+                                  mesh=mesh, **({flag: True} if flag else {}))
+        local = {key: p.clone() for key, _, p in leaves(params)}
+        kmajor = {key: sharding._kmajor(p) for key, _, p in leaves(params)}
+        whole = {key: sharding.whole(p) for key, _, p in leaves(params)}
+        out[f"load/{flag}"] = {"local": local, "kmajor": kmajor,
+                               "whole": whole if mesh.rank == 0 else None}
+    w = torch.arange(64 * 48, dtype=torch.int8).reshape(48, 64).t()  # K-major [64, 48]
+    cut = sharding._cut_leaf(w, ((0, ("data", "seq", "model")), None), mesh, "cpu")
+    back = sharding.all_gather_dim(cut, 0, mesh.group(("data", "seq", "model")), mesh.size)
+    out["kmajor_cut"] = {"cut": cut.clone(), "cut_kmajor": sharding._kmajor(cut), "back": back,
+                         "back_kmajor": sharding._kmajor(back)}
+    return out
+
+
+# the quantized serving cases: name -> (load_model flag, W8A8 rows, int8
+# caches). W8A8 from 32 rows sends the stream's diagonal update (2 x 32
+# rows, 2 x 16 a rank under seq 2: its folded o, the gated MLP and its
+# down) through dynamic_qdense and keeps the prompt's 2 x 8 rows and the
+# decode steps weight-only: W8A8 on the prompt's rows flips int8 codes
+# that sit within an fp32 rounding of a boundary, by which vidi_tpu's and
+# the port's fp32 ops differ (the hidden states then differ by 1.8e-3 of
+# their largest, JAX run op by op, one process on each side).
+QUANT_CASES = {"q8": ("load_8bit", None, False), "w8a8": ("load_8bit", 32, True),
+               "q4": ("load_4bit", None, False)}
+
+
+def quant_generate(params, cfg, args, w8a8, caches: bool, fault: bool = False) -> dict:
+    """Greedy generate's tokens and the step logits under `w8a8`
+    (`qz.w8a8_min_tokens`); with `fault` each rank's W8A8 products take
+    their own row absmax (the planted fault), logits only."""
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.infer.generate import generate
+
+    keep = qz.w8a8_min_tokens, qz.shared_row_amax
+    qz.w8a8_min_tokens = w8a8
+    if fault:
+        qz.shared_row_amax = lambda x, wq: None
+    try:
+        with torch.no_grad():
+            l0, l1 = step_logits(params, cfg, *args, False, quantize_caches=caches)
+            if fault:
+                return {"logits0": l0, "logits1": l1}
+            res = generate(params, cfg, *args, max_new_tokens=NEW_TOKENS, eos_id=EOS,
+                           quantize_caches=caches)
+    finally:
+        qz.w8a8_min_tokens, qz.shared_row_amax = keep
+    return {"tokens": res.tokens, "lengths": res.lengths, "logits0": l0, "logits1": l1}
+
+
+def quant_cases(mesh) -> dict:
+    """`QUANT_CASES` on weights loaded quantized under the mesh (this
+    rank's rows and image slice), the W8A8 one also with the planted
+    fault; and the streamed encode through int8 towers."""
+    from vidi_tpu_torch.infer.loader import load_model
+
+    ids, mask, img, img_mask = generate_inputs(tiny_cfg())
+    rows, cut = _rows(mesh, ids.shape[0]), _cut(mesh, img.shape[1])
+    args = (_t(ids[rows]).long(), _t(mask[rows]), _t(img[rows, cut]),
+            _t(img_mask[rows, cut]))
+    out = {}
+    for name, (flag, w8a8, caches) in QUANT_CASES.items():
+        params, cfg, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
+                                    mesh=mesh, **{flag: True})
+        out[f"quant/{name}"] = quant_generate(params, cfg, args, w8a8, caches)
+        if name == "w8a8":
+            out["quant/w8a8_fault"] = quant_generate(params, cfg, args, w8a8, caches, True)
+    params, cfg, _ = load_model(random_weights="tiny", dtype=torch.float32, device="cpu",
+                                mesh=mesh, load_8bit_towers=True)
+    out["quant/towers"] = stream_cases(params, cfg)["stream"]
+    return out
 
 
 def main() -> None:
     out_dir, data, seq, model = sys.argv[1], *map(int, sys.argv[2:5])
+    only_quant = sys.argv[5:] == ["quant"]
     torch.set_num_threads(1)
     warnings.filterwarnings("ignore", category=FutureWarning)
     import torch.distributed as dist
@@ -210,10 +285,14 @@ def main() -> None:
     del full
     res = {}
     with sharding.use_mesh(mesh):
-        res.update(generate_cases(mesh, params, cfg))
-        res.update(shared_cases(mesh, params, cfg))
-        res.update(stream_cases(params, cfg))
-    res.update(load_cases(mesh))
+        if not only_quant:
+            res.update(generate_cases(mesh, params, cfg))
+            res.update(shared_cases(mesh, params, cfg))
+            res.update(stream_cases(params, cfg))
+        if model > 1:
+            res.update(quant_cases(mesh))
+    if not only_quant:  # the quantized loads are checked at (1, 2, 2)
+        res.update(load_cases(mesh, LOAD_FLAGS if model > 1 else LOAD_FLAGS[:1]))
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

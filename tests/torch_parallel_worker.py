@@ -1,13 +1,15 @@
 """One rank of the multi-rank CPU checks of tests/test_torch_parallel.py.
 
     RANK=r WORLD_SIZE=4 MASTER_ADDR=localhost MASTER_PORT=p \\
-        python tests/torch_parallel_worker.py OUT_DIR DATA SEQ
+        python tests/torch_parallel_worker.py OUT_DIR DATA SEQ [MODEL]
 
-Builds the (DATA, SEQ, 1) gloo mesh (`core.mesh.make_mesh`), runs every
+Builds the (DATA, SEQ, MODEL) gloo mesh (`core.mesh.make_mesh`), runs every
 case on this rank's rows and stream slice and writes its results to
 OUT_DIR/rank<r>.pt; the test assembles the ranks' pieces. It imports the
 port and never jax. The inputs come from numpy seeds (`attention_inputs`,
-`forward_inputs`, `train_batch`, `image_batch`), which the test calls too.
+`forward_inputs`, `train_batch`, `image_batch`), which the test calls too;
+under MODEL > 1 the position noise draws of the train steps are JAX's,
+which the test writes to OUT_DIR/noise.pt before it starts the ranks.
 """
 from __future__ import annotations
 
@@ -66,14 +68,12 @@ def train_hparams():
                         train_vis=True, train_aud=True)
 
 
-def train_batch(cfg, step: int):
-    """The global batch of a step: two rows, 3 frames (an uneven cut over
-    seq 2) of which row 1 has 2, one Whisper window (seq rank 1 holds only
-    padding) of which row 1 has 0.6; row 1's text right-padded. With its
-    position noise draws (global)."""
+def train_arrays(cfg, step: int):
+    """(numpy global batch of a step, hw): two rows, 3 frames (an uneven cut
+    over seq 2) of which row 1 has 2, one Whisper window (seq rank 1 holds
+    only padding) of which row 1 has 0.6; row 1's text right-padded."""
     from vidi_tpu_torch.constants import IGNORE_INDEX
-    from vidi_tpu_torch.models import dattn
-    from vidi_tpu_torch.train.data import synthetic_batch, to_device
+    from vidi_tpu_torch.train.data import synthetic_batch
     from vidi_tpu_torch.train.train_step import make_batch_hw
 
     b = synthetic_batch(cfg, b=2, t=24, n_frames=3, n_windows=1, seed=10 + step)
@@ -81,10 +81,38 @@ def train_batch(cfg, step: int):
     b["audio_sizes"][1] = 1800
     b["text_mask"][1, 19:] = False
     b["labels"][1, 19:] = IGNORE_INDEX
-    hw = make_batch_hw(cfg, int(b["frame_counts"].sum()))
+    return b, make_batch_hw(cfg, int(b["frame_counts"].sum()))
+
+
+def train_batch(cfg, step: int):
+    """The global batch of a step (`train_arrays`) with its position noise
+    draws (global)."""
+    from vidi_tpu_torch.models import dattn
+    from vidi_tpu_torch.train.data import to_device
+
+    b, hw = train_arrays(cfg, step)
     gen = torch.Generator().manual_seed(100 + step)
     noise = dattn.draw_pos_noise(cfg, 2, 3, 1, hw, gen)
     return to_device(b, "cpu"), noise, hw
+
+
+# the (1, 2, 2) steps: as __graft_entry__.dryrun_multichip(4) runs JAX's
+# (towers frozen), with the gradient clipped (the first step's global norm
+# is 19.6)
+MODEL_HP = dict(learning_rate=1e-3, mm_rand_lr=1e-3, total_steps=4, grad_clip=5.0)
+MODEL_FROZEN = ("vision", "audio")
+
+
+def model_batch_fn(noise):
+    """batch_fn of `train_cases` taking each step's position noise from
+    `noise` (JAX's draws, one dict a step)."""
+    from vidi_tpu_torch.train.data import to_device
+
+    def fn(cfg, step):
+        b, hw = train_arrays(cfg, step)
+        return to_device(b, "cpu"), noise[step], hw
+
+    return fn
 
 
 IMAGE_GRIDS = ((2, 2), (1, 3))  # (gw, gh): 5 and 4 tiles with the base view
@@ -181,11 +209,14 @@ def forward_cases(mesh, params, cfg) -> dict:
     return out
 
 
-def train_cases(mesh, cfg, batch_fn=train_batch, name: str = "train") -> dict:
+def train_cases(mesh, cfg, batch_fn=train_batch, name: str = "train", hp=None,
+                frozen=()) -> dict:
     """Two FSDP steps in each mode from the same init on the global batches
-    of `batch_fn`: the step losses, the first step's gradients and the
-    parameters after both (this rank's slices), and every leaf's and
-    moment's local / whole element counts."""
+    of `batch_fn`: the step losses, the first step's gradients (this
+    rank's slices, and their global squared norm as `sharding.sq_norm`
+    counts it for the clip) and the parameters after both (this rank's
+    slices), and every leaf's and moment's local / whole element counts. `hp`: the optimizer's
+    TrainHParams (default `train_hparams()`); `frozen`: the step's."""
     from vidi_tpu_torch.models import dattn
     from vidi_tpu_torch.parallel import sharding
     from vidi_tpu_torch.train.optimizer import leaves, make_optimizer
@@ -194,8 +225,8 @@ def train_cases(mesh, cfg, batch_fn=train_batch, name: str = "train") -> dict:
     out = {}
     for mode in MODES:
         full = dattn.init_params(cfg, torch.float32, "cpu", seed=0)
-        params = sharding.shard_params(full, mesh)
-        tx = make_optimizer(params, train_hparams())
+        params = sharding.shard_params(full, mesh, kv_heads=cfg.text.num_kv_heads)
+        tx = make_optimizer(params, hp or train_hparams())
         state = tx.init(params)
         sizes = {key: (p.numel(), w.numel()) for (key, _, p), (_, _, w)
                  in zip(leaves(params), leaves(full))}
@@ -206,22 +237,53 @@ def train_cases(mesh, cfg, batch_fn=train_batch, name: str = "train") -> dict:
         for step in range(TRAIN_STEPS):
             batch, noise, hw = batch_fn(cfg, step)
             batch, noise = sharding.data_rows(batch, 2), sharding.data_rows(noise, 2, 2)
-            kw = dict(cfg=cfg, hw=hw, remat=True, sp_mode=mode)
+            kw = dict(cfg=cfg, hw=hw, remat=True, sp_mode=mode, frozen=frozen)
             if step == 0:
                 loss, grads = value_and_grads(params, batch, noise, labels=tx.labels, **kw)
+                sq = sharding.sq_norm([(p, grads[key]) for key, _, p in leaves(params)
+                                       if key in grads], mesh)
                 tx.apply(params, grads, state)
             else:
                 params, state, loss = train_step(params, state, batch, noise, tx=tx, **kw)
             losses.append(float(loss))
         out[f"{name}/{mode}"] = {
             "losses": torch.tensor(losses, dtype=torch.float64), "grads": grads,
+            "sq_norm": float(sq),
             "params": {key: p.clone() for key, _, p in leaves(params)},
             "sizes": sizes}
     return out
 
 
+def model_train_cases(mesh, cfg, noise) -> dict:
+    """The (1, 2, 2) steps in each mode (`train_cases` with MODEL_HP, the
+    towers frozen, JAX's noise draws), and the first step's gradients with
+    the planted fault of `sharding.to_model`'s backward summing nothing."""
+    from vidi_tpu_torch.models import dattn
+    from vidi_tpu_torch.parallel import sharding
+    from vidi_tpu_torch.train.optimizer import TrainHParams, make_optimizer
+    from vidi_tpu_torch.train.train_step import value_and_grads
+
+    batch_fn = model_batch_fn(noise)
+    out = train_cases(mesh, cfg, batch_fn, "train_model", TrainHParams(**MODEL_HP),
+                      MODEL_FROZEN)
+    params = sharding.shard_params(dattn.init_params(cfg, torch.float32, "cpu", seed=0), mesh,
+                                   kv_heads=cfg.text.num_kv_heads)
+    tx = make_optimizer(params, TrainHParams(**MODEL_HP))
+    batch, step_noise, hw = batch_fn(cfg, 0)
+    keep = sharding._ToModel.backward
+    sharding._ToModel.backward = staticmethod(lambda ctx, g: (g, None))
+    try:
+        _, grads = value_and_grads(params, batch, step_noise, labels=tx.labels, cfg=cfg,
+                                   hw=hw, remat=True, frozen=MODEL_FROZEN)
+    finally:
+        sharding._ToModel.backward = keep
+    out["train_model_fault"] = {"grads": grads}
+    return out
+
+
 def main() -> None:
     out_dir, data, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+    model = int(sys.argv[4]) if len(sys.argv) > 4 else 1
     torch.set_num_threads(1)
     warnings.filterwarnings("ignore", category=FutureWarning)
     import torch.distributed as dist
@@ -229,13 +291,18 @@ def main() -> None:
     from vidi_tpu_torch.models import dattn
     from vidi_tpu_torch.parallel import sharding
 
-    mesh = make_mesh(data=data, seq=seq, device_type="cpu")
+    mesh = make_mesh(data=data, seq=seq, model=model, device_type="cpu")
     cfg = tiny_cfg()
     res = {}
     with sharding.use_mesh(mesh):
-        res.update(attention_cases(mesh))
-        res.update(all_to_all_cases(mesh))
-        res.update(forward_cases(mesh, dattn.init_params(cfg, torch.float32, "cpu", 0), cfg))
+        if model > 1:
+            noise = torch.load(os.path.join(out_dir, "noise.pt"))
+            res.update(model_train_cases(mesh, cfg, noise))
+        else:
+            res.update(attention_cases(mesh))
+            res.update(all_to_all_cases(mesh))
+            res.update(forward_cases(mesh, dattn.init_params(cfg, torch.float32, "cpu", 0),
+                                     cfg))
         if (data, seq) == (2, 2):
             res.update(train_cases(mesh, cfg))
             res.update(train_cases(mesh, image_cfg(), image_batch, "train_image"))

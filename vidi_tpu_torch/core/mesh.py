@@ -11,12 +11,12 @@ laid out row-major as `init_device_mesh` does:
   seq group holds a contiguous slice of the image / audio tokens, and the
   cross attention runs as "gspmd" (all-gather of partials), "ring" or
   "ulysses" (parallel/ring_attention.py, parallel/ulysses.py).
-- "model" : tensor parallelism of the text decoder in inference: each rank
-  holds its heads of q / k / v / o and its FFN columns of gate / up /
-  down (parallel/sharding.py `_TP_DIM`), the row partials summed over the
-  model group; "model" must divide the KV heads. Training under it (its
-  backward) is ROADMAP Q1.16c: the train step and the train CLI refuse a
-  mesh with model > 1.
+- "model" : tensor parallelism of the text decoder: each rank holds its
+  heads of q / k / v / o and its FFN columns of gate / up / down
+  (parallel/sharding.py `_TP_DIM`, their int8 / int4 forms too), the row
+  partials summed over the model group, and in training the column-cut
+  products' input gradients summed there; "model" must divide the KV
+  heads.
 
 `Mesh` also carries the process group of every subset of axes (the ranks
 that differ only along those axes), built once for all ranks in the same

@@ -190,7 +190,7 @@ template <typename T, int REGS, bool ACT>
 __global__ void __launch_bounds__(THREADS) quantize_rows_vec_kernel(
     const T* __restrict__ x, int K, const float* __restrict__ ln_s,
     const float* __restrict__ ln_b, float eps, int act, int8_t* __restrict__ xq,
-    float* __restrict__ sx) {
+    float* __restrict__ sx, const float* __restrict__ amax_in, float* __restrict__ amax_out) {
   constexpr int V = 16 / sizeof(T), NV = REGS / V;
   __shared__ float red[32];
   const long long row = blockIdx.x;
@@ -253,11 +253,19 @@ __global__ void __launch_bounds__(THREADS) quantize_rows_vec_kernel(
         for (int e = 0; e < V; ++e) v[j][e] = activate<T>(v[j][e], act);
   }
   float amax = 0.0f;
+  if (amax_in != nullptr) {
+    amax = amax_in[row];
+  } else {
 #pragma unroll
-  for (int j = 0; j < NV; ++j)
+    for (int j = 0; j < NV; ++j)
 #pragma unroll
-    for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(v[j][e]));
-  amax = block_reduce(amax, red, true);
+      for (int e = 0; e < V; ++e) amax = fmaxf(amax, fabsf(v[j][e]));
+    amax = block_reduce(amax, red, true);
+    if (amax_out != nullptr) {  // the reduction half alone
+      if (threadIdx.x == 0) amax_out[row] = amax;
+      return;
+    }
+  }
   const float s = amax > 0.0f ? amax / 127.0f : 1.0f;
   int8_t* qr = xq + row * K;
 #pragma unroll
@@ -288,7 +296,7 @@ template <typename T, bool ACT>
 __global__ void __launch_bounds__(THREADS) quantize_rows_kernel(
     const T* __restrict__ x, int K, const float* __restrict__ ln_s,
     const float* __restrict__ ln_b, float eps, int act, int8_t* __restrict__ xq,
-    float* __restrict__ sx) {
+    float* __restrict__ sx, const float* __restrict__ amax_in, float* __restrict__ amax_out) {
   __shared__ float red[32];
   const long long row = blockIdx.x;
   const T* xr = x + row * K;
@@ -315,8 +323,16 @@ __global__ void __launch_bounds__(THREADS) quantize_rows_kernel(
     return v;
   };
   float amax = 0.0f;
-  for (int i = threadIdx.x; i < K; i += THREADS) amax = fmaxf(amax, fabsf(value(i)));
-  amax = block_reduce(amax, red, true);
+  if (amax_in != nullptr) {
+    amax = amax_in[row];
+  } else {
+    for (int i = threadIdx.x; i < K; i += THREADS) amax = fmaxf(amax, fabsf(value(i)));
+    amax = block_reduce(amax, red, true);
+    if (amax_out != nullptr) {
+      if (threadIdx.x == 0) amax_out[row] = amax;
+      return;
+    }
+  }
   const float s = amax > 0.0f ? amax / 127.0f : 1.0f;
   int8_t* qr = xq + row * K;
   for (int i = threadIdx.x; i < K; i += THREADS)
@@ -328,26 +344,36 @@ inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 1
 
 template <typename T, bool ACT>
 cudaError_t quantize_rows_as(const T* x, int M, int K, const float* ln_s, const float* ln_b,
-                             float eps, int act, int8_t* xq, float* sx, cudaStream_t s) {
+                             float eps, int act, int8_t* xq, float* sx, const float* amax_in,
+                             float* amax_out, cudaStream_t s) {
   const bool vec = K % 16 == 0 && K <= THREADS * ROW_REGS && aligned16(x) && aligned16(xq) &&
                    aligned16(ln_s) && aligned16(ln_b);
   if (vec && K <= THREADS * ROW_REGS_SHORT)
     quantize_rows_vec_kernel<T, ROW_REGS_SHORT, ACT><<<M, THREADS, 0, s>>>(
-        x, K, ln_s, ln_b, eps, act, xq, sx);
+        x, K, ln_s, ln_b, eps, act, xq, sx, amax_in, amax_out);
   else if (vec)
-    quantize_rows_vec_kernel<T, ROW_REGS, ACT><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps,
-                                                                     act, xq, sx);
+    quantize_rows_vec_kernel<T, ROW_REGS, ACT><<<M, THREADS, 0, s>>>(
+        x, K, ln_s, ln_b, eps, act, xq, sx, amax_in, amax_out);
   else
-    quantize_rows_kernel<T, ACT><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps, act, xq, sx);
+    quantize_rows_kernel<T, ACT><<<M, THREADS, 0, s>>>(x, K, ln_s, ln_b, eps, act, xq, sx,
+                                                       amax_in, amax_out);
   return cudaGetLastError();
 }
 
 // act >= 0: each value goes through that activation before the quantize.
+// amax_in [M]: quantize row r by amax_in[r] / 127 (1 where it is 0) instead
+// of the row's own absmax: a product whose contraction dim is cut over
+// ranks quantizes each rank's slice of a row by the whole row's absmax.
+// amax_out [M]: the reduction half alone, each row's absmax written there
+// (xq / sx untouched).
 template <typename T>
 cudaError_t quantize_rows(const T* x, int M, int K, const float* ln_s, const float* ln_b,
-                          float eps, int8_t* xq, float* sx, cudaStream_t s, int act = -1) {
-  return act >= 0 ? quantize_rows_as<T, true>(x, M, K, ln_s, ln_b, eps, act, xq, sx, s)
-                  : quantize_rows_as<T, false>(x, M, K, ln_s, ln_b, eps, act, xq, sx, s);
+                          float eps, int8_t* xq, float* sx, cudaStream_t s, int act = -1,
+                          const float* amax_in = nullptr, float* amax_out = nullptr) {
+  return act >= 0 ? quantize_rows_as<T, true>(x, M, K, ln_s, ln_b, eps, act, xq, sx, amax_in,
+                                              amax_out, s)
+                  : quantize_rows_as<T, false>(x, M, K, ln_s, ln_b, eps, act, xq, sx, amax_in,
+                                               amax_out, s);
 }
 
 // ---- the GEMM -----------------------------------------------------------

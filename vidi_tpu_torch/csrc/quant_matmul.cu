@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas kernels of vidi_tpu/ops/pallas/quant_matmul.py:
 // `quant_matmul` (x [M, K] -> per-row int8 -> int8 x int8 -> int32 ->
-// x sx x sw per column -> cast) and stage 1 of `quant_gated_mlp` (one
+// x sx x sw per column -> cast; optionally by a per-row absmax the caller
+// gives, for a product whose K is cut over ranks) and stage 1 of `quant_gated_mlp` (one
 // shared quantize of x, the gate and up products, each rescaled and cast,
 // act(gate) * up in the activation dtype). The gated MLP's down projection
 // is a `quant_matmul` call of its own, as in JAX.
@@ -64,10 +65,11 @@ cudaError_t transpose_s8(const int8_t* w, int8_t* wt, int K, int N, cudaStream_t
 }
 
 template <typename T>
-cudaError_t quant_matmul(const void* x, int8_t* xq, float* sx, const int8_t* wt,
-                         const float* sw, void* out, int M, int N, int K, cudaStream_t s) {
+cudaError_t quant_matmul(const void* x, int8_t* xq, float* sx, const float* amax,
+                         const int8_t* wt, const float* sw, void* out, int M, int N, int K,
+                         cudaStream_t s) {
   cudaError_t err = vidi_int8::quantize_rows<T>(static_cast<const T*>(x), M, K, nullptr,
-                                                nullptr, 0.0f, xq, sx, s);
+                                                nullptr, 0.0f, xq, sx, s, -1, amax);
   if (err != cudaSuccess) return err;
   GemmArgs p = vidi_int8::gemm_args(xq, sx, M, N, K);
   p.b[0] = wt; p.sb[0] = sw; p.out[0] = out;
@@ -89,18 +91,37 @@ cudaError_t quant_gated(const void* x, int8_t* xq, float* sx, const int8_t* gt,
 }  // namespace
 
 // out [M, N] = cast((int8(x) . wt^T) * sx * sw); wt [N, K] is the weight's
-// K-major copy; xq / sx are the caller's scratch.
-extern "C" int vidi_quant_matmul(const void* x, void* xq, void* sx, const void* wt,
-                                 const void* sw, void* out, int M, int N, int K, int is_bf16,
-                                 void* stream) {
+// K-major copy; xq / sx are the caller's scratch. amax [M] fp32, or null:
+// the absmax each row is quantized by (the row-scale mode: a row-cut
+// product's rank quantizes its slice of K by the whole row's absmax, the
+// max of every rank's `vidi_row_amax`); null takes the row's own.
+extern "C" int vidi_quant_matmul(const void* x, void* xq, void* sx, const void* amax,
+                                 const void* wt, const void* sw, void* out, int M, int N, int K,
+                                 int is_bf16, void* stream) {
   auto q = static_cast<int8_t*>(xq);
   auto s = static_cast<float*>(sx);
+  auto am = static_cast<const float*>(amax);
   auto wi = static_cast<const int8_t*>(wt);
   auto wsc = static_cast<const float*>(sw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = is_bf16
-      ? quant_matmul<__nv_bfloat16>(x, q, s, wi, wsc, out, M, N, K, st)
-      : quant_matmul<float>(x, q, s, wi, wsc, out, M, N, K, st);
+      ? quant_matmul<__nv_bfloat16>(x, q, s, am, wi, wsc, out, M, N, K, st)
+      : quant_matmul<float>(x, q, s, am, wi, wsc, out, M, N, K, st);
+  return static_cast<int>(err);
+}
+
+// amax [M] = max |x[r, :]| of x [M, K] (bf16 or fp32) in fp32: the
+// reduction half of the row pass, one block a row.
+extern "C" int vidi_row_amax(const void* x, void* amax, int M, int K, int is_bf16,
+                             void* stream) {
+  auto am = static_cast<float*>(amax);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = is_bf16
+      ? vidi_int8::quantize_rows<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), M, K,
+                                                nullptr, nullptr, 0.0f, nullptr, nullptr, st,
+                                                -1, nullptr, am)
+      : vidi_int8::quantize_rows<float>(static_cast<const float*>(x), M, K, nullptr, nullptr,
+                                        0.0f, nullptr, nullptr, st, -1, nullptr, am);
   return static_cast<int>(err);
 }
 

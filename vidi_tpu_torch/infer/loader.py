@@ -23,10 +23,13 @@ each layer arrives, so the full-precision model never lies whole on the
 device beside its quantized copy.
 
 `load_model(..., mesh=)` (a `core.mesh.Mesh` of several ranks) returns
-this rank's shards (`parallel.sharding.shard_params`): each layer is cut
-as it is drawn or read (`sharding.layer_sharder`) and every other leaf
-once it is made, so a model larger than one card never stages whole on
-one. Quantized weights under such a mesh are ROADMAP Q1.16c.
+this rank's shards (`parallel.sharding.shard_params`): each layer is
+quantized (with the flags above) and then cut as it is drawn or read
+(`sharding.layer_sharder`, which cuts the leaves of an int8 / int4 weight
+too) and every other leaf once it is made (an int8 embedding by the
+ZeRO-3 spec of its path), so a model larger than one card never stages
+whole on one. Assembly (`mm_vision_tower`) under such a mesh is refused:
+assemble in one process and export first.
 
 Tokenizer: a directory without tokenizer files gives the byte tokenizer,
 with a printed note; one with them needs `transformers`, imported only
@@ -273,12 +276,7 @@ def load_model(model_path: Optional[str] = None,
     dev = resolve_device(device)
     text_fn, tower_fn = _quantizers(load_8bit, load_8bit_towers, load_4bit)
     overrides = _drop_none(mm_overrides)
-    if mesh is not None and mesh.size > 1:
-        if text_fn is not None or tower_fn is not None:
-            raise NotImplementedError(
-                "--load-8bit / --load-4bit / --load-8bit-towers under a mesh of "
-                "several ranks are ROADMAP Q1.16c")
-    else:
+    if mesh is not None and mesh.size == 1:
         mesh = None
 
     if random_weights is not None:
@@ -290,7 +288,9 @@ def load_model(model_path: Optional[str] = None,
                              f"got {random_weights!r}")
         cfg = dataclasses.replace(CONFIGS[random_weights](), **overrides)
         if mesh is not None:
-            params = dattn.init_params(cfg, dtype, dev, seed, layer_fns=_sharders(cfg, mesh))
+            params = dattn.init_params(cfg, dtype, dev, seed,
+                                       layer_fns=_sharders(cfg, mesh, text_fn, tower_fn))
+            _quantize_lm_head(params, text_fn, load_4bit)
             return _shard_rest(params, cfg, mesh), cfg, ByteTokenizer()
         params = dattn.init_params(cfg, dtype, dev, seed)
         for module, fn in (("text", text_fn), ("vision", tower_fn), ("audio", tower_fn)):
@@ -310,7 +310,7 @@ def load_model(model_path: Optional[str] = None,
                                       "in one process and export the model first")
         # the sharders need the layer counts before any layer is read
         fns = _sharders(dataclasses.replace(config_from_hf(_read_json(model_path)),
-                                            **overrides), mesh)
+                                            **overrides), mesh, text_fn, tower_fn)
         text_fn, tower_fn, audio_fn = fns["text"], fns["vision"], fns["audio"]
     for attempt in range(1, MAX_TRIES + 1):
         try:
@@ -335,21 +335,28 @@ def load_model(model_path: Optional[str] = None,
             print(f"load_model try {attempt} of {MAX_TRIES} failed: {e!r}")
             if attempt == MAX_TRIES:
                 raise
+    _quantize_lm_head(params, text_fn, load_4bit)
     if mesh is not None:
         return _shard_rest(params, cfg, mesh), cfg, load_tokenizer(model_path, cfg)
-    _quantize_lm_head(params, text_fn, load_4bit)
     return params, cfg, load_tokenizer(model_path, cfg)
 
 
-def _sharders(cfg: DattnConfig, mesh) -> dict:
-    """{"text" | "vision" | "audio": fn cutting a layer of that module to
-    this rank's shards as it arrives}; raises ValueError unless the mesh's
-    "model" size divides the KV heads."""
+def _sharders(cfg: DattnConfig, mesh, text_fn=None, tower_fn=None) -> dict:
+    """{"text" | "vision" | "audio": fn quantizing a layer of that module
+    (`text_fn` / `tower_fn` of `_quantizers`, where given) and cutting it to
+    this rank's shards as it arrives, as vidi_tpu's loader quantizes on
+    the host and then places}; raises ValueError unless the mesh's "model"
+    size divides the KV heads."""
     from vidi_tpu_torch.parallel import sharding
 
     sharding.check_model_cut(mesh, cfg.text.num_kv_heads)
-    return {m: sharding.layer_sharder(m, getattr(cfg, c).num_layers, mesh)
-            for m, c in (("text", "text"), ("vision", "vision"), ("audio", "audio"))}
+
+    def then(quantize, cut):
+        return cut if quantize is None else (lambda lp: cut(quantize(lp)))
+
+    return {m: then(text_fn if m == "text" else tower_fn,
+                    sharding.layer_sharder(m, getattr(cfg, m).num_layers, mesh))
+            for m in ("text", "vision", "audio")}
 
 
 def _shard_rest(params, cfg: DattnConfig, mesh):

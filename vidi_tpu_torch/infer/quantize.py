@@ -31,6 +31,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from vidi_tpu_torch.parallel import sharding
+
 QUANT_KEY = "qi8"
 QUANT4_KEY = "qi4"
 INT4_GROUP = 64  # int4 groups along the contraction dim
@@ -47,12 +49,14 @@ def is_quantized(w) -> bool:
     return isinstance(w, dict) and (QUANT_KEY in w or QUANT4_KEY in w)
 
 
-def _symmetric(xf: torch.Tensor, dim: int, qmax: int):
-    """(q int8, scale f32) with amax taken over `dim` of the fp32 values.
-    The divisor is a tensor on xf's device: on a CUDA tensor PyTorch divides
-    by a Python scalar as a multiply by its reciprocal, which can differ in
-    the last bit from the true quotient that JAX (and the kernels) take."""
-    amax = xf.abs().amax(dim=dim, keepdim=True)
+def _symmetric(xf: torch.Tensor, dim: int, qmax: int, amax=None):
+    """(q int8, scale f32) with amax taken over `dim` of the fp32 values, or
+    the `amax` given (keepdim's shape). The divisor is a tensor on xf's
+    device: on a CUDA tensor PyTorch divides by a Python scalar as a
+    multiply by its reciprocal, which can differ in the last bit from the
+    true quotient that JAX (and the kernels) take."""
+    if amax is None:
+        amax = xf.abs().amax(dim=dim, keepdim=True)
     scale = torch.where(amax > 0, amax / torch.full_like(amax, float(qmax)),
                         torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
@@ -106,25 +110,58 @@ def qdot(x: torch.Tensor, w) -> torch.Tensor:
         return x @ w
     if QUANT4_KEY in w:
         # group scales vary along the contraction: dequantize, then the product
-        return x @ dequantize_weight4(w, x.dtype)
+        return x @ dequantize_weight4(rank_groups(w), x.dtype)
     if w8a8_min_tokens is not None and math.prod(x.shape[:-1]) >= w8a8_min_tokens:
         return dynamic_qdense(x, w)
     y = x @ w[QUANT_KEY].to(x.dtype)
     return y * w["scale"].reshape(w["scale"].shape[-1]).to(y.dtype)
 
 
-def quantize_act(x: torch.Tensor):
-    """Dynamic per-row symmetric int8 -> (xq int8, sx f32 [..., 1])."""
-    return _symmetric(x.float(), -1, 127)
+def rank_groups(w: Dict) -> Dict:
+    """An int4 weight whose scale covers the contraction rows this rank
+    holds: `w` itself, unless its rows are cut on "model" and its scale
+    [G, 1, out] kept whole (G does not split over the model group, each
+    rank's rows lying inside one group), when the scale of that group."""
+    cut = sharding.model_cut(w[QUANT4_KEY])
+    if cut is None or cut.dim != 0 or sharding.model_cut(w["scale"]) is not None:
+        return w
+    rows, groups = 2 * w[QUANT4_KEY].shape[0], w["scale"].shape[0]
+    size = rows * cut.mesh.shape["model"] // groups  # contraction rows a group
+    if size % rows:
+        raise ValueError(f"int4 groups of {size} rows over model slices of {rows}")
+    return {**w, "scale": w["scale"].narrow(0, cut.mesh.coord("model") * rows // size, 1)}
+
+
+def quantize_act(x: torch.Tensor, amax=None):
+    """Dynamic per-row symmetric int8 -> (xq int8, sx f32 [..., 1]); `amax`
+    [...] (one a row): quantize by it instead of each row's own absmax."""
+    return _symmetric(x.float(), -1, 127, None if amax is None else amax[..., None])
 
 
 def dynamic_qdense(x: torch.Tensor, wq: Dict, bias=None) -> torch.Tensor:
     """x @ wq with per-row int8 activations: int8 x int8 -> int32, rescaled by
     the row and column scales, cast to x's dtype, then + bias in the bias's
     dtype. K6's `quant_matmul` on a CUDA tensor, its plain version on a CPU
-    tensor."""
+    tensor. Under a "model" cut of wq's contraction dim (o / down) each
+    row is quantized by the model group's row absmax (`shared_row_amax`),
+    and the result is this rank's row partial."""
     from vidi_tpu_torch.ops.cuda.quant_matmul import quant_matmul
-    return quant_matmul(x, wq[QUANT_KEY], wq["scale"][..., 0, :], bias)
+    return quant_matmul(x, wq[QUANT_KEY], wq["scale"][..., 0, :], bias,
+                        amax=shared_row_amax(x, wq))
+
+
+def shared_row_amax(x: torch.Tensor, wq: Dict):
+    """The absmax each row of x is quantized by in a W8A8 product with wq:
+    None (the row's own) unless wq is cut on "model" along its contraction
+    dim, when it is the max over the model group of every rank's absmax of
+    its slice of the row (K6's `row_amax`, then one all-reduce of an [M]
+    fp32 vector): the whole row's absmax, which JAX's GSPMD takes over the
+    unsplit contraction."""
+    cut = sharding.model_cut(wq[QUANT_KEY])
+    if cut is None or cut.dim != 0 or cut.mesh.shape["model"] == 1:
+        return None
+    from vidi_tpu_torch.ops.cuda.quant_matmul import row_amax
+    return sharding.model_max(row_amax(x))
 
 
 def quantize_tower_layer(lp: Dict) -> Dict:
@@ -161,6 +198,32 @@ def quantize_tower_params(tower_params: Dict) -> Dict:
     """A tower's encoder layers to int8 (see `quantize_tower_layer`)."""
     return {**tower_params,
             "layers": [quantize_tower_layer(lp) for lp in tower_params["layers"]]}
+
+
+def quantize_rows_cut(wf: torch.Tensor, bits: int, cut) -> Dict[str, torch.Tensor]:
+    """wf [in, out] fp32 quantized as `quantize_weight` (bits 8) or
+    `quantize_weight4` (bits 4) quantizes it, where wf is this rank's slice
+    of the contraction rows of a weight cut on "model" (`cut`, or None for
+    a whole weight): the per-column int8 scales take the column absmax over
+    the model group, int4 groups lie inside the slice; the codes are marked
+    with `cut`, so that a W8A8 product with them takes the group's row
+    absmax. The slice's codes and scales are those of the whole weight's."""
+    m = cut.mesh.shape["model"] if cut is not None else 1
+    whole = wf.shape[0] * m
+    if bits == 4 and whole % INT4_GROUP == 0:
+        if wf.shape[0] % INT4_GROUP:
+            raise ValueError(f"int4 groups of {INT4_GROUP} rows over model slices of "
+                             f"{wf.shape[0]}")
+        out = quantize_weight4(wf)
+        sharding.mark_model_cut(out["scale"], cut)
+    else:
+        amax = wf.abs().amax(dim=0, keepdim=True)
+        if cut is not None:
+            amax = sharding.model_max(amax)
+        q, scale = _symmetric(wf, 0, 127, amax)
+        out = {QUANT_KEY: q, "scale": scale}
+    sharding.mark_model_cut(out[QUANT4_KEY if QUANT4_KEY in out else QUANT_KEY], cut)
+    return out
 
 
 def quantize_embedding(w: torch.Tensor) -> Dict[str, torch.Tensor]:

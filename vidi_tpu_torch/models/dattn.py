@@ -526,7 +526,9 @@ def _heads(x: torch.Tensor, tcfg: TextConfig) -> torch.Tensor:
 
 
 def _qkv(lp, x, tcfg: TextConfig):
-    """q, k, v on the heads of the rank's q_w / k_w / v_w columns."""
+    """q, k, v on the heads of the rank's q_w / k_w / v_w columns (x's
+    gradient summed over the model group: `sharding.to_model`)."""
+    x = sharding.to_model(x, lp["q_w"])
     return (_heads(qdot(x, lp["q_w"]), tcfg), _heads(qdot(x, lp["k_w"]), tcfg),
             _heads(qdot(x, lp["v_w"]), tcfg))
 
@@ -536,7 +538,9 @@ def _fold_o_w(o_w, tcfg: TextConfig):
     summed in fp32 and re-rounded once to o_w's dtype (repeat(v, g) @ o_w ==
     v @ folded o_w); a "model" slice of o_w (whole KV heads' rows) folds
     the same way. A quantized o_w is dequantized to fp32, folded and
-    requantized in its own format."""
+    requantized in its own format; a "model" slice of it takes the column
+    absmax of the model group (`qz.quantize_rows_cut`), so that its codes
+    and scales are the slice of the whole fold's."""
     g = tcfg.num_heads // tcfg.num_kv_heads
     hd = tcfg.head_dim
 
@@ -545,8 +549,11 @@ def _fold_o_w(o_w, tcfg: TextConfig):
 
     if qz.is_quantized(o_w):
         if qz.QUANT4_KEY in o_w:
-            return qz.quantize_weight4(fold(qz.dequantize_weight4(o_w, torch.float32)))
-        return qz.quantize_weight(fold(qz.dequantize_weight(o_w, torch.float32)))
+            wf, bits = qz.dequantize_weight4(qz.rank_groups(o_w), torch.float32), 4
+        else:
+            wf, bits = qz.dequantize_weight(o_w, torch.float32), 8
+        cut = sharding.model_cut(o_w[qz.QUANT4_KEY if bits == 4 else qz.QUANT_KEY])
+        return qz.quantize_rows_cut(fold(wf), bits, cut)
     return fold(o_w.float()).to(o_w.dtype)
 
 
@@ -676,8 +683,11 @@ def cache_partial(q, mk, mv, kv_valid, tcfg: TextConfig, use_flash: bool):
 
 def _stream_kv(lp, stream, tcfg: TextConfig):
     """A stream's k / v [B,S,Hk,D] (its cache entries, on the rank's KV
-    heads) from the input norm."""
-    sn = decoder.norm(stream, lp["input_ln"], tcfg)
+    heads) from the input norm. Under a "model" cut the gradient of the
+    norm's output is summed over the model group (`sharding.to_model`):
+    every use of these k / v (the cross attention, and the diagonal update
+    reading v) is a rank's share of it."""
+    sn = sharding.to_model(decoder.norm(stream, lp["input_ln"], tcfg), lp["k_w"])
     return _heads(qdot(sn, lp["k_w"]), tcfg), _heads(qdot(sn, lp["v_w"]), tcfg)
 
 

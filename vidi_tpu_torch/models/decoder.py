@@ -84,16 +84,20 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(lp: Params, x: torch.Tensor, cfg: TextConfig) -> torch.Tensor:
     keys = ("gate_w", "up_w", "down_w")
+    # under a "model" cut: the rank's gate / up columns and down rows give a
+    # row partial, summed over the model group; x's gradient is summed there
+    x = sharding.to_model(x, lp["gate_w"])
     if (qz.w8a8_min_tokens is not None
             and math.prod(x.shape[:-1]) >= qz.w8a8_min_tokens
             and all(isinstance(lp[k], dict) and qz.QUANT_KEY in lp[k] for k in keys)):
-        # W8A8 prefill FFN: one shared quantize of x for gate and up
+        # W8A8 prefill FFN: one shared quantize of x for gate and up (x is
+        # whole on every rank); the down product quantizes the rank's hidden
+        # columns by the group's row absmax
         from vidi_tpu_torch.ops.cuda.quant_matmul import quant_gated_mlp
-        return quant_gated_mlp(x, *(lp[k] for k in keys), cfg.hidden_act)
-    gate = qz.qdot(x, lp["gate_w"])
-    out = qz.qdot(activation(gate, cfg) * qz.qdot(x, lp["up_w"]), lp["down_w"])
-    # under a "model" cut: the rank's gate / up columns and down rows give a
-    # row partial, summed over the model group
+        out = quant_gated_mlp(x, *(lp[k] for k in keys), cfg.hidden_act)
+    else:
+        gate = qz.qdot(x, lp["gate_w"])
+        out = qz.qdot(activation(gate, cfg) * qz.qdot(x, lp["up_w"]), lp["down_w"])
     return sharding.model_sum(out, lp["down_w"])
 
 

@@ -98,7 +98,8 @@ _SIGNATURES = {
     # K3: SIMT (fp32) and sm90 (bf16) take the same packed arguments
     "vidi_decode_attention": _K3_ARGS,
     "vidi_decode_attention_sm90": _K3_ARGS,
-    "vidi_quant_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    "vidi_quant_matmul": [_P] * 7 + [_I] * 4 + [_P],
+    "vidi_row_amax": [_P] * 2 + [_I] * 3 + [_P],
     "vidi_quant_gated": [_P] * 8 + [_I] * 5 + [_P],
     "vidi_ln_qkv": [_P] * 17 + [_I] * 3 + [_F, _I, _P],
     "vidi_o_residual": [_P] * 8 + [_I] * 4 + [_P],

@@ -353,19 +353,23 @@ def same_device(q, k, v) -> tuple:
 # int64; the strides of q (batch, head), k and v (batch, head, key), the
 # mask's rows and q_pos; scale, softcap; window, n_split, chunk.
 ARGS = struct.Struct("<11Q6i10q2f3i")
-_args = ctypes.create_string_buffer(216)  # sizeof(DecodeArgs); read during the call only
+ARGS_BYTES = 216  # sizeof(DecodeArgs)
 
 
 def _call(entry: str, dev, stream: int, values: tuple) -> None:
     """One ctypes call of `entry` with `values` packed (`ARGS`) on `stream`
-    of `dev`; raises on a launch error."""
-    ARGS.pack_into(_args, 0, *values)
+    of `dev`; raises on a launch error. The block is the call's own: the
+    ctypes call lets other threads run, and one that packed a shared
+    block meanwhile (another virtual rank, the daemon's decode-ahead)
+    would hand this launch its arguments."""
+    args = ctypes.create_string_buffer(ARGS_BYTES)
+    ARGS.pack_into(args, 0, *values)
     fn = getattr(_lib.library(), entry)
     if dev.index == torch._C._cuda_getDevice():
-        err = fn(_args, stream)
+        err = fn(args, stream)
     else:
         with torch.cuda.device(dev):
-            err = fn(_args, stream)
+            err = fn(args, stream)
     if err:
         _lib.check(err, entry)
 

@@ -10,8 +10,17 @@ Replaces the Pallas kernels of `vidi_tpu.ops.pallas.quant_matmul`:
   reaches through `qdot`.
 - `quant_gated_mlp(x, gate_w, up_w, down_w, hidden_act)`: one shared
   quantize of x, the gate and up products each rescaled and cast,
-  act(gate) * up in x's dtype, then `quant_matmul` for the down projection.
-  The decoder's W8A8 FFN (`models/decoder.mlp`).
+  act(gate) * up in x's dtype, then `quant_matmul` for the down
+  projection, its rows quantized by `shared_row_amax` as
+  `dynamic_qdense`'s are. The decoder's W8A8 FFN (`models/decoder.mlp`).
+- the row-scale mode: `quant_matmul(..., amax=)` quantizes row r of x by
+  amax[r] / 127 (1 where it is 0) instead of by its own absmax, and
+  `row_amax(x)` is the reduction half alone (each row's absmax, fp32). A
+  product whose contraction dim is cut over the "model" group (o and down
+  under tensor parallelism) quantizes each rank's slice of a row by the
+  whole row's absmax: the max over the group of the ranks' `row_amax`
+  (`infer.quantize.shared_row_amax`). Given the absmax it would have
+  computed itself, the mode is bit-equal to the plain call.
 
 Both reproduce the jnp W8A8 path, the numerics of record. The plain
 versions compute the int8 products in float64, exact below 2^53 (the int32
@@ -41,11 +50,13 @@ from typing import NamedTuple
 
 import torch
 
+from vidi_tpu_torch.infer import quantize
 from vidi_tpu_torch.infer.quantize import QUANT_KEY, quantize_act
 from vidi_tpu_torch.ops.basic import gelu_tanh
 from vidi_tpu_torch.ops.cuda import _lib
 
-launches = {"quant_matmul": 0, "quant_gated_mlp": 0, "kmajor_copy": 0}
+launches = {"quant_matmul": 0, "quant_gated_mlp": 0, "kmajor_copy": 0, "row_amax": 0,
+            "quant_matmul_amax": 0}
 ACTIVATIONS = {"gelu_tanh": 0, "gelu": 1, "quick_gelu": 2, "silu": 3}  # csrc/int8_gemm.cuh
 # the GEMM's tile and cluster (csrc/int8_gemm.cuh): rows, staged columns, k
 # values a step; tiles of a cluster (along M)
@@ -176,18 +187,37 @@ def _col_scale(scale: torch.Tensor) -> torch.Tensor:
     return scale.reshape(scale.shape[-1]).float()
 
 
-def quant_matmul(x, wq, wscale, bias=None):
+def quant_matmul(x, wq, wscale, bias=None, amax=None):
     """x [..., K] @ wq int8 [K, N] with per-column scales [N] (or [1, N]) ->
-    [..., N] in x's dtype, + bias."""
-    out = quant_matmul_plain(x, wq, wscale) if x.device.type == "cpu" \
-        else _launch_matmul(x, wq, wscale)
+    [..., N] in x's dtype, + bias. `amax` [...] fp32: the absmax each row
+    is quantized by (the row-scale mode), None: the row's own."""
+    out = quant_matmul_plain(x, wq, wscale, amax=amax) if x.device.type == "cpu" \
+        else _launch_matmul(x, wq, wscale, amax=amax)
     return out if bias is None else out + bias
 
 
-def quant_matmul_plain(x, wq, wscale, bias=None):
-    xq, sx = quantize_act(x)
+def quant_matmul_plain(x, wq, wscale, bias=None, amax=None):
+    xq, sx = quantize_act(x, amax)
     y = (int8_dot(xq, wq) * sx * _col_scale(wscale)).to(x.dtype)
     return y if bias is None else y + bias
+
+
+def row_amax(x):
+    """x [..., K] -> each row's absmax [...] in fp32: the reduction half of
+    the row pass (its kernel on a CUDA tensor, its plain version on a CPU
+    tensor)."""
+    if x.device.type == "cpu":
+        return row_amax_plain(x)
+    x2, k = rows(x, "row_amax x")
+    out = torch.empty((x2.shape[0],), dtype=torch.float32, device=x.device)
+    _lib.call("vidi_row_amax", x.device, x2.data_ptr(), out.data_ptr(), x2.shape[0], k,
+              x.dtype == torch.bfloat16)
+    launches["row_amax"] += 1
+    return out.reshape(x.shape[:-1])
+
+
+def row_amax_plain(x):
+    return x.float().abs().amax(dim=-1)
 
 
 def _act(x, hidden_act: str):
@@ -196,18 +226,24 @@ def _act(x, hidden_act: str):
 
 def quant_gated_mlp(x, gate_w, up_w, down_w, hidden_act: str):
     """act(x @ gate) * (x @ up) @ down with {qi8, scale} weights, all W8A8;
-    `hidden_act` is "gelu_tanh" (Gemma2) or anything else for silu."""
+    `hidden_act` is "gelu_tanh" (Gemma2) or anything else for silu. Each
+    row of the hidden h is quantized for the down product by
+    `shared_row_amax(h, down_w)`: h's own absmax, or the model group's when
+    down is cut on "model"."""
     if x.device.type == "cpu":
         return quant_gated_mlp_plain(x, gate_w, up_w, down_w, hidden_act)
     h = _launch_gated(x, gate_w, up_w, hidden_act)
-    return quant_matmul(h, down_w[QUANT_KEY], down_w["scale"])
+    return quant_matmul(h, down_w[QUANT_KEY], down_w["scale"],
+                        amax=quantize.shared_row_amax(h, down_w))
 
 
 def quant_gated_mlp_plain(x, gate_w, up_w, down_w, hidden_act: str):
     xq, sx = quantize_act(x)
     g = (int8_dot(xq, gate_w[QUANT_KEY]) * sx * _col_scale(gate_w["scale"])).to(x.dtype)
     u = (int8_dot(xq, up_w[QUANT_KEY]) * sx * _col_scale(up_w["scale"])).to(x.dtype)
-    return quant_matmul_plain(_act(g, hidden_act) * u, down_w[QUANT_KEY], down_w["scale"])
+    h = _act(g, hidden_act) * u
+    return quant_matmul_plain(h, down_w[QUANT_KEY], down_w["scale"],
+                              amax=quantize.shared_row_amax(h, down_w))
 
 
 def check_int8_weight(w, scale, k: int, name: str, kmajor_stored: bool = False,
@@ -254,19 +290,25 @@ def scratch(m: int, k: int, device):
             torch.empty((m,), dtype=torch.float32, device=device))
 
 
-def _launch_matmul(x, wq, wscale, wt=None):
-    """`wt`: the K-major copy to read instead of `kmajor(wq)`."""
+def _launch_matmul(x, wq, wscale, wt=None, amax=None):
+    """`wt`: the K-major copy to read instead of `kmajor(wq)`; `amax`: the
+    rows' given absmax (fp32, one a row, on x's device)."""
     x2, k = rows(x, "quant_matmul x")
     n = check_int8_weight(wq, wscale, k, "quant_matmul wq")
     m = x2.shape[0]
+    if amax is not None:
+        if amax.dtype != torch.float32 or amax.numel() != m or amax.device != x.device:
+            raise ValueError(f"quant_matmul amax: expected {m} fp32 values on {x.device}, "
+                             f"got {amax.dtype} {tuple(amax.shape)} on {amax.device}")
+        amax = amax.reshape(m).contiguous()
     if wt is None:
         wt = kmajor(wq)
     xq, sx = scratch(m, k, x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     _lib.call("vidi_quant_matmul", x.device, x2.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-              wt.data_ptr(), wscale.data_ptr(), out.data_ptr(), m, n, k,
-              x.dtype == torch.bfloat16)
-    launches["quant_matmul"] += 1
+              0 if amax is None else amax.data_ptr(), wt.data_ptr(), wscale.data_ptr(),
+              out.data_ptr(), m, n, k, x.dtype == torch.bfloat16)
+    launches["quant_matmul" if amax is None else "quant_matmul_amax"] += 1
     return out.reshape(*x.shape[:-1], n)
 
 

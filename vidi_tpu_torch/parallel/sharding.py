@@ -21,7 +21,13 @@ no GSPMD, so this module states them:
   over ("data", "seq"); `model_cut` marks such a leaf. The layer then runs
   on the rank's heads and FFN columns, and the row partials of o / down
   are summed over the model group (`model_sum`). `model` must divide the
-  KV heads (`check_model_cut`): JAX's GSPMD would also cut a head;
+  KV heads (`check_model_cut`): JAX's GSPMD would also cut a head. The
+  leaves of an int8 / int4 weight are cut with it (`_model_dim`): its
+  codes on the weight's TP dim, an int8 scale [1, out] with the output
+  features of q / k / v / gate / up and whole for o / down, an int4 scale
+  [in/64, 1, out] on its K groups for o / down; a W8A8 product of o /
+  down quantizes each rank's slice of a row by the whole row's absmax
+  (`infer.quantize.shared_row_amax`: `model_max` of each rank's);
 - gather at use: `gathered(tree)` rebuilds the ZeRO-3-sharded leaves of a
   tree (one layer's dict inside the layer loops of dattn / siglip /
   whisper, the rest of the model once per loss or generate call), so the
@@ -29,10 +35,18 @@ no GSPMD, so this module states them:
   iteration of the JAX scan; a "model" slice stays a slice;
 - gradients: the gather's backward reduce-scatters the full gradient onto
   the owning slice over the spec's axes, then sums it over the ranks that
-  hold the same slice (`_Gather`); a whole leaf's gradient is summed over
-  the world (`sync_grads`). The train step seeds each rank's backward with
-  its loss / seq (train/train_step.py), which makes these sums the
-  gradient of the global loss.
+  hold the same slice (`_Gather`); the gradient of a leaf with no ZeRO-3
+  cut is summed over ("data", "seq") (`sync_grads`). The train step seeds
+  each rank's backward with its loss / seq (train/train_step.py), which
+  makes these sums the gradient of the global loss. The backward of the
+  "model" cut is Megatron's f / g pair, which GSPMD derives from the specs
+  in JAX: `model_sum` passes its gradient to every partial unchanged (g),
+  and `to_model` (f: the identity forward) sums the gradient of each
+  column-cut product's input over the model group. Every rank of a model
+  group then holds the same loss, the whole gradient of each leaf not cut
+  on "model" and its slice's of each leaf that is: no sum runs over
+  "model" (a reduce-scatter spanning it divides the group's equal
+  gradients back), and `sq_norm` counts a model slice once a model group.
 
 Mechanism: explicit `all_gather_into_tensor` / `reduce_scatter_tensor`
 inside a `torch.autograd.Function`, not DTensor. The parameters are a plain
@@ -55,22 +69,23 @@ and train/train_step.py) and what the port does at each:
 | dattn.py:304 audio windows    | (data,seq),-,-               | cut: each seq rank encodes its windows |
 | dattn.py:312 audio encoder    | data,seq,-                   | cut: the rank's windows' positions     |
 | dattn.py:372 image tiles      | (data,seq),-,-,-,-           | cut + all-gather of tower features     |
-| dattn.py:520-522 q / k / v    | data,-,model,-               | cut: the rank's heads (`model_cut`)    |
+| dattn.py:520-522 q / k / v    | data,-,model,-               | cut: the rank's heads (`model_cut`);   |
+|                               |                              | x's gradient summed (`to_model`)       |
 | dattn.py:566 stream           | data,seq,-                   | no-op: the stream arrives cut          |
 | dattn.py:600 int8 caches      | data,model,seq,-             | cut: rank's heads + slice, `seq_merge` |
 | dattn.py:608-609 caches       | data,model,seq,-             | cut: rank's heads + slice, `seq_merge` |
-| dattn.py:645-646 stream k / v | data,seq,model,-             | cut: the rank's heads of its slice     |
+| dattn.py:645-646 stream k / v | data,seq,model,-             | cut: the rank's heads of its slice;    |
+|                               |                              | the norm's gradient summed (`to_model`)|
 | dattn.py:747 text hidden      | data,-,-                     | no-op: batch rows local                |
 | dattn.py:908-909 rope tables  | data,-,-                     | no-op: batch rows local                |
-| decoder.py:103-104 gate / up  | data,(-/seq),model           | cut: the rank's columns, `model_sum`   |
+| decoder.py:103-104 gate / up  | data,(-/seq),model           | cut: the rank's columns, `model_sum`;  |
+|                               |                              | x's gradient summed (`to_model`)       |
 | train_step.py:68 input ids    | data,-                       | no-op: the rank reads its data rows    |
 
 The batch is cut on "data" before the step: every rank decodes only its
-data rows of the global batch, the seq ranks of a data group the same ones
-(train/train.py; `data_rows` cuts a batch, or draws, built whole). The
-backward of the "model" cut is ROADMAP Q1.16c: `_Gather`'s gradient sums
-and `sync_grads` assume no leaf is cut on "model", and the train step
-refuses such a mesh.
+data rows of the global batch, the seq and model ranks of a data group
+the same ones (train/train.py; `data_rows` cuts a batch, or draws, built
+whole).
 """
 from __future__ import annotations
 
@@ -228,10 +243,50 @@ def param_specs(params, mesh: Mesh) -> Dict[str, Optional[Tuple[int, Tuple[str, 
             for p, shape, depth in _stacked_paths(params)}
 
 
-def _tp_leaf(path) -> bool:
-    """Whether `path` names a text-decoder layer weight of `_TP_DIM`."""
+_QUANT_LEAVES = ("qi8", "qi4", "scale")  # infer/quantize.py's keys of a quantized weight
+
+
+def _tp_leaf(path) -> Optional[Tuple[str, Optional[str]]]:
+    """(weight name, key inside its quantized dict or None) where `path`
+    names a text-decoder layer weight of `_TP_DIM` or a leaf of its int8 /
+    int4 form; None otherwise."""
     names = [k for k in path if isinstance(k, str)]
-    return bool(names) and names[-1] in _TP_DIM and "layers" in names and "text" in names
+    if "layers" not in names or "text" not in names:
+        return None
+    if names[-1] in _TP_DIM:
+        return names[-1], None
+    if len(names) > 1 and names[-2] in _TP_DIM and names[-1] in _QUANT_LEAVES:
+        return names[-2], names[-1]
+    return None
+
+
+def _model_dim(name: str, key: Optional[str], shape, model: int) -> Optional[int]:
+    """The dim of the stacked leaf that a TP weight's leaf keeps cut on
+    "model": the weight's TP dim for the weight and its int8 / int4 codes;
+    for an int8 scale [L, 1, out] the output features of a column-cut
+    weight, none (whole) for o / down; for an int4 scale [L, in/64, 1,
+    out] the output features, or for o / down its groups (the K groups a
+    rank holds; whole where they do not split over the model group, each
+    rank's rows then lying inside one group: `infer.quantize.rank_groups`)."""
+    dim = _TP_DIM[name]
+    if key != "scale":
+        return dim
+    if dim == 2:
+        return len(shape) - 1
+    if len(shape) == 4:
+        if shape[1] % model == 0:
+            return 1
+        if model % shape[1]:
+            raise ValueError(f"{name}: {shape[1]} int4 groups over model = {model}")
+    return None
+
+
+def _drop_model(s):
+    """A spec entry without the "model" axis (None if nothing is left)."""
+    axes = tuple(a for a in (s if isinstance(s, tuple) else (s,)) if a is not None and a != MODEL)
+    if not axes:
+        return None
+    return axes if isinstance(s, tuple) else axes[0]
 
 
 def storage_cuts(path, shape, depth, mesh: Mesh) -> Tuple[Optional[Tuple[int, Tuple[str, ...]]],
@@ -239,20 +294,23 @@ def storage_cuts(path, shape, depth, mesh: Mesh) -> Tuple[Optional[Tuple[int, Tu
     """(ZeRO-3 cut, "model" cut) of the port's leaf at `path` (`shape` the
     JAX stacked shape): the first as `storage_spec`'s (dim, axes), the axes
     gathered at use, or None; the second the dim a text layer weight keeps
-    cut on "model" (its TP dim), or None. Under model > 1 every `_TP_DIM`
-    leaf is cut on "model", the small ones too, where JAX's spec keeps
-    them whole and GSPMD cuts them at use: a layer's q / k / v / o and
-    gate / up / down then always hold the same heads and columns."""
+    cut on "model" (its TP dim; `_model_dim` for the leaves of an int8 /
+    int4 weight), or None. Under model > 1 every `_TP_DIM` leaf is cut on
+    "model", the small ones too, where JAX's spec keeps them whole and
+    GSPMD cuts them at use: a layer's q / k / v / o and gate / up / down
+    then always hold the same heads and columns. A leaf cut on "model" is
+    ZeRO-3-cut over its spec's other axes only."""
     spec = _param_spec_for_path(path, types.SimpleNamespace(shape=shape), mesh)
-    tp = mesh.shape[MODEL] > 1 and _tp_leaf(path)
+    tp = _tp_leaf(path) if mesh.shape[MODEL] > 1 else None
     model = None
     if tp:
-        dim = _TP_DIM[[k for k in path if isinstance(k, str)][-1]]
-        if shape[dim] % mesh.shape[MODEL]:
-            raise ValueError(f"{'/'.join(map(str, path))}: dim {dim} of {tuple(shape)} "
-                             f"does not split over model = {mesh.shape[MODEL]}")
-        model = dim - (depth is not None)
-        spec = tuple(None if s == MODEL else s for s in spec)
+        dim = _model_dim(*tp, shape, mesh.shape[MODEL])
+        if dim is not None:
+            if shape[dim] % mesh.shape[MODEL]:
+                raise ValueError(f"{'/'.join(map(str, path))}: dim {dim} of {tuple(shape)} "
+                                 f"does not split over model = {mesh.shape[MODEL]}")
+            model = dim - (depth is not None)
+            spec = tuple(_drop_model(s) for s in spec)
     if depth is not None:
         if spec and spec[0] is not None:
             return None, model
@@ -295,8 +353,16 @@ def shard_of(t: torch.Tensor) -> Optional[Shard]:
 
 
 def model_cut(t) -> Optional[ModelCut]:
-    """The "model" cut of a leaf (kept by `gather`), or None."""
+    """The "model" cut of a leaf (kept by `gather`), or None; of an int8 /
+    int4 weight (a dict), its codes' cut."""
+    if isinstance(t, dict):
+        t = t.get("qi8", t.get("qi4"))
     return getattr(t, "_vidi_model", None)
+
+
+def mark_model_cut(t: torch.Tensor, cut: Optional[ModelCut]) -> torch.Tensor:
+    """t marked as cut on "model" by `cut` (a no-op for None)."""
+    return _mark(t, None, cut)
 
 
 def _mark(t: torch.Tensor, shard: Optional[Shard],
@@ -327,19 +393,38 @@ def _map_tree(fn, tree, path=()):
     return fn(path, tree)
 
 
+def _kmajor(t: torch.Tensor) -> bool:
+    """Whether t is a matrix stored K-major: the [K, N] view of a contiguous
+    [N, K] (the int8 tower weights, `infer.quantize.quantize_tower_layer`)."""
+    return t.dim() == 2 and not t.is_contiguous() and t.t().is_contiguous()
+
+
+def _local_cut(t: torch.Tensor, cuts, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice (a view) of a whole tensor under `cuts`: the
+    "model" slice first, then the ZeRO-3 slice of that (the same dim may
+    carry both)."""
+    zero, mdim = cuts
+    if mdim is not None:
+        t = _local_slice(t, mdim, (MODEL,), mesh)
+    if zero is not None:
+        t = _local_slice(t, zero[0], zero[1], mesh)
+    return t
+
+
 def _cut_leaf(t: torch.Tensor, cuts, mesh: Mesh, device) -> torch.Tensor:
     """This rank's slice of a whole leaf under `cuts` (`storage_cuts`): a
-    contiguous copy on `device`, marked; a leaf kept whole moved there."""
+    copy on `device` laid out as the leaf (contiguous, or K-major for a
+    K-major leaf, so that K5 reads it in place), marked; a leaf kept whole
+    moved there."""
     zero, mdim = cuts
     if zero is None and mdim is None:
         return t.to(device)
-    local = t
-    if zero is not None:
-        local = _local_slice(local, zero[0], zero[1], mesh)
-    if mdim is not None:
-        local = _local_slice(local, mdim, (MODEL,), mesh)
-    return _mark(local.to(device, copy=True).contiguous(),
-                 None if zero is None else Shard(zero[0], zero[1], mesh),
+    local = _local_cut(t, cuts, mesh)
+    if _kmajor(t):
+        local = local.t().to(device, copy=True).contiguous().t()
+    else:
+        local = local.to(device, copy=True).contiguous()
+    return _mark(local, None if zero is None else Shard(zero[0], zero[1], mesh),
                  None if mdim is None else ModelCut(mdim, mesh))
 
 
@@ -369,21 +454,14 @@ def shard_params(params, mesh: Mesh, device=None, kv_heads: Optional[int] = None
 
 def layer_sharder(module: str, n_layers: int, mesh: Mesh, device=None):
     """fn(layer dict) -> the layer with every leaf cut as `shard_params`
-    cuts layer i of params[module]["layers"] (n_layers long): the loaders
-    cut each layer as it is drawn or read, so the whole model never lies
-    on one rank."""
-    def fn(lp):
-        out = {}
-        for name, t in lp.items():
-            if isinstance(t, dict):
-                raise NotImplementedError(
-                    "quantized weights under a mesh of several ranks are ROADMAP Q1.16c")
-            path = (module, "layers", 0, name)
-            cuts = storage_cuts(path, (n_layers, *t.shape), n_layers, mesh)
-            out[name] = _cut_leaf(t, cuts, mesh, t.device if device is None else device)
-        return out
+    cuts layer i of params[module]["layers"] (n_layers long), the leaves of
+    its int8 / int4 weights too: the loaders cut each layer as it is drawn
+    or read (and quantized), so the whole model never lies on one rank."""
+    def one(sub, t):
+        cuts = storage_cuts((module, "layers", 0, *sub), (n_layers, *t.shape), n_layers, mesh)
+        return _cut_leaf(t, cuts, mesh, t.device if device is None else device)
 
-    return fn
+    return lambda lp: _map_tree(one, lp)
 
 
 def _stack(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -400,7 +478,10 @@ def _unstack(buf: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def all_gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """The `n` ranks' `x` concatenated along `dim` in group order."""
+    """The `n` ranks' `x` concatenated along `dim` in group order; a K-major
+    x (`_kmajor`) gives a K-major result, gathered as its stored [N, K]."""
+    if _kmajor(x):
+        return all_gather_dim(x.t(), 1 - dim, group, n).t()
     # the concatenated form along dim 0, which every backend takes
     buf = x.new_empty((n * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(buf, x.contiguous(), group=group)
@@ -420,48 +501,60 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor
 class _Gather(torch.autograd.Function):
     """Forward: the slices of `group` along `dim` -> the full tensor.
     Backward: the full gradient summed over `group` and cut back to this
-    rank's slice (reduce-scatter, in fp32), then summed over the ranks
-    that hold the same slice (`replicas`)."""
+    rank's slice (reduce-scatter, in fp32), divided by `div`, then summed
+    over the ranks that hold the same slice (`replicas`)."""
 
     @staticmethod
-    def forward(ctx, x, dim, group, n, replicas):
-        ctx.dim, ctx.group, ctx.n, ctx.replicas = dim, group, n, replicas
+    def forward(ctx, x, dim, group, n, replicas, div):
+        ctx.dim, ctx.group, ctx.n, ctx.replicas, ctx.div = dim, group, n, replicas, div
         return all_gather_dim(x, dim, group, n)
 
     @staticmethod
     def backward(ctx, g):
         out = reduce_scatter_dim(g.float(), ctx.dim, ctx.group, ctx.n)
+        if ctx.div != 1:
+            out = out / ctx.div
         if ctx.replicas is not None:
             dist.all_reduce(out, group=ctx.replicas)
-        return out.to(g.dtype), None, None, None, None
+        return out.to(g.dtype), None, None, None, None, None
 
 
 def all_gather_grad(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """`all_gather_dim` whose backward reduce-scatters the gradient: the
     adjoint of a tensor that every rank of `group` goes on to use whole."""
-    return _Gather.apply(x, dim, group, n, None)
+    return _Gather.apply(x, dim, group, n, None, 1)
 
 
 def gather(t: torch.Tensor, shard: Optional[Shard] = None) -> torch.Tensor:
     """The leaf rebuilt along its ZeRO-3 cut (differentiable, see
     `_Gather`): the full leaf, or its "model" slice (still marked) for a
     leaf cut on "model"; a leaf with no ZeRO-3 cut as it is. `shard`
-    stands in for t's own mark."""
+    stands in for t's own mark.
+
+    Its gradient: every rank of a model group holds the whole gradient of
+    a leaf that is not cut on "model" (the train step's backward runs the
+    same on all of them, `to_model` summing the column-cut products'
+    input gradients), and its own slice's gradient of a leaf that is. So
+    the ranks holding the same slice differ along the axes neither in
+    `shard.axes` nor "model", and a reduce-scatter spanning "model" counts
+    the group's equal gradients model times (divided back)."""
     shard = shard or shard_of(t)
     if shard is None:
         return t
     mesh = shard.mesh
-    rest = [a for a in AXES if a not in shard.axes]
+    rest = [a for a in AXES if a not in shard.axes and a != MODEL]
+    div = mesh.shape[MODEL] if MODEL in shard.axes else 1
     out = _Gather.apply(t, shard.dim, mesh.group(shard.axes), mesh.count(shard.axes),
-                        mesh.group(rest))
+                        mesh.group(rest), div)
     return _mark(out, None, model_cut(t))
 
 
-def whole(t: torch.Tensor, shard: Optional[Shard] = None) -> torch.Tensor:
+def whole(t: torch.Tensor, shard: Optional[Shard] = None,
+          cut: Optional[ModelCut] = None) -> torch.Tensor:
     """The whole leaf, on every rank: `gather`, then the "model" slices
     all-gathered (no gradient). Collective over the leaf's groups. `shard`
-    stands in for t's own mark."""
-    cut = model_cut(t)
+    and `cut` stand in for t's own marks."""
+    cut = cut or model_cut(t)
     t = gather(t, shard)
     if cut is None:
         return t
@@ -496,19 +589,20 @@ def is_root() -> bool:
     return _MESH is None or _MESH.rank == 0
 
 
-def _to_root(t: torch.Tensor, root: bool,
-             shard: Optional[Shard] = None) -> Optional[torch.Tensor]:
+def _to_root(t: torch.Tensor, root: bool, shard: Optional[Shard] = None,
+             cut: Optional[ModelCut] = None) -> Optional[torch.Tensor]:
     """The whole leaf on rank 0's host (`root`), None on the others. Only
     the ranks whose gather group holds rank 0 gather (they differ from it
-    only along the shard's axes), and only rank 0 keeps what they gather."""
+    only along the shard's axes), and only rank 0 keeps what they gather.
+    `shard` and `cut` stand in for t's own marks."""
     shard = shard or shard_of(t)
-    cut = model_cut(t)
+    cut = cut or model_cut(t)
     if shard is not None or cut is not None:
         mesh = (shard or cut).mesh
         held = (shard.axes if shard is not None else ()) + ((MODEL,) if cut else ())
         if any(mesh.coord(a) for a in AXES if a not in held):
             return None
-        t = whole(t, shard)
+        t = whole(t, shard, cut)
     return t.cpu() if root else None
 
 
@@ -521,8 +615,8 @@ def full_tree(tree):
         return _map_tree(lambda _, t: _to_root(t, root), tree)
 
 
-def _key_shards(params) -> Dict[str, Optional[Shard]]:
-    return {key: shard_of(p) for key, _, p in leaves(params)}
+def _key_cuts(params) -> Dict[str, Tuple[Optional[Shard], Optional[ModelCut]]]:
+    return {key: (shard_of(p), model_cut(p)) for key, _, p in leaves(params)}
 
 
 def _map_state(fn, state, keys):
@@ -537,27 +631,30 @@ def _map_state(fn, state, keys):
 
 def full_state(state, params):
     """An optimizer state with every moment whole on rank 0's host, each
-    gathered as its parameter is sharded (None on the other ranks).
+    gathered as its parameter is cut (None on the other ranks).
     Collective."""
-    shards = _key_shards(params)
+    cuts = _key_cuts(params)
     with torch.no_grad():
         root = is_root()
-        return _map_state(lambda key, t: _to_root(t, root, shards[key]), state, shards)
+        return _map_state(lambda key, t: _to_root(t, root, *cuts[key]), state, cuts)
 
 
 def shard_state(state, params):
-    """A whole optimizer state (from a checkpoint) cut as `params` are,
-    onto their device."""
-    shards = _key_shards(params)
+    """A whole optimizer state (from a checkpoint) cut as `params` are
+    (ZeRO-3 and "model"), onto their device."""
+    cuts = _key_cuts(params)
     dev = next(leaves(params))[2].device
 
     def one(key, t):
-        s = shards[key]
-        if s is None:
+        s, cut = cuts[key]
+        if s is None and cut is None:
             return t.to(dev)
-        return _local_slice(t, s.dim, s.axes, s.mesh).to(dev, copy=True).contiguous()
+        mesh = (s or cut).mesh
+        local = _local_cut(t, (None if s is None else (s.dim, s.axes),
+                               None if cut is None else cut.dim), mesh)
+        return local.to(dev, copy=True).contiguous()
 
-    return _map_state(one, state, shards)
+    return _map_state(one, state, cuts)
 
 
 # ---------------------------------------------------------------------------
@@ -566,22 +663,26 @@ def shard_state(state, params):
 
 def replicas(t: torch.Tensor, mesh: Mesh) -> int:
     """Ranks that hold the same values of `t` (the whole world for a leaf
-    kept whole)."""
+    kept whole; a "model" slice is held by one rank of each model group)."""
     shard = shard_of(t)
-    return mesh.size // (mesh.count(shard.axes) if shard is not None else 1)
+    n = mesh.count(shard.axes) if shard is not None else 1
+    return mesh.size // (n * (mesh.shape[MODEL] if model_cut(t) is not None else 1))
 
 
 def sync_grads(pairs, mesh: Optional[Mesh]) -> None:
-    """Sum over the world, in place, the gradients of the leaves kept whole
-    ((param, grad) pairs; a sharded leaf's gradient was reduced by its
-    gather's backward), flattened into one fp32 all-reduce."""
+    """Sum over ("data", "seq"), in place, the gradients of the leaves with
+    no ZeRO-3 cut ((param, grad) pairs; a ZeRO-3-cut leaf's gradient was
+    reduced by its gather's backward), flattened into one fp32 all-reduce.
+    Not over "model": each rank of a model group already holds a leaf's
+    whole gradient, or its "model" slice's (see `gather`)."""
     if mesh is None or mesh.size == 1:
         return
+    group = mesh.group(("data", "seq"))
     whole = [g for p, g in pairs if shard_of(p) is None]
-    if not whole:
+    if not whole or group is None:
         return
     flat = torch.cat([g.float().reshape(-1) for g in whole])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     start = 0
     for g in whole:
         g.copy_(flat[start:start + g.numel()].view_as(g))
@@ -611,21 +712,89 @@ def axis_sum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     return x
 
 
-def model_sum(x: torch.Tensor, w) -> torch.Tensor:
-    """x, this rank's row partial of a product with `w` (o or down), summed
-    over the model group when `w` is cut on "model": the partials
-    all-gathered and added in rank order in fp32, so that every rank of
-    the group holds the same bits (no gradient). x itself otherwise (model
-    1, or weights kept whole)."""
+def _rank_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x summed over the model group: all-gathered and added in rank order
+    in fp32, so that every rank of the group holds the same bits."""
+    parts = all_gather_dim(x[None], 0, mesh.group((MODEL,)), mesh.shape[MODEL])
+    out = parts[0].float()
+    for p in parts[1:]:
+        out = out + p.float()
+    return out.to(x.dtype)
+
+
+class _ModelSum(torch.autograd.Function):
+    """Megatron's g: forward the model group's sum, backward the identity
+    (every rank of the group computes the same loss from the sum, so each
+    partial's gradient is the sum's)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _rank_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ToModel(torch.autograd.Function):
+    """Megatron's f: forward the identity, backward the gradient summed over
+    the model group (each rank's column-cut products give their share of
+    the input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_sum(g, ctx.mesh), None
+
+
+def _model_mesh(w) -> Optional[Mesh]:
+    """The active mesh when `w` (a weight, or its int8 / int4 dict) is cut
+    on a "model" axis of several ranks, else None."""
     mesh = _MESH
     if mesh is None or mesh.shape[MODEL] == 1 or model_cut(w) is None:
+        return None
+    return mesh
+
+
+def model_sum(x: torch.Tensor, w) -> torch.Tensor:
+    """x, this rank's row partial of a product with `w` (o or down), summed
+    over the model group when `w` is cut on "model" (`_rank_sum`; its
+    gradient passes to every partial unchanged). x itself otherwise (model
+    1, or weights kept whole)."""
+    mesh = _model_mesh(w)
+    if mesh is None:
         return x
-    with torch.no_grad():
-        parts = all_gather_dim(x[None], 0, mesh.group((MODEL,)), mesh.shape[MODEL])
-        out = parts[0].float()
-        for p in parts[1:]:
-            out = out + p.float()
-        return out.to(x.dtype)
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        with torch.no_grad():
+            return _rank_sum(x, mesh)
+    return _ModelSum.apply(x, mesh)
+
+
+def to_model(x: torch.Tensor, w) -> torch.Tensor:
+    """x, the input of a product with `w` cut on "model" along its output
+    features (q / k / v, gate / up): itself, with its gradient summed over
+    the model group in the backward (`_ToModel`). x itself when `w` is not
+    cut or no gradient is taken."""
+    mesh = _model_mesh(w)
+    if mesh is None or not torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    return _ToModel.apply(x, mesh)
+
+
+def model_max(x: torch.Tensor) -> torch.Tensor:
+    """x's elementwise max over the active mesh's model group (no gradient;
+    x itself without one): the whole row's absmax from each rank's of its
+    slice."""
+    mesh = _MESH
+    if mesh is None or mesh.shape[MODEL] == 1:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group((MODEL,)))
+    return x
 
 
 def seq_merge(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,9 @@
         --profile_dir prof/ --report_to tensorboard --device cpu
     torchrun --standalone --nproc_per_node 8 -m vidi_tpu_torch.train.train \
         --tiny --data_path synthetic --seq_parallel_size 2 --sp_mode ring
+    torchrun --standalone --nproc_per_node 4 -m vidi_tpu_torch.train.train \
+        --tiny --data_path synthetic --seq_parallel_size 2 \
+        --model_parallel_size 2 --device cpu
 
 Each step writes one metrics.jsonl line with the JAX CLI's keys (the
 learning rate of the optimizer step, step // gradient_accumulation_steps);
@@ -22,9 +25,12 @@ the newest readable checkpoint under --output_dir. --profile_dir writes a
 torch.profiler Chrome trace of steps start+2 to start+4.
 
 Under torchrun (RANK / WORLD_SIZE / LOCAL_RANK in the environment) each
-process is one rank of a (data, seq, 1) mesh (`core.mesh.make_mesh`: NCCL
-for cuda, gloo for cpu; data = ranks / --seq_parallel_size): parameters
-and optimizer state are ZeRO-3 slices (`parallel.sharding.shard_params`),
+process is one rank of a (data, seq, model) mesh (`core.mesh.make_mesh`:
+NCCL for cuda, gloo for cpu; data = ranks / (--seq_parallel_size x
+--model_parallel_size)): parameters and optimizer state are ZeRO-3 slices
+(`parallel.sharding.shard_params`), the text layers' weights and their
+moments also cut on "model" (tensor parallelism: each rank of a model
+group runs its heads and FFN columns; "model" must divide the KV heads),
 every rank decodes only its data rows of the global batch of
 per_device_train_batch_size x data rows (the seq ranks of a data group
 the same ones; with --pack each data group packs its own share of the
@@ -33,8 +39,7 @@ a step, which also counts the global batch's frames and tokens); the
 modality streams are cut over "seq" and cross-attended as --sp_mode says.
 The step is the same function of the global batch as one process's. Rank 0 alone logs, writes metrics,
 tensorboard and traces, and saves (the gathered tree; a resume cuts it
-again). --seq_parallel_size > 1 needs torchrun; --model_parallel_size > 1
-(the backward of tensor parallelism) is ROADMAP Q1.16c.
+again). --seq_parallel_size > 1 and --model_parallel_size > 1 need torchrun.
 """
 from __future__ import annotations
 
@@ -161,10 +166,6 @@ def _step_profiler(out_dir, start_step: int, device: torch.device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.model_parallel_size > 1:
-        raise NotImplementedError(
-            "--model_parallel_size > 1: training under tensor parallelism on the "
-            "'model' axis is ROADMAP Q1.16c")
     import torch.distributed as dist
     from vidi_tpu_torch.core.mesh import init_from_env, make_mesh
     from vidi_tpu_torch.infer.loader import resolve_device
@@ -172,11 +173,14 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     launched = init_from_env(dev.type)
-    if launched is None and args.seq_parallel_size > 1:
-        raise SystemExit("--seq_parallel_size > 1 needs ranks: launch with torchrun "
-                         "--nproc_per_node N")
+    for flag, n in (("--seq_parallel_size", args.seq_parallel_size),
+                    ("--model_parallel_size", args.model_parallel_size)):
+        if launched is None and n > 1:
+            raise SystemExit(f"{flag} > 1 needs ranks: launch with torchrun "
+                             "--nproc_per_node N")
     dev = launched or dev
-    mesh = make_mesh(seq=args.seq_parallel_size, model=1, device_type=dev.type)
+    mesh = make_mesh(seq=args.seq_parallel_size, model=args.model_parallel_size,
+                     device_type=dev.type)
     sharding.set_mesh(mesh)
     try:
         _run(args, dev, mesh)
@@ -272,7 +276,7 @@ def _run(args, dev: torch.device, mesh):
                          "image-conv for image models)")
     ga = args.gradient_accumulation_steps
     if sharded:
-        params = sharding.shard_params(params, mesh)
+        params = sharding.shard_params(params, mesh, kv_heads=cfg.text.num_kv_heads)
     hp = TrainHParams(
         learning_rate=args.learning_rate, mm_rand_lr=args.mm_rand_lr,
         mm_vis_lr=args.mm_vis_lr, mm_aud_lr=args.mm_aud_lr,
@@ -291,7 +295,8 @@ def _run(args, dev: torch.device, mesh):
     if ckpt.latest_step() is not None:  # auto-resume
         if sharded:  # the whole tree, memory-mapped, cut again for this rank
             start_step, full, full_state = ckpt.restore(map_location="cpu", mmap=True)
-            params = sharding.shard_params(full, mesh, device=dev)
+            params = sharding.shard_params(full, mesh, device=dev,
+                                           kv_heads=cfg.text.num_kv_heads)
             opt_state = sharding.shard_state(full_state, params)
             del full, full_state
         else:

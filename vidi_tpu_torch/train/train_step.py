@@ -19,8 +19,17 @@ encoders cut the modality streams over "seq". Each rank's loss is its rows'
 token sum over the global token count, and its backward is seeded with
 loss / seq: the text path and the queries are computed alike on every
 rank of a seq group while each stream slice lives on one, so the sums of
-the gradients over the world (the gathers' reduce-scatters, `sync_grads`)
-count the text part once and every stream slice once.
+the gradients over ("data", "seq") (the gathers' reduce-scatters,
+`sync_grads`) count the text part once and every stream slice once.
+
+Under a "model" cut of the text layers (tensor parallelism) every rank of
+a model group computes the same loss: each runs its heads and FFN columns,
+the row partials summed in the forward (`sharding.model_sum`, whose
+backward passes the gradient on) and the gradient of each column-cut
+product's input summed in the backward (`sharding.to_model`). A rank then
+holds the whole gradient of every leaf that is not cut on "model", and
+its slice's of every leaf that is; the sums above leave "model" out.
+"model" must divide the KV heads (`sharding.check_model_cut`).
 """
 from __future__ import annotations
 
@@ -32,7 +41,6 @@ from vidi_tpu_torch.core.config import DattnConfig
 from vidi_tpu_torch.models import dattn, decoder
 from vidi_tpu_torch.models.adapters import budget_hw
 from vidi_tpu_torch.parallel import sharding
-from vidi_tpu_torch.core.mesh import AXES
 from vidi_tpu_torch.train.losses import shifted_cross_entropy
 from vidi_tpu_torch.core.tree import leaves
 
@@ -95,10 +103,8 @@ def value_and_grads(params, batch: Dict, pos_noise: Optional[Dict], *, labels: D
     `labels` entry is not "frozen", each gradient this rank's slice of the
     whole batch's (see the module docstring)."""
     mesh = sharding.get_mesh()
-    if mesh is not None and mesh.shape["model"] > 1:
-        # the model cut's partial sums carry no gradient (sharding.model_sum)
-        raise NotImplementedError("training under tensor parallelism on the 'model' "
-                                  "axis is ROADMAP Q1.16c")
+    if mesh is not None:
+        sharding.check_model_cut(mesh, cfg.text.num_kv_heads)
     sp = mesh.shape["seq"] if mesh is not None else 1
     train = [(key, p) for key, _, p in leaves(params) if labels[key] != "frozen"]
     for _, p in train:
@@ -120,7 +126,8 @@ def value_and_grads(params, batch: Dict, pos_noise: Optional[Dict], *, labels: D
     sharding.sync_grads([(p, grads[key]) for key, p in train], mesh)
     loss = loss.detach()
     if mesh is not None and mesh.size > 1:
-        loss = sharding.axis_sum(loss / sp, AXES)
+        # every rank of a model group holds the same loss
+        loss = sharding.axis_sum(loss / sp, ("data", "seq"))
     return loss, grads
 
 
