@@ -67,7 +67,9 @@
    K4's two runs must be bit-equal, and its capless cases (the 7B's G = 4
    T2T / T2V / T2A, the 9B's T2A) are timed against SDPA's backward. K1
    and K4 also run at a --pack row: 4,096 tokens in three segments, with
-   the segment ids ignored as a planted fault, and at the B = 2 shapes the
+   the segment ids ignored as a planted fault (K1 in fp32 too, and with a
+   live tile of its segment walk skipped as a fault; the walk's live and
+   band tiles printed, `sm90_fwd_tiles`), and at the B = 2 shapes the
    training phases hand them: train_pack's two rows with their own
    segment ids, and (K4) train_image's T2V over two anyres rows with
    per-row masks, with every row reading row 0's masks or keys as faults.
@@ -201,7 +203,12 @@
    anyres samples of 5 and 4 tiles, 3 steps); --pack rows (PackedBatcher,
    2 x 4,096 tokens: each segment's logits against its sample alone, a
    planted fault with the segment ids dropped, one backward); each with
-   K1 / K2 / K4 launches held to the reckoned ones. Frees it and trains
+   K1 / K2 / K4 launches held to the reckoned ones. The last image step's
+   and the packed backward's logits product (bf16 operands, fp32 sums:
+   `ops/basic._MatmulF32`) is held against the fp32 upcast on the path's
+   own operands (`logits_check`: logits within LOGITS_REL, gradients
+   within LOGITS_GRAD_REL; planted faults: the logits rounded to bf16,
+   the cotangent in float8_e4m3fn), with both routes' time. Frees it and trains
    Vidi-7B at full width with TRAIN_LAYERS text layers (the 120 s clip at
    224 px, position noise at the v1 side, launches reckoned; the gradient
    routes at G = 4 with their planted fault), then runs the train CLI on
@@ -643,35 +650,66 @@ def kernel_phases(dev) -> dict:
     return res
 
 
+def _live_tile_skipped(k1, args: dict, tiles):
+    """The plain K1 of a kernel that skipped one tile its walk computes
+    (`sm90_fwd_tiles`): the visible pairs of the middle row block's first
+    live tile removed, in every head."""
+    b, t, hq, d = args["q"].shape
+    s = args["k"].shape[1]
+    vis = k1.visible_mask(b, t, s, args["kv_mask"], args["causal"], args["window"],
+                          args["q_segs"], args["kv_segs"], args["q"].device)
+    blocks = sorted({x[3] for x in tiles})
+    bi, _, _, t0, t1, s0, s1 = next(x for x in tiles if x[3] == blocks[len(blocks) // 2])
+    vis[bi, t0:t1, s0:s1] = False
+    return k1.attention_with_mask(args["q"], args["k"], args["v"], vis, args["sm_scale"],
+                                  args["softcap"])[0]
+
+
 def k1_packed_case(dev, gen) -> tuple:
     """K1 at --pack rows of the training slice (train_pack), causal, window
     4096, cap 50, the 9B's heads: one row of T = S = 4,096 tokens in three
-    segments (PACK_SEGS) and 96 pad tokens, and the phase's own B = 2 rows
-    (`_pack_layout`: per-row segment ids and pad tails); planted faults:
-    the segment ids ignored, no causal mask, no softcap, and at B = 2 every
-    row read with row 0's segment ids and kv_mask. -> (errs, cases)."""
+    segments (PACK_SEGS) and 96 pad tokens, the phase's own B = 2 rows
+    (`_pack_layout`: per-row segment ids and pad tails), and the first in
+    fp32 on the SIMT route. Prints, as the mirror reckons them
+    (`sm90_fwd_tiles`; nothing on the card counts them), the key tiles the
+    sm90 kernel's walk computes against its band's: the segment skip;
+    planted faults: the segment ids ignored, no causal mask, no softcap, a
+    live tile skipped, and at B = 2 every row read with row 0's segment ids
+    and kv_mask. -> (errs, cases)."""
     from vidi_tpu_torch.ops.cuda import flash_attention as k1
 
     hq, hk, d = 16, 8, 256
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows_segs, rows_valid = _pack_layout(dev)
+    one_row = _segments(dev, PACK_T, PACK_SEGS)
     errs, cases = [], []
-    for label, segs, valid in (
+    for label, segs, valid, dtype in (
             (f"9b packed t2t T=S={PACK_T} {len(PACK_SEGS)} segments cap=50",
-             _segments(dev, PACK_T, PACK_SEGS), [sum(PACK_SEGS)]),
+             one_row, [sum(PACK_SEGS)], torch.bfloat16),
             (f"9b packed t2t B=2 T=S={PACK_T} {int(rows_segs.max(1).values.sum())} "
-             "segments (train_pack's rows) cap=50", rows_segs, rows_valid)):
+             "segments (train_pack's rows) cap=50", rows_segs, rows_valid, torch.bfloat16),
+            (f"fp32 9b packed t2t T=S={PACK_T} {len(PACK_SEGS)} segments cap=50",
+             one_row, [sum(PACK_SEGS)], torch.float32)):
         b = len(valid)
         kv_mask = torch.cat([_kv_mask(PACK_T, n, dev) for n in valid])
-        args = dict(q=_randn(gen, (b, PACK_T, hq, d), dev, Q_GAIN),
-                    k=_randn(gen, (b, PACK_T, hk, d), dev),
-                    v=_randn(gen, (b, PACK_T, hk, d), dev), kv_mask=kv_mask,
+        args = dict(q=_randn(gen, (b, PACK_T, hq, d), dev, Q_GAIN, dtype),
+                    k=_randn(gen, (b, PACK_T, hk, d), dev, dtype=dtype),
+                    v=_randn(gen, (b, PACK_T, hk, d), dev, dtype=dtype), kv_mask=kv_mask,
                     sm_scale=d**-0.5, causal=True, window=4096, softcap=50.0,
                     q_segs=segs, kv_segs=segs)
+        walk = dict(b=b, t=PACK_T, s=PACK_T, hq=hq, hk=hk, d=d, sms=sms, causal=True,
+                    window=4096, kv_mask=kv_mask)
+        band = len(k1.sm90_fwd_tiles(**walk)) // hk
+        tiles = k1.sm90_fwd_tiles(**walk, q_segs=segs, kv_segs=segs)
+        print(f"  K1 {label}: by the mirror's reckoning (sm90_fwd_tiles, not read on the "
+              f"card) the sm90 walk computes {len(tiles) // hk} of its band's {band} key tiles a "
+              "KV head")
         out, lse = k1.flash_attention(**args)
         ref, ref_lse = k1.flash_attention_plain(**args)
         planted = _faults(k1.flash_attention_plain, args, ("causal", "cap"))
         planted["segment ids ignored"] = k1.flash_attention_plain(
             **{**args, "q_segs": None, "kv_segs": None})[0]
+        planted["a live tile skipped"] = _live_tile_skipped(k1, args, tiles)
         if b > 1:
             planted["every row read with row 0's segment ids and kv_mask"] = \
                 k1.flash_attention_plain(**{**args, **_row0(args)})[0]
@@ -687,11 +725,12 @@ def k1_packed_case(dev, gen) -> tuple:
         seen = k1.visible_mask(b, PACK_T, PACK_T, kv_mask, True, 4096, segs, segs, dev)
         ops = 4 * hq * d * int(seen.sum())
         bound = _bound(ops, _nbytes(args["q"], args["k"], args["v"], out, lse, kv_mask,
-                                    segs), "bf16")
+                                    segs), "bf16" if dtype == torch.bfloat16 else "fp32")
         call_ms = _call_ms(lambda: k1.flash_attention(**args))
         print(f"  K1 {label}: kernel {ms:.4f} ms (one call from idle {call_ms:.4f} ms), plain "
               f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
-              "library None (capped)")
+              f"library None (capped); the mirror reckons {len(tiles) // hk} of {band} tiles "
+              "a KV head")
         cases.append({"shape": label, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                       **bound, "library_ms": None, **_rate(f"K1 {label}", ops, ms, bound)})
     return errs, cases
@@ -1019,7 +1058,8 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
             raise AssertionError(f"K3 {label}: the row with no visible key is not zero")
         ms = _time_ms(run)
         plain_ms = _time_ms(lambda: k3.decode_attention_plain(**args))
-        device_ms, host_ms = _device_us(run) / 1e3, _host_us(run) / 1e3
+        (device_us, device_by), host_ms = _device_us(run), _host_us(run) / 1e3
+        device_ms = device_us / 1e3
         seen = k3.visible_keys(b, s, mask, window, q_pos, dev)
         n_seen = int(seen.sum())
         kind = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -1037,8 +1077,8 @@ def k3_phase(dev, t: int, n_real: int) -> dict:
               f"{bound['bound_ms']:.4f} ms ({n_seen} visible keys, {bound['bound_by']}), "
               f"{bound['bound_ms'] / device_ms:.3f} of the visible bound on device time, "
               f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
-        cases.append({"shape": label, "ms": ms, "device_ms": device_ms, "host_ms": host_ms,
-                      "plain_ms": plain_ms,
+        cases.append({"shape": label, "ms": ms, "device_ms": device_ms,
+                      "device_by": device_by, "host_ms": host_ms, "plain_ms": plain_ms,
                       **bound, "bound_whole_ms": whole["bound_ms"], "library_ms": lib_ms,
                       "plan": plan, "bound_share_device": bound["bound_ms"] / device_ms})
     return {"decode_attention": dict(
@@ -1618,7 +1658,8 @@ def k5_phase(dev, probe=None) -> dict:
             2 * 2 * m * d * ffp, _nbytes(x, x) + _qbytes(lp["fc1_w"]) + _qbytes(lp["fc2_w"])),
             lambda: k5.ln_ffn(x, lp, eps, act), (x, [lp["fc1_w"], lp["fc2_w"]])))
         for n, case, run, (x_in, ws) in cases:
-            case["device_ms"] = _device_us(run) / 1e3
+            device_us, case["device_by"] = _device_us(run)
+            case["device_ms"] = device_us / 1e3
             case["int_mm_ms"], why = _k5_int_mm_ms(x_in, ws)
             case["device_bound_share"] = case["bound_ms"] / case["device_ms"]
             print(f"  K5 {n} {label.split()[0]}: device {case['device_ms']:.4f} ms a call "
@@ -1834,12 +1875,17 @@ def _host_us(fn, reps: int = 200) -> float:
     return 1e6 * dt / reps
 
 
-def _device_us(fn, reps: int = 10) -> float:
-    """Device time of one call of `fn` in microseconds: torch.profiler's
-    kernel times summed over `reps` calls, over `reps`. A profiler session
-    that records no kernel at all (seen once in a plain run on an H100,
-    after several sessions in one process) is taken again, up to three
-    sessions; then the run fails."""
+def _device_us(fn, reps: int = 10) -> tuple:
+    """Device time of one call of `fn` in microseconds, and the method that
+    read it: "profiler", torch.profiler's kernel times summed over `reps`
+    calls, over `reps`. A profiler session that records no kernel at all
+    (seen in plain runs on an H100, after many sessions in one process,
+    late in the script) is taken again, up to three sessions; then the
+    calls are timed queued behind a spin kernel instead (`_queued_ms`,
+    "queued"). The two differ on short calls (K6 at the folded o on an
+    H100: 0.0553 ms profiled against 0.0259 queued), so each reading
+    carries its method.
+    -> (us, "profiler" or "queued")."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1852,8 +1898,11 @@ def _device_us(fn, reps: int = 10) -> float:
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type.name == "CUDA") / reps
         if us > 0:
-            return us
-    raise AssertionError("torch.profiler recorded no kernel in three sessions")
+            return us, "profiler"
+    us = 1e3 * _queued_ms(fn)
+    print(f"    (torch.profiler recorded no kernel in three sessions: {us:.2f} us a call "
+          "from CUDA events around calls queued behind a spin kernel)")
+    return us, "queued"
 
 
 def _queued_ms(fn, reps: int = 20) -> float:
@@ -1913,8 +1962,10 @@ def k7_phase(dev) -> dict:
         ms, plain_ms = _time_ms(run), _time_ms(lambda: k7.fused_rms_norm_plain(x, w, 1e-6))
         lib_ms = _time_ms(lib)
         bound = _bound(3 * x.numel(), 2 * _nbytes(x) + _nbytes(w), "fp32")
-        extra = {"device_us": _device_us(run), "library_device_us": _device_us(lib),
-                 "host_us": _host_us(run), "library_host_us": _host_us(lib)}
+        (dev_us, dev_by), (lib_us, lib_by) = _device_us(run), _device_us(lib)
+        extra = {"device_us": dev_us, "device_by": dev_by, "library_device_us": lib_us,
+                 "library_device_by": lib_by, "host_us": _host_us(run),
+                 "library_host_us": _host_us(lib)}
         print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), rms_norm {lib_ms:.4f} ms; "
               f"device time {extra['device_us']:.1f} us (rms_norm "
@@ -5344,7 +5395,8 @@ def train_image_phase(tr) -> dict:
     anyres samples with grids (2, 2) and (1, 3) (5 and 4 SigLIP tiles,
     3,645 and 2,916 image tokens), T = TRAIN_T, IMAGE_STEPS steps; launches
     held to the reckoned ones, trainable tensors changed and the towers
-    not."""
+    not; the logits product of the last step's batch held against the fp32
+    upcast (`logits_check`), on an untimed loss + backward after the steps."""
     cfg, params = _image_model(tr)
     tx, state = _fresh_optimizer(tr, params)
     watched = _watch(params, {"mm projector w0": ("mm", "projector", "w0")})
@@ -5370,7 +5422,152 @@ def train_image_phase(tr) -> dict:
         cfg, IMAGE_STEPS, 1, vis_layers * _map_chunks(2 * (1 + max(
             gw * gh for gw, gh in IMAGE_GRIDS)), 4)))
     print(f"  ({tiles} valid tiles a step)")
+    del tx, state
+    with _LogitsTap() as tap:  # after the launches were read
+        _image_backward(tr, cfg, params, IMAGE_STEPS - 1)()
+    logits_check("the last image step's batch", tap)
     return launches
+
+
+def _image_backward(tr, cfg, params, step: int):
+    """A callable: the loss of `_image_step`'s batch at `step` and the
+    embedding's gradient (so the tied logits product takes both
+    gradients), with no optimizer update."""
+    from vidi_tpu_torch.train import data, train_step
+
+    batch, _ = _image_train_batch(cfg, step, 2, TRAIN_T, IMAGE_GRIDS, SEED + 100)
+    noise = {k: v.to(tr.dev) for k, v in _image_noise(cfg, batch, step).items()}
+    batch = data.to_device(batch, tr.dev)
+    return lambda: _leaf_grads(params, (("text", "embed"),), lambda: train_step.loss_fn(
+        params, cfg, batch, noise, hw=(0, 0), mm_chunks=4, remat=True, use_flash=True,
+        frozen=TRAIN_FROZEN))
+
+
+# The training logits on the card (`ops/basic.matmul_f32` -> `_MatmulF32`):
+# bf16 operands, fp32 sums, against the fp32 upcast (TF32 off) on the same
+# operands. The products are exact in both, so the logits differ by the
+# order of fp32 accumulation alone (a few fp32 ulps of a sum of 3,584
+# terms); LOGITS_REL of max|logit| sits well above that and ~20x below a
+# bf16 rounding of the logits, the planted fault. The gradients: the
+# cotangent rounded to bf16 once (the reference's mixed dot at the chip's
+# default precision), each gradient cast to bf16; relative Frobenius
+# error against the upcast's fp32 gradients, sized on the CPU at [256, 512]
+# . [512, 16,000]: the cotangent's rounding alone 8.5e-4, the gradient's
+# cast 1.7e-3. A cotangent rounded to float8_e4m3fn must read above it.
+LOGITS_REL = 1e-4
+LOGITS_GRAD_REL = 4e-3
+
+
+class _LogitsTap:
+    """Keeps the operands and the result of the last `basic.matmul_f32`
+    call inside a `with` block: the tied logits (`quantize.tied_logits`
+    looks the function up in `basic`) or the untied lm_head's
+    (`decoder.lm_logits` holds its own name for it). It keeps the path's
+    fp32 logits alive and copies w: never inside a timed window."""
+
+    def __enter__(self):
+        from vidi_tpu_torch.models import decoder
+        from vidi_tpu_torch.ops import basic
+
+        real = basic.matmul_f32
+
+        def tap(x, w):
+            y = real(x, w)
+            # w is a copy: an optimizer step updates the weights in place
+            self.x, self.w, self.y = x.detach(), w.detach().clone(), y.detach()
+            return y
+        self._swaps = (_swap(basic, matmul_f32=tap), _swap(decoder, matmul_f32=tap))
+        for s in self._swaps:
+            s.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for s in self._swaps:
+            s.__exit__(*exc)
+
+
+def _frob_rel(got, want) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want) / torch.linalg.vector_norm(want))
+
+
+def logits_check(label: str, tap: _LogitsTap) -> dict:
+    """The logits product of a training loss (`tap`: its hidden rows x
+    [N, d] and w [d, V], the tied embedding's view embed.T or the untied
+    lm_head): the path's
+    logits bit-equal to `_MatmulF32` on the same operands (the path took
+    the card route), the logits within LOGITS_REL of max|logit| of the fp32
+    upcast, and dx / dw for an fp32 cotangent drawn from a seed within
+    LOGITS_GRAD_REL (relative Frobenius) of the upcast's fp32 gradients,
+    and dx bit-equal when x alone asks for a gradient (a frozen w: the
+    branch that makes no dw); planted faults: the logits rounded to bf16,
+    the cotangent rounded to float8_e4m3fn. Times forward + backward of
+    both routes, with the peak memory of each. -> readings."""
+    from vidi_tpu_torch.ops import basic
+
+    x, w = tap.x.reshape(-1, tap.x.shape[-1]), tap.w
+    n, (d, v) = x.shape[0], w.shape
+    with torch.no_grad():
+        path_equal = torch.equal(tap.y.reshape(n, v), basic._MatmulF32.apply(x, w))
+    tap.y = None
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 19)
+    g = torch.randn((n, v), generator=gen, device=x.device)
+
+    def card():
+        y = basic.matmul_f32(xl, wl)
+        return (y.detach(), *torch.autograd.grad(y, (xl, wl), g))
+
+    def upcast():
+        y = xl.float() @ wl.float()
+        return (y.detach(), *torch.autograd.grad(y, (xl, wl), g))
+
+    upcast()
+    upcast_s, upcast_peak = _timed(upcast)[1:]  # its outputs freed before the card's run
+    upcast_ms = 1e3 * upcast_s
+    (y, dx, dw), _, card_peak = _timed(card)
+    card_ms = _time_ms(card, reps=3)
+    y_x = basic.matmul_f32(xl, w)
+    x_alone = torch.equal(torch.autograd.grad(y_x, xl, g)[0], dx)
+    del y_x
+    xf, wf = x.float(), w.float()
+    want = xf @ wf
+    top = float(want.abs().max())
+    err = float((y - want).abs().max()) / top
+    rounded = float((want.to(torch.bfloat16).float() - want).abs().max()) / top
+    del want, y
+    g8 = g.to(torch.float8_e4m3fn).to(x.dtype)
+    rel, rel8 = {}, {}
+    for name, got, want_of, fault_of in (
+            ("dx", dx, lambda: g @ wf.T,
+             lambda: torch.mm(g8, w.T, out_dtype=torch.float32).to(x.dtype)),
+            ("dw", dw, lambda: xf.T @ g,
+             lambda: torch.mm(x.T, g8, out_dtype=torch.float32).to(w.dtype))):
+        want = want_of()
+        rel[name] = _frob_rel(got, want)
+        rel8[name] = _frob_rel(fault_of(), want)
+        del want
+    del g8, g, xf, wf, dx, dw
+    print(f"  logits product, {label} ([{n}, {d}] . [{d}, {v}]): path's logits bit-equal to "
+          f"_MatmulF32 {path_equal}; logits {err:.3e} of max|logit| {top:.3f} (limit "
+          f"{LOGITS_REL}; planted fault, logits rounded to bf16, {rounded:.3e}); dx "
+          f"{rel['dx']:.3e}, dw {rel['dw']:.3e} relative Frobenius (limit {LOGITS_GRAD_REL}; "
+          f"planted fault, the cotangent in float8_e4m3fn: dx {rel8['dx']:.3e}, dw "
+          f"{rel8['dw']:.3e}); dx with x alone asking for a gradient bit-equal "
+          f"{x_alone}; forward + backward {card_ms:.2f} ms (events, 3 calls; peak "
+          f"{card_peak:.2f} GiB) against the fp32 upcast's {upcast_ms:.2f} ms (host clock, "
+          f"one call; peak {upcast_peak:.2f} GiB)")
+    if not path_equal:
+        raise AssertionError(f"logits product, {label}: the path's logits differ from "
+                             "_MatmulF32 on its operands")
+    if not x_alone:
+        raise AssertionError(f"logits product, {label}: dx differs when x alone asks for "
+                             "a gradient")
+    if not (err <= LOGITS_REL and max(rel.values()) <= LOGITS_GRAD_REL):
+        raise AssertionError(f"logits product, {label}: over its limits")
+    if not (rounded > LOGITS_REL and min(rel8.values()) > LOGITS_GRAD_REL):
+        raise AssertionError(f"logits product, {label}: a planted fault within the limits")
+    return {"logits_rel": err, "dx_rel": rel["dx"], "dw_rel": rel["dw"], "ms": card_ms,
+            "upcast_ms": upcast_ms, "peak_gib": card_peak, "upcast_peak_gib": upcast_peak}
 
 
 def _packed_batch(cfg):
@@ -5431,7 +5628,9 @@ def train_pack_phase(tr) -> dict:
     positions against the same sample run alone (LOGIT_REL / LOGIT_COS; a
     planted fault, the segment ids dropped, must fail), then one loss +
     backward of the packed rows (ROUTE_LEAVES' gradients: K1 / K4 with the
-    segment ids) with its launches held to the reckoned ones."""
+    segment ids) with its launches held to the reckoned ones, and the
+    logits product of a second, untimed pass held against the fp32 upcast
+    (`logits_check`)."""
     from vidi_tpu_torch.models import decoder
     from vidi_tpu_torch.train.packing import pack_batch
 
@@ -5475,6 +5674,10 @@ def train_pack_phase(tr) -> dict:
     n_frames, n_windows = batch["images"].shape[0] * batch["images"].shape[1], 2
     _held_train("packed rows, one backward", launches, _reckon_train(
         tr.cfg, 1, 2, _tower_launches(tr.cfg, n_frames, n_windows, 4)))
+    del grads
+    with _LogitsTap() as tap:  # after the launches were read
+        _packed_backward(tr, batch)()
+    logits_check("packed rows", tap)
     return launches
 
 
@@ -5483,7 +5686,9 @@ def train_7b_phase(dev) -> tuple:
     120 s clip's shapes at 224 px (7,680 image + 1,200 audio tokens),
     T = TRAIN_T, position noise on (the v1 tables' lengths), TRAIN_STEPS
     steps with launches held to the reckoned ones; the gradient routes at
-    G = 4 with their planted fault. -> (launches, the slice)."""
+    G = 4 with their planted fault; the untied lm_head's logits product
+    held against the fp32 upcast (`logits_check`). -> (launches, the
+    slice)."""
     from vidi_tpu_torch import DattnConfig
 
     tr7 = load_training_slice(dev, DattnConfig.vidi_7b())
@@ -5494,6 +5699,9 @@ def train_7b_phase(dev) -> tuple:
     launches = training_phase(tr7, "7B training")
     print("  gradient routes (7B, G = 4):")
     gradient_route_check(tr7)
+    with _LogitsTap() as tap:  # lm_head takes no gradient here: dx alone is made
+        _route_grads(tr7, True)
+    logits_check("7B's untied lm_head", tap)
     return launches, tr7
 
 
@@ -5907,8 +6115,8 @@ def k3_lse_cases(dev) -> tuple:
         with_lse = lambda: k3.decode_attention(**args, return_lse=True)  # noqa: E731
         ms, plain_ms = _time_ms(with_lse), _time_ms(
             lambda: k3.decode_attention_plain(**args, return_lse=True))
-        dev_us = _device_us(with_lse)
-        dev_us_no = _device_us(lambda: k3.decode_attention(**args))
+        dev_us, dev_by = _device_us(with_lse)
+        dev_us_no, dev_by_no = _device_us(lambda: k3.decode_attention(**args))
         n_seen = int(seen.sum())
         row = 2 * hk * d * 2
         bound = _bound(4 * hq * d * n_seen, _nbytes(args["q"], out, lse, args["kv_mask"])
@@ -5918,7 +6126,9 @@ def k3_lse_cases(dev) -> tuple:
               f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({n_seen} visible keys) "
               f"[{_card()}]")
         cases.append({"shape": f"lse {label}", "ms": ms, "plain_ms": plain_ms,
-                      "device_ms": dev_us / 1e3, "device_ms_without_lse": dev_us_no / 1e3,
+                      "device_ms": dev_us / 1e3, "device_by": dev_by,
+                      "device_ms_without_lse": dev_us_no / 1e3,
+                      "device_without_lse_by": dev_by_no,
                       **bound, "library_ms": None, "plan": plan})
     return cases, max(errs)
 
@@ -5987,15 +6197,16 @@ def seq_read_check(dev) -> tuple:
         n_seen = int(mm.sum())
         bound = _bound(4 * hq * d * n_seen, _nbytes(q, o, l, mm) + 2 * hk * d * 2 * n_seen,
                        "bf16")
-        ms, dev_ms = _time_ms(run), _device_us(run) / 1e3
+        ms, (dev_us, dev_by) = _time_ms(run), _device_us(run)
+        dev_ms = dev_us / 1e3
         plain_ms = _time_ms(lambda: k3.decode_attention_plain(q, kk, vv, mm, scale, cap,
                                                               return_lse=True))
         shape = f"lse 9b seq shard {i} of {PAR_SEQ}: S={n}, {n_seen} visible keys"
         print(f"  K3 {shape}: events {ms:.4f} ms, device {dev_ms:.4f} ms a call, plain "
               f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
               f"[{_card()}]")
-        cases.append({"shape": shape, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                      **bound, "library_ms": None})
+        cases.append({"shape": shape, "ms": ms, "device_ms": dev_ms, "device_by": dev_by,
+                      "plain_ms": plain_ms, **bound, "library_ms": None})
     print(f"  seq-cut read: {PAR_SEQ} K3 calls with lse + merge {merged_ms:.4f} ms against "
           f"K3 on the whole cache {whole_ms:.4f} ms [{_card()}]")
     return launches, cases, err, {"merged": merged_ms, "whole": whole_ms}
@@ -6537,6 +6748,7 @@ def main() -> int:
     from vidi_tpu_torch.ops.cuda import _lib
     probe = _ptxas_start()  # K5's registers and spills, beside the build
     probe_k3 = _ptxas_start("decode_attention.cu")  # K3's sm90 kernel's
+    probe_k1 = _ptxas_start("flash_attention.cu")  # K1's, with its segment skip
     t0 = time.perf_counter()
     _lib.library()
     print(f"kernels: {_lib.library_path().name} ready in "
@@ -6545,6 +6757,7 @@ def main() -> int:
 
     stage("kernel phases:")
     _ptxas_report(probe_k3, "decode_attention_sm90")
+    _ptxas_report(probe_k1, "flash_forward_sm90")
     kern = kernel_phases(dev)
     stage("K4 phase:")
     kern["flash_attention_bwd"] = k4_phase(dev)

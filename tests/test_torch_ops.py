@@ -143,3 +143,111 @@ def test_device_resize_matches():
     x = np.random.default_rng(1).integers(0, 256, (2, 8, 11, 3), dtype=np.uint8)
     _close(tpre.preprocess_uint8(torch.from_numpy(x), 6, 0.5, 0.5),
            jpre.preprocess_uint8(jnp.asarray(x), 6, 0.5, 0.5))
+
+
+# The bf16 gradients of the logits: both sides cast one fp32 product to bf16,
+# summed in another order, so an element at a rounding boundary may land one
+# bf16 ulp (at most 2^-7 of its value) away.
+BF16_GRAD_TOL = dict(atol=1e-5, rtol=2**-7)
+
+
+@pytest.mark.parametrize("arch", ["gemma2", "mistral"])  # tied embed, softcap 30 / untied lm_head
+def test_lm_logits_and_grads_match_jax(arch):
+    """`decoder.lm_logits` on bf16 hidden rows and weights (`matmul_f32`'s
+    CPU route, the fp32 upcast) against JAX's `jax.vjp` of its own
+    `lm_logits` (`jnp.dot(..., preferred_element_type=float32)`): the fp32
+    logits and both bf16 gradients for one fp32 cotangent."""
+    import jax
+
+    from vidi_tpu.core.config import TextConfig as JTextConfig
+    from vidi_tpu.models import decoder as jdec
+    from vidi_tpu_torch.core.config import TextConfig
+    from vidi_tpu_torch.models import decoder as tdec
+
+    jcfg, tcfg = JTextConfig.tiny(arch), TextConfig.tiny(arch)
+    d, v = tcfg.hidden_size, tcfg.vocab_size
+    key = "embed" if tcfg.tie_word_embeddings else "lm_head"
+    h, g = _rand(2, 5, d, seed=1), _rand(2, 5, v, seed=2)
+    w = 0.05 * _rand(*((v, d) if key == "embed" else (d, v)), seed=3)
+    hj, wj = jnp.asarray(h, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    want, vjp = jax.vjp(lambda a, b: jdec.lm_logits({key: b}, a, jcfg), hj, wj)
+    dh_want, dw_want = vjp(jnp.asarray(g))
+    ht = torch.from_numpy(h).bfloat16().requires_grad_(True)
+    wt = torch.from_numpy(w).bfloat16().requires_grad_(True)
+    got = tdec.lm_logits({key: wt}, ht, tcfg)
+    dh, dw = torch.autograd.grad(got, (ht, wt), torch.from_numpy(g))
+    assert got.dtype == torch.float32 and (dh.dtype, dw.dtype) == (torch.bfloat16,) * 2
+    _close(got, want)
+    _close(dh.float(), dh_want.astype(jnp.float32), BF16_GRAD_TOL)
+    _close(dw.float(), dw_want.astype(jnp.float32), BF16_GRAD_TOL)
+
+
+def _frob_rel(got, want) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want) / torch.linalg.vector_norm(want))
+
+
+def test_logits_card_route_emulated_within_its_limit():
+    """The card's backward of the logits (`basic._MatmulF32`: the fp32
+    cotangent rounded to bf16 once, each product summed in fp32, then cast
+    to bf16), emulated with fp32 products at [256, 512] . [512, 16,000]:
+    dx and dw within the 4e-3 relative Frobenius limit that chip_smoke.py
+    holds the card to (LOGITS_GRAD_REL), against the fp32 upcast's fp32
+    gradients; the cotangent rounded to float8_e4m3fn reads above it."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((256, 512)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(0.05 * rng.standard_normal((512, 16000)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.standard_normal((256, 16000)).astype(np.float32))
+    xf, wf = x.float(), w.float()
+    want = {"dx": g @ wf.T, "dw": xf.T @ g}
+
+    def card(cot):  # the Function's arithmetic, with fp32 products of bf16 values
+        c = cot.bfloat16().float()
+        return {"dx": (c @ wf.T).bfloat16(), "dw": (xf.T @ c).bfloat16()}
+    got, fault = card(g), card(g.to(torch.float8_e4m3fn).float())
+    for name in want:
+        assert _frob_rel(got[name], want[name]) <= 4e-3
+        assert _frob_rel(fault[name], want[name]) > 4e-3
+
+
+@pytest.mark.parametrize("layout", ["lm_head", "embed.T"])
+@pytest.mark.parametrize("needs", ["x and w", "x", "w"])
+def test_logits_function_arithmetic_on_cpu(monkeypatch, needs, layout):
+    """`basic._MatmulF32` (the card's logits product) run on the CPU with
+    its cuBLAS product `_mm_f32` stood in by fp32 products of the bf16
+    values, and dw made 1,000 columns at a time (the last part-filled), for
+    an untied lm_head [d, V] and a tied embedding's view embed.T (dw then
+    written along its rows): the logits equal the fp32 upcast's, dx and dw
+    equal the card route's arithmetic (the cotangent rounded to bf16, fp32
+    sums, one cast) within one bf16 rounding, and only the gradients asked
+    for are made."""
+    from vidi_tpu_torch.ops import basic
+
+    monkeypatch.setattr(basic, "_mm_f32", lambda a, b: a.float() @ b.float())
+    monkeypatch.setattr(basic, "DW_COLS", 1000)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(0.05 * rng.standard_normal((128, 3500)).astype(np.float32)).bfloat16()
+    g = torch.from_numpy(rng.standard_normal((64, 3500)).astype(np.float32))
+    xf, wf, c = x.float(), w.float(), g.bfloat16().float()
+    want = {"x": (c @ wf.T).bfloat16(), "w": (xf.T @ c).bfloat16()}
+    w_in = w.clone() if layout == "lm_head" else w.T.contiguous().T
+    ins = {"x": x.clone().requires_grad_("x" in needs.split()),
+           "w": w_in.requires_grad_("w" in needs.split())}
+    y = basic._MatmulF32.apply(ins["x"], ins["w"])
+    assert y.dtype == torch.float32 and torch.equal(y, xf @ wf)
+    asked = [k for k in ins if ins[k].requires_grad]
+    grads = torch.autograd.grad(y, [ins[k] for k in asked], g)
+    for k, got in zip(asked, grads):
+        assert got.dtype == torch.bfloat16 and got.shape == ins[k].shape
+        _close(got.float(), want[k].float(), BF16_GRAD_TOL)
+
+    made = []
+    monkeypatch.setattr(basic, "_mm_f32", lambda a, b: made.append(
+        (tuple(a.shape), tuple(b.shape))) or a.float() @ b.float())
+    y = basic._MatmulF32.apply(ins["x"], ins["w"])
+    torch.autograd.grad(y, [ins[k] for k in asked], g)
+    parts = [1000, 1000, 1000, 500]
+    products = {"x": [((64, 3500), (3500, 128))],
+                "w": ([((128, 64), (64, n)) for n in parts] if layout == "lm_head"
+                      else [((n, 64), (64, 128)) for n in parts])}
+    assert made == [((64, 128), (128, 3500))] + sum((products[k] for k in asked), [])

@@ -7,7 +7,9 @@
 // in the Pallas kernels, the unnormalised probabilities are rounded to the
 // input dtype before P @ V and the row sums are kept in fp32. bf16 operands
 // take the Hopper kernel of flash_forward_sm90.cuh, which reuses
-// FlashParams and flash_combine from here.
+// FlashParams and flash_combine from here. With packing segment ids both
+// skip every key tile whose ids cannot meet the block's rows' (the rule of
+// the Pallas kernel's `_seg_overlap`, see `mark_live_tiles` there).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -174,6 +176,22 @@ __global__ void __launch_bounds__(NT) flash_forward(FlashParams p) {
 
   // KV range any row of this block can see: the causal bound and the
   // sliding-window bound skip whole tiles before any arithmetic.
+  // With segment ids a tile is also skipped unless the [min, max] ranges
+  // of the nonzero ids of the block's rows and of its unmasked keys meet,
+  // or both hold padding (id 0): q_lo / q_hi / q_pad here, the keys' side
+  // as three block-wide ORs per tile (k_lo <= q_hi, k_hi >= q_lo, a pad).
+  int q_lo = 0x7fffffff, q_hi = -0x7fffffff;
+  bool q_pad = false;
+  if (p.q_segs != nullptr) {
+    for (int t = q0; t < min(q0 + BQ, p.T); ++t) {
+      const int sg = p.q_segs[(long long)b * p.T + t];
+      q_pad = q_pad || sg == 0;
+      if (sg != 0) {
+        q_lo = min(q_lo, sg);
+        q_hi = max(q_hi, sg);
+      }
+    }
+  }
   int kv_begin = split * p.kv_split, kv_end = min(p.S, kv_begin + p.kv_split);
   if (p.causal) kv_end = min(kv_end, q0 + BQ);
   if (p.window > 0) kv_begin = max(kv_begin, q0 - p.window + 1);
@@ -187,6 +205,23 @@ __global__ void __launch_bounds__(NT) flash_forward(FlashParams p) {
 
   for (int s0 = kv_begin; s0 < kv_end; s0 += BK) {
     __syncthreads();  // the previous tile's K/V/P are no longer read
+    bool below = false, above = false, pad = false;  // this thread's keys
+    for (int j = tid; j < BK; j += NT) {
+      const int key = s0 + j;
+      int ok = key < kv_end;
+      if (ok && p.kv_mask != nullptr) ok = p.kv_mask[b * p.S + key] != 0;
+      const int sg = (ok && p.kv_segs != nullptr) ? p.kv_segs[b * p.S + key] : 0;
+      sKok[j] = ok;
+      sKseg[j] = sg;
+      pad = pad || (ok && sg == 0);
+      below = below || (ok && sg != 0 && sg <= q_hi);
+      above = above || (ok && sg != 0 && sg >= q_lo);
+    }
+    if (p.q_segs != nullptr) {  // the tile's segment test (uniform across the block)
+      const int meet_lo = __syncthreads_or(below), meet_hi = __syncthreads_or(above);
+      const int pads = __syncthreads_or(pad && q_pad);
+      if (!((meet_lo && meet_hi) || pads)) continue;
+    }
     for (int e = tid; e < BK * NPAIR; e += NT) {
       const int j = e / NPAIR, c = 2 * (e % NPAIR), key = s0 + j;
       if (key < p.S) {
@@ -196,13 +231,6 @@ __global__ void __launch_bounds__(NT) flash_forward(FlashParams p) {
         zero2(sK + j * L::KS + c);
         zero2(sV + j * L::KS + c);
       }
-    }
-    for (int j = tid; j < BK; j += NT) {
-      const int key = s0 + j;
-      int ok = key < kv_end;
-      if (ok && p.kv_mask != nullptr) ok = p.kv_mask[b * p.S + key] != 0;
-      sKok[j] = ok;
-      sKseg[j] = (ok && p.kv_segs != nullptr) ? p.kv_segs[b * p.S + key] : 0;
     }
     __syncthreads();
 

@@ -5,9 +5,12 @@
 // online-softmax attention of q [B,T,Hq,D] against k/v [B,S,Hk,D] with GQA
 // (query head h reads KV head h // (Hq/Hk), no repeated KV), causal masking,
 // the Gemma2 sliding window by absolute index, logit softcap, a bool
-// kv_mask and packing segment ids (masking only). It returns the output and
-// the logsumexp [B,Hq,T]; rows with no visible key give zeros and the
-// sentinel lse 0.7 * FLT_MAX, as the Pallas kernel does.
+// kv_mask and packing segment ids. It returns the output and the logsumexp
+// [B,Hq,T]; rows with no visible key give zeros and the sentinel lse
+// 0.7 * FLT_MAX, as the Pallas kernel does. Both routes skip the key tiles
+// outside a block's causal / window band and, with segment ids, the tiles
+// whose ids cannot meet its rows' (the Pallas kernel's `_seg_overlap`), so
+// packed rows cost about the sum of each segment's length squared.
 //
 // What bounds it on an H100: the cross attention of 128 text rows against
 // 23,520 video keys (D = 256, 16 query / 8 KV heads) moves 192 MB of K/V for

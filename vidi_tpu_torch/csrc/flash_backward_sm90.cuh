@@ -172,14 +172,6 @@ __device__ __forceinline__ void consumers_sync() {
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-__device__ __forceinline__ void warp_min_max(int& lo, int& hi) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-}
-constexpr int kNoSeg = 0x7fffffff;  // empty min / max range: lo = kNoSeg, hi = -kNoSeg
 
 // p of one score, and p times the softcap's derivative in `pd`: x is the
 // q . k sum, ok says whether the key is visible from the row, l2 is the

@@ -9,6 +9,17 @@
 // reads a K/V tile shares it, and the tile crosses shared memory once per
 // block. Causal, window and segment tests compare against the row's t.
 //
+// Tile skips: a block walks only the key tiles of its causal / window band
+// (its key range is clipped), and with packing segment ids only those of
+// the band's tiles whose ids can meet its rows' (`mark_live_tiles`, the
+// rule of the Pallas kernel's `_seg_overlap`). Before the roles split, the
+// block's 12 warps mark the live tiles in a bit mask in shared memory;
+// producer and consumers then walk the same live tiles, so a dead tile
+// costs no TMA load, no wgmma, no softmax update and no trip through the
+// ring. A split or a block with no live tile writes the neutral state (m =
+// -inf, l = 0: zeros and the sentinel lse, or a partial the merge ignores).
+// ops/cuda/flash_attention.py mirrors the walk (`sm90_fwd_tiles`).
+//
 // Warp roles (384 threads): warpgroups 0 and 1 are consumers of 64 rows
 // each; warpgroup 2 is the producer, one thread of which issues every TMA
 // load. The producer gives its registers to the consumers (setmaxnreg 24 /
@@ -57,6 +68,8 @@ constexpr int kRows = 128;      // query rows per block
 constexpr int kConsumers = 2;   // warpgroups of 64 rows
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kStages = 2;      // K/V ring depth
+constexpr int kLiveWords = 256; // live-tile mask of a packed block: 8,192 key tiles
+constexpr int kNoSeg = 0x7fffffff;  // empty [lo, hi] id range: lo = kNoSeg, hi = -kNoSeg
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -76,7 +89,8 @@ struct Cfg {
   static constexpr int kK = kQ + kChunks * kQChunk;
   static constexpr int kV = kK + kStages * kKVTile;
   static constexpr int kBar = kV + kStages * kKVTile;
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;  // + alignment slack
+  static constexpr int kLive = kBar + 8 * (1 + 3 * kStages);  // uint32 [kLiveWords]
+  static constexpr int kBytes = kLive + 4 * kLiveWords + 1024;  // + alignment slack
   static constexpr uint32_t kQLoad = kRows * D * 2;   // bytes TMA brings per Q tile
   static constexpr uint32_t kKVLoad = kKeys * D * 2;  // per K (or V) tile
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
@@ -159,6 +173,64 @@ __device__ __forceinline__ void score_tile(float (&sc)[N], const FlashParams& p,
   }
 }
 
+__device__ __forceinline__ void warp_min_max(int& lo, int& hi) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+// Packed segments: sets bit `it` of `live` for each key tile `it` of the
+// block's range [kv_begin, kv_end) that can hold a visible pair, by the
+// rule of the Pallas kernel's `_seg_overlap`: the [min, max] range of the
+// nonzero segment ids of the block's rows meets that of the tile's keys.
+// The keys are those the score test admits (inside the range, kv_mask
+// set), and a tile whose unmasked keys include padding (id 0) is kept for
+// a block with a padding row too, since the mask lets the two see each
+// other; where kv_mask hides the padding, as it does for packed rows, this
+// is `_seg_overlap` exactly. Every warp of the block takes tiles in turn,
+// a lane kKeys / 32 keys of each; `live` is zero on entry.
+template <int kKeys>
+__device__ __forceinline__ void mark_live_tiles(uint32_t* live, const FlashParams& p, int b,
+                                                int t0, int rows_t, int kv_begin, int kv_end,
+                                                int n_tiles) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int q_lo = kNoSeg, q_hi = -kNoSeg;
+  bool q_pad = false;
+  for (int i = lane; i < rows_t && t0 + i < p.T; i += 32) {
+    const int sg = p.q_segs[(long long)b * p.T + t0 + i];
+    q_pad = q_pad || sg == 0;
+    if (sg != 0) {
+      q_lo = min(q_lo, sg);
+      q_hi = max(q_hi, sg);
+    }
+  }
+  warp_min_max(q_lo, q_hi);
+  q_pad = __any_sync(0xffffffffu, q_pad);
+  for (int it = warp; it < n_tiles; it += kThreads / 32) {
+    int k_lo = kNoSeg, k_hi = -kNoSeg;
+    bool k_pad = false;
+#pragma unroll
+    for (int x = 0; x < kKeys / 32; ++x) {
+      const int key = kv_begin + it * kKeys + lane + 32 * x;
+      const long long at = (long long)b * p.S + key;
+      if (key < kv_end && (p.kv_mask == nullptr || p.kv_mask[at])) {
+        const int sg = p.kv_segs[at];
+        k_pad = k_pad || sg == 0;
+        if (sg != 0) {
+          k_lo = min(k_lo, sg);
+          k_hi = max(k_hi, sg);
+        }
+      }
+    }
+    warp_min_max(k_lo, k_hi);
+    const bool pads = __any_sync(0xffffffffu, k_pad) && q_pad;
+    if (lane == 0 && ((k_lo <= q_hi && q_lo <= k_hi) || pads))
+      atomicOr(live + it / 32, 1u << (it % 32));
+  }
+}
+
 // ---- the kernel ---------------------------------------------------------
 
 template <int D>
@@ -177,6 +249,9 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
   auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
   auto v_full = [&](int s) { return q_full + 8 * (1 + kStages + s); };
   auto empty = [&](int s) { return q_full + 8 * (1 + 2 * kStages + s); };
+  uint32_t* s_live = reinterpret_cast<uint32_t*>(smem + C::kLive);
+  const bool packed = p.q_segs != nullptr;
+  auto live = [&](int it) { return !packed || (s_live[it / 32] >> (it % 32) & 1u); };
 
   const int g = p.Hq / p.Hk;  // query heads per KV head: rows per t
   const int hk = blockIdx.y;
@@ -199,6 +274,8 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (packed)
+    for (int i = tid; i < kLiveWords; i += kThreads) s_live[i] = 0;
   if constexpr (C::kChunks > C::kLoaded) {  // zero the depth padding of Q and K
     constexpr int kPad = (C::kChunks - C::kLoaded) * C::kQChunk / 16;
     constexpr int kPadKV = (C::kChunks - C::kLoaded) * C::kKVChunk / 16;
@@ -211,18 +288,26 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
+  if (tid == 128 * kConsumers) {  // Q first: its load overlaps the tile marks
+    mbar_expect_tx(q_full, C::kQLoad);
+    for (int c = 0; c < C::kLoaded; ++c)
+      tma_load(sQ + c * C::kQChunk, &map_q, q_full, c * C::kChunk, hk * g, t0, b);
+  }
+  if (packed) {
+    mark_live_tiles<C::kKeys>(s_live, p, b, t0, kRows / g, kv_begin, kv_end, n_tiles);
+    __syncthreads();
+  }
 
   const int wg = tid / 128;
   if (wg == kConsumers) {
     // ---- producer ----
     setmaxnreg_dec<24>();
     if (tid == 128 * kConsumers) {
-      mbar_expect_tx(q_full, C::kQLoad);
-      for (int c = 0; c < C::kLoaded; ++c)
-        tma_load(sQ + c * C::kQChunk, &map_q, q_full, c * C::kChunk, hk * g, t0, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages, s0 = kv_begin + it * C::kKeys;
-        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+      for (int it = 0, j = 0; it < n_tiles; ++it) {
+        if (!live(it)) continue;
+        const int s = j % kStages, s0 = kv_begin + it * C::kKeys;
+        mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
+        ++j;
         mbar_expect_tx(k_full(s), C::kKVLoad);
         for (int c = 0; c < C::kLoaded; ++c)
           tma_load(sK + s * C::kKVTile + c * C::kKVChunk, &map_k, k_full(s), c * C::kChunk,
@@ -256,9 +341,11 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     mbar_wait(q_full, 0);
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages, s0 = kv_begin + it * C::kKeys;
-      const uint32_t phase = (it / kStages) & 1;
+    for (int it = 0, j = 0; it < n_tiles; ++it) {
+      if (!live(it)) continue;
+      const int s = j % kStages, s0 = kv_begin + it * C::kKeys;
+      const uint32_t phase = (j / kStages) & 1;
+      ++j;
 
       // S = Q K^T
       float sc[kSc];
@@ -403,6 +490,9 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
   }
   if (p.Hk < 1 || p.Hq % p.Hk || kRows % (p.Hq / p.Hk) || p.n_split < 1 ||
       p.B * p.n_split > 65535 || (p.n_split > 1 && p.kv_split % C::kKeys))
+    return cudaErrorInvalidValue;
+  if (p.q_segs != nullptr &&  // a packed block's key tiles must fit the live-tile mask
+      ((p.kv_split < p.S ? p.kv_split : p.S) + C::kKeys - 1) / C::kKeys > 32 * kLiveWords)
     return cudaErrorInvalidValue;
   const int g = p.Hq / p.Hk;
   CUtensorMap mq, mk, mv;

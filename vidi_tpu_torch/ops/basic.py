@@ -31,17 +31,61 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None) -> torch.Tensor:
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x @ w with an fp32 result from bf16 operands (the JAX
-    `preferred_element_type=float32` dot): cuBLAS writes fp32 directly on
-    the card. That op has no autograd formula and the CPU has no such op,
-    so under autograd, and on the CPU, it upcasts: the same products, since
-    bf16 values are exact in fp32."""
+    `preferred_element_type=float32` dot of the logits). On the card it is
+    `_MatmulF32`: cuBLAS products of the bf16 operands that write fp32, with
+    and without autograd. The CPU build has no such op (`aten::mm.dtype`),
+    so on the CPU it upcasts: the same products, since bf16 values are exact
+    in fp32."""
     if x.dtype == torch.float32:
         return x @ w
-    needs_grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
-    if x.is_cuda and not needs_grad:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    if x.is_cuda:
+        y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed and written in fp32 from bf16 operands (cuBLAS)."""
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+# Columns of dw made a product at a time: dw's fp32 sums of a 256,000-token
+# vocabulary would otherwise take twice the bf16 gradient's memory at once.
+DW_COLS = 32768
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x2d @ w in fp32 from bf16 operands on the card, and its gradient as
+    the reference computes it: JAX differentiates the mixed dot into two
+    dots of the fp32 cotangent against the bf16 operands at the chip's
+    default precision, then casts each to its operand's dtype. Here the
+    cotangent is rounded to bf16 once and each product accumulates in fp32
+    (`out_dtype`) before that cast; dw is made DW_COLS columns at a time,
+    each column's sums as in one product. Only the bf16 operands are saved,
+    and only the gradients asked for are computed."""
+
+    @staticmethod
+    def forward(ctx, x2d, w):
+        ctx.save_for_backward(x2d, w)
+        return _mm_f32(x2d, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2d, w = ctx.saved_tensors
+        g = g.to(x2d.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g, w.T).to(x2d.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.empty_like(w)  # w's layout: embed.T is a transposed view
+            by_rows = w.stride(0) == 1 and w.shape[1] > 1
+            for j in range(0, w.shape[1], DW_COLS):
+                part = g[:, j:j + DW_COLS]
+                if by_rows:  # dw.T's rows are contiguous: write them whole
+                    dw.T[j:j + DW_COLS] = _mm_f32(part.T, x2d)
+                else:
+                    dw[:, j:j + DW_COLS] = _mm_f32(x2d.T, part)
+        return dx, dw
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,

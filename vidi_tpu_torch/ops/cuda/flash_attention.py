@@ -23,7 +23,10 @@ Two routes on the card, by dtype (`route`): bf16 takes the Hopper kernel
 (csrc/flash_forward_sm90.cuh: wgmma products, TMA loads, GQA groups packed
 into 128-row query tiles), which needs 16-byte aligned rows
 (`tma_strides`) and raises otherwise; fp32 takes the SIMT template, which
-computes in full fp32 for the card-vs-CPU checks.
+computes in full fp32 for the card-vs-CPU checks. Both skip the key tiles
+outside a block's causal / window band and, with segment ids, the tiles
+whose ids cannot meet the block's rows' (`segments_meet`, the Pallas
+kernel's `_seg_overlap`); `sm90_fwd_tiles` mirrors the bf16 kernel's walk.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ HEAD_DIMS = (128, 256)    # the instantiations in csrc/flash_attention.cu
 SM90_ROWS = 128
 SM90_KEY_TILE = {64: 128, 72: 128, 128: 128, 256: 64}
 SM90_MIN_SPLIT_KEYS = 256
+SM90_LIVE_TILES = 8192  # key tiles a packed block's live-tile mask holds (kLiveWords x 32)
 TMA_ALIGN = 16  # bytes: TMA wants 16-byte aligned row starts and strides
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
 
@@ -112,6 +116,16 @@ def flash_attention_plain(q, k, v, kv_mask, sm_scale: float,
     """Plain PyTorch version with the kernel's semantics: fp32 scores,
     unnormalised probabilities cast to v's dtype for P @ V (as the TPU
     kernel does), zeros + sentinel lse for rows with no visible key."""
+    mask = visible_mask(q.shape[0], q.shape[1], k.shape[1], kv_mask, causal, window,
+                        q_segs, kv_segs, q.device)
+    return attention_with_mask(q, k, v, mask, sm_scale, softcap)
+
+
+def attention_with_mask(q, k, v, mask, sm_scale: float,
+                        softcap: Optional[float] = None):
+    """The arithmetic of `flash_attention_plain` with the visible pairs
+    given as a [B,T,S] bool mask: its body, which the tests and the chip
+    checks also call with the mask of a kernel that skipped a tile."""
     b, t, hq, d = q.shape
     s, hk = k.shape[1], k.shape[2]
     g = hq // hk
@@ -119,8 +133,6 @@ def flash_attention_plain(q, k, v, kv_mask, sm_scale: float,
     logits = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * sm_scale
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
-    mask = visible_mask(b, t, s, kv_mask, causal, window, q_segs, kv_segs,
-                        q.device)
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
@@ -194,6 +206,52 @@ def sm90_rows(t: int, hq: int, hk: int) -> torch.Tensor:
     tiles = torch.arange(-(-t * g // SM90_ROWS))[:, None]
     return torch.stack((tiles * (SM90_ROWS // g) + r // g,
                         (r % g).expand(tiles.shape[0], -1)), dim=-1)
+
+
+def segments_meet(q_ids, k_ids, k_ok) -> bool:
+    """The kernels' segment test of one (row block, key tile) pair: the
+    [min, max] ranges of the nonzero ids of the rows (`q_ids`) and of the
+    keys that `k_ok` admits (in range, kv_mask set) meet, as the Pallas
+    kernel's `_seg_overlap` tests them, or both hold padding (id 0), which
+    the mask lets see each other. Where kv_mask hides the padding, as it
+    does for packed rows, this is `_seg_overlap` exactly."""
+    k_ids = k_ids[k_ok]
+    qn, kn = q_ids[q_ids != 0], k_ids[k_ids != 0]
+    if len(qn) and len(kn) and kn.min() <= qn.max() and qn.min() <= kn.max():
+        return True
+    return bool((q_ids == 0).any() and (k_ids == 0).any())
+
+
+def sm90_fwd_tiles(b, t, s, hq, hk, d, sms, causal, window, kv_mask=None,
+                   q_segs=None, kv_segs=None):
+    """The key tiles the sm90 kernel computes, by its walk: blocks of
+    128 packed rows (`sm90_rows`), S split by `sm90_plan` on `sms` SMs into
+    ranges of whole tiles (SM90_KEY_TILE keys), each block's range clipped
+    to the causal / window band of its rows, and, with segment ids, a tile
+    skipped unless `segments_meet`.
+    -> [(batch, KV head, split, first t, end t, first key, end key)]."""
+    rows_t, keys = SM90_ROWS // sm90_group(hq, hk), SM90_KEY_TILE[d]
+    n_split, kv_split = sm90_plan(b, t, s, hq, hk, d, sms)
+    ok = (torch.ones((b, s), dtype=torch.bool) if kv_mask is None
+          else (kv_mask != 0).cpu())
+    if q_segs is not None:
+        q_segs, kv_segs = q_segs.cpu(), kv_segs.cpu()
+    live = []
+    for bi in range(b):
+        for t0 in range(0, t, rows_t):
+            t1 = min(t, t0 + rows_t)
+            for split in range(n_split):
+                begin, end = split * kv_split, min(s, (split + 1) * kv_split)
+                if causal:
+                    end = min(end, t, t0 + rows_t)
+                if window:
+                    begin = max(begin, t0 - window + 1)
+                for s0 in range(begin, end, keys):
+                    s1 = min(s0 + keys, end)
+                    if q_segs is None or segments_meet(q_segs[bi, t0:t1], kv_segs[bi, s0:s1],
+                                                       ok[bi, s0:s1]):
+                        live += [(bi, h, split, t0, t1, s0, s1) for h in range(hk)]
+    return live
 
 
 def tma_strides(name: str, shape, strides, ptr: int, elem_size: int) -> tuple:
@@ -275,6 +333,9 @@ def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
                    for label, x in (("q", q), ("k", k), ("v", v))]
         sm90_group(hq, hk)
         n_split, kv_split = sm90_plan(b, t, s, hq, hk, d, _lib.sm_count(q.device))
+        if qs is not None and -(-min(kv_split, s) // SM90_KEY_TILE[d]) > SM90_LIVE_TILES:
+            raise ValueError(f"flash_attention: {min(kv_split, s)} keys a block with segment "
+                             f"ids exceed the kernel's {SM90_LIVE_TILES} live-tile marks")
     else:
         n_split, kv_split = _kv_split(b, t, s, hq, q.device)
     part = [None, None, None]
