@@ -92,7 +92,8 @@
    decode_attention.launches; a session is taken again only when it lost a
    kernel record whose launch call it holds), none of the SIMT route. Then the
    decoding variants (serve_decoding, on the slice's first SHALLOW_LAYERS
-   text layers since the training phases grew the script): verify_step
+   text layers since the training and quantized phases grew the script):
+   verify_step
    on a window of VERIFY_W
    tokens against as many decode steps (logits under the decode routes'
    limits, the window's text-cache slots to cosine CACHE_COS; a planted
@@ -512,6 +513,15 @@ def _prompt_lengths(mm_version: str = "v1.5", length: float = 120.0) -> tuple:
 
     ids = P.build_prompt_ids(QUERIES[0], ByteTokenizer(), mm_version, length)
     return len(ids), P.build_prompt_batch([ids])[0].shape[1]
+
+
+def _prompt_ids(sl, query: str, length=None, **kw):
+    """`query`'s prompt ids in the slice's template (Vidi1.5's, or Vidi-7B's,
+    which states the clip's `length`: the slice's seconds by default)."""
+    from vidi_tpu_torch.infer import pipeline as P
+
+    return P.build_prompt_ids(query, sl.tok, sl.cfg.mm_version,
+                              sl.seconds if length is None else length, **kw)
 
 
 def kernel_phases(dev) -> dict:
@@ -1360,7 +1370,7 @@ INT8_REL = 1e-3
 K5_SRC = "vidi_tpu_torch/csrc/fused_tower_layer.cu"
 K6_SRC = "vidi_tpu_torch/csrc/quant_matmul.cu"
 K7_SRC = "vidi_tpu_torch/csrc/fused_rmsnorm.cu"
-SIGLIP_T, WHISPER_T = 729, 1500
+SIGLIP_T, WHISPER_T, CLIP_T = 729, 1500, 257
 IMG_CHUNK_ROWS = 735  # 23,520 image tokens / mm_chunks 32: one diagonal-update chunk
 
 
@@ -1584,10 +1594,12 @@ def _k5_int_mm_ms(x, ws) -> tuple:
 
 def k5_phase(dev, probe=None) -> dict:
     """K5's three pieces at SigLIP-so400m's encode chunk (4 frames x 729
-    patches, d 1152, ff 4304 padded to 4352, gelu_tanh, eps 1e-6) and
+    patches, d 1152, ff 4304 padded to 4352, gelu_tanh, eps 1e-6),
     Whisper-large-v3's window (1500 x 1280, ff 5120, exact gelu, eps 1e-5,
-    no k bias) against their plain versions, with planted faults (among
-    them two wrong persistent schedules); each case's device time a call,
+    no k bias) and CLIP ViT-L/14's encode chunk (Vidi-7B: 4 frames x 257
+    tokens, d 1024, ff 4096, quick_gelu, eps 1e-5) against their plain
+    versions, with planted faults (among them two wrong persistent
+    schedules; on CLIP tanh gelu for quick_gelu); each case's device time a call,
     the persistent GEMM's blocks against the card's SMs, torch._int_mm for
     the products alone, and ptxas's registers and spills (`probe`)."""
     from vidi_tpu_torch.ops.cuda import _lib
@@ -1602,7 +1614,9 @@ def k5_phase(dev, probe=None) -> dict:
             (f"siglip [4, {SIGLIP_T}, 1152] ff 4304->4352", 4, SIGLIP_T, 1152, 4304,
              "gelu_tanh", 1e-6, True),
             (f"whisper [1, {WHISPER_T}, 1280] ff 5120", 1, WHISPER_T, 1280, 5120, "gelu",
-             1e-5, False)):
+             1e-5, False),
+            (f"clip [4, {CLIP_T}, 1024] ff 4096 quick_gelu", 4, CLIP_T, 1024, 4096,
+             "quick_gelu", 1e-5, True)):
         lp = _int8_layer(gen, dev, d, ff, k_bias)
         ffp = lp["fc1_w"]["qi8"].shape[1]
         x, attn = _rows(gen, (b, t, d), dev), _rows(gen, (b, t, d), dev)
@@ -1650,8 +1664,8 @@ def k5_phase(dev, probe=None) -> dict:
                 bad["fc2_w"]["qi8"][ff:] = 64
                 return k5.ln_ffn_plain(x, bad, eps, act)
             faults["non-zero ff padding"] = padding_nonzero
-        if act == "gelu":
-            faults["tanh gelu for the exact one"] = \
+        if act in ("gelu", "quick_gelu"):
+            faults[f"tanh gelu for {'the exact one' if act == 'gelu' else act}"] = \
                 lambda: k5.ln_ffn_plain(x, lp, eps, "gelu_tanh")
         cases.append(("ln_ffn", _int8_case(
             f"K5 ln_ffn {label}", lambda: k5.ln_ffn(x, lp, eps, act), ffn_plain, faults,
@@ -1765,7 +1779,9 @@ def _kmajor_faults(k6, x, make_weight) -> None:
 def k6_phase(dev) -> dict:
     """K6 at the int8 prefill's W8A8 shapes (Gemma2-9B: the image stream's
     k / v projection, one diagonal-update chunk's folded o, and its gated
-    MLP, whose down projection is a quant_matmul call), a ragged shape (no
+    MLP, whose down projection is a quant_matmul call; Mistral-7B: the
+    image stream's k / v, and q / o, k / v and the silu gated MLP at the
+    7B's prompt rows, which `--w8a8-prefill` below them sends here), a ragged shape (no
     dimension a multiple of the tile) in bf16 and fp32, and a row longer
     than the vector row pass holds, each bit-equal to its plain version,
     with planted faults; times with the K-major cache warm and cold, and
@@ -1774,6 +1790,7 @@ def k6_phase(dev) -> dict:
     from vidi_tpu_torch.ops.cuda import quant_matmul as k6
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    t7 = _prompt_lengths("v1")[1]
 
     def wq(k, n):
         return qz.quantize_weight(_randn(gen, (k, n), dev, k ** -0.5, torch.float32))
@@ -1781,6 +1798,9 @@ def k6_phase(dev) -> dict:
     res = {"quant_matmul": {"cases": []}, "quant_gated_mlp": {"cases": []}}
     for label, m, k, n, dtype in (
             (f"k/v [{IMG_S}, 3584] . [3584, 2048]", IMG_S, 3584, 2048, torch.bfloat16),
+            (f"7b k/v [{IMG7_S}, 4096] . [4096, 1024]", IMG7_S, 4096, 1024, torch.bfloat16),
+            (f"7b q/o [{t7}, 4096] . [4096, 4096]", t7, 4096, 4096, torch.bfloat16),
+            (f"7b k/v [{t7}, 4096] . [4096, 1024]", t7, 4096, 1024, torch.bfloat16),
             (f"folded o [{IMG_CHUNK_ROWS}, 2048] . [2048, 3584]", IMG_CHUNK_ROWS, 2048, 3584,
              torch.bfloat16),
             (f"down [{IMG_CHUNK_ROWS}, 14336] . [14336, 3584]", IMG_CHUNK_ROWS, 14336, 3584,
@@ -1813,12 +1833,16 @@ def k6_phase(dev) -> dict:
         res["quant_matmul"]["cases"].append(case)
     _kmajor_faults(k6, _rows(gen, (IMG_CHUNK_ROWS, 2048), dev), lambda: wq(2048, 3584))
 
-    d, ff = 3584, 14336
-    gate, up, down = wq(d, ff), wq(d, ff), wq(ff, d)
-    for act, dtype in (("gelu_tanh", torch.bfloat16), ("silu", torch.bfloat16),
-                       ("gelu_tanh", torch.float32)):
+    ff, weights = 14336, {}
+    for d, rows, act, dtype in ((3584, IMG_CHUNK_ROWS, "gelu_tanh", torch.bfloat16),
+                                (3584, IMG_CHUNK_ROWS, "silu", torch.bfloat16),
+                                (3584, IMG_CHUNK_ROWS, "gelu_tanh", torch.float32),
+                                (4096, t7, "silu", torch.bfloat16)):
+        if d not in weights:
+            weights = {d: (wq(d, ff), wq(d, ff), wq(ff, d))}
+        gate, up, down = weights[d]
         other = "silu" if act == "gelu_tanh" else "gelu_tanh"
-        x = _rows(gen, (IMG_CHUNK_ROWS, d), dev).to(dtype)
+        x = _rows(gen, (rows, d), dev).to(dtype)
 
         def no_requant(act=act, x=x):
             g = k6.quant_matmul_plain(x, gate["qi8"], gate["scale"])
@@ -1826,27 +1850,30 @@ def k6_phase(dev) -> dict:
             h = k6._act(g, act) * u
             return (h.float() @ qz.dequantize_weight(down, torch.float32)).to(x.dtype)
 
-        run = lambda act=act, x=x: k6.quant_gated_mlp(x, gate, up, down, act)  # noqa: E731
+        w3 = (gate, up, down)
+        run = lambda x=x, w3=w3, act=act: k6.quant_gated_mlp(x, *w3, act)  # noqa: E731
+        plain = lambda x=x, w3=w3, act=act: k6.quant_gated_mlp_plain(x, *w3, act)  # noqa: E731
         name = (f"K6 quant_gated_mlp {'fp32 ' if dtype == torch.float32 else ''}"
-                f"[{IMG_CHUNK_ROWS}, 3584] ff 14336 {act}")
+                f"{'7b ' if d == 4096 else ''}[{rows}, {d}] ff {ff} {act}")
         case = _int8_case(
-            name, run,
-            lambda act=act, x=x: k6.quant_gated_mlp_plain(x, gate, up, down, act),
-            {"per-tensor scale": lambda act=act, x=x: _with(k6, quantize_act=_per_tensor_act)(
-                lambda: k6.quant_gated_mlp_plain(x, gate, up, down, act)),
-             f"{other} for {act}": lambda x=x: k6.quant_gated_mlp_plain(x, gate, up, down, other),
-             "gate and up swapped": lambda act=act, x=x: k6.quant_gated_mlp_plain(
-                 x, up, gate, down, act),
+            name, run, plain,
+            {"per-tensor scale": lambda plain=plain: _with(k6, quantize_act=_per_tensor_act)(
+                plain),
+             f"{other} for {act}": lambda x=x, w3=w3, other=other:
+                 k6.quant_gated_mlp_plain(x, *w3, other),
+             "gate and up swapped": lambda x=x, w3=w3, act=act:
+                 k6.quant_gated_mlp_plain(x, w3[1], w3[0], w3[2], act),
              "no requantize of the hidden": no_requant},
-            3 * 2 * IMG_CHUNK_ROWS * d * ff,
+            3 * 2 * rows * d * ff,
             2 * _nbytes(x) + _qbytes(gate) + _qbytes(up) + _qbytes(down), exact=True)
         case["cold_ms"] = _time_ms(_cold(k6, run))
         # torch._int_mm on the three products alone (gate, up, and down on a
         # hidden of the same rows), no quantize, activation or rescale
         times = [_int_mm_ms(x.to(torch.bfloat16), w)[0] for w in (gate, up)]
-        times.append(_int_mm_ms(_rows(gen, (IMG_CHUNK_ROWS, ff), dev), down)[0])
+        times.append(_int_mm_ms(_rows(gen, (rows, ff), dev), down)[0])
         case["int_mm_ms"] = None if None in times else sum(times)
-        print(f"  {name}: K-major cache cold {case['cold_ms']:.4f} ms (three copies of 51 MB); "
+        print(f"  {name}: K-major cache cold {case['cold_ms']:.4f} ms (three copies of "
+              f"{d * ff / 1e6:.0f} MB); "
               "torch._int_mm (the three products only) "
               + ("none" if case["int_mm_ms"] is None else f"{case['int_mm_ms']:.4f} ms"))
         res["quant_gated_mlp"]["cases"].append(case)
@@ -1905,16 +1932,18 @@ def _device_us(fn, reps: int = 10) -> tuple:
     return us, "queued"
 
 
-def _queued_ms(fn, reps: int = 20) -> float:
+def _queued_ms(fn, reps: int = 20, spin: int = 100_000_000) -> float:
     """Device time of one call of `fn` in ms, without the profiler: CUDA
     events around `reps` calls that the host queues while a spin kernel
-    holds the card (`torch.cuda._sleep`), so that they run back to back
-    with no wait on the host between them; over `reps`."""
+    holds the card (`torch.cuda._sleep` of `spin` cycles, ~50 ms at 1.98
+    GHz by default), so that they run back to back with no wait on the
+    host between them; over `reps`. The spin must outlast queuing the
+    calls, or the reading takes in host time."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)  # ~50 ms at 1.98 GHz: longer than queuing the calls
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(reps):
         fn()
@@ -2040,12 +2069,30 @@ def reference_check(dev) -> None:
         _reference_check(dev, shape, cfg)
 
 
-def _reference_check(dev, shape: str, cfg) -> None:
+def int4_reference_check(dev) -> None:
+    """`reference_check` with the text decoder's matmuls (and the 7B's
+    untied lm_head) in group-wise int4 (`load_4bit`): both sides dequantize
+    the same codes exactly in fp32, so the limits stay the fp32 model's."""
+    for shape, cfg in (("9b", _small_config()), ("7b", _small_config_7b())):
+        _reference_check(dev, shape, cfg, int4=True)
+
+
+def _reference_check(dev, shape: str, cfg, int4: bool = False) -> None:
     from vidi_tpu_torch.infer import generate as gen
+    from vidi_tpu_torch.infer import loader
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.models import dattn
 
     params = dattn.init_params(cfg, torch.float32, torch.device("cpu"), SEED)
+    if int4:  # as load_model(load_4bit=True) quantizes
+        text_fn, _ = loader._quantizers(False, False, load_4bit=True)
+        params["text"]["layers"] = [text_fn(lp) for lp in params["text"]["layers"]]
+        loader._quantize_lm_head(params, text_fn, load_4bit=True)
+        weights = [lp["down_w"] for lp in params["text"]["layers"]] + (
+            [params["text"]["lm_head"]] if "lm_head" in params["text"] else [])
+        if not all(_is_int4(w) for w in weights):
+            raise AssertionError(f"the small model's text weights ({shape}) did not quantize "
+                                 "to int4")
     to_dev = lambda t: t.to(dev)  # noqa: E731
     gparams = _tree_map(to_dev, params)
     rng = np.random.default_rng(SEED)
@@ -2071,28 +2118,37 @@ def _reference_check(dev, shape: str, cfg) -> None:
     err = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
     ok = torch.allclose(outs["cuda"][0], outs["cpu"][0], atol=1e-3, rtol=1e-3)
     same = torch.equal(outs["cuda"][1], outs["cpu"][1])
-    print(f"  small fp32 model ({shape}'s shape), card (kernels) vs cpu (plain): hidden "
+    kind = "fp32 int4-text" if int4 else "fp32"
+    print(f"  small {kind} model ({shape}'s shape), card (kernels) vs cpu (plain): hidden "
           f"max_abs_err={err:.3e} (atol=rtol=1e-3) {'ok' if ok else 'FAIL'}; tokens "
           f"{'identical' if same else 'DIFFER'}: {outs['cuda'][1].tolist()}")
     if not (ok and same):
-        raise AssertionError(f"small-model reference check ({shape}) failed")
+        raise AssertionError(f"small {kind} model reference check ({shape}) failed")
 
 
-def _tree_map(fn, tree):
+def _tree_map(fn, tree, stop=lambda t: False):
+    """`fn` on each leaf of a tree of dicts and lists; a subtree for which
+    `stop` holds is handed to `fn` whole."""
+    if stop(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: _tree_map(fn, v, stop) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
+        return [_tree_map(fn, v, stop) for v in tree]
     return fn(tree)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
+def _leaves(tree, stop=lambda t: False):
+    """The leaves of a tree of dicts and lists; a subtree for which `stop`
+    holds counts as one leaf."""
+    if stop(tree):
+        yield tree
+    elif isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from _leaves(v, stop)
     elif isinstance(tree, list):
         for v in tree:
-            yield from _leaves(v)
+            yield from _leaves(v, stop)
     else:
         yield tree
 
@@ -2107,10 +2163,10 @@ def _synthetic_clip(seconds: int, size: int, sample_rate: int):
     return frames, wave
 
 
-def load_slice(dev, int8: bool = False):
+def load_slice(dev, int8: bool = False, int4: bool = False):
     """Vidi1.5-9B at full width on random weights (with `int8`: int8 text
-    and towers), and the synthetic 120 s clip's frames and mel windows: the
-    set-up every later phase shares."""
+    and towers; with `int4`: group-wise int4 text), and the synthetic 120 s
+    clip's frames and mel windows: the set-up every later phase shares."""
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer.loader import load_model
 
@@ -2118,10 +2174,11 @@ def load_slice(dev, int8: bool = False):
     t0 = time.perf_counter()
     params, cfg, tok = load_model(random_weights="9b", dtype=torch.bfloat16,
                                   device=dev, seed=SEED, load_8bit=int8,
-                                  load_8bit_towers=int8)
+                                  load_8bit_towers=int8, load_4bit=int4)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    flags = ", load_8bit=True, load_8bit_towers=True" if int8 else ""
+    flags = (", load_8bit=True, load_8bit_towers=True" if int8 else "") + \
+        (", load_4bit=True" if int4 else "")
     print(f"  load_model(random_weights='9b'{flags}): {n_params / 1e9:.3f} B values, "
           f"{time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (peak "
@@ -2904,7 +2961,8 @@ def sampling_check(sl, greedy) -> dict:
     return path
 
 
-SHALLOW_LAYERS = 14  # text depth of the decoding-variants phase
+SHALLOW_LAYERS = 4  # text depth of the decoding-variants phase and the int8 route check
+DAEMON_LAYERS = 14  # text depth of the daemon's runs and runner (not its planted faults)
 
 
 def _shallow(sl, n_layers: int):
@@ -3087,11 +3145,12 @@ def _anchor(sl, clip, query: str, task: str = "tr", options=None,
     limit."""
     from vidi_tpu_torch.infer import generate as G
     from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.media.video import get_media_length
 
     if clip.enc is None:
         clip.enc = P.encode_media(sl.params, sl.cfg, clip.path, mm_chunks=32, use_flash=True)
-    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(query, sl.tok, task=task,
-                                                            options=options)])
+    prompt, mask = P.build_prompt_batch([_prompt_ids(
+        sl, query, get_media_length(clip.path), task=task, options=options)])
     with _LogitLog() as log, _FirstLogits() as first:
         res = G.generate(sl.params, sl.cfg, torch.as_tensor(prompt).long().to(sl.dev),
                          torch.as_tensor(mask).to(sl.dev), *clip.enc,
@@ -3378,14 +3437,16 @@ def _runner(sl, clips, anchors, tmp: str) -> dict:
     return launches
 
 
-def serve_phase(sl) -> tuple:
+def serve_phase(sl, fault_sl=None) -> tuple:
     """The serving daemon on the bf16 9B (random weights) over two mp4
     clips: runs (a) grouping, hits and the planted bad requests, (b) a
     cross-video bundle, (c) int8 caches, (d) n-gram speculative decoding,
     (e) eviction; two planted faults; the batch runner on four tasks and
     the evals on its predictions. Every response's ids and step-0 logits
-    are held to a generate of its query alone on the full forward. ->
-    (the daemon's and the runner's launches, the clips for the profile)."""
+    are held to a generate of its query alone on the full forward. The
+    planted faults run on `fault_sl` (a deeper slice of the same weights;
+    `sl` by default) with anchors of its own. -> (the daemon's and the
+    runner's launches, the clips for the profile)."""
     import shutil
     import tempfile
 
@@ -3463,7 +3524,11 @@ def serve_phase(sl) -> tuple:
                                              _req("a1", A, QUERIES[1])],
             anchors, stats(3, 0, 3, 0, 3), want(("clipA", "clipB", "clipA"), 3),
             batch_queries=1, media_cache=1))
-        _planted_daemon_faults(sl, clips, anchors)
+        if fault_sl is None:
+            _planted_daemon_faults(sl, clips, anchors)
+        else:  # the clips' features are the towers' alone: the same at any text depth
+            _planted_daemon_faults(fault_sl, clips, {
+                "a1": _anchor(fault_sl, A, QUERIES[1]), "b0": _anchor(fault_sl, B, QUERIES[2])})
         runner = _runner(sl, clips, anchors, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3757,11 +3822,12 @@ def _resize_check(dev, frames, size: int) -> None:
         raise AssertionError("the resize limit does not reject the planted fault")
 
 
-def _long_prompts(sl):
-    """The three TR queries' prompts, right-padded to one length, on the card."""
+def _long_prompts(sl, length=None):
+    """The three TR queries' prompts (for a clip of `length` s, the slice's
+    by default), right-padded to one length, on the card."""
     from vidi_tpu_torch.infer import pipeline as P
 
-    prompt, mask = P.build_prompt_batch([P.build_prompt_ids(q, sl.tok) for q in QUERIES])
+    prompt, mask = P.build_prompt_batch([_prompt_ids(sl, q, length) for q in QUERIES])
     return torch.as_tensor(prompt).long().to(sl.dev), torch.as_tensor(mask).to(sl.dev)
 
 
@@ -3814,23 +3880,24 @@ def long_video_phase(sl) -> tuple:
     img, img_mask, aud, aud_mask = media
     path = _kernel_counts()
     hw = P.budget_hw(LONG_SECONDS, cfg.mm_image_pool_size, cfg.vision.num_patches_per_side)
-    side = hw[0] // cfg.mm_image_pool_size
+    side = dattn.frame_side(cfg, hw)  # v1.5: the budget's; v1: the pool's fixed side
+    n_img = LONG_SECONDS * side[0] * side[1]
     print(f"  streamed encode: {LONG_SECONDS} frames {LONG_DECODE_HW[0]}x{LONG_DECODE_HW[1]} "
           f"in {LONG_SECONDS // LONG_CHUNK_FRAMES} chunks of {LONG_CHUNK_FRAMES} (device "
           f"resize) + {mels.shape[0]} audio windows -> img {tuple(img.shape)} "
-          f"({int(img_mask.sum())} valid; budget_hw {hw}: {side}x{side} tokens a frame), "
+          f"({int(img_mask.sum())} valid; {side[0]}x{side[1]} tokens a frame), "
           f"aud {tuple(aud.shape)} ({int(aud_mask.sum())} valid) in {encode_s:.3f} s; "
           f"K2 launches {path['tower_attention']}; peak "
           f"{_gib(torch.cuda.max_memory_allocated())}")
-    if img.shape != (1, LONG_IMG_S, cfg.text.hidden_size) or \
+    if img.shape != (1, n_img, cfg.text.hidden_size) or \
             aud.shape != (1, LONG_AUD_S, cfg.text.hidden_size) or \
-            LONG_SECONDS * side * side != LONG_IMG_S:
+            (cfg.mm_version != "v1" and n_img != LONG_IMG_S):
         raise AssertionError("unexpected long-video feature shapes")
     if not (torch.isfinite(img).all() and torch.isfinite(aud).all()):
         raise AssertionError("non-finite long-video features")
 
     # 2. the one-row plain path: full forward over the streams, caches dropped
-    pr, pm = _long_prompts(sl)
+    pr, pm = _long_prompts(sl, LONG_SECONDS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     plain = _step0(sl, pr[:1], pm[:1], media)
@@ -3849,14 +3916,13 @@ def long_video_phase(sl) -> tuple:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     cache_bytes = _nbytes(caches.img_k, caches.img_v, caches.aud_k, caches.aud_v)
-    n_chunks = -(-LONG_IMG_S // LONG_CHUNK_TOKENS)
+    n_chunks = -(-n_img // LONG_CHUNK_TOKENS)
+    token_bytes = 2 * cfg.text.num_kv_heads * cfg.text.head_dim * caches.img_k.element_size()
     print(f"  media_prefill_chunked(chunk_tokens={LONG_CHUNK_TOKENS}): {n_chunks} image "
-          f"chunks (tail {LONG_IMG_S - (n_chunks - 1) * LONG_CHUNK_TOKENS} padded) + 1 audio "
+          f"chunks (tail {n_img - (n_chunks - 1) * LONG_CHUNK_TOKENS} padded) + 1 audio "
           f"chunk in {prefill_s:.3f} s; caches {_gib(cache_bytes)} "
-          f"({LONG_IMG_S + LONG_AUD_S} tokens x {n_layers} layers x 8,192 B), weights "
-          f"{_gib(param_bytes)}, peak {_gib(torch.cuda.max_memory_allocated())} (reckoned "
-          f"~{_gib(cache_bytes + param_bytes + _nbytes(img, aud) + 2.6e9)} with one "
-          f"chunk's ~2.6 GB of transients)")
+          f"({n_img + LONG_AUD_S} tokens x {n_layers} layers x {token_bytes:,} B), weights "
+          f"{_gib(param_bytes)}, peak {_gib(torch.cuda.max_memory_allocated())}")
 
     # 4. three TR queries folded onto the shared caches, and one alone
     eos = P.pick_eos(cfg, tok)
@@ -3878,7 +3944,8 @@ def long_video_phase(sl) -> tuple:
             if not ((toks >= 0) & (toks < cfg.text.vocab_size)).all():
                 raise AssertionError("generated ids outside the vocabulary")
             text = tok.decode(toks.numpy(), skip_special_tokens=True).strip()
-            answers.append(P.parse_task_output(text, "tr", float(LONG_SECONDS)))
+            answers.append(P.parse_task_output(text, "tr", float(LONG_SECONDS),
+                                               cfg.mm_version))
         route = "folded K1" if rows > 1 else "K3"
         print(f"  {rows} row(s) on the shared caches: prefill {res.prefill_s:.3f} s, decode "
               f"{steps} steps {res.decode_s:.3f} s = {steps / res.decode_s:.2f} tok/s "
@@ -4000,10 +4067,16 @@ INT8_MODULES = ("text", "vision", "audio")
 
 
 def int8_reference_check(dev) -> None:
-    """The small fp32 model on the int8 route (int8 text and towers, W8A8
-    above 16 rows, int8 caches): the card (kernels) against the CPU (plain
-    versions), same weights and inputs. Prefill hidden states within
-    INT8_REF_REL relative error; greedy tokens identical."""
+    """The small fp32 models of the 9B's and the 7B's shapes on the int8
+    route (int8 text and towers, W8A8 above 16 rows, int8 caches): the card
+    (kernels) against the CPU (plain versions), same weights and inputs.
+    Prefill hidden states within INT8_REF_REL relative error; greedy tokens
+    identical."""
+    for shape, cfg in (("9b", _small_config()), ("7b", _small_config_7b())):
+        _int8_reference_check(dev, shape, cfg)
+
+
+def _int8_reference_check(dev, shape: str, cfg) -> None:
     from vidi_tpu_torch.infer import generate as gen
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer import quantize as qz
@@ -4011,12 +4084,12 @@ def int8_reference_check(dev) -> None:
     from vidi_tpu_torch.ops.cuda import fused_tower_layer as k5
     from vidi_tpu_torch.ops.cuda import quant_matmul as k6
 
-    cfg = _small_config()
     params = qz.quantize_params(dattn.init_params(cfg, torch.float32, torch.device("cpu"),
                                                   SEED), modules=INT8_MODULES)
     gparams = _tree_map(lambda t: t.to(dev), params)
     rng = np.random.default_rng(SEED)
-    frames = rng.integers(0, 256, (6, 42, 42, 3), dtype=np.uint8)
+    size = cfg.vision.image_size
+    frames = rng.integers(0, 256, (6, size, size, 3), dtype=np.uint8)
     mels = rng.standard_normal((2, 128, 3000)).astype(np.float32)
     ids = rng.integers(3, 259, (2, 20))
     mask = np.zeros((2, 20), bool)
@@ -4042,14 +4115,14 @@ def int8_reference_check(dev) -> None:
     got, want = outs["cuda"][0], outs["cpu"][0]
     err = float((got - want).norm() / want.norm())
     same = torch.equal(outs["cuda"][1], outs["cpu"][1])
-    print(f"  small fp32 int8 model, card (kernels) vs cpu (plain): hidden relative "
-          f"error {err:.3e} (limit {INT8_REF_REL}), max_abs_err "
+    print(f"  small fp32 int8 model ({shape}'s shape), card (kernels) vs cpu (plain): hidden "
+          f"relative error {err:.3e} (limit {INT8_REF_REL}), max_abs_err "
           f"{float((got - want).abs().max()):.3e}; tokens "
           f"{'identical' if same else 'DIFFER'}: {outs['cuda'][1].tolist()}")
     if not (err <= INT8_REF_REL and same):
-        raise AssertionError("small int8 model reference check failed")
+        raise AssertionError(f"small int8 model reference check ({shape}) failed")
     if (k5.launches["ln_ffn"], k6.launches["quant_gated_mlp"]) == before:
-        raise AssertionError("the card's int8 run never launched K5 / K6")
+        raise AssertionError(f"the card's int8 run ({shape}) never launched K5 / K6")
 
 
 def _int8_counters():
@@ -4183,12 +4256,13 @@ def _param_bytes(params) -> dict:
             "other": total - text - towers - embed, "total": total}
 
 
-def int8_slice_phase(sl) -> dict:
+def int8_slice_phase(sl, daemon: bool = True) -> tuple:
     """The int8 serving slice: one media encode (int8 towers: K2 + K5) and
     three TR queries x 32 new tokens with W8A8 prefill (K1 + K6) and int8
     image / audio caches, with every kernel's launches read around them and
-    held to the reckoned counts; then the daemon on the int8 model
-    (`int8_daemon`). -> (the slice's launches, the daemon's)."""
+    held to the reckoned counts; then, with `daemon`, the daemon on the
+    int8 model (`int8_daemon`). -> (the slice's launches, the daemon's or
+    None)."""
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer import quantize as qz
     from vidi_tpu_torch.infer.generate import generate
@@ -4214,8 +4288,7 @@ def int8_slice_phase(sl) -> dict:
     prompt_rows = 0
     prefill, rates = [], []
     for q in QUERIES:
-        ids = P.build_prompt_ids(q, tok)
-        prompt, mask = P.build_prompt_batch([ids])
+        prompt, mask = P.build_prompt_batch([_prompt_ids(sl, q)])
         prompt_rows = max(prompt_rows, prompt.shape[1])
         res = generate(sl.params, cfg, torch.as_tensor(prompt).long().to(dev),
                        torch.as_tensor(mask).to(dev), *sl.media, max_new_tokens=32,
@@ -4224,7 +4297,7 @@ def int8_slice_phase(sl) -> dict:
         if not ((toks >= 0) & (toks < cfg.text.vocab_size)).all():
             raise AssertionError("generated ids outside the vocabulary")
         answer = P.parse_task_output(tok.decode(toks.numpy(), skip_special_tokens=True).strip(),
-                                     "tr", float(seconds))
+                                     "tr", float(seconds), cfg.mm_version)
         prefill.append(res.prefill_s)
         rates.append(res.decode_steps / res.decode_s)
         print(f"  query {q!r}: prefill {res.prefill_s:.3f} s, decode {res.decode_steps} "
@@ -4256,7 +4329,7 @@ def int8_slice_phase(sl) -> dict:
     if launches != want:
         raise AssertionError(f"launch counts differ from the reckoned ones: {launches} "
                              f"vs {want}")
-    return launches, int8_daemon(sl)
+    return launches, int8_daemon(sl) if daemon else None
 
 
 # The int8 slice's route check, two readings, both on the card:
@@ -4398,6 +4471,7 @@ def profile_int8(sl) -> None:
 # gets seeded noise of CKPT_NOISE times its standard deviation (1 for a
 # constant leaf) first.
 CKPT_NOISE = 0.05
+CKPT_LAYERS = 8  # text depth of the checkpoint phase (time: the script's limit)
 CKPT_MARGIN = 2**30  # free disk demanded beyond the reckoned file bytes
 # the planted faults: one square tensor left untransposed (SigLIP's q_w is
 # 1152 x 1152), two text layers swapped, one tensor read one element off
@@ -4752,20 +4826,22 @@ def _checkpoint_steps(sl, tmp: str) -> tuple:
 SECONDS_7B = 120
 
 
-def load_7b(dev):
-    """Vidi-7B at full width on random weights, and the synthetic 120 s
-    clip at CLIP's 224 px with its mel windows."""
+def load_7b(dev, **quant):
+    """Vidi-7B at full width on random weights (`quant`: load_model's
+    load_8bit / load_8bit_towers / load_4bit), and the synthetic 120 s clip
+    at CLIP's 224 px with its mel windows."""
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer.loader import load_model
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params, cfg, tok = load_model(random_weights="7b", dtype=torch.bfloat16, device=dev,
-                                  seed=SEED)
+                                  seed=SEED, **quant)
     torch.cuda.synchronize()
     leaves = list(_leaves(params))
     n_params, n_bytes = sum(t.numel() for t in leaves), _nbytes(*leaves)
-    print(f"  load_model(random_weights='7b'): {n_params / 1e9:.3f} B values, weights "
+    flags = "".join(f", {k}={v}" for k, v in quant.items())
+    print(f"  load_model(random_weights='7b'{flags}): {n_params / 1e9:.3f} B values, weights "
           f"{n_bytes / 1e9:.3f} GB, {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({_card()})")
     frames, wave = _synthetic_clip(SECONDS_7B, cfg.vision.image_size, cfg.audio.sampling_rate)
@@ -4795,6 +4871,7 @@ def serve_7b_phase(s7) -> dict:
     import tempfile
 
     from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.models import decoder
 
     cfg, smi = s7.cfg, _card()
     _reset_kernel_counts()
@@ -4850,7 +4927,10 @@ def serve_7b_phase(s7) -> dict:
         raise AssertionError(f"v1 format_spans gave {probe!r}")
     plain_rate = statistics.mean(r.res.decode_steps / r.res.decode_s for r, f in runs if not f)
     k3 = runs[-1][0].res
-    _, caches, _, _ = _prefill(s7, QUERIES[0])
+    h, caches, lens, _ = _prefill(s7, QUERIES[0])
+    # the bf16 step-0 logits, which the int8 7B's are read against
+    s7.step0 = decoder.lm_logits(s7.params["text"], h[:, int(lens[0]) - 1], cfg.text).float()
+    del h
     cache_bytes = _nbytes(*[c for c in caches if c is not None])
     tokens = caches.text_k.shape[3] + caches.img_k.shape[3] + caches.aud_k.shape[3]
     del caches
@@ -4881,6 +4961,324 @@ def profile_7b(s7) -> None:
         return logits
 
     _region(f"7b decode K3 route x{PROFILE_DECODE_STEPS}", steps)
+
+
+SHALLOW_7B_LAYERS = 8  # text depth of the 7B's decoding variants, daemon and int8 route check
+
+
+def serve_7b_int8_phase(dev, bf16_step0) -> dict:
+    """Vidi-7B with int8 text and CLIP / Whisper towers (load_8bit,
+    load_8bit_towers), W8A8 from W8A8_MIN_TOKENS rows and int8 caches: one
+    encode of the 120 s clip and three TR queries with every launch held
+    to the reckoned counts (`int8_slice_phase`), the distance from the bf16
+    7B's step-0 logits, the route check against the plain K5 / K6 on the
+    card with its planted fault on the first SHALLOW_7B_LAYERS text layers
+    (`int8_route_check`), weight bytes and peak memory; then the model
+    dropped with nothing left in the K-major cache. -> the slice's
+    launches."""
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
+
+    qz.w8a8_min_tokens = W8A8_MIN_TOKENS
+    try:
+        s7 = load_7b(dev, load_8bit=True, load_8bit_towers=True)
+        launches, _ = int8_slice_phase(s7, daemon=False)
+        print(f"  int8 7B: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB over the encode and queries ({_card()})")
+        rel, cos = _logit_gap(_step0_logits(s7)[0], bf16_step0)
+        print(f"  int8 7B kernel route vs the bf16 7B's step-0 logits (the same weights before "
+              f"quantizing; no limit): max_abs_err = {rel:.3e} of max|logit|, cosine {cos:.6f}")
+        print(f"  int8 7B route check on {SHALLOW_7B_LAYERS} of {s7.cfg.text.num_layers} text "
+              "layers:")
+        int8_route_check(_shallow(s7, SHALLOW_7B_LAYERS))
+    finally:
+        qz.w8a8_min_tokens = None
+    del s7
+    gc.collect()
+    if k6.KMAJOR.entries or k6.KMAJOR.bytes:
+        raise AssertionError("the K-major cache kept copies of the dropped int8 7B's weights")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# int4 serving (load_4bit): `qdot` dequantizes each group-wise int4 weight
+# to the activation dtype on every call, then runs the bf16 product, where
+# the reference's XLA fused the unpack and the scale into the matmul read.
+# The step-0 logits are held against the same codes dequantized once to bf16
+# at load. The int4 route folds o_proj over each GQA group for the streams'
+# diagonal update and requantizes the fold to int4 (`dattn._fold_o_w`, as
+# vidi_tpu's does); the bf16 model's diagonal update is handed that same
+# fold, dequantized (`_int4_fold_of`). The two then run the same products on
+# the same bf16 weights: the limits allow the order of fp32 sums and no more.
+INT4_LOGIT_REL, INT4_LOGIT_COS = 1e-3, 0.99999
+INT4_NEW = 16  # new tokens a query (an int4 decode step takes ~0.2 s on an H100's host)
+INT4_DEQUANT = "int4 dequantize"  # the profiler range around each dequantize
+
+
+def _is_int4(tree) -> bool:
+    """An int4 weight: a {qi4, scale} dict."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    return isinstance(tree, dict) and qz.QUANT4_KEY in tree
+
+
+def _dequantized(tree, dtype):
+    """`tree` with each int4 weight dequantized once to `dtype` (the model's
+    activation dtype); every other leaf shared."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    return _tree_map(lambda t: qz.dequantize_weight4(t, dtype) if _is_int4(t) else t, tree,
+                     stop=_is_int4)
+
+
+def _int4_weights(tree) -> list:
+    """The int4 weights ({qi4, scale} dicts) of a parameter tree."""
+    return [w for w in _leaves(tree, stop=_is_int4) if _is_int4(w)]
+
+
+class _int4_fault:
+    """Within `with`, a planted fault in every int4 weight, made in place and
+    undone on exit: "nibbles" swaps the two nibbles of each code byte (each
+    pair of contraction rows exchanged), "scale" hands each group the scale
+    of the group after it."""
+
+    def __init__(self, params, kind: str):
+        self.params, self.kind = params, kind
+
+    def _apply(self, undo: bool):
+        from vidi_tpu_torch.infer import quantize as qz
+
+        for w in _int4_weights(self.params):
+            if self.kind == "nibbles":  # its own inverse
+                t = w[qz.QUANT4_KEY]
+                lo = torch.bitwise_and(t, 0xF)
+                hi = torch.bitwise_and(torch.bitwise_right_shift(t, 4), 0xF)
+                t.copy_(torch.bitwise_or(torch.bitwise_left_shift(lo, 4), hi))
+            else:
+                w["scale"].copy_(torch.roll(w["scale"], 1 if undo else -1, dims=-3))
+
+    def __enter__(self):
+        self._apply(undo=False)
+
+    def __exit__(self, *exc):
+        self._apply(undo=True)
+
+
+def _int4_fold_of(params, int4_params, dtype):
+    """A `dattn._diag_o_w` for the dequantized model `params`: the fold that
+    the int4 route makes of the same layer's int4 o_proj, dequantized to
+    `dtype` (layers matched by their o_w)."""
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.models import dattn
+
+    by_id = {id(lp["o_w"]): q["o_w"] for lp, q in zip(params["text"]["layers"],
+                                                     int4_params["text"]["layers"])}
+
+    def diag_o_w(lp, tcfg):
+        fold = dattn._fold_o_w(by_id[id(lp["o_w"])], tcfg)
+        # a fold whose rows the int4 group does not tile requantizes to int8
+        return (qz.dequantize_weight4 if qz.QUANT4_KEY in fold else qz.dequantize_weight)(
+            fold, dtype)
+    return diag_o_w
+
+
+def _weight_bytes(params) -> tuple:
+    """(the weights' bytes as held, the same weights' bytes in bf16): an
+    int4 weight holds two codes a byte and its scales, bf16 two bytes a
+    value."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    held = bf16 = 0
+    for w in _leaves(params, stop=_is_int4):
+        if _is_int4(w):
+            held += _nbytes(w[qz.QUANT4_KEY], w["scale"])
+            bf16 += 4 * w[qz.QUANT4_KEY].numel()
+        else:
+            held += _nbytes(w)
+            bf16 += 2 * w.numel()
+    return held, bf16
+
+
+def _step_ms(sl, caches, lens, emb):
+    """Device ms of one K3-route decode step, summed over its kernels by
+    torch.profiler, or None where the profiler recorded no kernel. No other
+    method stands in (`_device_us`'s fallback): a step waits on the card
+    within itself, so CUDA events around queued steps take in host time (a
+    bf16 9B step read 81 ms that way on an H100, against ~18 profiled)."""
+    us, by = _device_us(lambda: _decode_step(sl, emb, lens, caches, True), reps=3)
+    if by != "profiler":
+        print("    (a decode step's device time: not measured)")
+        return None
+    return us / 1e3
+
+
+def _dequant_ms(params) -> float:
+    """Device ms of dequantizing every int4 weight of `params` once to bf16:
+    the dequantization one decode step does (`qdot` on each text layer's
+    seven weights and an int4 lm_head; the folded o_proj is the prefill's).
+    CUDA events around 3 passes queued behind a ~1.5 s spin kernel (no
+    wait on the card inside a pass)."""
+    from vidi_tpu_torch.infer import quantize as qz
+
+    weights = list(_int4_weights(params))
+    return _queued_ms(lambda: [qz.dequantize_weight4(w, torch.bfloat16) for w in weights],
+                      reps=3, spin=3_000_000_000)
+
+
+def int4_phase(sl, label: str, queries, check: bool) -> dict:
+    """int4 serving at full width: one encode, `queries` TR queries x
+    INT4_NEW new tokens on the K3 decode route, K1 / K2 / K3 launches held
+    to the reckoned ones; weight bytes against bf16, peak memory, prefill s,
+    decode tok/s and device ms a decode step. With `check`: the step-0
+    logits against the same codes dequantized once to bf16 (see above),
+    with two planted faults (nibbles swapped, a neighbour group's scale),
+    and a decode step of that bf16 model beside the int4 one. -> the path's
+    launches."""
+    from vidi_tpu_torch.infer import pipeline as P
+    from vidi_tpu_torch.infer.generate import generate
+    from vidi_tpu_torch.models import dattn, decoder
+
+    cfg, tok, dev, smi = sl.cfg, sl.tok, sl.dev, _card()
+    held, bf16 = _weight_bytes(sl.params)
+    print(f"  {label} weights: {held / 1e9:.3f} GB held (int4 text codes + fp32 group scales, "
+          f"the rest bf16) against {bf16 / 1e9:.3f} GB in bf16 ({held / bf16:.3f}) ({smi})")
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sl.media = img, _, aud, _ = _encode(sl)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    eos = P.pick_eos(cfg, tok)
+    runs = []
+    for q in queries:
+        prompt, mask = P.build_prompt_batch([_prompt_ids(sl, q)])
+        res = generate(sl.params, cfg, torch.as_tensor(prompt).long().to(dev),
+                       torch.as_tensor(mask).to(dev), *sl.media, max_new_tokens=INT4_NEW,
+                       eos_id=eos, mm_chunks=32, use_flash=True, use_flash_decode=True)
+        toks = res.tokens[0, : int(res.lengths[0])].cpu()
+        if not ((toks >= 0) & (toks < cfg.text.vocab_size)).all():
+            raise AssertionError("generated ids outside the vocabulary")
+        answer = P.parse_task_output(tok.decode(toks.numpy(), skip_special_tokens=True).strip(),
+                                     "tr", float(sl.seconds), cfg.mm_version)
+        runs.append(res)
+        print(f"  {label} query {q!r}: prefill {res.prefill_s:.3f} s, decode "
+              f"{res.decode_steps} steps {res.decode_s:.3f} s = "
+              f"{res.decode_steps / res.decode_s:.2f} tok/s (K3 route), answer {answer!r}")
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = _reckon_7b(cfg, len(sl.frames), sl.mels.shape[0], 1, len(runs),
+                      sum(r.decode_steps for r in runs))
+    print(f"  {label} kernel launches: {launches} (reckoned {want}); encode {encode_s:.3f} s "
+          f"(img {tuple(img.shape)}, aud {tuple(aud.shape)}), prefill "
+          f"{statistics.mean(r.prefill_s for r in runs):.3f} s a query, decode "
+          f"{statistics.mean(r.decode_steps / r.decode_s for r in runs):.2f} tok/s, peak "
+          f"device memory {peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, reckoned {want}")
+
+    h, caches, lens, emb = _prefill(sl, QUERIES[0])
+    int4_logits = decoder.lm_logits(sl.params["text"], h[:, int(lens[0]) - 1], cfg.text).float()
+    del h
+    step_ms, deq_ms = _step_ms(sl, caches, lens, emb), _dequant_ms(sl.params)
+    wall = statistics.mean(r.decode_s / r.decode_steps for r in runs) * 1e3
+    print(f"  {label} decode step (K3 route): device "
+          + ("not measured" if step_ms is None else f"{step_ms:.2f} ms a step (profiler)")
+          + f", wall {wall:.2f} ms; dequantizing every int4 weight once, timed alone, "
+          f"{deq_ms:.2f} ms of device time"
+          + ("" if step_ms is None else f" ({deq_ms / step_ms:.3f} of the step's)")
+          + f" ({smi})")
+    if not check:
+        del caches
+        return launches
+    dtype = sl.params["text"]["embed"].dtype
+    ref = types.SimpleNamespace(**{**vars(sl), "params": _dequantized(sl.params, dtype)})
+    with _swap(dattn, _diag_o_w=_int4_fold_of(ref.params, sl.params, dtype)):
+        h, ref_caches, _, _ = _prefill(ref, QUERIES[0])
+        ref_logits = decoder.lm_logits(ref.params["text"], h[:, int(lens[0]) - 1],
+                                       cfg.text).float()
+        del h
+        ref_ms = _step_ms(ref, ref_caches, lens, emb)
+    del ref_caches
+    if step_ms is None or ref_ms is None:
+        print("  the same codes dequantized once to bf16: decode step device time not "
+              "measured, so no int4 - bf16 difference")
+    else:
+        print(f"  the same codes dequantized once to bf16: decode step device {ref_ms:.2f} ms "
+              f"(profiler); int4 - bf16 {step_ms - ref_ms:.2f} ms a step "
+              f"({(step_ms - ref_ms) / step_ms:.3f} of the int4 step)")
+    readings = {"int4 route": _logit_gap(int4_logits, ref_logits)}
+    for kind, name in (("nibbles", "planted fault, the two nibbles of each byte swapped"),
+                       ("scale", "planted fault, each group given the next group's scale")):
+        with _int4_fault(sl.params, kind):
+            h, _, _, _ = _prefill(sl, QUERIES[0])
+            fault = decoder.lm_logits(sl.params["text"], h[:, int(lens[0]) - 1],
+                                      cfg.text).float()
+            del h
+        readings[name] = _logit_gap(fault, ref_logits)
+    same = torch.equal(int4_logits, ref_logits)
+    for name, (rel, cos) in readings.items():
+        print(f"  {label} {name}: step-0 logits vs the dequantized bf16 model's "
+              f"max_abs_err = {rel:.3e} of max|logit| (limit {INT4_LOGIT_REL}), cosine "
+              f"{cos:.7f} (limit {INT4_LOGIT_COS})"
+              + (f"; bit-equal: {same}" if name == "int4 route" else ""))
+    ok = {n: rel <= INT4_LOGIT_REL and cos >= INT4_LOGIT_COS
+          for n, (rel, cos) in readings.items()}
+    if not ok.pop("int4 route"):
+        raise AssertionError(f"{label}: the int4 route's step-0 logits outside the limits")
+    if any(ok.values()):
+        raise AssertionError(f"{label}: the limits do not reject the planted faults "
+                             f"{[n for n, v in ok.items() if v]}")
+    del ref, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_int4(sl) -> None:
+    """torch.profiler over PROFILE_DECODE_STEPS int4 decode steps on the K3
+    route, each `dequantize_weight4` call inside a range: the share of the
+    device time that the dequantization takes."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from vidi_tpu_torch.infer import quantize as qz
+    from vidi_tpu_torch.models import decoder
+
+    _, caches, lens, emb = _prefill(sl, QUERIES[0])
+    real = qz.dequantize_weight4
+
+    def ranged(*a, **kw):
+        with record_function(INT4_DEQUANT):
+            return real(*a, **kw)
+
+    def steps():
+        cur, e = lens.clone(), emb
+        for _ in range(PROFILE_DECODE_STEPS):
+            logits = _decode_step(sl, e, cur, caches, True)
+            e = decoder.embed_tokens(sl.params["text"], logits.argmax(-1)[:, None], sl.cfg.text)
+            cur = cur + 1
+        return logits
+
+    _region(f"int4 decode K3 route x{PROFILE_DECODE_STEPS}", steps)
+    with _swap(qz, dequantize_weight4=ranged):
+        steps()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            steps()
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the kernels alone: the range also shows as a span on the device
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type.name == "CUDA" and e.key != INT4_DEQUANT)
+    # the kernels launched inside the ranges, from the host-side range
+    deq = sum(e.device_time_total for e in events
+              if e.key == INT4_DEQUANT and e.device_type.name == "CPU")
+    if total == 0 or deq == 0:
+        print("  int4 dequantize share: torch.profiler attributed no kernel (not measured)")
+        return
+    print(f"  int4 dequantize share of {PROFILE_DECODE_STEPS} decode steps (torch.profiler): "
+          f"{deq / 1e3:.2f} of {total / 1e3:.2f} ms of kernel time ({deq / total:.3f}), "
+          f"{deq / 1e3 / PROFILE_DECODE_STEPS:.2f} ms a step")
 
 
 TRAIN_LAYERS = 8  # text depth of the training slice: fp32 Adam moments of the
@@ -6771,6 +7169,8 @@ def main() -> int:
     reference_check(dev)
     stage("int8 reference check:")
     int8_reference_check(dev)
+    stage("int4 reference check:")
+    int4_reference_check(dev)
     stage("training reference check:")
     training_reference_check(dev)
     stage("slice (Vidi1.5-9B, random weights):")
@@ -6782,9 +7182,11 @@ def main() -> int:
     stage("decode routes:")
     decode_route_check(sl)
     # the decoding variants run the slice's first SHALLOW_LAYERS text
-    # layers (time: the script's limit); the daemon keeps all 42, where its
-    # planted fault (the other video's caches) reads 0.135 of max|logit|
-    # against the limit's 0.1 (0.064 at 14 layers)
+    # layers and the daemon DAEMON_LAYERS (time: the script's limit); the
+    # daemon's planted faults keep all 42, where the other video's caches
+    # read 0.135 of max|logit| against the limit's 0.1 and cosine 0.999828
+    # against 0.9999; at 14 layers they read 0.064 and 0.999958, inside
+    # both limits, so the fault would go unseen there (H100)
     shallow = _shallow(sl, SHALLOW_LAYERS)
     stage("decoding variants (verify_step, speculative, beams, sampling; the 120 s slice, "
           f"{SHALLOW_LAYERS} of {sl.cfg.text.num_layers} text layers):")
@@ -6794,8 +7196,10 @@ def main() -> int:
         profile_decoding(shallow)
     del shallow
     stage(f"serving daemon, batch runner and evals (Vidi1.5-9B bf16, {SERVE_NEW} new tokens, "
-          f"a {sl.seconds} s and a {SERVE_B_SECONDS} s mp4):")
-    serve_daemon, serve_runner, serve_clips = serve_phase(sl)
+          f"a {sl.seconds} s and a {SERVE_B_SECONDS} s mp4; {DAEMON_LAYERS} of "
+          f"{sl.cfg.text.num_layers} text layers, the planted faults at all of them):")
+    serve_daemon, serve_runner, serve_clips = serve_phase(_shallow(sl, DAEMON_LAYERS),
+                                                          fault_sl=sl)
     if args.profile:
         print("serving daemon's profile:")
         profile_serve(sl, serve_clips)
@@ -6820,8 +7224,9 @@ def main() -> int:
     stage("draft distillation (teacher: the full-depth 9B slice, bf16; a 2-layer student "
           "of width 512):")
     distill = distill_phase(sl)
-    stage("checkpoint slice (Vidi1.5-9B at full width: save_pretrained, load_model, ask):")
-    ckpt, ckpt_int8, serve_cli_run = checkpoint_phase(sl)
+    stage(f"checkpoint slice (Vidi1.5-9B at full width, {CKPT_LAYERS} of "
+          f"{sl.cfg.text.num_layers} text layers: save_pretrained, load_model, ask):")
+    ckpt, ckpt_int8, serve_cli_run = checkpoint_phase(_shallow(sl, CKPT_LAYERS))
     del sl
     gc.collect()
     torch.cuda.empty_cache()
@@ -6830,12 +7235,30 @@ def main() -> int:
           f"a {SECONDS_7B} s clip at 224 px):")
     s7 = load_7b(dev)
     serve_7b = serve_7b_phase(s7)
+    bf16_step0 = s7.step0
     if args.profile:
         print("7B profile:")
         profile_7b(s7)
+    shallow = _shallow(s7, SHALLOW_7B_LAYERS)
+    stage("7B decoding variants (verify_step, speculative, beams, sampling; the 120 s clip, "
+          f"{SHALLOW_7B_LAYERS} of {s7.cfg.text.num_layers} text layers):")
+    serve_7b_decoding = serve_decoding_phase(shallow)
+    del shallow
+    stage(f"7B serving daemon, batch runner and evals (Vidi-7B bf16, {SERVE_NEW} new tokens, "
+          f"a {s7.seconds} s and a {SERVE_B_SECONDS} s mp4; {SHALLOW_7B_LAYERS} of "
+          f"{s7.cfg.text.num_layers} text layers):")
+    serve_7b_daemon, serve_7b_runner, _ = serve_phase(_shallow(s7, SHALLOW_7B_LAYERS))
+    s7.media = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage(f"7B long-video slice (Vidi-7B, a {LONG_SECONDS} s clip, random weights):")
+    serve_7b_long, _ = long_video_phase(s7)
     del s7
     gc.collect()
     torch.cuda.empty_cache()
+    stage("int8 Vidi-7B (int8 text + CLIP / Whisper towers, W8A8 prefill from "
+          f"{W8A8_MIN_TOKENS} rows, int8 caches, random weights):")
+    serve_7b_int8 = serve_7b_int8_phase(dev, bf16_step0)
 
     from vidi_tpu_torch.infer import quantize as qz
     stage("int8 slice (Vidi1.5-9B, int8 text + towers, W8A8 prefill from "
@@ -6846,8 +7269,8 @@ def main() -> int:
     if args.profile:
         print("int8 profile:")
         profile_int8(sl)
-    stage("int8 routes:")
-    int8_route_check(sl)
+    stage(f"int8 routes ({SHALLOW_LAYERS} of {sl.cfg.text.num_layers} text layers):")
+    int8_route_check(_shallow(sl, SHALLOW_LAYERS))
     qz.w8a8_min_tokens = None
     from vidi_tpu_torch.ops.cuda import quant_matmul as k6
     held = (len(k6.KMAJOR.entries), k6.KMAJOR.bytes)
@@ -6860,6 +7283,26 @@ def main() -> int:
           f"{len(k6.KMAJOR.entries)} / {k6.KMAJOR.bytes / 2**20:.1f} MiB, no clear()")
     if k6.KMAJOR.entries or k6.KMAJOR.bytes:
         raise AssertionError("the K-major cache kept copies of a dropped model's weights")
+    torch.cuda.empty_cache()
+
+    stage("int4 slice (Vidi1.5-9B at full width and depth, int4 text, random weights; "
+          "three TR queries on the K3 route):")
+    sl = load_slice(dev, int4=True)
+    serve_int4 = int4_phase(sl, "int4 9B", QUERIES, check=True)
+    if args.profile:
+        print("int4 profile:")
+        profile_int4(sl)
+    del sl
+    gc.collect()
+    torch.cuda.empty_cache()
+    stage("int4 Vidi-7B (int4 text and lm_head, random weights; one TR query):")
+    s7 = load_7b(dev, load_4bit=True)
+    serve_7b_int4 = int4_phase(s7, "int4 7B", QUERIES[:1], check=False)
+    if args.profile:
+        print("int4 7B profile:")
+        profile_int4(s7)
+    del s7
+    gc.collect()
     torch.cuda.empty_cache()
 
     stage(f"training slice (Vidi1.5-9B, {TRAIN_LAYERS} text layers, random weights):")
@@ -6921,6 +7364,10 @@ def main() -> int:
     paths = {"serve": serve, "serve_decoding": serve_decoding, "serve_long": serve_long,
              "serve_daemon": serve_daemon, "serve_runner": serve_runner,
              "checkpoint": ckpt, "serve_cli": serve_cli_run, "serve_7b": serve_7b,
+             "serve_7b_decoding": serve_7b_decoding, "serve_7b_daemon": serve_7b_daemon,
+             "serve_7b_runner": serve_7b_runner, "serve_7b_long": serve_7b_long,
+             "serve_7b_int8": serve_7b_int8, "serve_int4": serve_int4,
+             "serve_7b_int4": serve_7b_int4,
              "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8,
              "serve_daemon_int8": serve_daemon_int8, "train": train, "remat": remat,
              "grad_accum": grad_accum, "train_image": train_image, "train_pack": train_pack,

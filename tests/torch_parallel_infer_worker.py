@@ -273,8 +273,7 @@ def main() -> None:
     only_quant = sys.argv[5:] == ["quant"]
     torch.set_num_threads(1)
     warnings.filterwarnings("ignore", category=FutureWarning)
-    import torch.distributed as dist
-    from vidi_tpu_torch.core.mesh import make_mesh
+    from vidi_tpu_torch.core.mesh import make_mesh, shutdown
     from vidi_tpu_torch.models import dattn
     from vidi_tpu_torch.parallel import sharding
 
@@ -294,8 +293,7 @@ def main() -> None:
     if not only_quant:  # the quantized loads are checked at (1, 2, 2)
         res.update(load_cases(mesh, LOAD_FLAGS if model > 1 else LOAD_FLAGS[:1]))
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
+    shutdown(mesh)
 
 
 if __name__ == "__main__":

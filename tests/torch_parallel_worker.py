@@ -286,8 +286,7 @@ def main() -> None:
     model = int(sys.argv[4]) if len(sys.argv) > 4 else 1
     torch.set_num_threads(1)
     warnings.filterwarnings("ignore", category=FutureWarning)
-    import torch.distributed as dist
-    from vidi_tpu_torch.core.mesh import make_mesh
+    from vidi_tpu_torch.core.mesh import make_mesh, shutdown
     from vidi_tpu_torch.models import dattn
     from vidi_tpu_torch.parallel import sharding
 
@@ -307,8 +306,7 @@ def main() -> None:
             res.update(train_cases(mesh, cfg))
             res.update(train_cases(mesh, image_cfg(), image_batch, "train_image"))
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
-    dist.barrier()
-    dist.destroy_process_group()
+    shutdown(mesh)
 
 
 if __name__ == "__main__":

@@ -168,6 +168,21 @@ def make_mesh(data: Optional[int] = None, seq: int = 1, model: int = 1,
     return mesh
 
 
+def shutdown(mesh: Mesh) -> None:
+    """End this rank's part of a launched world: a barrier (no rank tears
+    its groups down while another still uses them), every process group
+    destroyed, and `mesh`'s handles to its groups dropped. A gloo group's
+    worker threads run until its last handle goes, and they must end while
+    the interpreter runs: a worker that drops the last reference to a
+    tensor after the interpreter has begun to finalize cannot take the GIL,
+    and the process aborts ("terminate called without an active
+    exception", from `ProcessGroupGloo::runLoop`)."""
+    dist.barrier()
+    dist.destroy_process_group()
+    mesh._groups.clear()  # the gloo groups' destructors join their workers
+    mesh.device_mesh = None
+
+
 def single_device_mesh() -> Mesh:
     """The (1, 1, 1) mesh of one process: no process group."""
     return Mesh(dict(zip(AXES, (1, 1, 1))))

@@ -479,7 +479,7 @@ def mesh_from_flags(device, data: int, seq: int, model: int):
     over torchrun's ranks, active for the block; None for one process).
     More than one rank needs torchrun (SystemExit otherwise): NCCL on
     cuda, gloo on cpu. The process group is torn down after the block."""
-    from vidi_tpu_torch.core.mesh import init_from_env, make_mesh
+    from vidi_tpu_torch.core.mesh import init_from_env, make_mesh, shutdown
     from vidi_tpu_torch.infer.loader import resolve_device
 
     dev = resolve_device(device)
@@ -490,15 +490,12 @@ def mesh_from_flags(device, data: int, seq: int, model: int):
     if launched is None:
         raise SystemExit("--data-parallel / --seq-parallel / --model-parallel > 1 need "
                          "ranks: launch with torchrun --nproc_per_node N")
-    import torch.distributed as dist
-
     mesh = make_mesh(data=data, seq=seq, model=model, device_type=dev.type)
     with sharding.use_mesh(mesh):
         yield launched, mesh
     # reached only when this rank's run ended well (a failing rank exits at
     # once and torchrun tears the job down)
-    dist.barrier()
-    dist.destroy_process_group()
+    shutdown(mesh)
 
 
 if __name__ == "__main__":

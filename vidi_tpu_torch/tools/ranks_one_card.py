@@ -189,7 +189,7 @@ def child(mode: str, port: int, rank: int, out: str, args) -> None:
     `mode`, the path (or the train CLI), its results to `out`."""
     import torch.distributed as dist
 
-    from vidi_tpu_torch.core.mesh import make_mesh
+    from vidi_tpu_torch.core.mesh import make_mesh, shutdown
     from vidi_tpu_torch.parallel import sharding
 
     if args.device == "cuda":
@@ -213,7 +213,7 @@ def child(mode: str, port: int, rank: int, out: str, args) -> None:
             res = run(args.config, args.layers, args.new, args.device, mesh,
                       args.seconds, args.mm_chunks, args.w8a8 if mode == "model_int8" else None)
         torch.save(res, out)
-        dist.barrier()
+        shutdown(mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -166,8 +166,7 @@ def _step_profiler(out_dir, start_step: int, device: torch.device):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    import torch.distributed as dist
-    from vidi_tpu_torch.core.mesh import init_from_env, make_mesh
+    from vidi_tpu_torch.core.mesh import init_from_env, make_mesh, shutdown
     from vidi_tpu_torch.infer.loader import resolve_device
     from vidi_tpu_torch.parallel import sharding
 
@@ -189,11 +188,7 @@ def main(argv=None):
     # reached only when this rank's run ended well: a failing rank exits at
     # once, unblocked by its peers, and torchrun tears the job down
     if launched is not None:
-        # no rank tears its groups down while another still uses them (rank
-        # 0 writing the last checkpoint): without the barrier a gloo rank
-        # could abort at exit
-        dist.barrier()
-        dist.destroy_process_group()
+        shutdown(mesh)
 
 
 def _global_batch(batch: Dict, cfg, mesh, dev) -> Tuple[Dict, Tuple[int, int], int]:
