@@ -9,7 +9,8 @@
    copies, K7 fused_rms_norm) from vidi_tpu_torch/csrc with one nvcc per
    source, all started together.
 2. Runs each kernel at the shapes the Vidi1.5-9B slices give it (and K1 /
-   K3 / K4 at the 1.5B configuration's head dim 128; K1 / K2 / K3 at the
+   K3 / K4 at the 1.5B configuration's head dim 128, K1 / K4 / K2 at the
+   full loop's 1.5b shapes; K1 / K2 / K3 at the
    Vidi-7B slice's: Mistral's 32 query / 8 KV heads of 128, G = 4, no
    softcap, CLIP's 4 x 257 tokens of 16 heads of 64; K3 also at G = 1 and
    G = 8) against its plain
@@ -223,6 +224,23 @@
    falling on each rollout batch, no kernel launched (as the reference:
    the plain route), the student saved, reloaded and run as
    speculative_generate's draft with greedy's tokens.
+   Then the full loop (`vidi_tpu_torch/tools/full_loop.py`), before the
+   train CLI: the 1.5b at full width and depth from a random start (seed
+   full_loop.SEED; its tied embedding at START_LOGIT_STD) finetuned LOOP_STEPS
+   steps at LOOP_LR on the fixture's 25 s clip by the train CLI's main
+   (bf16, K1 / K2 / K4), exported, the export served by the runner's main
+   (K1 / K2; decode on the reference route) and scored with VUE-TR: IoU
+   above LOOP_IOU, and the untrained start through the same runner and
+   scorer at or below it (the planted fault: no optimizer step); the
+   export bit-equal to the trainer's last checkpoint, trained modules
+   moved and frozen towers not; the answer tokens' least top-2 margin
+   printed (`tools/full_loop.answer_margins`); each stage's launches held
+   to the reckoned ones, no plain version run on a CUDA tensor, and calls
+   at the K1 / K4 / K2 cases' shapes (LOOP_*) among the loop's. The gloo
+   pairs of step 9 (subprocesses of `ranks_one_card.py`) run beside its
+   training, and the train CLI phase's run and the parallel phase's two
+   CLI runs start at once when the training ends; seconds read beside
+   them say so.
 9. Last, the parallel slice (parallel/): the 9B's T2V at full width (T =
    128, S = 23,520 with the last 30 frames padding) cut into PAR_SEQ
    virtual seq ranks of 5,880 keys in one process: the ring's flash
@@ -540,37 +558,44 @@ def kernel_phases(dev) -> dict:
 
     # K1: T2T prefill (causal, window, cap; right-padded prompt) and the
     # T2V / T2A cross attention (ragged kv_mask); bf16 takes the sm90 kernel,
-    # the fp32 case the SIMT template
+    # the fp32 case the SIMT template; each case names its query rows (tq)
     errs, cases = [], []
-    for label, hq, hk, d, s, causal, window, cap, n_valid, faults, dtype in (
-            (f"9b t2t T=S={t} causal window=4096 cap=50", 16, 8, 256, t, True,
+    for label, tq, hq, hk, d, s, causal, window, cap, n_valid, faults, dtype in (
+            (f"9b t2t T=S={t} causal window=4096 cap=50", t, 16, 8, 256, t, True,
              4096, 50.0, n_real, ("causal", "mask", "cap", "gqa"), torch.bfloat16),
-            (f"9b t2t T=S={t} causal window=48 cap=50", 16, 8, 256, t, True,
+            (f"9b t2t T=S={t} causal window=48 cap=50", t, 16, 8, 256, t, True,
              48, 50.0, n_real, ("window", "cap"), torch.bfloat16),
             # keys 0..7 masked: causal rows 0..7 see no key (zeros, sentinel lse)
-            (f"9b t2t T=S={t} causal keys 8.. cap=50, 8 empty rows", 16, 8, 256, t,
+            (f"9b t2t T=S={t} causal keys 8.. cap=50, 8 empty rows", t, 16, 8, 256, t,
              True, 4096, 50.0, (8, n_real), ("mask", "cap"), torch.bfloat16),
-            (f"9b t2v T={t} S={IMG_S} mask cap=50", 16, 8, 256, IMG_S, False,
+            (f"9b t2v T={t} S={IMG_S} mask cap=50", t, 16, 8, 256, IMG_S, False,
              None, 50.0, IMG_VALID, ("mask", "cap", "gqa"), torch.bfloat16),
-            (f"9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
+            (f"9b t2a T={t} S={AUD_S} mask cap=50", t, 16, 8, 256, AUD_S, False,
              None, 50.0, AUD_VALID, ("mask", "cap"), torch.bfloat16),
-            (f"9b t2a T={t} S={AUD_S} mask no cap", 16, 8, 256, AUD_S, False,
+            (f"9b t2a T={t} S={AUD_S} mask no cap", t, 16, 8, 256, AUD_S, False,
              None, None, AUD_VALID, ("mask", "cap"), torch.bfloat16),
-            (f"1.5b t2t T=S={t} causal window=4096 cap=50", 12, 6, 128, t, True,
+            (f"1.5b t2t T=S={t} causal window=4096 cap=50", t, 12, 6, 128, t, True,
              4096, 50.0, n_real, ("causal", "cap"), torch.bfloat16),
-            (f"1.5b t2v T={t} S={IMG_S} mask cap=50", 12, 6, 128, IMG_S, False,
+            (f"1.5b t2v T={t} S={IMG_S} mask cap=50", t, 12, 6, 128, IMG_S, False,
              None, 50.0, IMG_VALID, ("mask", "cap"), torch.bfloat16),
+            # the full loop's training batch (full_loop phase): the 1.5b's T2T
+            # over its 128 text rows and T2V over its clip's 32-frame bucket
+            (f"1.5b loop t2t T=S={LOOP_T} causal window=4096 cap=50", LOOP_T, 12, 6, 128,
+             LOOP_T, True, 4096, 50.0, LOOP_T_VALID, ("causal", "mask", "cap", "gqa"),
+             torch.bfloat16),
+            (f"1.5b loop t2v T={LOOP_T} S={LOOP_IMG_S} mask cap=50", LOOP_T, 12, 6, 128,
+             LOOP_IMG_S, False, None, 50.0, LOOP_IMG_VALID, ("mask", "cap", "gqa"),
+             torch.bfloat16),
             # Vidi-7B: Mistral's 32 query / 8 KV heads of 128 (G = 4: 32
             # tokens a 128-row tile), every layer sliding, no softcap
-            (f"7b t2t T=S={t7} causal window=4096", 32, 8, 128, t7, True, 4096, None,
+            (f"7b t2t T=S={t7} causal window=4096", t7, 32, 8, 128, t7, True, 4096, None,
              n7, ("causal", "mask", "cap", "gqa"), torch.bfloat16),
-            (f"7b t2v T={t7} S={IMG7_S} mask", 32, 8, 128, IMG7_S, False, None, None,
+            (f"7b t2v T={t7} S={IMG7_S} mask", t7, 32, 8, 128, IMG7_S, False, None, None,
              IMG7_VALID, ("mask", "cap", "gqa"), torch.bfloat16),
-            (f"7b t2a T={t7} S={AUD_S} mask", 32, 8, 128, AUD_S, False, None, None,
+            (f"7b t2a T={t7} S={AUD_S} mask", t7, 32, 8, 128, AUD_S, False, None, None,
              AUD_VALID, ("mask", "cap", "gqa"), torch.bfloat16),
-            (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
+            (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", t, 16, 8, 256, AUD_S, False,
              None, 50.0, AUD_VALID, ("mask", "cap"), torch.float32)):
-        tq = t7 if label.startswith("7b") else t
         args = dict(q=_randn(gen, (1, tq, hq, d), dev, Q_GAIN, dtype),
                     k=_randn(gen, (1, s, hk, d), dev, dtype=dtype),
                     v=_randn(gen, (1, s, hk, d), dev, dtype=dtype),
@@ -626,6 +651,11 @@ def kernel_phases(dev) -> dict:
             # Vidi-7B's CLIP ViT-L/14 at 224 px: a class token and 256
             # patches, a tail of one row past two 128-row tiles
             ("clip B=4 T=257 H=16 D=64", 4, 257, 16, 64, torch.bfloat16),
+            # the 1.5b's towers in the full loop's training: SigLIP on chunks of
+            # 8 frames, Whisper on its one window
+            (f"siglip 1.5b B={LOOP_TOWER_B} T=729 H=12 D=64", LOOP_TOWER_B, 729, 12, 64,
+             torch.bfloat16),
+            ("whisper 1.5b B=1 T=1500 H=12 D=64", 1, 1500, 12, 64, torch.bfloat16),
             ("fp32 whisper B=1 T=1500 H=20 D=64", 1, 1500, 20, 64, torch.float32)):
         q = _randn(gen, (b, n, h, dh), dev, Q_GAIN, dtype)
         k = _randn(gen, (b, n, h, dh), dev, dtype=dtype)
@@ -1258,47 +1288,54 @@ def k4_phase(dev) -> dict:
     img_s = max(img_valid)
     errs, cases = [], []
     bf16, f32 = torch.bfloat16, torch.float32
-    for label, hq, hk, d, s, causal, window, cap, n_keys, segs, faults, dtype in (
-            (f"9b t2t T=S={t} causal window=4096 cap=50", 16, 8, 256, t, True,
+    # each case names its query rows (tq): a T2T case's are its keys
+    for label, tq, hq, hk, d, s, causal, window, cap, n_keys, segs, faults, dtype in (
+            (f"9b t2t T=S={t} causal window=4096 cap=50", t, 16, 8, 256, t, True,
              4096, 50.0, n_valid, None, ("causal", "di", "cap", "band"), bf16),
-            (f"9b t2t T=S={t} causal window=48 cap=50", 16, 8, 256, t, True,
+            (f"9b t2t T=S={t} causal window=48 cap=50", t, 16, 8, 256, t, True,
              48, 50.0, n_valid, None, ("window", "di", "cap"), bf16),
-            (f"9b t2v T={t} S={IMG_S} mask cap=50", 16, 8, 256, IMG_S, False,
+            (f"9b t2v T={t} S={IMG_S} mask cap=50", t, 16, 8, 256, IMG_S, False,
              None, 50.0, IMG_VALID, None, ("mask", "di", "cap", "gqa", "split"), bf16),
-            (f"9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
+            (f"9b t2a T={t} S={AUD_S} mask cap=50", t, 16, 8, 256, AUD_S, False,
              None, 50.0, AUD_VALID, None, ("mask", "di", "cap", "gqa", "split"), bf16),
-            (f"9b t2a T={t} S={AUD_S} mask no cap", 16, 8, 256, AUD_S, False,
+            (f"9b t2a T={t} S={AUD_S} mask no cap", t, 16, 8, 256, AUD_S, False,
              None, None, AUD_VALID, None, ("mask", "di"), bf16),
-            (f"9b packed t2t T=S={t} 3 segments cap=50", 16, 8, 256, t, True,
+            (f"9b packed t2t T=S={t} 3 segments cap=50", t, 16, 8, 256, t, True,
              4096, 50.0, n_valid, packed, ("segs", "di", "cap", "band"), bf16),
-            (f"1.5b t2v T={t} S={IMG_S} mask cap=50", 12, 6, 128, IMG_S, False,
+            (f"1.5b t2v T={t} S={IMG_S} mask cap=50", t, 12, 6, 128, IMG_S, False,
              None, 50.0, IMG_VALID, None, ("mask", "di", "cap", "gqa", "split"), bf16),
-            (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", 16, 8, 256, AUD_S, False,
+            # the full loop's training batch (full_loop phase)
+            (f"1.5b loop t2t T=S={LOOP_T} causal window=4096 cap=50", LOOP_T, 12, 6, 128,
+             LOOP_T, True, 4096, 50.0, LOOP_T_VALID, None,
+             ("causal", "di", "cap", "gqa", "band"), bf16),
+            (f"1.5b loop t2v T={LOOP_T} S={LOOP_IMG_S} mask cap=50", LOOP_T, 12, 6, 128,
+             LOOP_IMG_S, False, None, 50.0, LOOP_IMG_VALID, None,
+             ("mask", "di", "cap", "gqa", "split"), bf16),
+            (f"fp32 9b t2a T={t} S={AUD_S} mask cap=50", t, 16, 8, 256, AUD_S, False,
              None, 50.0, AUD_VALID, None, ("mask", "di", "cap"), f32),
             # Vidi-7B training (train_7b): 32 query / 8 KV heads of 128 (G = 4),
             # no softcap; 120 frames at 224 px -> 7,680 image keys
-            (f"7b t2t T=S={t} causal window=4096", 32, 8, 128, t, True, 4096, None,
+            (f"7b t2t T=S={t} causal window=4096", t, 32, 8, 128, t, True, 4096, None,
              n_valid, None, ("causal", "di", "gqa", "band"), bf16),
-            (f"7b t2v T={t} S={IMG7_S} mask", 32, 8, 128, IMG7_S, False, None, None,
+            (f"7b t2v T={t} S={IMG7_S} mask", t, 32, 8, 128, IMG7_S, False, None, None,
              IMG7_VALID, None, ("mask", "di", "gqa", "split"), bf16),
-            (f"7b t2a T={t} S={AUD_S} mask", 32, 8, 128, AUD_S, False, None, None,
+            (f"7b t2a T={t} S={AUD_S} mask", t, 32, 8, 128, AUD_S, False, None, None,
              AUD_VALID, None, ("mask", "di", "gqa", "split"), bf16),
             # --pack rows (train_pack): three segments in 4,096 tokens, and the
             # phase's own two rows with their per-row segment ids
-            (f"9b packed t2t T=S={PACK_T} {len(PACK_SEGS)} segments cap=50", 16, 8, 256,
-             PACK_T, True, 4096, 50.0, sum(PACK_SEGS), packed4k,
+            (f"9b packed t2t T=S={PACK_T} {len(PACK_SEGS)} segments cap=50", PACK_T, 16, 8,
+             256, PACK_T, True, 4096, 50.0, sum(PACK_SEGS), packed4k,
              ("segs", "di", "cap", "band"), bf16),
-            (f"9b packed t2t B=2 T=S={PACK_T} train_pack's rows cap=50", 16, 8, 256,
-             PACK_T, True, 4096, 50.0, pack_valid, pack_segs,
+            (f"9b packed t2t B=2 T=S={PACK_T} train_pack's rows cap=50", PACK_T, 16, 8,
+             256, PACK_T, True, 4096, 50.0, pack_valid, pack_segs,
              ("segs", "di", "cap", "band", "row0", "kv_row0", "split"), bf16),
             # image mode (train_image): B = 2 anyres rows against their tiles'
             # tokens, per-row masks (the (1, 3) sample's pad tile masked)
-            (f"9b image t2v B=2 T={t} S={img_s} per-row mask cap=50", 16, 8, 256, img_s,
+            (f"9b image t2v B=2 T={t} S={img_s} per-row mask cap=50", t, 16, 8, 256, img_s,
              False, None, 50.0, img_valid, None,
              ("mask", "di", "cap", "gqa", "split", "row0", "kv_row0"), bf16)):
         per_row = n_keys if isinstance(n_keys, list) else [n_keys]
         b = len(per_row)
-        tq = s if causal else t  # a T2T case's rows are its keys
         q = _randn(gen, (b, tq, hq, d), dev, Q_GAIN, dtype)
         k = _randn(gen, (b, s, hk, d), dev, dtype=dtype)
         v = _randn(gen, (b, s, hk, d), dev, dtype=dtype)
@@ -4826,21 +4863,27 @@ def _checkpoint_steps(sl, tmp: str) -> tuple:
 SECONDS_7B = 120
 
 
-def load_7b(dev, **quant):
+def load_7b(dev, layers=None, **quant):
     """Vidi-7B at full width on random weights (`quant`: load_model's
-    load_8bit / load_8bit_towers / load_4bit), and the synthetic 120 s clip
-    at CLIP's 224 px with its mel windows."""
+    load_8bit / load_8bit_towers / load_4bit; `layers`: the first text
+    layers alone), and the synthetic 120 s clip at CLIP's 224 px with its
+    mel windows."""
+    from vidi_tpu_torch import DattnConfig
     from vidi_tpu_torch.infer import pipeline as P
     from vidi_tpu_torch.infer.loader import load_model
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    text = DattnConfig.vidi_7b().text
+    cut = {} if layers is None else {"mm_overrides": {
+        "text": dataclasses.replace(text, num_layers=layers)}}
     params, cfg, tok = load_model(random_weights="7b", dtype=torch.bfloat16, device=dev,
-                                  seed=SEED, **quant)
+                                  seed=SEED, **cut, **quant)
     torch.cuda.synchronize()
     leaves = list(_leaves(params))
     n_params, n_bytes = sum(t.numel() for t in leaves), _nbytes(*leaves)
-    flags = "".join(f", {k}={v}" for k, v in quant.items())
+    flags = "".join(f", {k}={v}" for k, v in {**quant, "layers": layers}.items()
+                    if v is not None)
     print(f"  load_model(random_weights='7b'{flags}): {n_params / 1e9:.3f} B values, weights "
           f"{n_bytes / 1e9:.3f} GB, {time.perf_counter() - t0:.2f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB ({_card()})")
@@ -6122,6 +6165,234 @@ def profile_7b_training(tr7) -> None:
     _region("train step (Vidi-7B, 8 text layers)", run)
 
 
+# ---------------------------------------------------------------------------
+# The full loop (vidi_tpu_torch/tools/full_loop.py): the 1.5b at full width
+# and depth finetuned from a random start on the fixture's clip, exported,
+# reloaded through the benchmark runner and scored with VUE-TR
+# ---------------------------------------------------------------------------
+
+LOOP_START = "1.5b"
+# 150 steps at 5e-4 left every answer token's top-2 margin at 3.1 nats or
+# more; at the reference loop's 1e-3 the export answered right after 120 or
+# 150 steps, its least margin 0.16 nats (a coin flip from failing), and at
+# 200 steps 5.3 (the loop with `full_loop.answer_margins`, H100)
+LOOP_STEPS, LOOP_LR = 150, 5e-4
+LOOP_IOU = 0.5  # the reference loop's limit (scripts/full_loop_smoke.py)
+LOOP_EVERY = 25  # the losses printed every LOOP_EVERY steps
+# The loop's kernel shapes (the 1.5b: 12 query / 6 KV heads of 128, G = 2,
+# softcap 50, window 4096; SigLIP and Whisper 12 heads of 64): its training
+# batch holds T = 128 text rows (92 of them the prompt and the answer) and
+# the clip's 25 frames (1 fps) in a bucket of 32, 196 image keys a frame
+# (25 x 196 of them valid) and one Whisper window (300 audio keys); the
+# towers take the bucket in mm_splits = 4 chunks of 8 frames. The runner
+# encodes the 25 frames one a chunk (mm_splits 32).
+LOOP_T, LOOP_T_VALID = 128, 92
+LOOP_FRAMES, LOOP_BUCKET, LOOP_WINDOWS = 25, 32, 1
+LOOP_IMG_S, LOOP_IMG_VALID = LOOP_BUCKET * 196, LOOP_FRAMES * 196
+LOOP_TOWER_B = LOOP_BUCKET // 4
+
+
+def _loop_shape(fn, kind: str, seen: set):
+    """fn, recording the shapes of each call it takes in `seen`."""
+    import inspect
+
+    sig = inspect.signature(fn)
+
+    def run(*a, **kw):
+        bound = sig.bind(*a, **kw).arguments
+        q, k = bound["q"], bound["k"]
+        seen.add((kind, tuple(q.shape), tuple(k.shape), bound.get("causal", False)))
+        return fn(*a, **kw)
+    return run
+
+
+def _on_cuda(fn, calls: list):
+    """fn, appending its name to `calls` whenever it runs on a CUDA tensor."""
+    def run(*a, **kw):
+        if any(isinstance(x, torch.Tensor) and x.is_cuda for x in (*a, *kw.values())):
+            calls.append(fn.__name__)
+        return fn(*a, **kw)
+    return run
+
+
+def loop_kernel_shapes() -> dict:
+    """The K1 / K4 / K2 calls the loop's training makes at its kernel cases'
+    shapes (kernel_phases, k4_phase): (kind, q's shape, k's shape, causal)."""
+    t2t = ((1, LOOP_T, 12, 128), (1, LOOP_T, 6, 128), True)
+    t2v = ((1, LOOP_T, 12, 128), (1, LOOP_IMG_S, 6, 128), False)
+    siglip = (LOOP_TOWER_B, SIGLIP_T, 12, 64)
+    whisper = (1, WHISPER_T, 12, 64)
+    return {"K1 t2t": ("K1", *t2t), "K1 t2v": ("K1", *t2v), "K4 t2t": ("K4", *t2t),
+            "K4 t2v": ("K4", *t2v), "K2 siglip": ("K2", siglip, siglip, False),
+            "K2 whisper": ("K2", whisper, whisper, False)}
+
+
+def full_loop_phase(dev, before_train=None, after_train=None) -> tuple:
+    """`tools/full_loop.run_full_loop` at LOOP_START on the card, in a
+    temporary directory. `before_train()` and `after_train()`, when given,
+    are called as the training stage starts (outside its seconds) and as
+    soon as they are read: what they start runs beside the training, or
+    beside the later stages only, and each stage's printed seconds say
+    whether they ran beside subprocess checks. -> (training's launches,
+    serving's, before_train's result, after_train's result)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="vidi_loop_")
+    try:
+        return _loop_steps(dev, tmp, before_train, after_train)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _loop_steps(dev, tmp: str, before_train, after_train) -> tuple:
+    import contextlib
+
+    from vidi_tpu_torch.infer import export as E
+    from vidi_tpu_torch.infer import loader as L
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
+    from vidi_tpu_torch.ops.cuda import tower_attention as k2
+    from vidi_tpu_torch.tools import full_loop
+    from vidi_tpu_torch.train.checkpoint import Checkpointer
+
+    card = _card()
+    secs, counts, timed, shapes, plain_calls = {}, {}, [], set(), []
+    current, started = [None], {}
+
+    @contextlib.contextmanager
+    def stage(name):
+        torch.cuda.synchronize()
+        _reset_kernel_counts()
+        _reset_train_counts()
+        if name == "train" and before_train is not None:
+            started["before"] = before_train()
+        current[0], t0 = name, time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = {**_kernel_counts(), **_train_counts()}
+        if name == "train" and after_train is not None:
+            started["after"] = after_train()
+
+    def timer(label, fn):  # the seconds of the export and of each load
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timed.append((current[0], label, time.perf_counter() - t0))
+            return out
+        return run
+
+    swaps = [
+        _swap(E, save_pretrained=timer("save_pretrained", E.save_pretrained)),
+        _swap(L, load_model=timer("load_model", L.load_model)),
+        _swap(k1, flash_attention=_loop_shape(k1.flash_attention, "K1", shapes),
+              flash_attention_plain=_on_cuda(k1.flash_attention_plain, plain_calls)),
+        _swap(k4, flash_attention_bwd=_loop_shape(k4.flash_attention_bwd, "K4", shapes),
+              flash_attention_bwd_plain=_on_cuda(k4.flash_attention_bwd_plain, plain_calls)),
+        _swap(k2, tower_attention=_loop_shape(k2.tower_attention, "K2", shapes),
+              tower_attention_plain=_on_cuda(k2.tower_attention_plain, plain_calls))]
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        for s in swaps:
+            stack.enter_context(s)
+        scores = full_loop.run_full_loop(tmp, LOOP_STEPS, start=LOOP_START, device=dev,
+                                         learning_rate=LOOP_LR, verbose=False, stage=stage)
+        peak = torch.cuda.max_memory_allocated()
+        p = full_loop.paths(tmp)
+        # the planted fault: the start served and scored as if no optimizer
+        # step had been taken
+        with stage("serve the start"):
+            untrained = full_loop.score(tmp, full_loop.serve(
+                tmp, p["start"], dev, out=os.path.join(tmp, "preds_start.json")))
+    with open(p["metrics"]) as f:
+        metrics = [json.loads(line) for line in f]
+    losses = [m["loss"] for m in metrics]
+    step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
+    for m in metrics:
+        if m["step"] % LOOP_EVERY == 0 or m["step"] == len(metrics) - 1:
+            print(f"  step {m['step']}: loss {m['loss']:.4f}, {m['step_time_s']:.3f} s, "
+                  f"learning rate {m['learning_rate']:.3e}")
+    with open(p["preds"]) as f:
+        answer = json.load(f)[0]["answer"]
+    iou, iou0 = scores["overall"]["iou"], untrained["overall"]["iou"]
+    print(f"  {LOOP_START} trained {LOOP_STEPS} steps at lr {LOOP_LR} (bf16, K1 / K2 / K4): "
+          f"the export served {answer}, VUE-TR IoU {iou:.4f} (limit > {LOOP_IOU}); the "
+          f"untrained start (planted fault: no optimizer step) {iou0:.4f} (limit <= "
+          f"{LOOP_IOU}) [{card}]")
+
+    # the export against the trainer's last checkpoint, bit for bit
+    step, last, state = Checkpointer(p["run"]).restore(map_location=dev)
+    del state
+    dtype = getattr(torch, full_loop._dtype(dev))
+    got, cfg, _ = L.load_model(p["hf"], dtype=dtype, device=dev)
+    start, _, _ = L.load_model(p["start"], dtype=dtype, device=dev)
+    diff = _tree_diff(got, last)
+    changed = {m: (len(_tree_diff(got[m], start[m])), len(list(_leaves(got[m]))))
+               for m in got}
+    print(f"  export: load_model of the HF directory against the checkpoint of step {step}: "
+          f"{len(diff)} tensors differ of {len(list(_leaves(got)))}; leaves changed from "
+          f"the start (changed, all) {changed}")
+    if diff or step != LOOP_STEPS:
+        raise AssertionError(f"the export differs from the last checkpoint at {diff[:8]}")
+    if not (changed["text"][0] and changed["mm"][0]) or changed["vision"][0] \
+            or changed["audio"][0]:
+        raise AssertionError("the trained modules did not move, or a frozen tower did")
+    del last, got, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    margins = full_loop.answer_margins(tmp, dev)
+    print(f"  the export's answer tokens, teacher-forced: least top-2 margin "
+          f"{min(margins):.2f} nats ({[round(m, 2) for m in margins]})")
+
+    # launches against the reckoning: training's text layers launch K1 for
+    # the T2T and both streams (again in the remat backward) and K4 once
+    # each, the frozen towers K2 on the bucket in 4 chunks; the runner
+    # encodes once (mm_splits 32) and prefills the media and the prompt
+    # (3 K1 a layer each), and decodes on the reference route (no K3)
+    want = {"train": _reckon_train(cfg, LOOP_STEPS, 2, _tower_launches(
+                cfg, LOOP_BUCKET, LOOP_WINDOWS, 4)),
+            "serve": {"flash_attention": 3 * cfg.text.num_layers * 2, "tower_attention":
+                      _tower_launches(cfg, LOOP_FRAMES, LOOP_WINDOWS)}}
+    want["serve the start"] = want["serve"]
+    def beside(st: str) -> str:  # says when subprocess checks ran beside stage `st`
+        if st in ("fixture", "start") or not (before_train if st == "train"
+                                              else before_train or after_train):
+            return ""
+        return " (beside subprocess checks)"
+
+    for name, got_n in counts.items():
+        reckoned = {k: want.get(name, {}).get(k, 0) for k in got_n}
+        print(f"  {name}: {secs[name]:.2f} s{beside(name)}, kernel launches {got_n} "
+              f"(reckoned {reckoned})")
+        if got_n != reckoned:
+            raise AssertionError(f"full loop {name}: launches {got_n}, reckoned {reckoned}")
+    if plain_calls:
+        raise AssertionError(f"a plain version ran on CUDA tensors: {sorted(set(plain_calls))}")
+    missing = {k: v for k, v in loop_kernel_shapes().items() if v not in shapes}
+    print(f"  plain versions on CUDA tensors: none; the kernel cases' shapes among the "
+          f"loop's calls: {'all' if not missing else missing}")
+    if missing:
+        raise AssertionError(f"the loop made no call at the kernel cases' shapes {missing}; "
+                             f"its calls: {sorted(shapes)}")
+    for st, label, s in timed:
+        print(f"    {st}: {label} {s:.2f} s{beside(st)}")
+    print(f"  seconds: fixture {secs['fixture']:.2f}, start {secs['start']:.2f}, training "
+          f"{secs['train']:.2f}{beside('train')} ({step_s:.3f} s a step, the median of steps "
+          f"1..), serving {secs['serve']:.2f}{beside('serve')}, score {secs['score']:.3f}, "
+          f"the start served {secs['serve the start']:.2f}; peak device memory "
+          f"{peak / 2**30:.2f} GiB [{card}]")
+    if not (len(losses) == LOOP_STEPS and all(map(math.isfinite, losses))):
+        raise AssertionError(f"full loop: losses {losses}")
+    if not iou > LOOP_IOU:
+        raise AssertionError(f"full loop: IoU {iou} of the trained export, limit > {LOOP_IOU}")
+    if not iou0 <= LOOP_IOU:
+        raise AssertionError(f"full loop: the untrained start scores {iou0} > {LOOP_IOU}: "
+                             "the limit cannot tell training from none")
+    return counts["train"], counts["serve"], started.get("before"), started.get("after")
+
+
 DISTILL_STEPS, DISTILL_RESAMPLE = 16, 8
 DISTILL_ROWS, DISTILL_PROMPT, DISTILL_GEN = 8, 32, 32
 
@@ -6188,39 +6459,96 @@ def distill_phase(sl) -> dict:
     return launches
 
 
-def train_cli_phase(device: str = "cuda") -> None:
-    """The train CLI on the card as a subprocess: the tiny image-mode model
-    with anyres synthetic batches, gradient accumulation 2, remat "dots",
-    a profile of steps 2-4 and tensorboard, 5 steps. The trace file must
-    exist and the metrics lines carry the learning rates of the optimizer
-    steps (step // 2)."""
+class _Spawned:
+    """A subprocess started now and read later, its wall time taken when it
+    exits (a thread waits on it). It leads a process group of its own, which
+    is killed at its time limit or when this script exits first."""
+
+    def __init__(self, cmd, cwd: str, timeout: int = 300):
+        import atexit
+        import threading
+
+        self.cmd, self.t0, self.result, self.wall = cmd, time.perf_counter(), None, None
+        self.proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     start_new_session=True)
+        atexit.register(self._kill)
+        self.thread = threading.Thread(target=self._wait, args=(timeout,), daemon=True)
+        self.thread.start()
+
+    def _kill(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    def _wait(self, timeout: int) -> None:
+        try:
+            out, err = self.proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self._kill()
+            out, err = self.proc.communicate()
+            err += f"\n(killed after {timeout} s)"
+        self.wall = time.perf_counter() - self.t0
+        self.result = subprocess.CompletedProcess(self.cmd, self.proc.returncode, out, err)
+
+    def join(self):
+        self.thread.join()
+        return self.result, self.wall
+
+
+def start_train_clis(device: str = "cuda") -> dict:
+    """The train CLI runs that train_cli_phase and train_cli_ranks_check read,
+    started at once (tiny models; each waits mostly on its own start-up):
+    "image" (see train_cli_phase), "torchrun" and "plain" (see
+    train_cli_ranks_check). -> {name: _Spawned, "tmp": their directory}."""
     import tempfile
 
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="vidi_cli_")
+    runs = {"tmp": tmp, "image": _Spawned(
+        [sys.executable, "-m", "vidi_tpu_torch.train.train", "--tiny",
+         "--mm_input_type", "image", "--mm_image_aspect_ratio", "anyres",
+         "--dataset_type", "image-conv", "--data_path", "synthetic",
+         "--gradient_accumulation_steps", "2", "--remat", "dots", "--profile_dir",
+         os.path.join(tmp, "prof"), "--report_to", "tensorboard", "--max_steps", "5",
+         "--device", device, "--output_dir", os.path.join(tmp, "run")], root)}
+    args = ["-m", "vidi_tpu_torch.train.train", "--tiny", "--data_path", "synthetic",
+            "--sp_mode", "ring", "--max_steps", "2", "--device", device]
+    for name, pre in (("torchrun", [sys.executable, "-m", "torch.distributed.run",
+                                    "--standalone", "--nproc_per_node", "1"]),
+                      ("plain", [sys.executable])):
+        runs[name] = _Spawned([*pre, *args, "--output_dir", os.path.join(tmp, name)], root)
+    return runs
+
+
+def train_cli_phase(runs: dict) -> None:
+    """The train CLI on the card as a subprocess (`runs["image"]` of
+    start_train_clis): the tiny image-mode model with anyres synthetic
+    batches, gradient accumulation 2, remat "dots", a profile of steps 2-4
+    and tensorboard, 5 steps. The trace file must exist and the metrics
+    lines carry the learning rates of the optimizer steps (step // 2)."""
     from vidi_tpu_torch.train.optimizer import TrainHParams, lr_schedule
 
-    with tempfile.TemporaryDirectory() as tmp:
-        prof = os.path.join(tmp, "prof")
-        cmd = [sys.executable, "-m", "vidi_tpu_torch.train.train", "--tiny",
-               "--mm_input_type", "image", "--mm_image_aspect_ratio", "anyres",
-               "--dataset_type", "image-conv", "--data_path", "synthetic",
-               "--gradient_accumulation_steps", "2", "--remat", "dots", "--profile_dir",
-               prof, "--report_to", "tensorboard", "--max_steps", "5", "--device", device,
-               "--output_dir", os.path.join(tmp, "run")]
-        t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                             cwd=os.path.dirname(os.path.abspath(__file__)))
-        wall = time.perf_counter() - t0
-        if res.returncode != 0:
-            raise AssertionError(f"train CLI failed ({res.returncode}): {res.stderr[-2000:]}")
-        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
-            lines = [json.loads(x) for x in f]
-        traces = os.listdir(prof) if os.path.isdir(prof) else []
-        sizes = [os.path.getsize(os.path.join(prof, x)) for x in traces]
-        tb = os.path.isdir(os.path.join(tmp, "run", "runs"))
+    run, tmp = runs["image"], runs["tmp"]
+    res, wall = run.join()
+    if res.returncode != 0:
+        raise AssertionError(f"train CLI failed ({res.returncode}): {res.stderr[-2000:]}")
+    prof = os.path.join(tmp, "prof")
+    with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    traces = os.listdir(prof) if os.path.isdir(prof) else []
+    sizes = [os.path.getsize(os.path.join(prof, x)) for x in traces]
+    tb = os.path.isdir(os.path.join(tmp, "run", "runs"))
     sched = lr_schedule(TrainHParams(total_steps=5), 1e-5)
     want = [sched(s // 2) for s in range(5)]
     got = [m["learning_rate"] for m in lines]
-    print(f"  {' '.join(cmd[1:])}: {wall:.1f} s, exit 0; learning rates {got} (want {want}); "
+    print(f"  {' '.join(run.cmd[1:])}: {wall:.1f} s (beside the two runs of the parallel "
+          f"phase's CLI check and the loop's serving), exit 0; learning "
+          f"rates {got} (want {want}); "
           f"losses {[round(m['loss'], 4) for m in lines]}; trace {traces} ({sizes} bytes); "
           f"tensorboard events {'written' if tb else 'not written (no tensorboard)'}")
     if got != want or traces != ["trace_steps_2-4.json"] or not all(sizes):
@@ -6271,7 +6599,7 @@ def _ring_virtual(q, shards, dout, scale: float, cap, fault=None):
     return out, lse, dq, dk, dv
 
 
-def parallel_phase(dev) -> dict:
+def parallel_phase(dev, cli_runs: dict) -> dict:
     """The parallel slice on one card. (a) The ring at the 9B's full width,
     PAR_SEQ virtual ranks in one process: `_local_attn_lse` (K1) on each
     shard merged by `_combine`, against K1 on the whole cache within ULPS
@@ -6283,7 +6611,8 @@ def parallel_phase(dev) -> dict:
     (b) Ulysses' local step: K1 on each Hq / PAR_SEQ head slice (G = 2),
     stitched, against K1 on all heads. (c) The train CLI under torchrun in a
     one-rank NCCL world (tiny, --sp_mode ring) against the same CLI without
-    torchrun: losses within CLI_LOSS_REL. -> K1 / K4 launches of the ring's
+    torchrun (`cli_runs` of start_train_clis, run beside the train CLI
+    phase): losses within CLI_LOSS_REL. -> K1 / K4 launches of the ring's
     run, and the shard shapes' cases for the kernel line."""
     from vidi_tpu_torch.ops.cuda import _lib
     from vidi_tpu_torch.ops.cuda import flash_attention as k1
@@ -6390,41 +6719,35 @@ def parallel_phase(dev) -> dict:
           f"all heads {plans[0]}, a slice {plans[1]})")
 
     # (c) the train CLI under torchrun in a one-rank NCCL world
-    cli = train_cli_ranks_check()
+    cli = train_cli_ranks_check(cli_runs)
     return {"launches": launches, "max_abs_err": max(errs), "cases": cases,
             "ulysses_bit_equal": same, "cli": cli,
             "ring_ms": {"forward": ring_fwd_ms, "backward": ring_bwd_ms,
                         "whole_forward": whole_fwd_ms, "whole_backward": whole_bwd_ms}}
 
 
-def train_cli_ranks_check(device: str = "cuda") -> dict:
+def train_cli_ranks_check(runs: dict) -> dict:
     """The train CLI (tiny, --sp_mode ring, 2 steps) under `torchrun
     --standalone --nproc_per_node 1` (a one-rank NCCL world: mesh (1, 1, 1))
-    and as a plain process: the two runs' losses within CLI_LOSS_REL."""
-    import tempfile
+    and as a plain process (`runs` of start_train_clis): the two runs'
+    losses within CLI_LOSS_REL."""
+    import shutil
 
-    root = os.path.dirname(os.path.abspath(__file__))
     losses, walls = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        args = ["-m", "vidi_tpu_torch.train.train", "--tiny", "--data_path", "synthetic",
-                "--sp_mode", "ring", "--max_steps", "2", "--device", device]
-        for name, pre in (("torchrun", [sys.executable, "-m", "torch.distributed.run",
-                                        "--standalone", "--nproc_per_node", "1"]),
-                          ("plain", [sys.executable])):
-            out = os.path.join(tmp, name)
-            t0 = time.perf_counter()
-            res = subprocess.run([*pre, *args, "--output_dir", out], capture_output=True,
-                                 text=True, timeout=300, cwd=root)
-            walls[name] = time.perf_counter() - t0
-            if res.returncode != 0:
-                raise AssertionError(f"train CLI ({name}) failed ({res.returncode}): "
-                                     f"{res.stderr[-2000:]}")
-            with open(os.path.join(out, "metrics.jsonl")) as f:
-                losses[name] = [json.loads(x)["loss"] for x in f]
+    for name in ("torchrun", "plain"):
+        res, walls[name] = runs[name].join()
+        if res.returncode != 0:
+            raise AssertionError(f"train CLI ({name}) failed ({res.returncode}): "
+                                 f"{res.stderr[-2000:]}")
+        with open(os.path.join(runs["tmp"], name, "metrics.jsonl")) as f:
+            losses[name] = [json.loads(x)["loss"] for x in f]
+    shutil.rmtree(runs["tmp"], ignore_errors=True)
     gap = max(abs(a - b) / abs(b) for a, b in zip(losses["torchrun"], losses["plain"]))
     print(f"  train CLI --sp_mode ring: torchrun (one rank) losses {losses['torchrun']} "
-          f"in {walls['torchrun']:.1f} s, plain {losses['plain']} in {walls['plain']:.1f} s; "
-          f"largest relative gap {gap:.2e} (limit {CLI_LOSS_REL})")
+          f"in {walls['torchrun']:.1f} s, plain {losses['plain']} in {walls['plain']:.1f} s "
+          f"(the two and the image-mode CLI run at once, beside the loop's serving); largest "
+          f"relative gap {gap:.2e} "
+          f"(limit {CLI_LOSS_REL})")
     if len(losses["torchrun"]) != 2 or not gap <= CLI_LOSS_REL:
         raise AssertionError("the one-rank torchrun CLI's losses differ from the plain CLI's")
     return {"losses": losses, "rel_gap": gap, "wall_s": walls}
@@ -6743,20 +7066,49 @@ def model_cut_check(dev) -> tuple:
 GLOO_LAYERS, GLOO_SECONDS, GLOO_NEW = 2, 16, 4
 
 
-def gloo_ranks_check() -> dict:
+def start_gloo_checks(names=("serve", "tp")) -> dict:
+    """The two gloo comparisons of the parallel phases, each
+    `vidi_tpu_torch/tools/ranks_one_card.py` as a subprocess (its pairs of
+    ranks and its one-process references), started at once: "serve"
+    (gloo_ranks_check) and "tp" (tp_gloo_check). main starts them as the
+    full loop's training starts, which runs beside them and says so, and
+    waits for both before the parallel phases time anything. Each pair
+    meets in a file, not at a port."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tool = [sys.executable, os.path.join(root, "vidi_tpu_torch", "tools", "ranks_one_card.py")]
+    flags = ["--layers", str(GLOO_LAYERS), "--new", str(GLOO_NEW), "--seconds",
+             str(GLOO_SECONDS), "--mm-chunks", "1"]
+    modes = {"serve": ["seq", "model"],
+             "tp": ["model_int8", "train_model", "train_model_fault", "--w8a8",
+                    str(TP_GLOO_W8A8), "--steps", "2"]}
+    return {n: _Spawned([*tool, *modes[n], *flags], root, timeout=1200) for n in names}
+
+
+def _gloo_report(run: _Spawned, label: str) -> dict:
+    """The report of a spawned `ranks_one_card.py` (its last line), its other
+    lines printed."""
+    res, wall = run.join()
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines:
+        raise AssertionError(f"{label}: ranks_one_card.py failed ({res.returncode}): "
+                             f"{(res.stdout + res.stderr)[-3000:]}")
+    for line in lines[:-1]:
+        print(line if line.startswith("  ") else f"  {line}")
+    print(f"  ({label}: {wall:.1f} s of wall, beside the full loop)")
+    return json.loads(lines[-1])
+
+
+def gloo_ranks_check(run: _Spawned) -> dict:
     """The 9B's serving path (full width, GLOO_LAYERS text layers, a
     GLOO_SECONDS s clip, GLOO_NEW greedy tokens on K1 / K2 / K3) as two
     processes on the one card over gloo (NCCL refuses two ranks on one
     GPU), with --seq-parallel 2 and with --model-parallel 2
-    (`vidi_tpu_torch/tools/ranks_one_card.compare`), against one process:
-    each rank's step-0 logits within LOGIT_REL of max|logit| and cosine
-    LOGIT_COS (the decode-route check's limits), its tokens equal but from
-    a near tie (the reference's top-2 gap there within LOGIT_REL of
-    max|logit|, as `_near_tie_rule`)."""
-    from vidi_tpu_torch.tools import ranks_one_card
-
-    report = ranks_one_card.compare(layers=GLOO_LAYERS, new=GLOO_NEW, seconds=GLOO_SECONDS,
-                                    mm_chunks=1)
+    (`vidi_tpu_torch/tools/ranks_one_card.compare`; `run` of
+    start_gloo_checks), against one process: each rank's step-0 logits
+    within LOGIT_REL of max|logit| and cosine LOGIT_COS (the decode-route
+    check's limits), its tokens equal but from a near tie (the reference's
+    top-2 gap there within LOGIT_REL of max|logit|, as `_near_tie_rule`)."""
+    report = _gloo_report(run, "two ranks over gloo")
     for mode, ranks in report.items():
         if isinstance(ranks, dict):
             raise AssertionError(f"two ranks over gloo, {mode}: a rank failed: {ranks}")
@@ -6771,7 +7123,7 @@ def gloo_ranks_check() -> dict:
     return report
 
 
-def parallel_infer_phase(dev) -> dict:
+def parallel_infer_phase(dev, gloo_run: _Spawned) -> dict:
     """The inference half of the parallel slice on one card: K3's lse cases
     (`k3_lse_cases`), the seq-cut cache read on PAR_SEQ virtual ranks
     (`seq_read_check`), the 9B's decode step cut over "model" on
@@ -6784,7 +7136,7 @@ def parallel_infer_phase(dev) -> dict:
     tp_launches, tp_err = model_cut_check(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    gloo = gloo_ranks_check()
+    gloo = gloo_ranks_check(gloo_run)
     print(f"  parallel inference phase: {time.perf_counter() - t0:.1f} s")
     return {"launches": launches, "cases": cases + shard_cases, "lse_err": lse_err,
             "max_abs_err": max(seq_err, tp_err), "seq_read_ms": times,
@@ -7052,23 +7404,19 @@ def tp_layer_check(dev, t: int = TP_T, s: int = TP_S) -> tuple:
 TP_GLOO_W8A8 = 512  # the CLI's --w8a8-prefill 512
 
 
-def tp_gloo_check() -> dict:
+def tp_gloo_check(run: _Spawned) -> dict:
     """The int8 serving path (the 9B at GLOO_LAYERS text layers with
     --load-8bit, W8A8 products from TP_GLOO_W8A8 rows, --model-parallel 2)
     and the train CLI (--model_parallel_size 2, the same depth, 2 steps) as
     two processes on the one card over gloo
-    (`vidi_tpu_torch/tools/ranks_one_card.compare`), against one process:
-    each serving rank within the decode-route check's limits (as
-    `gloo_ranks_check`) with K6's row-scale mode and row_amax launched; the
-    training pair's losses within TP_LOSS_REL and its first moments within
-    TP_MOMENT_REL, the planted fault (the pair with to_model's backward
-    summing nothing) outside. -> the report."""
-    from vidi_tpu_torch.tools import ranks_one_card
-
-    report = ranks_one_card.compare(("model_int8", "train_model", "train_model_fault"),
-                                    layers=GLOO_LAYERS,
-                                    new=GLOO_NEW, seconds=GLOO_SECONDS, mm_chunks=1,
-                                    w8a8=TP_GLOO_W8A8, steps=2)
+    (`vidi_tpu_torch/tools/ranks_one_card.compare`; `run` of
+    start_gloo_checks), against one process: each serving rank within the
+    decode-route check's limits (as `gloo_ranks_check`) with K6's row-scale
+    mode and row_amax launched; the training pair's losses within
+    TP_LOSS_REL and its first moments within TP_MOMENT_REL, the planted
+    fault (the pair with to_model's backward summing nothing) outside. ->
+    the report."""
+    report = _gloo_report(run, "int8 serving and the train CLI over gloo")
     for mode, ranks in report.items():
         if isinstance(ranks, dict):
             raise AssertionError(f"two ranks over gloo, {mode}: a rank failed: {ranks}")
@@ -7098,15 +7446,13 @@ def tp_gloo_check() -> dict:
     return report
 
 
-def parallel_tp_phase(dev) -> dict:
+def parallel_tp_phase(dev, gloo_run: _Spawned) -> dict:
     """The rest of the parallel slice on one card: K6's row-scale mode
     (`k6_row_scale_cases`), a 9B text layer's forward and backward cut over
     "model" on virtual ranks (`tp_layer_check`), and the int8 serving path
     and the train CLI as two processes over gloo (`tp_gloo_check`). -> the
     kernel entries, the launches of the path (the gloo pair's rank 0 for
     K6's new mode; the virtual ranks for K1 / K4), the largest error."""
-    from vidi_tpu_torch.ops.cuda import quant_matmul as k6
-
     t0 = time.perf_counter()
     kern = k6_row_scale_cases(dev)
     gc.collect()
@@ -7114,8 +7460,7 @@ def parallel_tp_phase(dev) -> dict:
     launches, err = tp_layer_check(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    k6.KMAJOR.clear()
-    report = tp_gloo_check()
+    report = tp_gloo_check(gloo_run)
     fired = report["model_int8"][0]["k6_launches"]
     launches.update(quant_matmul_amax=fired["quant_matmul_amax"], row_amax=fired["row_amax"])
     print(f"  parallel TP phase: {time.perf_counter() - t0:.1f} s")
@@ -7295,8 +7640,9 @@ def main() -> int:
     del sl
     gc.collect()
     torch.cuda.empty_cache()
-    stage("int4 Vidi-7B (int4 text and lm_head, random weights; one TR query):")
-    s7 = load_7b(dev, load_4bit=True)
+    stage(f"int4 Vidi-7B (int4 text and lm_head, random weights; {SHALLOW_7B_LAYERS} of "
+          "32 text layers; one TR query):")
+    s7 = load_7b(dev, SHALLOW_7B_LAYERS, load_4bit=True)
     serve_7b_int4 = int4_phase(s7, "int4 7B", QUERIES[:1], check=False)
     if args.profile:
         print("int4 7B profile:")
@@ -7339,22 +7685,35 @@ def main() -> int:
     del tr7
     gc.collect()
     torch.cuda.empty_cache()
-    stage("train CLI (a subprocess on the card):")
-    train_cli_phase()
+    stage(f"full loop ({LOOP_START} at full width and depth from a random start: "
+          f"{LOOP_STEPS} finetuning steps on the fixture, export, the runner on the "
+          "export, VUE-TR):")
+    # the parallel phases' gloo pairs run beside the loop's training (whose
+    # seconds then say so), and the three train CLI runs start once it ends
+    loop_train, loop_serve, gloo, cli_runs = full_loop_phase(
+        dev, before_train=start_gloo_checks, after_train=start_train_clis)
+    stage("train CLI (a subprocess on the card, started after the loop's training; the "
+          "parallel phase's two CLI runs beside it):")
+    for run in cli_runs.values():
+        if isinstance(run, _Spawned):
+            run.join()  # no phase runs beside them
+    train_cli_phase(cli_runs)
+    for run in gloo.values():
+        run.join()  # nothing beside the timed phases below
     stage(f"parallel slice (the 9B's T2V at full width on {PAR_SEQ} virtual seq ranks: the "
           "ring, Ulysses' local step; the train CLI in a one-rank NCCL world):")
-    parallel = parallel_phase(dev)
+    parallel = parallel_phase(dev, cli_runs)
     for name, case in parallel["cases"].items():
         kern[name]["cases"].append(case)
     stage(f"parallel inference slice (K3 with its lse; the 9B image cache read on {PAR_SEQ} "
           f"virtual seq ranks; a 9B decode step cut over model on {MODEL_RANKS} virtual "
           "ranks):")
-    parallel_infer = parallel_infer_phase(dev)
+    parallel_infer = parallel_infer_phase(dev, gloo["serve"])
     kern["decode_attention"]["cases"].extend(parallel_infer["cases"])
     stage(f"parallel TP slice (K6's row-scale mode at the 9B's row-cut shapes; a 9B text "
           f"layer's backward cut over model on {MODEL_RANKS} virtual ranks; int8 serving and "
           "the train CLI as two ranks over gloo):")
-    parallel_tp = parallel_tp_phase(dev)
+    parallel_tp = parallel_tp_phase(dev, gloo["tp"])
     kern.update(parallel_tp["kernels"])
 
     # launches: the path each kernel serves first (bf16 serving for K1-K3,
@@ -7371,7 +7730,9 @@ def main() -> int:
              "checkpoint_int8": ckpt_int8, "serve_int8": serve_int8,
              "serve_daemon_int8": serve_daemon_int8, "train": train, "remat": remat,
              "grad_accum": grad_accum, "train_image": train_image, "train_pack": train_pack,
-             "train_7b": train_7b, "distill": distill, "parallel": parallel["launches"],
+             "train_7b": train_7b, "full_loop_train": loop_train,
+             "full_loop_serve": loop_serve, "distill": distill,
+             "parallel": parallel["launches"],
              "parallel_infer": parallel_infer["launches"],
              "parallel_tp": parallel_tp["launches"]}
     first = {"quant_matmul_amax": (parallel_tp["launches"],),

@@ -60,6 +60,8 @@ MODULES = [
     "vidi_tpu_torch.evals.plots",
     "vidi_tpu_torch.evals.visualize",
     "vidi_tpu_torch.tools.ranks_one_card",
+    "vidi_tpu_torch.tools.make_example",
+    "vidi_tpu_torch.tools.full_loop",
 ]
 
 PROBE = """

@@ -20,8 +20,9 @@ configuration (default Vidi1.5-9B at full width, random weights from
 seed 0, the first N text layers, bf16 on the card) on chip_smoke.py's
 synthetic clip (--seconds, default 120) and one TR query, greedy
 generate of --new tokens on the kernel routes (K1 / K2 / K3, and K5 /
-K6 for int8). Then two child processes (a gloo group at tcp://localhost,
-both on card 0) run the same with `load_model(mesh=)`; the parent holds
+K6 for int8). Then two child processes (a gloo group that meets in a
+file of the parent's temporary directory, so that no two runs race for
+a port; both on card 0) run the same with `load_model(mesh=)`; the parent holds
 each rank's step-0 logits against the reference's (the largest
 difference over the largest |logit|, and the cosine) and its tokens
 (with the reference's top-2 gap where they first differ), and prints
@@ -40,7 +41,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -184,9 +184,10 @@ def _losses(run_dir: str) -> list:
         return [json.loads(x)["loss"] for x in f]
 
 
-def child(mode: str, port: int, rank: int, out: str, args) -> None:
-    """One rank: a gloo group of two on card 0 (or the CPU), the mesh of
-    `mode`, the path (or the train CLI), its results to `out`."""
+def child(mode: str, store: str, rank: int, out: str, args) -> None:
+    """One rank: a gloo group of two on card 0 (or the CPU) that meets in
+    the file `store`, the mesh of `mode`, the path (or the train CLI), its
+    results to `out`."""
     import torch.distributed as dist
 
     from vidi_tpu_torch.core.mesh import make_mesh, shutdown
@@ -194,8 +195,7 @@ def child(mode: str, port: int, rank: int, out: str, args) -> None:
 
     if args.device == "cuda":
         torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
-                            world_size=2)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
     try:
         if mode.startswith("train_model"):
             # the CLI takes its rank from torchrun's variables; the group is
@@ -217,12 +217,6 @@ def child(mode: str, port: int, rank: int, out: str, args) -> None:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _held(label: str, got: dict, want: dict) -> dict:
@@ -301,11 +295,11 @@ def compare(modes=("seq", "model"), *, layers: int = 4, new: int = 8, device: st
     groups = [[m] for m in modes if m not in train] + ([train] if train else [])
     with tempfile.TemporaryDirectory() as tmp:
         def spawn(mode):
-            port = _free_port()
+            store = os.path.join(tmp, f"{mode}.store")
             outs = [os.path.join(tmp, f"{mode}{r}.pt") for r in range(2)]
             return outs, [subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), *flags, "--child", mode,
-                 str(port), str(r), outs[r]], stdout=subprocess.PIPE,
+                 store, str(r), outs[r]], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True, env={**os.environ, "OMP_NUM_THREADS": "1"})
                 for r in range(2)]
 
@@ -359,11 +353,11 @@ def main() -> None:
     ap.add_argument("--mm-chunks", type=int, default=32)
     ap.add_argument("--w8a8", type=int, default=512)
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--child", nargs=4, metavar=("MODE", "PORT", "RANK", "OUT"))
+    ap.add_argument("--child", nargs=4, metavar=("MODE", "STORE", "RANK", "OUT"))
     args = ap.parse_args()
     if args.child:
-        mode, port, rank, out = args.child
-        child(mode, int(port), int(rank), out, args)
+        mode, store, rank, out = args.child
+        child(mode, store, int(rank), out, args)
         return
     if args.device == "cuda":
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
