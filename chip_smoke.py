@@ -80,7 +80,20 @@
    class token, the v1 adapters), on the int8 route, and training steps:
    the 9B's shapes; image mode with anyres grids (2, 2) and (1, 3) in one
    batch; remat "dots" on the card against full remat on the CPU;
-   gradient accumulation over k = 2; the 7B's shapes with position noise.
+   gradient accumulation over k = 2; the 7B's shapes with position noise;
+   and the repo's tiny configurations (head dim 16 in text and towers) at
+   their own widths through the serving, int4 and training checks. Then
+   the head dims and groups phase: K1 / K4, K3 and K2 at head dims and GQA
+   groups beyond the shipped ones (the tiny D = 16, Codestral-22B's G = 6,
+   Mistral-Large's G = 12, D = 96, a D = 20 through the padded copy, a
+   G = 160 run as slices of heads; K3 at the image, audio and windowed text
+   caches of each; CLIP ViT-H's D = 80 and bigG's D = 104), each operand a
+   [..., :D] view of a buffer with junk past D, with planted faults (the
+   junk read, the group packed as the next power of two, a tile's leftover
+   rows stored over the next tile's, K3's rows read at the compiled
+   width's stride or a row group dropped); then a Codestral-shaped model
+   (G = 6, CLIP-H's 16 x 80 tower heads) through the same reference and
+   training checks.
 4. Drives the serving slice: load_model(random_weights="9b") at full width,
    a synthetic 120 s clip (120 frames 384x384, 16 kHz audio), one media
    encode, then three temporal-retrieval queries through prompt ->
@@ -252,7 +265,11 @@
    times beside one call on the whole cache; Ulysses' head slices (K1 on 4
    query / 2 KV heads each) stitched against K1 on all heads; the train
    CLI (tiny, --sp_mode ring) under `torchrun --nproc_per_node 1` (a
-   one-rank NCCL world) against the plain CLI, losses within CLI_LOSS_REL.
+   one-rank NCCL world) against the plain CLI, losses within CLI_LOSS_REL,
+   and the tiny train CLI with --use_flash (K1 / K2 / K4 at head dim 16)
+   against the plain CLI, losses within FLASH_CLI_LOSS_REL (planted
+   faults, each its own run: K1's heads of a group swapped, K1 without
+   its window, K2's heads rolled).
    Then the parallel inference slice: K3 with its lse (`return_lse`) at
    the 9B's image, audio and text caches and the 7B's image cache, lse
    within LSE_ATOL of the plain version's (planted fault: one split's lse
@@ -1393,6 +1410,343 @@ def k4_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Head dims and groups: K1 / K4, K3 and K2 at every head dim D % 8 == 0 up
+# to 256 and every GQA group G that the TPU kernels take, on the shapes of
+# the repo's tiny configurations, Codestral-22B's and Mistral-Large's text
+# attention and CLIP ViT-H/14's and ViT-bigG/14's towers
+# ---------------------------------------------------------------------------
+
+# K1 forward and K4 backward (label, T, S, Hq, Hk, D, causal, window, cap,
+# valid keys): the tiny text layer; Codestral-22B (48 query / 8 KV heads of
+# 128, G = 6, no cap) T2V against the 120 s clip's image keys and T2T;
+# Mistral-Large-Instruct-2407's G = 12 (96 / 8); a head dim between the
+# compiled widths; a head dim that is no multiple of 8 (the padded copy);
+# a group wider than the row tiles (two KV heads of 160 query heads each:
+# K1 in two slices of 80 heads a KV head, K4 in three of at most 64)
+HD_K1_CASES = (
+    ("tiny t2t T=S=64 causal window=16 cap=50 (D=16, G=2)", 64, 64, 4, 2, 16, True, 16, 50.0,
+     60),
+    (f"codestral t2v T=128 S={IMG_S} mask (D=128, G=6)", 128, IMG_S, 48, 8, 128, False, None,
+     None, IMG_VALID),
+    ("codestral t2t T=S=192 causal window=4096 (D=128, G=6)", 192, 192, 48, 8, 128, True,
+     4096, None, 180),
+    (f"mistral-large t2v T=128 S={IMG_S} mask (D=128, G=12)", 128, IMG_S, 96, 8, 128, False,
+     None, None, IMG_VALID),
+    (f"t2a T=128 S={AUD_S} mask cap=50 (D=96, G=2)", 128, AUD_S, 16, 8, 96, False, None, 50.0,
+     AUD_VALID),
+    ("t2t T=S=128 causal window=4096 cap=50 (D=20, G=2: the padded copy)", 128, 128, 4, 2, 20,
+     True, 4096, 50.0, 120),
+    ("t2v T=64 S=1200 mask (D=64, G=160: slices of heads)", 64, AUD_S, 320, 2, 64, False, None,
+     None, AUD_VALID),
+)
+# K3 at the (D, Hq, Hk, cap) of the tiny model, Codestral, Mistral-Large and
+# D = 96, each against the image (mask), audio (mask) and a text cache with
+# a binding window
+HD_K3_HEADS = ((16, 4, 2, 50.0), (128, 48, 8, None), (128, 96, 8, None), (96, 16, 8, None))
+# K2 (label, B, T, H, D): the tiny SigLIP (3 x 3 patches) and Whisper; CLIP
+# ViT-H/14 (1280 = 16 x 80) and ViT-bigG/14 (1664 = 16 x 104) at 224 px
+HD_K2_CASES = (("siglip tiny B=6 T=9 H=2 D=16", 6, 9, 2, 16),
+               ("whisper tiny B=1 T=1500 H=2 D=16", 1, 1500, 2, 16),
+               ("clip-h B=4 T=257 H=16 D=80", 4, 257, 16, 80),
+               ("clip-bigG B=4 T=257 H=16 D=104", 4, 257, 16, 104))
+# the junk past D of the operands' buffers: an extra score of std ~1 (D =
+# 128, 8 junk columns) to ~7 (D = 16 read to its width 64) from q . k over
+# the junk, enough to move every output, yet finite in the backward's
+# exp(z - lse) against the forward's lse
+JUNK_GAIN = 2.0
+
+
+def _junk_view(gen, shape, dev, gain: float, width: int, dtype=torch.bfloat16):
+    """(view, buffer): an operand of `shape` as the [..., :D] view of a
+    [..., width] buffer whose columns past D hold junk, so that a kernel
+    that reads past D reads the junk."""
+    buf = _randn(gen, (*shape[:-1], width), dev, gain, dtype)
+    buf[..., shape[-1]:] = _randn(gen, (*shape[:-1], width - shape[-1]), dev, JUNK_GAIN, dtype)
+    return buf[..., :shape[-1]], buf
+
+
+def _next_pow2(g: int) -> int:
+    return 1 << (g - 1).bit_length()
+
+
+def _grouped_as(k, v, hq: int, g2: int, axis: int) -> dict:
+    """k / v spread to one KV head a query head, query head h reading KV
+    head h // g2 (clipped to the last): a kernel that packed the group as
+    g2 rows, as a G = 1 call; `axis` is the KV-head axis."""
+    heads = (torch.arange(hq, device=k.device) // g2).clamp(max=k.shape[axis] - 1)
+    return {"k": k.index_select(axis, heads), "v": v.index_select(axis, heads)}
+
+
+def _leftover_rows(x, hk: int, tile: int) -> torch.Tensor:
+    """x ([B,T,Hq,D]: q, or a gradient of q) with the rows a tile's leftover
+    rows would overwrite zeroed: the first query of every tile after the
+    first, heads 0 .. tile % g - 1 of each group. The leftover rows compute
+    them on zero queries (and, in K4's dq kernel, with no gradient), so
+    the plain K1 on such a q, or K4's dq so zeroed, reads as a kernel that
+    stored its leftover rows over the next tile's."""
+    t, hq = x.shape[1], x.shape[2]
+    g = hq // hk
+    per, left = tile // g, tile % g
+    x = x.clone()
+    for t0 in range(per, t, per):
+        for h in range(hk):
+            x[:, t0, h * g:h * g + left] = 0
+    return x
+
+
+def head_dims_kernel_cases(dev) -> dict:
+    """K1 / K4, K3 and K2 against their plain versions at head dims and
+    groups outside the shipped ones (HD_*), bf16 on the sm90 kernels, each
+    case's operands a [..., :D] view of a buffer with junk past D. Planted
+    faults: the plain version fed the junk columns (a kernel reading past
+    D); a group that is no power of two packed as the next power of two;
+    the leftover rows of a tile stored over the next tile's; for K3 the
+    cache rows read at the compiled width's stride, and at G > 8 a row
+    group dropped; and the features each case has (mask, window, causal,
+    cap). -> {kernel name: {"cases": [...], "errs": [...]}}."""
+    from vidi_tpu_torch.ops.cuda import _lib
+    from vidi_tpu_torch.ops.cuda import decode_attention as k3
+    from vidi_tpu_torch.ops.cuda import flash_attention as k1
+    from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
+    from vidi_tpu_torch.ops.cuda import tower_attention as k2
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    out_res = {n: {"cases": [], "errs": []} for n in (
+        "flash_attention", "flash_attention_bwd", "decode_attention", "tower_attention")}
+
+    def note(name, label, err, ms, plain_ms, bound, lib_ms, ops, **extra):
+        print(f"  {name} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), library {lib_ms} ms")
+        kind = {"flash_attention": "K1", "flash_attention_bwd": "K4",
+                "decode_attention": "K3", "tower_attention": "K2"}[name]
+        out_res[name]["errs"].append(err)
+        out_res[name]["cases"].append({
+            "shape": f"head dims: {label}", "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": lib_ms, **extra, **_rate(f"{kind} {label}", ops, ms, bound)})
+
+    # K1 forward, then K4 on its out / lse
+    for label, t, s, hq, hk, d, causal, window, cap, n_valid in HD_K1_CASES:
+        g = hq // hk
+        width = max(k1.head_width(-(-d // 8) * 8), d + 8)
+        (q, qb), (k, kb), (v, vb) = (_junk_view(gen, shape, dev, gain, width) for shape, gain in (
+            ((1, t, hq, d), Q_GAIN), ((1, s, hk, d), 1.0), ((1, s, hk, d), 1.0)))
+        mask = _kv_mask(s, n_valid, dev)
+        args = dict(q=q, k=k, v=v, kv_mask=mask, sm_scale=d**-0.5, causal=causal,
+                    window=window, softcap=cap)
+        plain = k1.flash_attention_plain
+        pads = k1.pad_copies
+        out, lse = k1.flash_attention(**args)
+        pads = [k1.pad_copies - pads]
+        ref, ref_lse = plain(**args)
+        planted = {"columns past D read (junk)": plain(**{**args, "q": qb, "k": kb, "v": vb})[0]
+                   [..., :d]}
+        planted.update(_faults(plain, args, ["mask", "cap"] + ["causal"] * causal
+                               + ["window"] * (window is not None and window < s)))
+        if g & (g - 1):
+            planted[f"G = {g} packed as {_next_pow2(g)}"] = plain(
+                **{**args, **_grouped_as(k, v, hq, _next_pow2(g), 2)})[0]
+        leftover = g <= k1.SM90_ROWS and k1.SM90_ROWS % g  # wider groups run in slices
+        if leftover:
+            planted["leftover rows stored over the next tile's"] = plain(
+                **{**args, "q": _leftover_rows(q, hk, k1.SM90_ROWS)})[0]
+        err = _check(f"K1 {label}", out, ref, planted)
+        live = ref_lse < k1.EMPTY_ROW_LSE
+        lse_err = float((lse[live] - ref_lse[live]).abs().max())
+        print(f"  K1 {label} lse: max_abs_err={lse_err:.3e} (limit {LSE_ATOL})")
+        if not lse_err <= LSE_ATOL:
+            raise AssertionError(f"K1 {label}: lse disagrees")
+        ms = _time_ms(lambda: k1.flash_attention(**args))
+        plain_ms = _time_ms(lambda: plain(**args))
+        seen = k1.visible_mask(1, t, s, mask, causal, window, None, None, dev)
+        ops = 4 * hq * d * int(seen.sum())
+        bound = _bound(ops, _nbytes(q, k, v, out, lse, mask), "bf16")
+        lib_ms = None if cap else _time_ms(lambda: _sdpa(q, k, v, d**-0.5,
+                                                         seen if causal else mask))
+        note("flash_attention", label, err, ms, plain_ms, bound, lib_ms, ops)
+
+        do = _randn(gen, (1, t, hq, d), dev)
+        if causal:
+            do[:, n_valid:] = 0  # T2T rows past the prompt are padding
+        bargs = dict(args, out=out, lse=lse, do=do, q_segs=None, kv_segs=None)
+        bplain = k4.flash_attention_bwd_plain
+        before = k4.pad_copies
+        got = k4.flash_attention_bwd(**bargs)
+        again = k4.flash_attention_bwd(**bargs)
+        pads.append(k4.pad_copies - before)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K4 {label}: two runs differ")
+        want = bplain(**bargs)
+        wide = lambda x: torch.nn.functional.pad(x, (0, width - d))  # noqa: E731
+        # T2T: the masked keys are the prompt's tail, which no row with a
+        # gradient sees, so a dropped kv_mask is no fault there
+        # (a group wider than the dk / dv tile runs as slices: no split to drop)
+        names = (["causal", "di", "band"] + ["window"] * (window is not None and window < s)
+                 if causal else ["mask", "di"] + ["split"] * (g <= k4.SM90_BWD_KV_ROWS)) \
+            + ["cap"] * bool(cap) + ["gqa"] * (g > 1)
+        bad = _k4_faults(k4, bargs, names)
+        bad["columns past D read (junk)"] = [x[..., :d] for x in bplain(
+            **{**bargs, "q": qb, "k": kb, "v": vb, "out": wide(out), "do": wide(do)})]
+        if g & (g - 1):  # the dk / dv of the spread heads summed into h // g2
+            g2 = _next_pow2(g)
+            spread = _grouped_as(k, v, hq, g2, 2)
+            dq, dk_e, dv_e = bplain(**{**bargs, **spread})
+            heads = (torch.arange(hq, device=dev) // g2).clamp(max=hk - 1)
+            back = lambda x, like: torch.zeros(like.shape, device=dev).index_add_(  # noqa: E731
+                2, heads, x.float()).to(like.dtype)
+            bad[f"G = {g} packed as {g2}"] = (dq, back(dk_e, k), back(dv_e, v))
+        if leftover:  # the dq kernel's leftover rows (no gradient) stored
+            bad["leftover rows stored over the next tile's"] = (
+                _leftover_rows(want[0], hk, k1.SM90_ROWS), None, None)
+        errs = [_check(f"K4 {label} {name}", got[i], want[i], {
+            lab: f[i] for lab, f in bad.items()
+            if f[i] is not None and lab not in K4_BLIND[name]})
+            for i, name in enumerate(("dq", "dk", "dv"))]
+        # one K1 call and two K4 calls; a CPU tensor takes the plain versions
+        copies, want_copies = tuple(pads), ((3, 10) if d % 8 and q.is_cuda else (0, 0))
+        print(f"  K1 / K4 {label}: padded copies {copies} (want {want_copies})")
+        if copies != want_copies:
+            raise AssertionError(f"K1 / K4 {label}: padded copies {copies}, want {want_copies}")
+        ms = _time_ms(lambda: k4.flash_attention_bwd(**bargs))
+        plain_ms = _time_ms(lambda: bplain(**bargs))
+        pairs = int(seen.sum())
+        ops = 10 * hq * d * pairs
+        bound = _bound(ops, _nbytes(q, k, v, mask, out, lse, do, *got), "bf16")
+        lib_ms = None if cap else _sdpa_bwd_ms(bargs)
+        note("flash_attention_bwd", label, max(errs), ms, plain_ms, bound, lib_ms, ops)
+        del q, k, v, qb, kb, vb, out, ref, planted, got, again, want, bad, bargs, args
+
+    # K3: one decode token against each cache layout
+    n_real, t_text = _prompt_lengths()
+    sms = _lib.sm_count(dev)
+    for d, hq, hk, cap in HD_K3_HEADS:
+        g = hq // hk
+        kg, rg, n_groups = k3.decode_groups(g)
+        w = k3.head_width(d, k3.WIDTHS["vidi_decode_attention_sm90"])
+        for layout, s, n_valid, window, q_pos in (
+                (f"image cache S={IMG_S} mask", IMG_S, IMG_VALID, None, None),
+                (f"audio cache S={AUD_S} mask", AUD_S, AUD_VALID, None, None),
+                (f"text cache S={t_text + 32} window=64", t_text + 32, n_real + 6, 64,
+                 n_real + 5)):
+            label = f"{layout} (D={d}, G={g})"
+            q, _ = _junk_view(gen, (1, hq, d), dev, Q_GAIN, w + 8)
+            kc = _randn(gen, (1, hk, s, d), dev)
+            vc = _randn(gen, (1, hk, s, d), dev)
+            mask = _kv_mask(s, n_valid, dev)
+            if q_pos is not None:
+                q_pos = torch.full((1,), q_pos, dtype=torch.int64, device=dev)
+            args = dict(q=q, k=kc, v=vc, kv_mask=mask, sm_scale=d**-0.5, softcap=cap,
+                        window=window, q_pos=q_pos)
+            plan = k3.decode_plan(1, hk, s, d, sms, g=g)
+            run = lambda: k3.decode_attention(**args)  # noqa: E731
+            out, again = run(), run()
+            if not torch.equal(out, again):
+                raise AssertionError(f"K3 {label}: two runs differ")
+            ref = k3.decode_attention_plain(**args)
+            planted = _k3_faults(k3, args, ["mask", "cap", "split"] + ["window"] * (
+                window is not None), plan)
+            if d < w:  # the cache rows read at the compiled width's stride
+                rows = torch.arange(s, device=dev)[:, None] * w + torch.arange(d, device=dev)
+                flat = lambda x: torch.cat((x.flatten(2), x.new_zeros(  # noqa: E731
+                    (*x.shape[:2], w * s))), -1)[..., rows]
+                planted[f"rows read {w} apart"] = k3.decode_attention_plain(
+                    **{**args, "k": flat(kc), "v": flat(vc)})
+            if g & (g - 1):
+                planted[f"G = {g} packed as {_next_pow2(g)}"] = k3.decode_attention_plain(
+                    **{**args, **_grouped_as(kc, vc, hq, _next_pow2(g), 1)})
+            if n_groups > 1:
+                dropped = ref.clone()
+                for h in range(hk):
+                    dropped[:, h * g + rg:(h + 1) * g] = 0
+                planted[f"row group 1 of {n_groups} dropped"] = dropped
+            err = _check(f"K3 {label}", out, ref, planted)
+            ms = _time_ms(run)
+            plain_ms = _time_ms(lambda: k3.decode_attention_plain(**args))
+            seen = k3.visible_keys(1, s, mask, window, q_pos, dev)
+            n_seen = int(seen.sum())
+            ops = 4 * hq * d * n_seen
+            bound = _bound(ops, _nbytes(q, out, mask) + 2 * hk * d * 2 * n_seen, "bf16")
+            lib_ms = None if cap else _time_ms(lambda: _k3_sdpa(q, kc, vc, d**-0.5, seen))
+            print(f"  K3 {label}: plan (tile, chunk, n_split) = {plan}, row groups "
+                  f"(kg, rg, n) = {(kg, rg, n_groups)}, width {w}")
+            note("decode_attention", label, err, ms, plain_ms, bound, lib_ms, ops,
+                 plan=plan, groups=(kg, rg, n_groups))
+            del kc, vc, args, out, again, ref, planted
+
+    # K2: the towers' bidirectional attention
+    for label, b, n, h, d in HD_K2_CASES:
+        width = max(k1.head_width(d), d + 8)
+        (q, qb), (k, kb), (v, vb) = (_junk_view(gen, (b, n, h, d), dev, gain, width)
+                                     for gain in (Q_GAIN, 1.0, 1.0))
+        scale = d**-0.5
+        out = k2.tower_attention(q, k, v, scale)
+        ref = k2.tower_attention_plain(q, k, v, scale)
+        planted = {"columns past D read (junk)":
+                   k2.tower_attention_plain(qb, kb, vb, scale)[..., :d]}
+        tile = k1.SM90_KEY_TILE[k1.head_width(d)]
+        if n > tile:
+            keep = n // tile * tile
+            planted[f"keys past {keep} dropped"] = k2.tower_attention_plain(
+                q, k[:, :keep], v[:, :keep], scale)
+        err = _check(f"K2 {label}", out, ref, planted)
+        ms = _time_ms(lambda: k2.tower_attention(q, k, v, scale))
+        plain_ms = _time_ms(lambda: k2.tower_attention_plain(q, k, v, scale))
+        ops = 4 * b * h * n * n * d
+        bound = _bound(ops, _nbytes(q, k, v, out), "bf16")
+        lib_ms = _time_ms(lambda: _sdpa(q, k, v, scale, None))
+        note("tower_attention", label, err, ms, plain_ms, bound, lib_ms, ops)
+    return out_res
+
+
+def _codestral_config():
+    """A small Dattn in the style of `_small_config` with Codestral-22B's
+    text attention (Mistral: 48 query / 8 KV heads of 128, G = 6; 2 layers
+    of a narrow hidden 256) and CLIP ViT-H/14's tower heads (16 x 80, one
+    layer of 1280): a group that is no power of two and a tower head dim
+    between the compiled widths, end to end. Not a preset: a Codestral- or
+    CLIP-H-based Vidi would be a configuration of its own."""
+    from vidi_tpu_torch import AudioConfig, DattnConfig, TextConfig, VisionConfig
+    return dataclasses.replace(
+        DattnConfig.tiny("mistral"),
+        text=dataclasses.replace(TextConfig.tiny("mistral"), hidden_size=256, num_heads=48,
+                                 num_kv_heads=8, head_dim=128, num_layers=2),
+        vision=dataclasses.replace(VisionConfig.tiny("clip"), hidden_size=1280, num_heads=16,
+                                   num_layers=1, intermediate_size=256, image_size=56),
+        audio=dataclasses.replace(AudioConfig.tiny(), d_model=128, num_heads=2))
+
+
+def head_dims_phase(dev) -> tuple:
+    """The "head dims and groups" phase: the kernel cases
+    (`head_dims_kernel_cases`), then the Codestral-shaped model
+    (`_codestral_config`) through `_reference_check` (the card's K1, K2, K3
+    against the CPU's plain fp32) and one training step (K4) against the
+    CPU. -> (kernel cases by kernel name, the phase's launches by kernel)."""
+    from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4
+
+    _reset_kernel_counts()
+    k4_before = k4.launches
+    cases = head_dims_kernel_cases(dev)
+    cfg = _codestral_config()
+    _reference_check(dev, "codestral G=6, CLIP-H D=80", cfg)
+
+    tcfg = dataclasses.replace(cfg, mm_image_pool_size=3, loss_thres=0.1)
+
+    def batches(step):
+        batch, hw, _ = _train_batch(tcfg, step, b=2, t=20, n_frames=3, n_windows=1,
+                                    ragged=True)
+        return batch, hw, _noise(tcfg, batch, hw, step)
+
+    # two steps: the first optimizer step's learning rate is 0 (warm-up)
+    _train_reference(dev, "small fp32 Codestral-shaped model (G = 6, CLIP-H heads of 80)",
+                     tcfg, batches)
+    launches = {**_kernel_counts(), "flash_attention_bwd": k4.launches - k4_before}
+    print(f"  head dims and groups phase launches: {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"the head dims phase left a kernel unlaunched: {launches}")
+    return cases, launches
+
+
+# ---------------------------------------------------------------------------
 # K5 / K6 / K7
 # ---------------------------------------------------------------------------
 
@@ -2064,8 +2418,9 @@ def _sdpa(q, k, v, scale, kv_mask):
 
 
 def _small_config():
-    """A few-layer Dattn whose head dims are the 9B's kernel shapes (decoder
-    256, SigLIP 72, Whisper 64), small enough to run on the CPU too."""
+    """A few-layer Dattn whose head dims are the 9B's (decoder 256, SigLIP
+    72, Whisper 64), small enough to run on the CPU too: the shipped
+    kernel shapes, beside the tiny configurations' head dim of 16."""
     import dataclasses
 
     from vidi_tpu_torch import AudioConfig, DattnConfig, TextConfig, VisionConfig
@@ -2096,13 +2451,24 @@ def _small_config_7b():
         audio=dataclasses.replace(AudioConfig.tiny(), d_model=128, num_heads=2))
 
 
+def _reference_configs() -> tuple:
+    """(label, config) of the small models the reference checks run: the
+    shipped kernel shapes (`_small_config`, `_small_config_7b`) and the
+    repo's tiny configurations at their own widths and depth (head dim 16
+    in text, SigLIP / CLIP and Whisper; G = 2)."""
+    from vidi_tpu_torch import DattnConfig
+    return (("9b", _small_config()), ("7b", _small_config_7b()),
+            ("tiny gemma2", DattnConfig.tiny()), ("tiny mistral", DattnConfig.tiny("mistral")))
+
+
 def reference_check(dev) -> None:
     """End to end at a small size in fp32: the port on the card (kernels)
     against the port on the CPU (plain PyTorch, the parity-tested path),
-    same weights and inputs, for the 9B's shape (`_small_config`) and the
-    7B's (`_small_config_7b`). Tokens must be identical; prefill hidden
-    states within atol = rtol = 1e-3 (fp32, different summation orders)."""
-    for shape, cfg in (("9b", _small_config()), ("7b", _small_config_7b())):
+    same weights and inputs, for the 9B's shape (`_small_config`), the
+    7B's (`_small_config_7b`) and the tiny configurations. Tokens must be
+    identical; prefill hidden states within atol = rtol = 1e-3 (fp32,
+    different summation orders)."""
+    for shape, cfg in _reference_configs():
         _reference_check(dev, shape, cfg)
 
 
@@ -2110,7 +2476,7 @@ def int4_reference_check(dev) -> None:
     """`reference_check` with the text decoder's matmuls (and the 7B's
     untied lm_head) in group-wise int4 (`load_4bit`): both sides dequantize
     the same codes exactly in fp32, so the limits stay the fp32 model's."""
-    for shape, cfg in (("9b", _small_config()), ("7b", _small_config_7b())):
+    for shape, cfg in _reference_configs():
         _reference_check(dev, shape, cfg, int4=True)
 
 
@@ -5450,7 +5816,8 @@ def training_reference_check(dev) -> None:
     of mixed grids; remat "dots" on the card against full remat on the
     CPU; gradient accumulation over k = 2 (four micro-steps: the first
     optimizer step's learning rate is 0); the 7B's shapes (G = 4) with
-    position noise at a pool size whose v1 side differs from hw // pool."""
+    position noise at a pool size whose v1 side differs from hw // pool;
+    the tiny gemma2 and mistral configurations at their own widths."""
     import dataclasses
 
     cfg = dataclasses.replace(_small_config(), loss_thres=0.1)
@@ -5478,6 +5845,10 @@ def training_reference_check(dev) -> None:
     c7 = dataclasses.replace(_small_config_7b(), mm_image_pool_size=3, loss_thres=0.1)
     _train_reference(dev, "small fp32 7B-shaped model (G = 4), position noise, pool 3", c7,
                      video(c7))
+    from vidi_tpu_torch import DattnConfig
+    for arch in ("gemma2", "mistral"):  # the tiny configurations at their own widths
+        tiny = dataclasses.replace(DattnConfig.tiny(arch), loss_thres=0.1)
+        _train_reference(dev, f"tiny {arch} fp32 model (head dim 16)", tiny, video(tiny))
 
 
 def load_training_slice(dev, base=None):
@@ -6500,11 +6871,56 @@ class _Spawned:
         return self.result, self.wall
 
 
+# The train CLI's main with the launches of K1 / K2 / K4 printed after it
+# (the "flash" runs of start_train_clis), a planted fault put in first:
+# `python -c flash_cli(fault) <flags>`
+FLASH_CLI = ("import json, sys\n"
+             "from vidi_tpu_torch.ops.cuda import flash_attention as k1\n"
+             "from vidi_tpu_torch.ops.cuda import flash_attention_bwd as k4\n"
+             "from vidi_tpu_torch.ops.cuda import tower_attention as k2\n"
+             "from vidi_tpu_torch.train import train\n"
+             "{fault}"
+             "train.main(sys.argv[1:])\n"
+             "print('launches ' + json.dumps({{'flash_attention': k1.launches, "
+             "'tower_attention': k2.launches, 'flash_attention_bwd': k4.launches}}))\n")
+# Planted faults of the flash CLI, each wrapping a kernel's launch in the
+# CLI's process: K1's query heads of each KV group stored in the wrong
+# order (a group packed wrong), K1 run without its window, K2's heads
+# rolled by one. Each run's losses must leave the plain run's by more than
+# FLASH_CLI_LOSS_REL. (K1 without its softcap moved them 9.1e-05 on the
+# H100: the tiny init's scores lie far below the cap of 50, so the CLI
+# cannot see it; the kernel cases' cap faults do. K4's faults reach only
+# the second step's loss through one update at 1e-5: the kernel cases and
+# training_reference_check hold K4.)
+FLASH_CLI_FAULTS = {
+    "K1 group's heads swapped": (
+        "_f = k1._launch\n"
+        "def _launch(*a):\n"
+        "    out, lse = _f(*a)\n"
+        "    hk = a[1].shape[2]\n"
+        "    return out.unflatten(2, (hk, -1)).flip(3).flatten(2, 3), lse\n"
+        "k1._launch = _launch\n"),
+    "K1 window ignored": (
+        "_f = k1._launch\n"
+        "k1._launch = lambda *a: _f(*a[:6], None, *a[7:])\n"),
+    "K2 heads rolled": (
+        "_f = k2._launch\n"
+        "k2._launch = lambda *a: _f(*a).roll(1, dims=2)\n"),
+}
+
+
+def flash_cli(fault=None) -> str:
+    """FLASH_CLI with FLASH_CLI_FAULTS[fault] planted (None: none)."""
+    return FLASH_CLI.format(fault=FLASH_CLI_FAULTS[fault] if fault else "")
+
+
 def start_train_clis(device: str = "cuda") -> dict:
     """The train CLI runs that train_cli_phase and train_cli_ranks_check read,
     started at once (tiny models; each waits mostly on its own start-up):
-    "image" (see train_cli_phase), "torchrun" and "plain" (see
-    train_cli_ranks_check). -> {name: _Spawned, "tmp": their directory}."""
+    "image" (see train_cli_phase), "torchrun", "plain", "flash" (the plain
+    run's flags and --use_flash: the tiny model on K1 / K2 / K4; see
+    train_cli_ranks_check) and one "flash" run a FLASH_CLI_FAULTS entry,
+    named "fault <key>". -> {name: _Spawned, "tmp": their directory}."""
     import tempfile
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -6522,6 +6938,10 @@ def start_train_clis(device: str = "cuda") -> dict:
                                     "--standalone", "--nproc_per_node", "1"]),
                       ("plain", [sys.executable])):
         runs[name] = _Spawned([*pre, *args, "--output_dir", os.path.join(tmp, name)], root)
+    for fault in [None, *FLASH_CLI_FAULTS]:
+        name = f"fault {fault}" if fault else "flash"
+        runs[name] = _Spawned([sys.executable, "-c", flash_cli(fault), *args[2:],
+                               "--use_flash", "--output_dir", os.path.join(tmp, name)], root)
     return runs
 
 
@@ -6570,6 +6990,14 @@ def train_cli_phase(runs: dict) -> None:
 PAR_SEQ, PAR_T = 4, 128
 PAR_S, PAR_VALID = IMG_S, IMG_S - 30 * 196
 CLI_LOSS_REL = 1e-6
+# The tiny train CLI on the kernels against the same CLI on the plain route,
+# both bf16 on the card (two steps at the CLI's learning rate of 1e-5, so
+# the losses read the forward: K1 and K2). Set between two readings (H100
+# 80GB HBM3, 700 W): the kernels' run sat 6.0e-05 from the plain run's,
+# twice alike; the least FLASH_CLI_FAULTS fault 7.1e-04 (K1's heads of a
+# group swapped; K1 without its window 1.8e-03, K2's heads rolled
+# 7.1e-03). 2e-4 lies ~3.5x from each.
+FLASH_CLI_LOSS_REL = 2e-4
 
 
 def _ring_virtual(q, shards, dout, scale: float, cap, fault=None):
@@ -6730,18 +7158,41 @@ def train_cli_ranks_check(runs: dict) -> dict:
     """The train CLI (tiny, --sp_mode ring, 2 steps) under `torchrun
     --standalone --nproc_per_node 1` (a one-rank NCCL world: mesh (1, 1, 1))
     and as a plain process (`runs` of start_train_clis): the two runs'
-    losses within CLI_LOSS_REL."""
+    losses within CLI_LOSS_REL. The flash run's losses within
+    FLASH_CLI_LOSS_REL of the plain run's, each planted fault's outside."""
     import shutil
 
-    losses, walls = {}, {}
-    for name in ("torchrun", "plain"):
+    losses, walls, flash_launches = {}, {}, {}
+    faults = [f"fault {f}" for f in FLASH_CLI_FAULTS]
+    for name in ("torchrun", "plain", "flash", *faults):
         res, walls[name] = runs[name].join()
         if res.returncode != 0:
             raise AssertionError(f"train CLI ({name}) failed ({res.returncode}): "
                                  f"{res.stderr[-2000:]}")
         with open(os.path.join(runs["tmp"], name, "metrics.jsonl")) as f:
             losses[name] = [json.loads(x)["loss"] for x in f]
+        if name == "flash" or name in faults:
+            line = next(x for x in res.stdout.splitlines() if x.startswith("launches "))
+            flash_launches[name] = json.loads(line[len("launches "):])
     shutil.rmtree(runs["tmp"], ignore_errors=True)
+    rel = {name: max(abs(a - b) / abs(b) for a, b in zip(losses[name], losses["plain"]))
+           for name in ("flash", *faults)}
+    flash_gap = rel["flash"]
+    print(f"  train CLI --tiny --use_flash (head dim 16 on the kernels): losses "
+          f"{losses['flash']} in {walls['flash']:.1f} s, launches {flash_launches['flash']}; "
+          f"largest relative gap to the plain route's {flash_gap:.2e} (limit "
+          f"{FLASH_CLI_LOSS_REL})")
+    for name in faults:
+        print(f"  planted fault ({name[len('fault '):]}): losses {losses[name]}, launches "
+              f"{flash_launches[name]}, gap {rel[name]:.2e} -> "
+              f"{'caught' if rel[name] > FLASH_CLI_LOSS_REL else 'NOT caught'}")
+    if (len(losses["flash"]) != 2 or not flash_gap <= FLASH_CLI_LOSS_REL
+            or not all(flash_launches["flash"].values())):
+        raise AssertionError("the tiny train CLI on the kernels launched no kernel or its "
+                             "losses left the plain route's")
+    if not all(rel[name] > FLASH_CLI_LOSS_REL and len(losses[name]) == 2 for name in faults):
+        raise AssertionError("a planted fault of the flash train CLI stayed within "
+                             "FLASH_CLI_LOSS_REL")
     gap = max(abs(a - b) / abs(b) for a, b in zip(losses["torchrun"], losses["plain"]))
     print(f"  train CLI --sp_mode ring: torchrun (one rank) losses {losses['torchrun']} "
           f"in {walls['torchrun']:.1f} s, plain {losses['plain']} in {walls['plain']:.1f} s "
@@ -6750,7 +7201,9 @@ def train_cli_ranks_check(runs: dict) -> dict:
           f"(limit {CLI_LOSS_REL})")
     if len(losses["torchrun"]) != 2 or not gap <= CLI_LOSS_REL:
         raise AssertionError("the one-rank torchrun CLI's losses differ from the plain CLI's")
-    return {"losses": losses, "rel_gap": gap, "wall_s": walls}
+    return {"losses": losses, "rel_gap": gap, "wall_s": walls, "flash_rel_gap": flash_gap,
+            "flash_launches": flash_launches["flash"],
+            "fault_rel_gaps": {name: rel[name] for name in faults}}
 
 
 # ---------------------------------------------------------------------------
@@ -7518,6 +7971,13 @@ def main() -> int:
     int4_reference_check(dev)
     stage("training reference check:")
     training_reference_check(dev)
+    stage("head dims and groups (K1-K4 at the tiny configurations' D = 16, Codestral's G = 6, "
+          "Mistral-Large's G = 12, D = 96, CLIP ViT-H's D = 80 and bigG's D = 104; a "
+          "Codestral-shaped model end to end):")
+    hd_cases, head_dims = head_dims_phase(dev)
+    for name, r in hd_cases.items():
+        kern[name]["cases"].extend(r["cases"])
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], *r["errs"])
     stage("slice (Vidi1.5-9B, random weights):")
     sl = load_slice(dev)
     serve = slice_phase(sl)
@@ -7734,7 +8194,7 @@ def main() -> int:
              "full_loop_serve": loop_serve, "distill": distill,
              "parallel": parallel["launches"],
              "parallel_infer": parallel_infer["launches"],
-             "parallel_tp": parallel_tp["launches"]}
+             "parallel_tp": parallel_tp["launches"], "head_dims": head_dims}
     first = {"quant_matmul_amax": (parallel_tp["launches"],),
              "row_amax": (parallel_tp["launches"],)}
     ids = {"flash_attention": "K1", "tower_attention": "K2", "decode_attention": "K3",

@@ -78,8 +78,14 @@ def test_gqa_row_map_is_a_bijection(t, hq, hk):
 
 
 def test_gqa_group_must_divide_the_tile():
-    with pytest.raises(ValueError):
-        k1.sm90_rows(128, 24, 8)  # g = 3
+    """A group that does not divide the 128-row tile (g = 3) needs not: a
+    tile packs 42 queries, its 2 rows left over are computed and never
+    stored, and every (t, head) is stored by exactly one row."""
+    t, hq, hk = 128, 24, 8
+    rows, stored = k1.sm90_rows(t, hq, hk), k1.sm90_stored(t, hq, hk)
+    live = rows[stored]
+    assert torch.equal((live[:, 0] * 3 + live[:, 1]).sort().values, torch.arange(t * 3))
+    assert not stored[:, 126:].any() and bool(stored[:-1, :126].all())
 
 
 @pytest.mark.parametrize("module,sm90,simt", [

@@ -188,10 +188,15 @@ def test_operand_check_passes_a_cache_layer_view():
     ("rows not contiguous", "row block must be contiguous"),
     ("misaligned start", "not 16-byte aligned"),
     ("misaligned head stride", "16-byte aligned"),
-    ("D = 64", "D = 64"),
-    ("G = 3", "G = 3"),
+    ("D = 64", None),
+    ("G = 3", None),
+    ("D = 264", "outside the kernels' 1..256"),
+    ("Hq % Hk", "multiple of Hk"),
 ])
 def test_operand_check_raises(fault, match):
+    """The layouts the kernels cannot read raise; D = 64 and G = 3, which
+    the kernels once refused, pass `check_shapes` (any D up to 256, any G);
+    D > 256 and a group that does not divide raise."""
     if fault == "rows not contiguous":  # a [B,S,Hk,D] cache read through a transpose
         x = torch.empty(1, 160, 8, 256, dtype=torch.bfloat16).transpose(1, 2)
         call = lambda: k3.block_strides("k", x.shape, x.stride(), x.data_ptr(), 2)  # noqa: E731
@@ -204,8 +209,15 @@ def test_operand_check_raises(fault, match):
         call = lambda: k3.block_strides("k", x.shape, x.stride(), x.data_ptr(), 2)  # noqa: E731
     elif fault == "D = 64":
         call = lambda: k3.check_shapes((1, 16, 64), (1, 8, 160, 64), (1, 8, 160, 64))  # noqa: E731
-    else:  # 24 query heads over 8: a group the kernels are not built for
+    elif fault == "G = 3":  # 24 query heads over 8: one group of 3 on the kg = 4 build
         call = lambda: k3.check_shapes((1, 24, 256), (1, 8, 160, 256), (1, 8, 160, 256))  # noqa: E731
+    elif fault == "D = 264":
+        call = lambda: k3.check_shapes((1, 16, 264), (1, 8, 160, 264), (1, 8, 160, 264))  # noqa: E731
+    else:  # 20 query heads over 8
+        call = lambda: k3.check_shapes((1, 20, 128), (1, 8, 160, 128), (1, 8, 160, 128))  # noqa: E731
+    if match is None:
+        assert call() is None
+        return
     with pytest.raises(ValueError, match=match):
         call()
 
@@ -258,7 +270,7 @@ def test_packed_arguments_are_each_calls_own(monkeypatch):
 
     def launch(i):
         for j in range(20):
-            local.values = (i, j, *range(9), *range(6), *range(10), 0.5, 1.5, 1, 2, 3)
+            local.values = (i, j, *range(9), *range(6), *range(10), 0.5, 1.5, *range(4), 1, 2, 3)
             k3._call("e", torch.device("cuda", 0), 0, local.values)
 
     threads = [threading.Thread(target=launch, args=(i,)) for i in range(4)]

@@ -30,8 +30,8 @@ def packings(draw):
     """(b, t, g, d, window, segment ids [b, t] int32 with 0 = padding)."""
     b = draw(st.integers(1, 2))
     t = draw(st.integers(40, 700))
-    g = draw(st.sampled_from([1, 2, 4]))
-    d = draw(st.sampled_from([128, 256]))
+    g = draw(st.sampled_from([1, 2, 3, 4, 6]))
+    d = draw(st.sampled_from([16, 96, 128, 256]))
     window = draw(st.sampled_from([None, 4096, 100, 300]))
     segs = np.zeros((b, t), np.int32)
     for bi in range(b):

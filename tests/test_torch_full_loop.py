@@ -255,6 +255,17 @@ def test_answer_margins(loop):
     assert all(map(math.isfinite, margins))
 
 
+@pytest.mark.parametrize("device,plain,flash", [
+    ("cuda", False, True), ("cuda", True, False), ("cpu", False, False)])
+def test_train_argv_route(device, plain, flash):
+    """The loop's training takes the kernels on CUDA unless `plain`, and
+    runs in bf16 there either way; the CPU runs the plain route in fp32."""
+    argv = full_loop.train_argv("w", STEPS, device, plain=plain)
+    args = tcli.build_parser().parse_args(argv)
+    assert args.use_flash is flash
+    assert args.dtype == ("bfloat16" if device == "cuda" else "float32")
+
+
 @pytest.mark.skipif(torch.cuda.is_available(), reason="holds the refusal where no card is")
 def test_cuda_without_a_card_raises(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):

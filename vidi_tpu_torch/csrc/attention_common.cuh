@@ -10,6 +10,12 @@
 // FlashParams and flash_combine from here. With packing segment ids both
 // skip every key tile whose ids cannot meet the block's rows' (the rule of
 // the Pallas kernel's `_seg_overlap`, see `mark_live_tiles` there).
+//
+// Head dims: a kernel is compiled for a width D and computes any head dim
+// d <= D with d % 8 == 0 (`FlashParams::d`): the columns past d are read as
+// zeros and never stored, so q . k and P V are those of the d columns. The
+// partial states of a split S keep the compiled width (`part_acc` rows of
+// D); q, k, v and out have rows of d.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -69,15 +75,16 @@ __device__ __forceinline__ float warp_sum(float x) {
 constexpr float kEmptyRowLse = 0.7f * FLT_MAX;
 
 struct FlashParams {
-  const void* q;        // [B, T, Hq, D] strided, last dim contiguous
-  const void* k;        // [B, S, Hk, D] strided, last dim contiguous
+  const void* q;        // [B, T, Hq, d] strided, last dim contiguous
+  const void* k;        // [B, S, Hk, d] strided, last dim contiguous
   const void* v;
   const unsigned char* kv_mask;  // [B, S] bool bytes, contiguous, nullptr = all valid
   const int* q_segs;    // [B, T] contiguous, nullptr = no packing
   const int* kv_segs;   // [B, S]
-  void* out;            // [B, T, Hq, D] contiguous
+  void* out;            // [B, T, Hq, d] contiguous
   float* lse;           // [B, Hq, T] contiguous, nullptr = not wanted
   int B, T, S, Hq, Hk;
+  int d;                // head dim: at most the compiled width D, a multiple of 8
   long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -87,7 +94,8 @@ struct FlashParams {
   float softcap;        // 0 = no softcap
   // Split of the KV axis across blocks (1 = none). With n_split > 1 each
   // block covers kv_split keys and writes its unnormalised partial state to
-  // part_* ([B,Hq,T,n_split] and [B,Hq,T,n_split,D]); flash_combine merges.
+  // part_* ([B,Hq,T,n_split] and [B,Hq,T,n_split,D], D the compiled
+  // width); flash_combine merges.
   int n_split;
   int kv_split;
   float* part_m;
@@ -164,7 +172,7 @@ __global__ void __launch_bounds__(NT) flash_forward(FlashParams p) {
 
   for (int e = tid; e < BQ * NPAIR; e += NT) {
     const int r = e / NPAIR, c = 2 * (e % NPAIR), t = q0 + r;
-    float2 x = t < p.T ? load2(q + t * p.q_st + c) : make_float2(0.f, 0.f);
+    float2 x = t < p.T && c < p.d ? load2(q + t * p.q_st + c) : make_float2(0.f, 0.f);
     store2(sQ + r * D + c, x.x, x.y);
   }
   for (int r = tid; r < BQ; r += NT) {
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(NT) flash_forward(FlashParams p) {
     }
     for (int e = tid; e < BK * NPAIR; e += NT) {
       const int j = e / NPAIR, c = 2 * (e % NPAIR), key = s0 + j;
-      if (key < p.S) {
+      if (key < p.S && c < p.d) {
         copy2(sK + j * L::KS + c, k + key * p.k_ss + c);
         copy2(sV + j * L::KS + c, v + key * p.v_ss + c);
       } else {
@@ -346,14 +354,14 @@ __global__ void __launch_bounds__(NT) flash_forward(FlashParams p) {
 
   // out = acc / l; rows that saw no key get zeros (and the sentinel lse)
   T* out = static_cast<T*>(p.out);
-  if (pv_on) {
+  if (pv_on && pv_c < p.d) {
 #pragma unroll
     for (int i = 0; i < NR; ++i) {
       const int r = pv_r0 + i * RG, t = q0 + r;
       if (r < BQ && t < p.T) {
         const float l = sL[r];
         const float inv = l == 0.f ? 0.f : 1.f / l;
-        store2(out + ((long long)(b * p.T + t) * p.Hq + h) * D + pv_c,
+        store2(out + ((long long)(b * p.T + t) * p.Hq + h) * p.d + pv_c,
                acc[i].x * inv, acc[i].y * inv);
       }
     }
@@ -371,8 +379,9 @@ __global__ void __launch_bounds__(NT) flash_forward(FlashParams p) {
 }
 
 // Merge of the n_split partial states of one query row (one block per
-// (b, h, t), one thread per column pair): out = sum acc_i e^(m_i - M) /
-// sum l_i e^(m_i - M), lse = M + log(L); zeros / sentinel when L = 0.
+// (b, h, t), one thread per column pair of the compiled width D, those
+// before d stored): out = sum acc_i e^(m_i - M) / sum l_i e^(m_i - M),
+// lse = M + log(L); zeros / sentinel when L = 0.
 template <typename T, int D>
 __global__ void __launch_bounds__(D / 2) flash_combine(FlashParams p) {
   const long long row = blockIdx.x;  // (b * Hq + h) * T + t
@@ -393,8 +402,9 @@ __global__ void __launch_bounds__(D / 2) flash_combine(FlashParams p) {
     }
   }
   const float inv = lsum == 0.f ? 0.f : 1.f / lsum;
-  store2(static_cast<T*>(p.out) + ((long long)(b * p.T + t) * p.Hq + h) * D + c,
-         ax * inv, ay * inv);
+  if (c < p.d)
+    store2(static_cast<T*>(p.out) + ((long long)(b * p.T + t) * p.Hq + h) * p.d + c,
+           ax * inv, ay * inv);
   if (threadIdx.x == 0 && p.lse != nullptr) {
     p.lse[row] = lsum == 0.f ? kEmptyRowLse : mx + logf(lsum);
   }
@@ -414,7 +424,8 @@ cudaError_t launch_flash_forward(const FlashParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  if (p.n_split < 1 || p.B * p.n_split > 65535) return cudaErrorInvalidValue;
+  if (p.n_split < 1 || p.B * p.n_split > 65535 || p.d < 8 || p.d > D || p.d % 8)
+    return cudaErrorInvalidValue;
   dim3 grid((p.T + BQ - 1) / BQ, p.Hq, p.B * p.n_split);
   flash_forward<T, D, BQ, BK, NT><<<grid, NT, L::bytes, stream>>>(p);
   cudaError_t err = cudaGetLastError();

@@ -13,9 +13,14 @@
 //
 // What bounds it on an H100: every step reads the visible cache once (2*S*D
 // elements per KV head) for 2*g*S*D FMAs, so it is bound by device-memory
-// bandwidth. Both routes are built for g = Hq / Hk in {1, 2, 4, 8} (Gemma2
-// has 2, Mistral-7B 4) and D in {128, 256}; anything else is refused. Two
-// routes, chosen by dtype in ops/cuda/decode_attention.py:
+// bandwidth. Both routes are built for row groups of kG in {1, 2, 4, 8}
+// (Gemma2 has g = 2, Mistral-7B 4) and a few widths (sm90: 128, 256; SIMT:
+// 64, 128, 256), and take any g = Hq / Hk and any head dim d <= 256 with
+// d % 8 == 0: the wrapper (`decode_groups`, `WIDTHS`) cuts a KV head's g
+// rows into n_groups groups of rg <= kG rows (G = 12: two groups of 6,
+// each reading the KV head's tiles), and rows past rg and columns past d
+// are computed as zeros and not stored. Two routes, chosen by dtype in
+// ops/cuda/decode_attention.py:
 // - bf16: `vidi_decode_attention_sm90`, the Hopper kernel of
 //   decode_attention_sm90.cuh (bulk asynchronous copies of whole K/V tiles
 //   into a shared-memory ring, a split plan that fills the card, masked
@@ -39,17 +44,18 @@ namespace {
 constexpr int kWarps = 4;
 
 struct DecodeParams {
-  const void* q;       // [B, Hq, D], last dim contiguous
-  const void* k;       // [B, Hk, S, D], last dim contiguous
+  const void* q;       // [B, Hq, d], last dim contiguous
+  const void* k;       // [B, Hk, S, d], last dim contiguous
   const void* v;
   const unsigned char* kv_mask;  // [B, S] bytes, row stride mask_sb; nullptr = all valid
   const void* q_pos;   // [B] int32 or int64, stride qpos_s; read when window > 0
   float* part_m;       // [B, Hq, n_split]
   float* part_l;       // [B, Hq, n_split]
-  float* part_acc;     // [B, Hq, n_split, D]
-  void* out;           // [B, Hq, D] contiguous
+  float* part_acc;     // [B, Hq, n_split, D] (D: the compiled width)
+  void* out;           // [B, Hq, d] contiguous
   float* lse;          // [B, Hq] contiguous, or nullptr: not written
   int B, Hq, Hk, S, n_split, chunk, qpos64;
+  int d, rg, n_groups;  // head dim, rows a block takes, row groups a KV head
   long long q_sb, q_sh;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -58,6 +64,9 @@ struct DecodeParams {
   int window;
 };
 
+// One block: one chunk of keys for rows g < rg of row group grp of KV head
+// hk (the grid's y is hk * n_groups + grp); a lane holds EPL columns, zeros
+// past d.
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
   constexpr int EPL = D / 32;  // elements per lane
@@ -67,7 +76,11 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
   __shared__ float sL[kWarps][G];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.y / p.n_groups, grp = blockIdx.y % p.n_groups;
+  const int q0 = hk * (p.Hq / p.Hk) + grp * p.rg;  // query head of row 0
+  const int rows = min(p.rg, p.Hq / p.Hk - grp * p.rg);  // rows the block stores
+  const bool lane_on = lane * EPL < p.d;
   const int c0 = split * p.chunk, c1 = min(p.S, c0 + p.chunk);
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh + lane * EPL;
@@ -80,10 +93,11 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
   float qr[G][EPL], acc[G][EPL], m[G], l[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const T* qg = q + (hk * G + g) * p.q_sh + lane * EPL;
+    const T* qg = q + (q0 + g) * p.q_sh + lane * EPL;
+    const bool on = g < rows && lane_on;
 #pragma unroll
     for (int e = 0; e < EPL; e += 2) {
-      const float2 x = vidi::load2(qg + e);
+      const float2 x = on ? vidi::load2(qg + e) : make_float2(0.f, 0.f);
       qr[g][e] = x.x;
       qr[g][e + 1] = x.y;
       acc[g][e] = 0.f;
@@ -100,8 +114,8 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
     float kk[EPL], vv[EPL];
 #pragma unroll
     for (int e = 0; e < EPL; e += 2) {
-      const float2 x = vidi::load2(k + key * p.k_ss + e);
-      const float2 y = vidi::load2(v + key * p.v_ss + e);
+      const float2 x = lane_on ? vidi::load2(k + key * p.k_ss + e) : make_float2(0.f, 0.f);
+      const float2 y = lane_on ? vidi::load2(v + key * p.v_ss + e) : make_float2(0.f, 0.f);
       kk[e] = x.x; kk[e + 1] = x.y;
       vv[e] = y.x; vv[e + 1] = y.y;
     }
@@ -134,7 +148,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < G * D; idx += kWarps * 32) {
+  for (int idx = threadIdx.x; idx < rows * D; idx += kWarps * 32) {
     const int g = idx / D, d = idx % D;
     float mx = -INFINITY;
 #pragma unroll
@@ -148,7 +162,7 @@ __global__ void __launch_bounds__(kWarps * 32) decode_partial(DecodeParams p) {
         a += sAcc[w][g][d] * f;
       }
     }
-    const long long row = ((long long)b * p.Hq + hk * G + g) * p.n_split + split;
+    const long long row = ((long long)b * p.Hq + q0 + g) * p.n_split + split;
     p.part_acc[row * D + d] = a;
     if (d == 0) {
       p.part_m[row] = mx;
@@ -174,9 +188,10 @@ __global__ void decode_combine(DecodeParams p) {
       a += pa[(long long)i * D + d] * f;
     }
   }
-  T* out = static_cast<T*>(p.out) + (long long)row * D;
+  T* out = static_cast<T*>(p.out) + (long long)row * p.d;
   const float o = lsum == 0.f ? 0.f : a / lsum;
   if (p.lse != nullptr && d == 0) p.lse[row] = lsum == 0.f ? vidi::kEmptyRowLse : mx + logf(lsum);
+  if (d >= p.d) return;
   if constexpr (sizeof(T) == 4) {
     out[d] = o;
   } else {
@@ -186,7 +201,11 @@ __global__ void decode_combine(DecodeParams p) {
 
 template <typename T, int D, int G>
 cudaError_t launch_simt(const DecodeParams& p, cudaStream_t s) {
-  dim3 grid(p.n_split, p.Hk, p.B);
+  const int g = p.Hq / p.Hk;
+  if (p.rg < 1 || p.rg > G || p.n_groups * p.rg < g || (p.n_groups - 1) * p.rg >= g ||
+      p.d < 8 || p.d > D || p.d % 8 || (long long)p.Hk * p.n_groups > 65535)
+    return cudaErrorInvalidValue;
+  dim3 grid(p.n_split, p.Hk * p.n_groups, p.B);
   decode_partial<T, D, G><<<grid, kWarps * 32, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -194,10 +213,12 @@ cudaError_t launch_simt(const DecodeParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// Row groups of kG = 1, 2 (Gemma2: Vidi1.5-9B at head dim 256, the 1.5B
+// configuration at 128), 4 (Mistral-7B, 128) or 8 (any other g)
 template <int D>
-cudaError_t dispatch_simt_g(const DecodeParams& p, cudaStream_t s) {
+cudaError_t dispatch_simt_g(const DecodeParams& p, int kg, cudaStream_t s) {
   if (p.Hk < 1 || p.Hq % p.Hk) return cudaErrorInvalidValue;
-  switch (p.Hq / p.Hk) {
+  switch (kg) {
     case 1: return launch_simt<float, D, 1>(p, s);
     case 2: return launch_simt<float, D, 2>(p, s);
     case 4: return launch_simt<float, D, 4>(p, s);
@@ -206,25 +227,34 @@ cudaError_t dispatch_simt_g(const DecodeParams& p, cudaStream_t s) {
   }
 }
 
-// Query heads per KV head 1, 2 (Gemma2: Vidi1.5-9B at head dim 256, the
-// 1.5B configuration at 128), 4 (Mistral-7B, 128) or 8
-cudaError_t dispatch_simt(const DecodeParams& p, int D, cudaStream_t s) {
-  switch (D) {
-    case 128: return dispatch_simt_g<128>(p, s);
-    case 256: return dispatch_simt_g<256>(p, s);
+cudaError_t dispatch_simt(const DecodeParams& p, int W, int kg, cudaStream_t s) {
+  switch (W) {
+    case 64: return dispatch_simt_g<64>(p, kg, s);
+    case 128: return dispatch_simt_g<128>(p, kg, s);
+    case 256: return dispatch_simt_g<256>(p, kg, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int D>
-cudaError_t dispatch_sm90(const vidi::decode_sm90::Params& p, cudaStream_t s) {
+// The exact build where the shapes are the compiled ones (d = D, one row
+// group of kG = g rows; faster there, decode_attention_sm90.cuh), the
+// general build otherwise.
+template <int D, int kG>
+cudaError_t launch_sm90(const vidi::decode_sm90::Params& p, cudaStream_t s) {
   using vidi::decode_sm90::launch;
+  const bool exact = p.d == D && p.n_groups == 1 && p.rg == kG && p.Hk >= 1 &&
+                     p.Hq == kG * p.Hk;
+  return exact ? launch<D, kG, true>(p, s) : launch<D, kG, false>(p, s);
+}
+
+template <int D>
+cudaError_t dispatch_sm90(const vidi::decode_sm90::Params& p, int kg, cudaStream_t s) {
   if (p.Hk < 1 || p.Hq % p.Hk) return cudaErrorInvalidValue;
-  switch (p.Hq / p.Hk) {
-    case 1: return launch<D, 1>(p, s);
-    case 2: return launch<D, 2>(p, s);
-    case 4: return launch<D, 4>(p, s);
-    case 8: return launch<D, 8>(p, s);
+  switch (kg) {
+    case 1: return launch_sm90<D, 1>(p, s);
+    case 2: return launch_sm90<D, 2>(p, s);
+    case 4: return launch_sm90<D, 4>(p, s);
+    case 8: return launch_sm90<D, 8>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -232,8 +262,10 @@ cudaError_t dispatch_sm90(const vidi::decode_sm90::Params& p, cudaStream_t s) {
 }  // namespace
 
 // The arguments of a K3 call, packed by the wrapper into one block
-// (ops/cuda/decode_attention.py, `ARGS`: struct format "<11Q6i10q2f3i") so
-// that a call crosses ctypes with two arguments instead of 33.
+// (ops/cuda/decode_attention.py, `ARGS`: struct format "<11Q6i10q2f4i3i") so
+// that a call crosses ctypes with two arguments instead of 37. D is the
+// compiled width, d the head dim; kg, rg and n_groups the row groups
+// (`decode_groups`).
 struct DecodeArgs {
   const void* q;
   const void* k;
@@ -249,10 +281,12 @@ struct DecodeArgs {
   int B, Hq, Hk, S, D, qpos64;
   long long q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, mask_sb, qpos_s;
   float scale, softcap;
+  int d, kg, rg, n_groups;
   int window, n_split, chunk;
 };
-static_assert(sizeof(DecodeArgs) == 216 && offsetof(DecodeArgs, q_sb) == 112 &&
-                  offsetof(DecodeArgs, scale) == 192 && offsetof(DecodeArgs, chunk) == 208,
+static_assert(sizeof(DecodeArgs) == 232 && offsetof(DecodeArgs, q_sb) == 112 &&
+                  offsetof(DecodeArgs, scale) == 192 && offsetof(DecodeArgs, d) == 200 &&
+                  offsetof(DecodeArgs, chunk) == 224,
               "DecodeArgs must match the wrapper's packing");
 
 // fp32 operands: the two-pass SIMT kernels (counters unused)
@@ -268,14 +302,15 @@ extern "C" int vidi_decode_attention(const DecodeArgs* a, void* stream) {
   p.v_sb = a->v_sb; p.v_sh = a->v_sh; p.v_ss = a->v_ss;
   p.mask_sb = a->mask_sb; p.qpos_s = a->qpos_s;
   p.scale = a->scale; p.softcap = a->softcap; p.window = a->window;
-  return static_cast<int>(dispatch_simt(p, a->D, static_cast<cudaStream_t>(stream)));
+  p.d = a->d; p.rg = a->rg; p.n_groups = a->n_groups;
+  return static_cast<int>(dispatch_simt(p, a->D, a->kg, static_cast<cudaStream_t>(stream)));
 }
 
 // bf16 operands: the Hopper kernel, one launch a call (k_ss / v_ss must be
-// D: the wrapper checks each (b, hk) block of k / v is contiguous)
+// d: the wrapper checks each (b, hk) block of k / v is contiguous)
 extern "C" int vidi_decode_attention_sm90(const DecodeArgs* a, void* stream) {
   using vidi::decode_sm90::Params;
-  if (a->k_ss != a->D || a->v_ss != a->D) return static_cast<int>(cudaErrorInvalidValue);
+  if (a->k_ss != a->d || a->v_ss != a->d) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(a->q);
   p.k = static_cast<const __nv_bfloat16*>(a->k);
@@ -290,10 +325,11 @@ extern "C" int vidi_decode_attention_sm90(const DecodeArgs* a, void* stream) {
   p.q_sb = a->q_sb; p.q_sh = a->q_sh; p.k_sb = a->k_sb; p.k_sh = a->k_sh;
   p.v_sb = a->v_sb; p.v_sh = a->v_sh; p.mask_sb = a->mask_sb; p.qpos_s = a->qpos_s;
   p.scale = a->scale; p.softcap = a->softcap; p.window = a->window;
+  p.d = a->d; p.rg = a->rg; p.n_groups = a->n_groups;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->D) {
-    case 128: return static_cast<int>(dispatch_sm90<128>(p, s));
-    case 256: return static_cast<int>(dispatch_sm90<256>(p, s));
+    case 128: return static_cast<int>(dispatch_sm90<128>(p, a->kg, s));
+    case 256: return static_cast<int>(dispatch_sm90<256>(p, a->kg, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

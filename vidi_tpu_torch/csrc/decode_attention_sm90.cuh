@@ -2,7 +2,7 @@
 //
 // What bounds it on an H100: each call reads every visible cache row once
 // (2 * D bf16 of K and V per key and KV head) for only G query rows (G = 2
-// for Gemma2, 4 for Mistral-7B; 1, 2, 4 and 8 are built), so G FMAs per
+// for Gemma2, 4 for Mistral-7B; groups of 1, 2, 4 and 8 are built), so G FMAs per
 // cache element: about 3.5 G TFLOP/s of fp32 at the full 3.35 TB/s,
 // against the card's 67. Tensor cores do not decide it; what does is the
 // bytes in flight and the number of SMs that hold them.
@@ -47,6 +47,20 @@
 //   with no visible key: a read of a seq-cut cache merges the shards'
 //   outputs with it.
 //
+// Head dims and groups: the kernel is compiled for the widths D = 128 and
+// 256 and the groups kG = 1, 2, 4 and 8, each twice. The exact build
+// (kExact) takes d = D and G = kG, the shipped shapes, with every size a
+// constant: the general build ran those shapes 1.5-13% slower on device
+// time on an H100 (80GB HBM3, 700 W; PERF.md): 0.7-1.3 us of a short
+// cache's 7-10 us, 4% of the 9B image cache's read. The general build
+// takes any head dim d <= D with d % 8 == 0 and any G, from the wrapper's
+// row groups (`decode_groups`): a block takes rg <= kG rows of its KV
+// head's G, the grid's y axis runs over Hk x n_groups (a KV head's tiles
+// are read once per row group: G = 12 as two groups of 6), and rows past
+// rg (a G that is no power of two) are computed on zero queries and not
+// stored. A tile stays one bulk copy of kTile x d elements, read at a row
+// stride of d; a lane whose elements lie past d holds zeros.
+//
 // Measured on an H100 (PERF.md, vidi_tpu_torch/tools/k3_variants.py): the copies alone
 // stream the 9B image cache at ~3 TB/s; the arithmetic adds ~4 us and the
 // count and merge ~3 us to a call. A short cache's call is that chain of
@@ -69,18 +83,19 @@ constexpr float kMaskValue = -0.7f * FLT_MAX;  // the Pallas kernel's MASK_VALUE
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  const __nv_bfloat16* q;       // [B, Hq, D], strides q_sb / q_sh, last dim contiguous
-  const __nv_bfloat16* k;       // [B, Hk, S, D], each (b, hk) block contiguous
+  const __nv_bfloat16* q;       // [B, Hq, d], strides q_sb / q_sh, last dim contiguous
+  const __nv_bfloat16* k;       // [B, Hk, S, d], each (b, hk) block contiguous
   const __nv_bfloat16* v;
   const unsigned char* kv_mask;  // [B, S] bytes, row stride mask_sb; nullptr = all valid
   const void* q_pos;             // [B] int32 or int64 (qpos64), stride qpos_s; window > 0
-  float* part_m;                 // [B, Hk, n_split, G] (G = Hq / Hk)
+  float* part_m;                 // [B, Hk * n_groups, n_split, kG]
   float* part_l;
-  float* part_acc;               // [B, Hk, n_split, G, D]
-  unsigned int* counters;        // [B, Hk], 0 between calls
-  __nv_bfloat16* out;            // [B, Hq, D] contiguous
+  float* part_acc;               // [B, Hk * n_groups, n_split, kG, D]
+  unsigned int* counters;        // [B, Hk * n_groups], 0 between calls
+  __nv_bfloat16* out;            // [B, Hq, d] contiguous
   float* lse;                    // [B, Hq] contiguous, or nullptr: not written
   int B, Hq, Hk, S, n_split, chunk, qpos64;
+  int d, rg, n_groups;           // head dim, rows a block takes, row groups a KV head
   long long q_sb, q_sh, k_sb, k_sh, v_sb, v_sh, mask_sb, qpos_s;
   float scale, softcap;
   int window;
@@ -183,7 +198,7 @@ __device__ __forceinline__ float reduce_scatter(float* v, int lane) {
   }
 }
 
-template <int D, int kG>
+template <int D, int kG, bool kExact>
 __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
     decode_attention_sm90(const Params p) {
   using C = Cfg<D, kG>;
@@ -197,13 +212,24 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
   unsigned char* sMask = smem + C::kRing;  // [n_tiles][kTile] mask bytes, 0 past S
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  // the exact build's sizes are constants; the general build's come from p
+  const int d = kExact ? D : p.d;          // the rows' length
+  const int rg = kExact ? kG : p.rg;       // rows of the group the block takes
+  const int n_groups = kExact ? 1 : p.n_groups;
+  const int G = kExact ? kG : p.Hq / p.Hk;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.y / n_groups, grp = blockIdx.y % n_groups;
+  const int q0 = hk * G + grp * rg;  // query head of the block's row 0
+  // row g of the block is a query head it stores; a lane holds columns
+  // lane * kEPL .. of a row, zeros past d
+  auto live = [&](int g) { return kExact || (g < rg && grp * rg + g < G); };
+  const bool lane_on = kExact || lane * C::kEPL < d;
   // the splits take the cache's tiles in turn: the block's tile t is tile
   // split + t * n_split of S, keys [key0(t), key0(t) + kTile), the last
   // tile of S cut at S
   const int n_tiles = ((p.S + C::kTile - 1) / C::kTile - split + p.n_split - 1) / p.n_split;
   auto key0 = [&](int t) { return (split + t * p.n_split) * C::kTile; };
-  auto tile_bytes = [&](int t) { return uint32_t(min(C::kTile, p.S - key0(t)) * D * 2); };
+  auto tile_bytes = [&](int t) { return uint32_t(min(C::kTile, p.S - key0(t)) * d * 2); };
 
   // Every load the block needs before it can wait on anything is issued
   // here at once: q_pos, the mask bytes and q (one round trip to memory).
@@ -231,10 +257,11 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
   float qr[kG][C::kEPL];
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
-    const __nv_bfloat16* qg = p.q + b * p.q_sb + (hk * kG + g) * p.q_sh + lane * C::kEPL;
+    const __nv_bfloat16* qg = p.q + b * p.q_sb + (q0 + g) * p.q_sh + lane * C::kEPL;
+    const bool on = live(g) && lane_on;
 #pragma unroll
     for (int e = 0; e < C::kEPL; e += 2) {
-      const float2 x = load2(qg + e);
+      const float2 x = on ? load2(qg + e) : make_float2(0.f, 0.f);
       qr[g][e] = x.x;
       qr[g][e + 1] = x.y;
     }
@@ -244,9 +271,9 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
   auto issue = [&](int t, int s) {  // stage s <- tile t's K and V rows
     const uint32_t bar = smem_u32(&full[s]);
     mbar_expect_tx(bar, 2 * tile_bytes(t));
-    bulk_load(smem_u32(smem + (2 * s) * C::kTileBytes), kb + (long long)key0(t) * D,
+    bulk_load(smem_u32(smem + (2 * s) * C::kTileBytes), kb + (long long)key0(t) * d,
               tile_bytes(t), bar);
-    bulk_load(smem_u32(smem + (2 * s + 1) * C::kTileBytes), vb + (long long)key0(t) * D,
+    bulk_load(smem_u32(smem + (2 * s + 1) * C::kTileBytes), vb + (long long)key0(t) * d,
               tile_bytes(t), bar);
   };
   if (tid == kConsumers * 32) {
@@ -315,14 +342,15 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
 #pragma unroll
         for (int g = 0; g < kG; ++g) part[j * kG + g] = 0.f;
         if (j < nk) {
-          float kk[C::kEPL];
-          reinterpret_cast<const Bits*>(sk + (row0 + j) * D + lane * C::kEPL)->unpack(kk);
+          float kk[C::kEPL] = {};
+          if (lane_on)
+            reinterpret_cast<const Bits*>(sk + (row0 + j) * d + lane * C::kEPL)->unpack(kk);
 #pragma unroll
           for (int g = 0; g < kG; ++g) {
-            float d = 0.f;
+            float dot = 0.f;
 #pragma unroll
-            for (int e = 0; e < C::kEPL; ++e) d = fmaf(qr[g][e], kk[e], d);
-            part[j * kG + g] = d;
+            for (int e = 0; e < C::kEPL; ++e) dot = fmaf(qr[g][e], kk[e], dot);
+            part[j * kG + g] = dot;
           }
         }
       }
@@ -371,8 +399,9 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
 #pragma unroll
       for (int j = 0; j < C::kKPW; ++j) {
         if (j < nk) {
-          float vv[C::kEPL];
-          reinterpret_cast<const Bits*>(sv + (row0 + j) * D + lane * C::kEPL)->unpack(vv);
+          float vv[C::kEPL] = {};
+          if (lane_on)
+            reinterpret_cast<const Bits*>(sv + (row0 + j) * d + lane * C::kEPL)->unpack(vv);
 #pragma unroll
           for (int g = 0; g < kG; ++g)
 #pragma unroll
@@ -415,23 +444,24 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
     sLs[tid] = ls;
   }
   __syncthreads();
-  const long long head = (long long)b * p.Hk + hk;
+  const long long head = (long long)b * gridDim.y + blockIdx.y;  // (b, hk, row group)
   const bool single = p.n_split == 1;
   for (int i = tid; i < kG * D; i += kThreads) {
-    const int g = i / D, d = i % D;
+    const int g = i / D, c = i % D;
     const float mx = sMx[g], ls = sLs[g];
     float a = 0.f;
 #pragma unroll
-    for (int w = 0; w < kConsumers; ++w) a += sAcc[(w * kG + g) * D + d] * sM[w][g];
+    for (int w = 0; w < kConsumers; ++w) a += sAcc[(w * kG + g) * D + c] * sM[w][g];
     if (single) {
-      p.out[(b * (long long)p.Hq + hk * kG + g) * D + d] =
+      if (!live(g) || c >= d) continue;
+      p.out[(b * (long long)p.Hq + q0 + g) * d + c] =
           __float2bfloat16(ls == 0.f ? 0.f : a / ls);
-      if (p.lse != nullptr && d == 0)
-        p.lse[b * (long long)p.Hq + hk * kG + g] = ls == 0.f ? kEmptyRowLse : mx + logf(ls);
+      if (p.lse != nullptr && c == 0)
+        p.lse[b * (long long)p.Hq + q0 + g] = ls == 0.f ? kEmptyRowLse : mx + logf(ls);
     } else {
       const long long row = (head * p.n_split + split) * kG + g;
-      p.part_acc[row * D + d] = a;
-      if (d == 0) {
+      p.part_acc[row * D + c] = a;
+      if (c == 0) {
         p.part_m[row] = mx;
         p.part_l[row] = ls;
       }
@@ -514,11 +544,11 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
     }
 #pragma unroll
     for (int i = 0; i < C::kCols; ++i) {
-      const int c = tid + i * kThreads, g = c * 4 / D, d = c * 4 % D;
+      const int c = tid + i * kThreads, g = c * 4 / D, col = c * 4 % D;
       if (c < kG * D / 4) {
         for (int s = 0; s < ns; ++s) {
           const float f = sF[s * kG + g];
-          const float4 x = *reinterpret_cast<const float4*>(sPa + (s * kG + g) * D + d);
+          const float4 x = *reinterpret_cast<const float4*>(sPa + (s * kG + g) * D + col);
           a[i].x += x.x * f;
           a[i].y += x.y * f;
           a[i].z += x.z * f;
@@ -530,44 +560,51 @@ __global__ void __launch_bounds__(kThreads, (Cfg<D, kG>::kMinBlocks))
   }
 #pragma unroll
   for (int i = 0; i < C::kCols; ++i) {
-    const int c = tid + i * kThreads, g = c * 4 / D, d = c * 4 % D;
-    if (c < kG * D / 4) {
+    const int c = tid + i * kThreads, g = c * 4 / D, col = c * 4 % D;
+    if (c < kG * D / 4 && live(g) && col < d) {
       const float ls = sLs[g];
-      __nv_bfloat16* o = p.out + (b * (long long)p.Hq + hk * kG + g) * D + d;
+      __nv_bfloat16* o = p.out + (b * (long long)p.Hq + q0 + g) * d + col;
       store2(o, ls == 0.f ? 0.f : a[i].x / ls, ls == 0.f ? 0.f : a[i].y / ls);
       store2(o + 2, ls == 0.f ? 0.f : a[i].z / ls, ls == 0.f ? 0.f : a[i].w / ls);
     }
   }
   // the merged rows' log-sum-exp, in the units of K1's (scaled, softcapped
   // scores): what a merge of seq-cut caches weights this partial by
-  if (p.lse != nullptr && tid < kG)
-    p.lse[b * (long long)p.Hq + hk * kG + tid] =
+  if (p.lse != nullptr && tid < kG && live(tid))
+    p.lse[b * (long long)p.Hq + q0 + tid] =
         sLs[tid] == 0.f ? kEmptyRowLse : sMx[tid] + logf(sLs[tid]);
   if (tid == 0) p.counters[head] = 0;  // ready for the next call on this stream
 }
 
 // Checks the plan against the kernel's limits, sets the shared-memory
-// limit once, and launches one block per (split, KV head, batch row).
-template <int D, int G>
+// limit once, and launches one block per (split, KV head and row group,
+// batch row).
+template <int D, int G, bool kExact>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   using C = Cfg<D, G>;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        decode_attention_sm90<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        decode_attention_sm90<D, G, kExact>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::kMaxBytes);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  if (p.Hq != G * p.Hk || p.S < 1 || p.chunk < 1 || p.chunk % C::kTile ||
+  const bool groups_ok =
+      kExact ? p.Hq == G * p.Hk && p.d == D && p.rg == G && p.n_groups == 1
+             : p.Hk >= 1 && p.Hq % p.Hk == 0 && p.rg >= 1 && p.rg <= G && p.n_groups >= 1 &&
+                   p.n_groups * p.rg >= p.Hq / p.Hk && (p.n_groups - 1) * p.rg < p.Hq / p.Hk &&
+                   p.d >= 8 && p.d <= D && p.d % 8 == 0;
+  if (!groups_ok || (long long)p.Hk * p.n_groups > 65535) return cudaErrorInvalidValue;
+  if (p.S < 1 || p.chunk < 1 || p.chunk % C::kTile ||
       p.chunk > kMaxChunk || p.n_split < 1 || p.n_split > (p.S + C::kTile - 1) / C::kTile ||
       (long long)(p.chunk / C::kTile) * p.n_split < (p.S + C::kTile - 1) / C::kTile ||
-      p.n_split > 65535 || p.Hk > 65535 || p.B > 65535 ||
+      p.n_split > 65535 || p.B > 65535 ||
       (p.n_split > 1 && (p.counters == nullptr || p.part_m == nullptr)))
     return cudaErrorInvalidValue;
-  const dim3 grid(p.n_split, p.Hk, p.B);
+  const dim3 grid(p.n_split, p.Hk * p.n_groups, p.B);
   const int bytes = C::kRing + (p.chunk + 15) / 16 * 16;
-  decode_attention_sm90<D, G><<<grid, kThreads, bytes, stream>>>(p);
+  decode_attention_sm90<D, G, kExact><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 

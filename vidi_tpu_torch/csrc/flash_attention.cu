@@ -36,7 +36,7 @@ namespace {
 vidi::FlashParams params(const void* q, const void* k, const void* v,
                          const unsigned char* kv_mask,
                          const int* q_segs, const int* kv_segs, void* out, float* lse, int B,
-                         int T, int S, int Hq, int Hk, long long q_sb, long long q_st,
+                         int T, int S, int Hq, int Hk, int d, long long q_sb, long long q_st,
                          long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                          long long v_sb, long long v_ss, long long v_sh, float scale,
                          int causal, int window, float softcap, int n_split, int kv_split,
@@ -45,7 +45,7 @@ vidi::FlashParams params(const void* q, const void* k, const void* v,
   p.q = q; p.k = k; p.v = v;
   p.kv_mask = kv_mask; p.q_segs = q_segs; p.kv_segs = kv_segs;
   p.out = out; p.lse = lse;
-  p.B = B; p.T = T; p.S = S; p.Hq = Hq; p.Hk = Hk;
+  p.B = B; p.T = T; p.S = S; p.Hq = Hq; p.Hk = Hk; p.d = d;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -61,35 +61,42 @@ vidi::FlashParams params(const void* q, const void* k, const void* v,
   const void *q, const void *k, const void *v, const unsigned char *kv_mask,           \
       const int *q_segs,                                                              \
       const int *kv_segs, void *out, float *lse, int B, int T, int S, int Hq, int Hk,  \
-      int D, long long q_sb, long long q_st, long long q_sh, long long k_sb,           \
+      int W, int d, long long q_sb, long long q_st, long long q_sh, long long k_sb,           \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,  \
       float scale, int causal, int window, float softcap, int n_split, int kv_split,   \
       float *part_m, float *part_l, float *part_acc, void *stream
 #define VIDI_K1_PARAMS                                                                  \
-  params(q, k, v, kv_mask, q_segs, kv_segs, out, lse, B, T, S, Hq, Hk, q_sb, q_st, q_sh, \
+  params(q, k, v, kv_mask, q_segs, kv_segs, out, lse, B, T, S, Hq, Hk, d, q_sb, q_st, q_sh, \
          k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal, window, softcap, n_split,   \
          kv_split, part_m, part_l, part_acc)
+
+// Both entries take the head dim d and the compiled width W >= d the
+// wrapper chose for it (ops/cuda/flash_attention.py, `WIDTHS`).
 
 // fp32 operands: the SIMT template. BQ = 16 query rows per block: the text
 // side has T = 128, so wider tiles would leave most of the 132 SMs idle.
 extern "C" int vidi_flash_attention_fwd(VIDI_K1_ARGS) {
   const vidi::FlashParams p = VIDI_K1_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (W) {
+    case 64: return static_cast<int>(vidi::launch_flash_forward<float, 64, 16, 64, 128>(p, s));
+    case 72: return static_cast<int>(vidi::launch_flash_forward<float, 72, 16, 64, 128>(p, s));
     case 128: return static_cast<int>(vidi::launch_flash_forward<float, 128, 16, 64, 128>(p, s));
     case 256: return static_cast<int>(vidi::launch_flash_forward<float, 256, 16, 64, 128>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// bf16 operands: the Hopper kernel. Head dims 256 (Vidi1.5-9B) and 128 (the
-// 1.5B configuration).
+// bf16 operands: the Hopper kernel. Widths 256 (Vidi1.5-9B) and 128 (the
+// 1.5B configuration, Mistral) are compiled here, 64 and 72 beside K2.
+namespace vidi {
+namespace sm90 {
+template cudaError_t launch<128>(const FlashParams&, cudaStream_t);
+template cudaError_t launch<256>(const FlashParams&, cudaStream_t);
+}  // namespace sm90
+}  // namespace vidi
+
 extern "C" int vidi_flash_attention_fwd_sm90(VIDI_K1_ARGS) {
   const vidi::FlashParams p = VIDI_K1_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 128: return static_cast<int>(vidi::sm90::launch<128>(p, s));
-    case 256: return static_cast<int>(vidi::sm90::launch<256>(p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(vidi::sm90::launch_width(p, W, static_cast<cudaStream_t>(stream)));
 }

@@ -30,6 +30,9 @@
 //     axes), holding the 32 x D fp32 dk and dv sums in registers.
 //   Both passes stage their tiles in dynamic shared memory. No atomics:
 //   results do not vary from run to run on either route.
+// Both routes are compiled for a few widths (sm90: 128, 256; SIMT: 64, 128,
+// 256) and run at any head dim d up to the width with d % 8 == 0: columns
+// past d are read as zeros and not stored.
 #include "attention_common.cuh"
 #include "flash_backward_sm90.cuh"
 
@@ -119,12 +122,12 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(FlashBwdParams p) {
   const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const long long do_st = (long long)p.Hq * D;
-  const T* dout = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.Hq + h) * D;
+  const long long do_st = (long long)p.Hq * p.d;
+  const T* dout = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.Hq + h) * p.d;
 
   for (int e = tid; e < BQ * NPAIR; e += NT) {
     const int r = e / NPAIR, c = 2 * (e % NPAIR), t = q0 + r;
-    const bool in = t < p.T;
+    const bool in = t < p.T && c < p.d;
     const float2 x = in ? load2(q + t * p.q_st + c) : make_float2(0.f, 0.f);
     const float2 y = in ? load2(dout + t * do_st + c) : make_float2(0.f, 0.f);
     store2(sQ + r * D + c, x.x, x.y);
@@ -154,7 +157,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(FlashBwdParams p) {
     __syncthreads();  // the previous tile's K / dz are no longer read
     for (int e = tid; e < BK * NPAIR; e += NT) {
       const int j = e / NPAIR, c = 2 * (e % NPAIR), key = s0 + j;
-      if (key < p.S) {
+      if (key < p.S && c < p.d) {
         copy2(sK + j * L::KS + c, k + key * p.k_ss + c);
         copy2(sV + j * L::KS + c, v + key * p.v_ss + c);
       } else {
@@ -221,7 +224,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(FlashBwdParams p) {
     }
   }
 
-  if (!p_on) return;
+  if (!p_on || pc >= p.d) return;
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int r = pr0 + i * RG, t = q0 + r;
@@ -231,7 +234,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq(FlashBwdParams p) {
         const long long part = (long long)split * p.B * p.T * p.Hq + row;
         store2(p.dq_part + part * D + pc, acc[i].x, acc[i].y);
       } else {
-        store2(static_cast<T*>(p.dq) + row * D + pc, acc[i].x, acc[i].y);
+        store2(static_cast<T*>(p.dq) + row * p.d + pc, acc[i].x, acc[i].y);
       }
     }
   }
@@ -295,7 +298,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(FlashBwdParams p) {
 
   for (int e = tid; e < BKV * NPAIR; e += NT) {
     const int j = e / NPAIR, c = 2 * (e % NPAIR), key = k0 + j;
-    if (key < p.S) {
+    if (key < p.S && c < p.d) {
       copy2(sK + j * L::KS + c, k + key * p.k_ss + c);
       copy2(sV + j * L::KS + c, v + key * p.v_ss + c);
     } else {
@@ -322,18 +325,18 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(FlashBwdParams p) {
   for (int i = 0; i < NJ; ++i) dk[i] = dv[i] = make_float2(0.f, 0.f);
   const int ac = 2 * (tid % NPAIR), aj0 = tid / NPAIR;
   const int sc_j = tid % BKV, sc_r0 = tid / BKV;
-  const long long do_st = (long long)p.Hq * D;
+  const long long do_st = (long long)p.Hq * p.d;
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dout = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.Hq + h) * D;
+    const T* dout = static_cast<const T*>(p.dout) + ((long long)b * p.T * p.Hq + h) * p.d;
     const long long row0 = ((long long)b * p.Hq + h) * p.T;
     for (int t0 = t_lo; t0 < t_hi; t0 += BQ) {
       __syncthreads();  // the previous tile's Q / dO / p / dz are no longer read
       for (int e = tid; e < BQ * NPAIR; e += NT) {
         const int r = e / NPAIR, c = 2 * (e % NPAIR), t = t0 + r;
-        const bool in = t < p.T;
+        const bool in = t < p.T && c < p.d;
         const float2 x = in ? load2(q + t * p.q_st + c) : make_float2(0.f, 0.f);
         const float2 y = in ? load2(dout + t * do_st + c) : make_float2(0.f, 0.f);
         store2(sQ + r * D + c, x.x, x.y);
@@ -402,10 +405,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dkv(FlashBwdParams p) {
 #pragma unroll
   for (int i = 0; i < NJ; ++i) {
     const int key = k0 + aj0 + i * RG;
-    if (key < p.S) {
+    if (key < p.S && ac < p.d) {
       const long long row = ((long long)b * p.S + key) * p.Hk + hk;
-      store2(static_cast<T*>(p.dk) + row * D + ac, dk[i].x, dk[i].y);
-      store2(static_cast<T*>(p.dv) + row * D + ac, dv[i].x, dv[i].y);
+      store2(static_cast<T*>(p.dk) + row * p.d + ac, dk[i].x, dk[i].y);
+      store2(static_cast<T*>(p.dv) + row * p.d + ac, dv[i].x, dv[i].y);
     }
   }
 }
@@ -430,7 +433,8 @@ cudaError_t launch_flash_backward(const FlashBwdParams& p, cudaStream_t stream) 
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  if (p.n_split < 1 || (long long)p.B * p.n_split > 65535 || p.Hq > 65535)
+  if (p.n_split < 1 || (long long)p.B * p.n_split > 65535 || p.Hq > 65535 || p.d < 8 ||
+      p.d > D || p.d % 8)
     return cudaErrorInvalidValue;
   if (p.n_split > 1 && p.dq_part == nullptr) return cudaErrorInvalidValue;
   dim3 gq((p.T + BQ - 1) / BQ, p.Hq, p.B * p.n_split);
@@ -454,7 +458,7 @@ namespace {
 vidi::FlashBwdParams bwd_params(const void* q, const void* k, const void* v, const void* dout,
                                 const float* lse, const float* di, const int* q_segs,
                                 const int* kv_segs, void* dq, float* dq_part, void* dk, void* dv,
-                                int B, int T, int S, int Hq, int Hk, long long q_sb,
+                                int B, int T, int S, int Hq, int Hk, int d, long long q_sb,
                                 long long q_st, long long q_sh, long long k_sb, long long k_ss,
                                 long long k_sh, long long v_sb, long long v_ss, long long v_sh,
                                 float scale, int causal, int window, float softcap, int n_split,
@@ -463,7 +467,7 @@ vidi::FlashBwdParams bwd_params(const void* q, const void* k, const void* v, con
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.di = di;
   p.q_segs = q_segs; p.kv_segs = kv_segs;
   p.dq = dq; p.dq_part = dq_part; p.dk = dk; p.dv = dv;
-  p.B = B; p.T = T; p.S = S; p.Hq = Hq; p.Hk = Hk;
+  p.B = B; p.T = T; p.S = S; p.Hq = Hq; p.Hk = Hk; p.d = d;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -474,25 +478,28 @@ vidi::FlashBwdParams bwd_params(const void* q, const void* k, const void* v, con
 
 }  // namespace
 
-// fp32 operands: the SIMT template; dO contiguous. Head dims 256
-// (Vidi1.5-9B) and 128 (the 1.5B configuration).
+// Both entries take the head dim d and the compiled width W >= d the
+// wrapper chose for it (ops/cuda/flash_attention_bwd.py, `WIDTHS`).
+
+// fp32 operands: the SIMT template; dO contiguous.
 extern "C" int vidi_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* di, const int* kv_mask, const int* q_segs,
     const int* kv_segs, void* dq, float* dq_part, void* dk, void* dv,
-    int B, int T, int S, int Hq, int Hk, int D,
+    int B, int T, int S, int Hq, int Hk, int W, int d,
     long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     float scale, int causal, int window, float softcap,
     int n_split, int kv_split, void* stream) {
   vidi::FlashBwdParams p = bwd_params(q, k, v, dout, lse, di, q_segs, kv_segs, dq, dq_part, dk,
-                                      dv, B, T, S, Hq, Hk, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
+                                      dv, B, T, S, Hq, Hk, d, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                                       v_sb, v_ss, v_sh, scale, causal, window, softcap, n_split,
                                       kv_split);
   p.kv_mask = kv_mask;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (W) {
+    case 64: return static_cast<int>(vidi::launch_flash_backward<float, 64>(p, s));
     case 128: return static_cast<int>(vidi::launch_flash_backward<float, 128>(p, s));
     case 256: return static_cast<int>(vidi::launch_flash_backward<float, 256>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -504,7 +511,7 @@ extern "C" int vidi_flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* di, const unsigned char* kv_mask, const int* q_segs,
     const int* kv_segs, void* dq, float* dq_part, void* dk, void* dv,
-    int B, int T, int S, int Hq, int Hk, int D,
+    int B, int T, int S, int Hq, int Hk, int W, int d,
     long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -512,13 +519,13 @@ extern "C" int vidi_flash_attention_bwd_sm90(
     float scale, int causal, int window, float softcap,
     int n_split, int kv_split, void* stream) {
   vidi::FlashBwdParams p = bwd_params(q, k, v, dout, lse, di, q_segs, kv_segs, dq, dq_part, dk,
-                                      dv, B, T, S, Hq, Hk, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
+                                      dv, B, T, S, Hq, Hk, d, q_sb, q_st, q_sh, k_sb, k_ss, k_sh,
                                       v_sb, v_ss, v_sh, scale, causal, window, softcap, n_split,
                                       kv_split);
   p.kv_bytes = kv_mask;
   p.do_sb = do_sb; p.do_st = do_st; p.do_sh = do_sh;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (W) {
     case 128: return static_cast<int>(vidi::sm90bwd::launch_backward<128>(p, s));
     case 256: return static_cast<int>(vidi::sm90bwd::launch_backward<256>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

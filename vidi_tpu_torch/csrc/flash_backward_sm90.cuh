@@ -82,6 +82,17 @@
 // (`sm90_bwd_dq_tiles`, `sm90_bwd_dkv_tiles`) for the tests, which check
 // them against visible_mask.
 //
+// Head dims and groups: both kernels are compiled for the widths D = 128
+// and 256 and run at any head dim d <= D with d % 8 == 0. The tensor maps
+// carry the true d, so TMA fills a box's columns past d with zeros, and the
+// 64-column chunks wholly past d are zeroed once in shared memory and never
+// loaded: every product runs at the compiled width over zero columns, and
+// the epilogues store d columns (the dq partials keep rows of D). A group
+// g that does not divide a kernel's row tile (128 in the dq kernel, 64 in
+// the dk/dv kernel) packs tile / g queries (rounded down) of g heads; the
+// rows left over stay zero in shared memory, carry lse = +inf (p = 0) and
+// are never stored.
+//
 // Ragged edges: TMA fills rows past T or S with zeros. A zero key scores 0,
 // not "absent", so keys past S (and masked keys) are tested out of every
 // score; a zero K / V row would add dz . 0 to dq and land in no stored dk /
@@ -95,21 +106,22 @@
 namespace vidi {
 
 struct FlashBwdParams {
-  const void* q;        // [B, T, Hq, D] strided, last dim contiguous
-  const void* k;        // [B, S, Hk, D] strided, last dim contiguous
+  const void* q;        // [B, T, Hq, d] strided, last dim contiguous
+  const void* k;        // [B, S, Hk, d] strided, last dim contiguous
   const void* v;
-  const void* dout;     // [B, T, Hq, D]
+  const void* dout;     // [B, T, Hq, d]
   const float* lse;     // [B, Hq, T] contiguous
   const float* di;      // [B, Hq, T] contiguous
   const int* kv_mask;   // SIMT route: [B, S] int32, nullptr = all valid
   const unsigned char* kv_bytes;  // sm90 route: [B, S] bool bytes, nullptr = all valid
   const int* q_segs;    // [B, T] contiguous, nullptr = no packing
   const int* kv_segs;   // [B, S]
-  void* dq;             // [B, T, Hq, D] contiguous
-  float* dq_part;       // [n_split, B, T, Hq, D] fp32 when n_split > 1
-  void* dk;             // [B, S, Hk, D] contiguous
+  void* dq;             // [B, T, Hq, d] contiguous
+  float* dq_part;       // [n_split, B, T, Hq, D] fp32 when n_split > 1 (D: the compiled width)
+  void* dk;             // [B, S, Hk, d] contiguous
   void* dv;
   int B, T, S, Hq, Hk;
+  int d;                // head dim: at most the compiled width D, a multiple of 8
   long long q_sb, q_st, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -123,7 +135,8 @@ struct FlashBwdParams {
 };
 
 // Sum of the n_split fp32 dq partials of one (b, t, h) row (one block per
-// row, one thread per column pair), in split order, cast to the output dtype.
+// row, one thread per column pair of the compiled width D, those before d
+// stored), in split order, cast to the output dtype.
 template <typename T, int D>
 __global__ void __launch_bounds__(D / 2) flash_bwd_dq_sum(FlashBwdParams p) {
   const long long row = blockIdx.x;  // (b * T + t) * Hq + h
@@ -135,7 +148,23 @@ __global__ void __launch_bounds__(D / 2) flash_bwd_dq_sum(FlashBwdParams p) {
     ax += a.x;
     ay += a.y;
   }
-  store2(static_cast<T*>(p.dq) + row * D + c, ax, ay);
+  if (c < p.d) store2(static_cast<T*>(p.dq) + row * p.d + c, ax, ay);
+}
+
+// Zeroes what TMA never fills in a tile of `chunks` 64-column chunks of
+// `rows` rows of 128 bytes each (`chunk` bytes apart): the chunks from
+// `loaded` on, and in the loaded ones the rows from `live` on. Every
+// thread of the block takes part; the caller fences and synchronises.
+__device__ __forceinline__ void zero_unfilled(unsigned char* tile, int chunk, int chunks,
+                                              int rows, int loaded, int live, int tid,
+                                              int threads) {
+  const int pad = (chunks - loaded) * chunk / 16;
+  for (int i = tid; i < pad; i += threads)
+    reinterpret_cast<uint4*>(tile + loaded * chunk)[i] = make_uint4(0, 0, 0, 0);
+  const int left = (rows - live) * 8;  // 16-byte units of the rows left over
+  for (int i = tid; i < loaded * left; i += threads)
+    reinterpret_cast<uint4*>(tile + (i / left) * chunk + live * 128)[i % left] =
+        make_uint4(0, 0, 0, 0);
 }
 
 namespace sm90bwd {
@@ -217,8 +246,6 @@ struct DqCfg {
   static constexpr int kLive = kKseg + 4 * kStages * kKeys; // int [kStages]
   static constexpr int kBar = kLive + 8 * kStages;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
-  static constexpr uint32_t kQLoad = kQRows * D * 2;
-  static constexpr uint32_t kKVLoad = kKeys * D * 2;
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
   static_assert(kK % 1024 == 0 && kKVTile % 1024 == 0, "swizzle atoms are 1024-byte aligned");
 };
@@ -268,7 +295,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q,
   auto full = [&](int s) { return q_full + 8 * (1 + s); };
   auto empty = [&](int s) { return q_full + 8 * (1 + C::kStages + s); };
 
-  const int g = p.Hq / p.Hk, rows_t = kQRows / g;
+  const int g = p.Hq / p.Hk, rows_t = kQRows / g, live_rows = rows_t * g;
+  const int loaded = (p.d + 63) / 64;  // 64-column chunks TMA fills
   const int hk = blockIdx.y;
   const int b = blockIdx.z / p.n_split, split = blockIdx.z % p.n_split;
   const int t0 = blockIdx.x * rows_t;
@@ -292,6 +320,19 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if (loaded < C::kChunks || live_rows < kQRows) {
+    zero_unfilled(smem + C::kQ, C::kQChunk, C::kChunks, kQRows, loaded, live_rows, tid,
+                  kThreads);
+    zero_unfilled(smem + C::kDO, C::kQChunk, C::kChunks, kQRows, loaded, live_rows, tid,
+                  kThreads);
+    for (int s = 0; s < C::kStages; ++s) {
+      zero_unfilled(smem + C::kK + s * C::kKVTile, C::kKVChunk, C::kChunks, C::kKeys, loaded,
+                    C::kKeys, tid, kThreads);
+      zero_unfilled(smem + C::kV + s * C::kKVTile, C::kKVChunk, C::kChunks, C::kKeys, loaded,
+                    C::kKeys, tid, kThreads);
+    }
+    fence_async_smem();
+  }
   __syncthreads();
 
   const int wg = tid / 128;
@@ -313,8 +354,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q,
         warp_min_max(q_lo, q_hi);
       }
       if (lane == 0 && n_tiles > 0) {
-        mbar_expect_tx(q_full, 2 * C::kQLoad);
-        for (int c = 0; c < C::kChunks; ++c) {
+        mbar_expect_tx(q_full, 2 * loaded * live_rows * 128);
+        for (int c = 0; c < loaded; ++c) {
           tma_load(sQ + c * C::kQChunk, &map_q, q_full, c * 64, hk * g, t0, b);
           tma_load(sDO + c * C::kQChunk, &map_do, q_full, c * 64, hk * g, t0, b);
         }
@@ -363,8 +404,8 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q,
         if (lane == 0) {
           s_live[s] = live;
           if (live) {
-            mbar_expect_tx(full(s), 2 * C::kKVLoad);
-            for (int c = 0; c < C::kChunks; ++c) {
+            mbar_expect_tx(full(s), 2 * loaded * C::kKVChunk);
+            for (int c = 0; c < loaded; ++c) {
               tma_load(sK + s * C::kKVTile + c * C::kKVChunk, &map_k, full(s), c * 64, hk, s0, b);
               tma_load(sV + s * C::kKVTile + c * C::kKVChunk, &map_v, full(s), c * 64, hk, s0, b);
             }
@@ -387,7 +428,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q,
     for (int i = 0; i < 2; ++i) {
       const int r = ra + 8 * i;
       t_row[i] = t0 + r / g;
-      const bool in = t_row[i] < p.T;
+      const bool in = t_row[i] < p.T && r < live_rows;  // rows left over: no gradient
       const long long row = ((long long)b * p.Hq + hk * g + r % g) * p.T + t_row[i];
       l2[i] = in ? p.lse[row] * kLog2e : INFINITY;
       di[i] = in ? p.di[row] : 0.f;
@@ -465,18 +506,22 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int t = t_row[i], h = hk * g + (ra + 8 * i) % g;
-      if (t >= p.T) continue;
+      if (t >= p.T || ra + 8 * i >= live_rows) continue;
       const long long row = ((long long)b * p.T + t) * p.Hq + h;
       if (p.n_split > 1) {
         float* out = p.dq_part + ((long long)split * p.B * p.T * p.Hq + row) * D;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          store2(out + 8 * n + 2 * quad, dq[4 * n + 2 * i] * p.scale, dq[4 * n + 2 * i + 1] * p.scale);
+          if (8 * n < p.d)
+            store2(out + 8 * n + 2 * quad, dq[4 * n + 2 * i] * p.scale,
+                   dq[4 * n + 2 * i + 1] * p.scale);
       } else {
-        __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.dq) + row * D;
+        __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.dq) + row * p.d;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          store2(out + 8 * n + 2 * quad, dq[4 * n + 2 * i] * p.scale, dq[4 * n + 2 * i + 1] * p.scale);
+          if (8 * n < p.d)
+            store2(out + 8 * n + 2 * quad, dq[4 * n + 2 * i] * p.scale,
+                   dq[4 * n + 2 * i + 1] * p.scale);
       }
     }
   }
@@ -508,8 +553,6 @@ struct DkvCfg {
   static constexpr int kBlock = kKseg + 4 * kKeysKV;        // int [4]: any key, seg lo, seg hi
   static constexpr int kBar = kBlock + 16;
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
-  static constexpr uint32_t kKVLoad = kKeysKV * D * 2;
-  static constexpr uint32_t kRowLoad = kRowsKV * D * 2;
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
   static_assert(kQ % 1024 == 0 && kRowTile % 1024 == 0 && kP % 1024 == 0 && kPTile % 1024 == 0,
                 "swizzle atoms are 1024-byte aligned");
@@ -567,7 +610,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap map_q,
   auto full = [&](int s) { return kv_full + 8 * (1 + s); };
   auto empty = [&](int s) { return kv_full + 8 * (1 + C::kStages + s); };
 
-  const int g = p.Hq / p.Hk, rows_t = kRowsKV / g;
+  const int g = p.Hq / p.Hk, rows_t = kRowsKV / g, live_rows = rows_t * g;
+  const int loaded = (p.d + 63) / 64;  // 64-column chunks TMA fills
   const int k0 = blockIdx.x * kKeysKV, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
 
@@ -601,6 +645,19 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap map_q,
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
   }
+  if (loaded < C::kChunks || live_rows < kRowsKV) {
+    zero_unfilled(smem + C::kK, C::kKVChunk, C::kChunks, kKeysKV, loaded, kKeysKV, tid,
+                  kThreads);
+    zero_unfilled(smem + C::kV, C::kKVChunk, C::kChunks, kKeysKV, loaded, kKeysKV, tid,
+                  kThreads);
+    for (int s = 0; s < C::kStages; ++s) {
+      zero_unfilled(smem + C::kQ + s * C::kRowTile, C::kRowChunk, C::kChunks, kRowsKV, loaded,
+                    live_rows, tid, kThreads);
+      zero_unfilled(smem + C::kDO + s * C::kRowTile, C::kRowChunk, C::kChunks, kRowsKV, loaded,
+                    live_rows, tid, kThreads);
+    }
+    fence_async_smem();
+  }
   __syncthreads();
 
   // query rows any key of the block can see: t >= k0 when causal, t <= the
@@ -619,15 +676,16 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap map_q,
       const int lane = tid % 32;
       const int k_lo = s_block[1], k_hi = s_block[2];
       if (lane == 0 && n_tiles > 0) {
-        mbar_expect_tx(kv_full, 2 * C::kKVLoad);
-        for (int c = 0; c < C::kChunks; ++c) {
+        mbar_expect_tx(kv_full, 2 * loaded * C::kKVChunk);
+        for (int c = 0; c < loaded; ++c) {
           tma_load(sK + c * C::kKVChunk, &map_k, kv_full, c * 64, hk, k0, b);
           tma_load(sV + c * C::kKVChunk, &map_v, kv_full, c * 64, hk, k0, b);
         }
       }
       // lse, di and segment id of packed rows r = lane, lane + 32 (query
-      // t0 + r / g of head hk * g + r % g), read one tile ahead so that the
-      // global loads overlap the wait for a free stage
+      // t0 + r / g of head hk * g + r % g; a row left over past the tile's
+      // rows_t queries carries no gradient), read one tile ahead so that
+      // the global loads overlap the wait for a free stage
       constexpr int kPer = kRowsKV / 32;
       float lse_next[kPer], di_next[kPer];
       int seg_next[kPer];
@@ -635,7 +693,7 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int x = 0; x < kPer; ++x) {
           const int r = lane + 32 * x, t = t0 + r / g, h = hk * g + r % g;
-          const bool in = t < p.T;
+          const bool in = t < p.T && r < live_rows;
           const long long row = ((long long)b * p.Hq + h) * p.T + t;
           lse_next[x] = in ? p.lse[row] * kLog2e : INFINITY;
           di_next[x] = in ? p.di[row] : 0.f;
@@ -672,8 +730,8 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap map_q,
         if (lane == 0) {
           s_live[s] = live;
           if (live) {
-            mbar_expect_tx(full(s), 2 * C::kRowLoad);
-            for (int c = 0; c < C::kChunks; ++c) {
+            mbar_expect_tx(full(s), 2 * loaded * live_rows * 128);
+            for (int c = 0; c < loaded; ++c) {
               tma_load(sQ + s * C::kRowTile + c * C::kRowChunk, &map_q, full(s), c * 64, hk * g,
                        t0, b);
               tma_load(sDO + s * C::kRowTile + c * C::kRowChunk, &map_do, full(s), c * 64,
@@ -798,15 +856,17 @@ flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap map_q,
       mbar_arrive(empty(s));
     }
 
-    // epilogue: keys past S are not stored; dk * scale
+    // epilogue: keys past S and columns past d are not stored; dk * scale
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (key[i] >= p.S) continue;
-      const long long row = (((long long)b * p.S + key[i]) * p.Hk + hk) * D + wg * (D / 2);
+      const int c0 = wg * (D / 2);  // the warpgroup's first column
+      const long long row = (((long long)b * p.S + key[i]) * p.Hk + hk) * p.d + c0;
       __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk) + row;
       __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv) + row;
 #pragma unroll
       for (int n = 0; n < D / 16; ++n) {
+        if (c0 + 8 * n >= p.d) continue;
         store2(dk_out + 8 * n + 2 * quad, dk[4 * n + 2 * i] * p.scale, dk[4 * n + 2 * i + 1] * p.scale);
         store2(dv_out + 8 * n + 2 * quad, dv[4 * n + 2 * i], dv[4 * n + 2 * i + 1]);
       }
@@ -832,17 +892,18 @@ cudaError_t launch_backward(const FlashBwdParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  if (p.Hk < 1 || p.Hq % p.Hk || kRowsKV % (p.Hq / p.Hk) || p.n_split < 1 ||
+  if (p.Hk < 1 || p.Hq % p.Hk || p.Hq / p.Hk > kRowsKV || p.n_split < 1 ||
       (long long)p.B * p.n_split > 65535 || p.Hk > 65535 ||
-      (p.n_split > 1 && p.dq_part == nullptr))
+      (p.n_split > 1 && p.dq_part == nullptr) || p.d < 8 || p.d > D || p.d % 8)
     return cudaErrorInvalidValue;
   const int g = p.Hq / p.Hk;
   CUtensorMap mq, mdo, mk, mv;
-  if (!make_map(&mq, p.q, D, p.Hq, p.T, p.B, p.q_sh, p.q_st, p.q_sb, 64, g, kQRows / g, true) ||
-      !make_map(&mdo, p.dout, D, p.Hq, p.T, p.B, p.do_sh, p.do_st, p.do_sb, 64, g, kQRows / g,
+  if (!make_map(&mq, p.q, p.d, p.Hq, p.T, p.B, p.q_sh, p.q_st, p.q_sb, 64, g, kQRows / g,
                 true) ||
-      !make_map(&mk, p.k, D, p.Hk, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, 64, 1, Cq::kKeys, true) ||
-      !make_map(&mv, p.v, D, p.Hk, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, 64, 1, Cq::kKeys, true))
+      !make_map(&mdo, p.dout, p.d, p.Hq, p.T, p.B, p.do_sh, p.do_st, p.do_sb, 64, g, kQRows / g,
+                true) ||
+      !make_map(&mk, p.k, p.d, p.Hk, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, 64, 1, Cq::kKeys, true) ||
+      !make_map(&mv, p.v, p.d, p.Hk, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, 64, 1, Cq::kKeys, true))
     return cudaErrorInvalidValue;
   const dim3 gq((p.T + kQRows / g - 1) / (kQRows / g), p.Hk, p.B * p.n_split);
   flash_bwd_dq_sm90<D><<<gq, kThreads, Cq::kBytes, stream>>>(mq, mdo, mk, mv, p);
@@ -854,11 +915,12 @@ cudaError_t launch_backward(const FlashBwdParams& p, cudaStream_t stream) {
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (!make_map(&mq, p.q, D, p.Hq, p.T, p.B, p.q_sh, p.q_st, p.q_sb, 64, g, kRowsKV / g, true) ||
-      !make_map(&mdo, p.dout, D, p.Hq, p.T, p.B, p.do_sh, p.do_st, p.do_sb, 64, g, kRowsKV / g,
+  if (!make_map(&mq, p.q, p.d, p.Hq, p.T, p.B, p.q_sh, p.q_st, p.q_sb, 64, g, kRowsKV / g,
                 true) ||
-      !make_map(&mk, p.k, D, p.Hk, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, 64, 1, kKeysKV, true) ||
-      !make_map(&mv, p.v, D, p.Hk, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, 64, 1, kKeysKV, true))
+      !make_map(&mdo, p.dout, p.d, p.Hq, p.T, p.B, p.do_sh, p.do_st, p.do_sb, 64, g,
+                kRowsKV / g, true) ||
+      !make_map(&mk, p.k, p.d, p.Hk, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, 64, 1, kKeysKV, true) ||
+      !make_map(&mv, p.v, p.d, p.Hk, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, 64, 1, kKeysKV, true))
     return cudaErrorInvalidValue;
   const dim3 gk((p.S + kKeysKV - 1) / kKeysKV, p.Hk, p.B);
   flash_bwd_dkv_sm90<D><<<gk, kThreads, Ck::kBytes, stream>>>(mq, mdo, mk, mv, p);

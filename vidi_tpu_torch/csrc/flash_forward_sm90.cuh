@@ -1,6 +1,7 @@
 // Forward attention for Hopper (sm_90a), bf16 in, fp32 sums: the bf16 route
-// of K1 (flash_attention.cu, D = 128 / 256) and K2 (tower_attention.cu,
-// D = 64 / 72). fp32 operands stay on the SIMT template of
+// of K1 (flash_attention.cu) and K2 (tower_attention.cu), compiled for the
+// widths D = 64, 72, 128 and 256 and run at any head dim d <= D with
+// d % 8 == 0 (below). fp32 operands stay on the SIMT template of
 // attention_common.cuh.
 //
 // One block computes 128 query rows of one (batch, KV head) against a range
@@ -8,6 +9,9 @@
 // hk * g + r % g (g = Hq / Hk, 1 for the towers), so every query head that
 // reads a K/V tile shares it, and the tile crosses shared memory once per
 // block. Causal, window and segment tests compare against the row's t.
+// A group g that does not divide 128 packs 128 / g queries (rounded down)
+// of g heads: the 128 % g rows left over are zero in shared memory (TMA
+// brings g x (128 / g) rows), computed and never stored.
 //
 // Tile skips: a block walks only the key tiles of its causal / window band
 // (its key range is clipped), and with packing segment ids only those of
@@ -46,6 +50,13 @@
 // zeroed once in shared memory and never loaded (the next head's columns
 // would otherwise enter the scores). P V's N = 72 is a legal wgmma width.
 //
+// Head dims below the compiled width: the tensor maps carry the true d as
+// their innermost extent, so TMA fills a box's columns past d with zeros
+// (the next head's columns never enter), and the boxes wholly past d are
+// not loaded: their chunks of Q, K and V are zeroed once in shared memory,
+// as the depth padding of D = 72 is. Q K^T and P V then run at the
+// compiled width over zero columns, and the epilogue stores d columns.
+//
 // Ragged edges: TMA fills rows past T or S with zeros, but a zero key
 // scores 0, not "absent", so keys past the block's range are masked to
 // -inf; rows past T are computed and not stored.
@@ -79,7 +90,6 @@ struct Cfg {
   static constexpr int kChunk = kSwizzle ? 64 : 8;    // columns per TMA box
   static constexpr int kChunkBytes = 2 * kChunk;      // bytes of one row of a box
   static constexpr int kDepth = (D + 15) / 16 * 16;   // Q K^T depth (72 -> 80)
-  static constexpr int kLoaded = D / kChunk;          // chunks TMA fills
   static constexpr int kChunks = kDepth / kChunk;     // chunks Q K^T reads
   static constexpr int kKeys = D == 256 ? 64 : 128;   // keys per tile
   static constexpr int kQChunk = kRows * kChunkBytes;  // one chunk of the Q tile
@@ -91,8 +101,6 @@ struct Cfg {
   static constexpr int kBar = kV + kStages * kKVTile;
   static constexpr int kLive = kBar + 8 * (1 + 3 * kStages);  // uint32 [kLiveWords]
   static constexpr int kBytes = kLive + 4 * kLiveWords + 1024;  // + alignment slack
-  static constexpr uint32_t kQLoad = kRows * D * 2;   // bytes TMA brings per Q tile
-  static constexpr uint32_t kKVLoad = kKeys * D * 2;  // per K (or V) tile
   static_assert(kBytes <= 232448, "a block has 227 KB of shared memory");
   static_assert(kQ % 1024 == 0 && kK % 1024 == 0 && kKVTile % 1024 == 0,
                 "swizzle atoms are 1024-byte aligned");
@@ -254,13 +262,15 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
   auto live = [&](int it) { return !packed || (s_live[it / 32] >> (it % 32) & 1u); };
 
   const int g = p.Hq / p.Hk;  // query heads per KV head: rows per t
+  const int rows_t = kRows / g, live_rows = rows_t * g;  // queries, stored rows
+  const int loaded = (p.d + C::kChunk - 1) / C::kChunk;  // chunks TMA fills
   const int hk = blockIdx.y;
   const int b = blockIdx.z / p.n_split, split = blockIdx.z % p.n_split;
-  const int t0 = blockIdx.x * (kRows / g);
+  const int t0 = blockIdx.x * rows_t;
   // keys any row of the block can see: the causal and window bounds skip
   // whole tiles; each score is still tested against its own row
   int kv_begin = split * p.kv_split, kv_end = min(p.S, kv_begin + p.kv_split);
-  if (p.causal) kv_end = min(kv_end, min(p.T, t0 + kRows / g));
+  if (p.causal) kv_end = min(kv_end, min(p.T, t0 + rows_t));
   if (p.window > 0) kv_begin = max(kv_begin, t0 - p.window + 1);
   const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + C::kKeys - 1) / C::kKeys : 0;
 
@@ -276,25 +286,36 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
   }
   if (packed)
     for (int i = tid; i < kLiveWords; i += kThreads) s_live[i] = 0;
-  if constexpr (C::kChunks > C::kLoaded) {  // zero the depth padding of Q and K
-    constexpr int kPad = (C::kChunks - C::kLoaded) * C::kQChunk / 16;
-    constexpr int kPadKV = (C::kChunks - C::kLoaded) * C::kKVChunk / 16;
-    for (int i = tid; i < kPad; i += kThreads)
-      reinterpret_cast<uint4*>(smem + C::kQ + C::kLoaded * C::kQChunk)[i] = make_uint4(0, 0, 0, 0);
+  if (loaded < C::kChunks || live_rows < kRows) {
+    // zero what TMA never fills: the chunks past d (of Q and K: the depth
+    // padding; of V: P V's columns past d) and the rows of Q past a group's
+    // 128 / g queries
+    const int pad = (C::kChunks - loaded) * C::kQChunk / 16;
+    const int pad_kv = (C::kChunks - loaded) * C::kKVChunk / 16;
+    for (int i = tid; i < pad; i += kThreads)
+      reinterpret_cast<uint4*>(smem + C::kQ + loaded * C::kQChunk)[i] = make_uint4(0, 0, 0, 0);
     for (int s = 0; s < kStages; ++s)
-      for (int i = tid; i < kPadKV; i += kThreads)
-        reinterpret_cast<uint4*>(smem + C::kK + s * C::kKVTile + C::kLoaded * C::kKVChunk)[i] =
+      for (int i = tid; i < pad_kv; i += kThreads) {
+        reinterpret_cast<uint4*>(smem + C::kK + s * C::kKVTile + loaded * C::kKVChunk)[i] =
             make_uint4(0, 0, 0, 0);
+        reinterpret_cast<uint4*>(smem + C::kV + s * C::kKVTile + loaded * C::kKVChunk)[i] =
+            make_uint4(0, 0, 0, 0);
+      }
+    constexpr int kRowUnits = C::kChunkBytes / 16;  // 16-byte units of a row of a chunk
+    const int left = (kRows - live_rows) * kRowUnits;
+    for (int i = tid; i < loaded * left; i += kThreads)
+      reinterpret_cast<uint4*>(smem + C::kQ + (i / left) * C::kQChunk +
+                               live_rows * C::kChunkBytes)[i % left] = make_uint4(0, 0, 0, 0);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
   if (tid == 128 * kConsumers) {  // Q first: its load overlaps the tile marks
-    mbar_expect_tx(q_full, C::kQLoad);
-    for (int c = 0; c < C::kLoaded; ++c)
+    mbar_expect_tx(q_full, loaded * live_rows * C::kChunkBytes);
+    for (int c = 0; c < loaded; ++c)
       tma_load(sQ + c * C::kQChunk, &map_q, q_full, c * C::kChunk, hk * g, t0, b);
   }
   if (packed) {
-    mark_live_tiles<C::kKeys>(s_live, p, b, t0, kRows / g, kv_begin, kv_end, n_tiles);
+    mark_live_tiles<C::kKeys>(s_live, p, b, t0, rows_t, kv_begin, kv_end, n_tiles);
     __syncthreads();
   }
 
@@ -308,12 +329,12 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
         const int s = j % kStages, s0 = kv_begin + it * C::kKeys;
         mbar_wait(empty(s), ((j / kStages) & 1) ^ 1);
         ++j;
-        mbar_expect_tx(k_full(s), C::kKVLoad);
-        for (int c = 0; c < C::kLoaded; ++c)
+        mbar_expect_tx(k_full(s), loaded * C::kKVChunk);
+        for (int c = 0; c < loaded; ++c)
           tma_load(sK + s * C::kKVTile + c * C::kKVChunk, &map_k, k_full(s), c * C::kChunk,
                    hk, s0, b);
-        mbar_expect_tx(v_full(s), C::kKVLoad);
-        for (int c = 0; c < C::kLoaded; ++c)
+        mbar_expect_tx(v_full(s), loaded * C::kKVChunk);
+        for (int c = 0; c < loaded; ++c)
           tma_load(sV + s * C::kKVTile + c * C::kKVChunk, &map_v, v_full(s), c * C::kChunk,
                    hk, s0, b);
       }
@@ -418,7 +439,8 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
     }
 
     // epilogue: the quad's partial row sums, then out = O / l (or the
-    // unnormalised partial state for flash_combine)
+    // unnormalised partial state for flash_combine); the rows left over past
+    // a group's 128 / g queries and the columns past d are not stored
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -427,7 +449,7 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int t = t_row[i], h = h_row[i];
-      if (t >= p.T) continue;
+      if (t >= p.T || ra + 8 * i >= live_rows) continue;
       const long long row = ((long long)b * p.Hq + h) * p.T + t;
       if (p.n_split > 1) {
         const long long prow = row * p.n_split + split;
@@ -441,10 +463,11 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
       } else {
         const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
         __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) +
-                             ((long long)(b * p.T + t) * p.Hq + h) * D;
+                             ((long long)(b * p.T + t) * p.Hq + h) * p.d;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          store2(out + 8 * n + 2 * quad, o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+          if (8 * n < p.d)
+            store2(out + 8 * n + 2 * quad, o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
         if (quad == 0 && p.lse != nullptr)
           p.lse[row] = l[i] == 0.f ? kEmptyRowLse : m[i] * kLn2 + logf(l[i]);
       }
@@ -454,9 +477,10 @@ flash_forward_sm90(const __grid_constant__ CUtensorMap map_q,
 
 // ---- host side ----------------------------------------------------------
 
-// A bf16 [batch, len, heads, D] operand as a 4-D tensor map (innermost
-// first: D, heads, len, batch; strides in elements, each a multiple of 8),
-// read in boxes of box_cols x box_heads x box_rows.
+// A bf16 [batch, len, heads, d] operand as a 4-D tensor map (innermost
+// first: d, heads, len, batch; strides in elements, each a multiple of 8),
+// read in boxes of box_cols x box_heads x box_rows; a box's columns past d
+// are filled with zeros.
 inline bool make_map(CUtensorMap* map, const void* ptr, int d, int heads, int len, int batch,
                      long long s_head, long long s_len, long long s_batch, int box_cols,
                      int box_heads, int box_rows, bool swizzle) {
@@ -488,19 +512,20 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  if (p.Hk < 1 || p.Hq % p.Hk || kRows % (p.Hq / p.Hk) || p.n_split < 1 ||
-      p.B * p.n_split > 65535 || (p.n_split > 1 && p.kv_split % C::kKeys))
+  if (p.Hk < 1 || p.Hq % p.Hk || p.Hq / p.Hk > kRows || p.n_split < 1 ||
+      p.B * p.n_split > 65535 || (p.n_split > 1 && p.kv_split % C::kKeys) ||
+      p.d < 8 || p.d > D || p.d % 8)
     return cudaErrorInvalidValue;
   if (p.q_segs != nullptr &&  // a packed block's key tiles must fit the live-tile mask
       ((p.kv_split < p.S ? p.kv_split : p.S) + C::kKeys - 1) / C::kKeys > 32 * kLiveWords)
     return cudaErrorInvalidValue;
   const int g = p.Hq / p.Hk;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, p.q, D, p.Hq, p.T, p.B, p.q_sh, p.q_st, p.q_sb, C::kChunk, g, kRows / g,
+  if (!make_map(&mq, p.q, p.d, p.Hq, p.T, p.B, p.q_sh, p.q_st, p.q_sb, C::kChunk, g, kRows / g,
                 C::kSwizzle) ||
-      !make_map(&mk, p.k, D, p.Hk, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, C::kChunk, 1, C::kKeys,
+      !make_map(&mk, p.k, p.d, p.Hk, p.S, p.B, p.k_sh, p.k_ss, p.k_sb, C::kChunk, 1, C::kKeys,
                 C::kSwizzle) ||
-      !make_map(&mv, p.v, D, p.Hk, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, C::kChunk, 1, C::kKeys,
+      !make_map(&mv, p.v, p.d, p.Hk, p.S, p.B, p.v_sh, p.v_ss, p.v_sb, C::kChunk, 1, C::kKeys,
                 C::kSwizzle))
     return cudaErrorInvalidValue;
   const dim3 grid((p.T + kRows / g - 1) / (kRows / g), p.Hk, p.B * p.n_split);
@@ -510,6 +535,26 @@ cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
   flash_combine<__nv_bfloat16, D>
       <<<(unsigned)((long long)p.B * p.Hq * p.T), D / 2, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Each width is compiled in one source: 128 and 256 in flash_attention.cu,
+// 64 and 72 in tower_attention.cu; K1 and K2 reach all four through
+// `launch_width`.
+extern template cudaError_t launch<64>(const FlashParams&, cudaStream_t);
+extern template cudaError_t launch<72>(const FlashParams&, cudaStream_t);
+extern template cudaError_t launch<128>(const FlashParams&, cudaStream_t);
+extern template cudaError_t launch<256>(const FlashParams&, cudaStream_t);
+
+// The kernel at the compiled width W the wrapper chose for the head dim
+// p.d (ops/cuda/flash_attention.py, `WIDTHS`).
+inline cudaError_t launch_width(const FlashParams& p, int W, cudaStream_t stream) {
+  switch (W) {
+    case 64: return launch<64>(p, stream);
+    case 72: return launch<72>(p, stream);
+    case 128: return launch<128>(p, stream);
+    case 256: return launch<256>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sm90

@@ -3,9 +3,10 @@
 // Replaces the Pallas kernels of vidi_tpu/ops/pallas/tower_attention.py
 // (`tower_attention` with its packed / fullwidth / generic layouts). Those
 // layouts exist for the TPU's 128-lane tiling; here one layout reads the
-// projections in place as [B, T, H*D] (strided [B,T,H,D]) for any T and
-// D in {64, 72} (SigLIP-so400m: T = 729, 16 heads x 72; Whisper-large-v3:
-// T = 1500, 20 heads x 64).
+// projections in place as [B, T, H*D] (strided [B,T,H,D]) for any T and any
+// D % 8 == 0 up to 256, on kernels compiled for the widths 64, 72, 128 and
+// 256 (SigLIP-so400m: T = 729, 16 heads x 72; Whisper-large-v3: T = 1500,
+// 20 heads x 64; CLIP ViT-L/14 64, ViT-H/14 80, ViT-bigG/14 104).
 //
 // What bounds it on an H100: 4*T*T*D operations per (batch, head) against
 // 4*T*D bytes of q, k, v and out, so it is bound by operations (SigLIP's
@@ -29,14 +30,14 @@
 namespace {
 
 vidi::FlashParams params(const void* q, const void* k, const void* v, void* out, int B, int T,
-                         int S, int H, long long q_sb, long long q_st, long long q_sh,
+                         int S, int H, int d, long long q_sb, long long q_st, long long q_sh,
                          long long k_sb, long long k_ss, long long k_sh, long long v_sb,
                          long long v_ss, long long v_sh, float scale) {
   vidi::FlashParams p;
   p.q = q; p.k = k; p.v = v;
   p.kv_mask = nullptr; p.q_segs = nullptr; p.kv_segs = nullptr;
   p.out = out; p.lse = nullptr;
-  p.B = B; p.T = T; p.S = S; p.Hq = H; p.Hk = H;
+  p.B = B; p.T = T; p.S = S; p.Hq = H; p.Hk = H; p.d = d;
   p.q_sb = q_sb; p.q_st = q_st; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -50,30 +51,38 @@ vidi::FlashParams params(const void* q, const void* k, const void* v, void* out,
 
 #define VIDI_K2_ARGS                                                                   \
   const void *q, const void *k, const void *v, void *out, int B, int T, int S, int H, \
-      int D, long long q_sb, long long q_st, long long q_sh, long long k_sb,          \
+      int W, int d, long long q_sb, long long q_st, long long q_sh, long long k_sb,          \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, \
       float scale, void *stream
 #define VIDI_K2_PARAMS \
-  params(q, k, v, out, B, T, S, H, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale)
+  params(q, k, v, out, B, T, S, H, d, q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale)
+
+// Both entries take the head dim d and the compiled width W >= d the
+// wrapper chose for it (ops/cuda/flash_attention.py, `WIDTHS`).
 
 // fp32 operands: the SIMT template, 32 rows per block.
 extern "C" int vidi_tower_attention(VIDI_K2_ARGS) {
   const vidi::FlashParams p = VIDI_K2_PARAMS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (W) {
     case 64: return static_cast<int>(vidi::launch_flash_forward<float, 64, 32, 64, 128>(p, s));
     case 72: return static_cast<int>(vidi::launch_flash_forward<float, 72, 32, 64, 128>(p, s));
+    case 128: return static_cast<int>(vidi::launch_flash_forward<float, 128, 32, 64, 128>(p, s));
+    case 256: return static_cast<int>(vidi::launch_flash_forward<float, 256, 32, 64, 128>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// bf16 operands: the Hopper kernel.
+// bf16 operands: the Hopper kernel. Widths 64 (Whisper, CLIP) and 72
+// (SigLIP) are compiled here, 128 and 256 beside K1.
+namespace vidi {
+namespace sm90 {
+template cudaError_t launch<64>(const FlashParams&, cudaStream_t);
+template cudaError_t launch<72>(const FlashParams&, cudaStream_t);
+}  // namespace sm90
+}  // namespace vidi
+
 extern "C" int vidi_tower_attention_sm90(VIDI_K2_ARGS) {
   const vidi::FlashParams p = VIDI_K2_PARAMS;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return static_cast<int>(vidi::sm90::launch<64>(p, s));
-    case 72: return static_cast<int>(vidi::sm90::launch<72>(p, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(vidi::sm90::launch_width(p, W, static_cast<cudaStream_t>(stream)));
 }

@@ -82,16 +82,17 @@ def _build(out: Path) -> None:
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # K1 / K2 forward: the SIMT (fp32) and sm90 (bf16) entries take the same arguments
-_K1_ARGS = [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _I, _F, _I, _I, _P, _P, _P, _P]
-_K2_ARGS = [_P] * 4 + [_I] * 5 + [_L] * 9 + [_F, _P]
+# (B, T, S, heads, the compiled width W and the head dim d among the ints)
+_K1_ARGS = [_P] * 8 + [_I] * 7 + [_L] * 9 + [_F, _I, _I, _F, _I, _I, _P, _P, _P, _P]
+_K2_ARGS = [_P] * 4 + [_I] * 6 + [_L] * 9 + [_F, _P]
 _K3_ARGS = [_P, _P]  # the packed arguments (decode_attention.ARGS) and the stream
 _SIGNATURES = {
     "vidi_flash_attention_fwd": _K1_ARGS,
     "vidi_flash_attention_fwd_sm90": _K1_ARGS,
     # K4 backward: SIMT (fp32; dO contiguous) and sm90 (bf16; dO strided)
-    "vidi_flash_attention_bwd": [_P] * 13 + [_I] * 6 + [_L] * 9
+    "vidi_flash_attention_bwd": [_P] * 13 + [_I] * 7 + [_L] * 9
     + [_F, _I, _I, _F, _I, _I, _P],
-    "vidi_flash_attention_bwd_sm90": [_P] * 13 + [_I] * 6 + [_L] * 12
+    "vidi_flash_attention_bwd_sm90": [_P] * 13 + [_I] * 7 + [_L] * 12
     + [_F, _I, _I, _F, _I, _I, _P],
     "vidi_tower_attention": _K2_ARGS,
     "vidi_tower_attention_sm90": _K2_ARGS,

@@ -3,8 +3,8 @@
 
 Replaces the Pallas kernel `vidi_tpu.ops.pallas.decode_attention.
 decode_attention`: q [B,Hq,D] against the cache-native k/v [B,Hk,S,D], the
-G = Hq / Hk rows of a GQA group sharing a KV head (G in GROUPS: 2 for
-Gemma2, 4 for Mistral-7B), kv_mask [B,S], softcap, and the Gemma2
+G = Hq / Hk rows of a GQA group sharing a KV head (2 for Gemma2, 4 for
+Mistral-7B, any G), kv_mask [B,S], softcap, and the Gemma2
 sliding window through `q_pos` [B] (key s visible iff q_pos - s < window;
 causality rides on kv_mask). Global layers pass `window=None`: the JAX
 caller's `-(1 << 30)` q_pos sentinel existed only because its layer scan
@@ -25,6 +25,16 @@ Two routes, by dtype (`route`):
 - fp32: the SIMT kernels (CHUNK keys a block, then a merge pass), for the
   fp32 checks that hold the card against the CPU.
 
+Head dims and groups: both routes are compiled for row groups of GROUPS
+and the widths WIDTHS, and take any G and any D up to 256. A head dim runs
+at the least width that holds it (the sm90 kernel still copies D-element
+rows; a lane whose columns lie past D holds zeros); a D that is no
+multiple of 8 is copied once into zero-padded operands (`pad_copies`). A
+KV head's G rows are cut into `decode_groups`: G in GROUPS is one group
+(the kernels' exact build, the shipped shapes), another G <= 8 one group
+of the next size in GROUPS whose rows past G are computed and not stored,
+a G above 8 groups of at most 8 rows, each reading the KV head's tiles.
+
 The kernels read a bool / uint8 kv_mask and an int32 / int64 q_pos as they
 come (`mask_operand`, `qpos_operand`); the partials and the merge counters
 live in a workspace kept per (device, stream) (`WORKSPACE`), so a call
@@ -43,9 +53,13 @@ from typing import Optional
 import torch
 
 from vidi_tpu_torch.ops.cuda import _lib
-from vidi_tpu_torch.ops.cuda.flash_attention import EMPTY_ROW_LSE
+from vidi_tpu_torch.ops.cuda.flash_attention import (EMPTY_ROW_LSE, HEAD_ALIGN, head_width,
+                                                     padded_heads)
 
-HEAD_DIMS, GROUPS = (128, 256), (1, 2, 4, 8)  # the instantiations in csrc/decode_attention*.cu
+GROUPS = (1, 2, 4, 8)  # the row groups compiled in csrc/decode_attention*.cu
+# the compiled widths by route (a lane holds D / 32 elements: 4 or 8 on the
+# sm90 kernel's 16-byte loads, an even count on the SIMT kernel's)
+WIDTHS = {"vidi_decode_attention_sm90": (128, 256), "vidi_decode_attention": (64, 128, 256)}
 CHUNK = 256  # keys per block of the fp32 SIMT kernel
 # The sm90 kernel (csrc/decode_attention_sm90.cuh): keys a ring stage holds
 # at G <= 2 (32 KB of K and V at either head dim; `sm90_tile`), blocks
@@ -58,14 +72,27 @@ SM90_CONSUMERS = 4
 BULK_ALIGN = 16  # bytes: a bulk copy's source starts on 16 bytes
 MASK_VALUE = -0.7 * torch.finfo(torch.float32).max  # the Pallas kernel's
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
+pad_copies = 0  # operands copied into a zero-padded head dim (D % 8 != 0)
+
+
+def decode_groups(g: int) -> tuple:
+    """(kg, rg, n_groups): a KV head's g query rows cut into n_groups groups
+    of rg rows, each computed by a kernel built for kg >= rg rows (GROUPS):
+    the fewest groups of at most 8 rows, of near equal size. G = 6 is one
+    group of 6 on the kg = 8 build, G = 12 two of 6."""
+    n_groups = -(-g // GROUPS[-1])
+    rg = -(-g // n_groups)
+    return next(k for k in GROUPS if k >= rg), rg, n_groups
 
 
 def sm90_tile(d: int, g: int) -> int:
-    """Keys a ring stage of the sm90 kernel holds (its `Cfg::kTile`): a
-    warp's tile // SM90_CONSUMERS keys times the g rows must fit the 32
-    lanes of one reduce, so g >= 4 takes 128 // g keys (32 at g = 4, 16 at
-    g = 8) and as many more stages."""
-    return min(SM90_TILE[d], SM90_CONSUMERS * 32 // g)
+    """Keys a ring stage of the sm90 kernel holds (its `Cfg::kTile`) for
+    head dim d and g rows a KV head: a warp's tile // SM90_CONSUMERS keys
+    times the kg rows of its build (`decode_groups`) must fit the 32 lanes
+    of one reduce, so kg >= 4 takes 128 // kg keys (32 at 4, 16 at 8) and
+    as many more stages."""
+    w = head_width(d, WIDTHS["vidi_decode_attention_sm90"], "decode_attention")
+    return min(SM90_TILE[w], SM90_CONSUMERS * 32 // decode_groups(g)[0])
 
 
 def decode_attention(q, k, v, kv_mask, sm_scale: float,
@@ -142,8 +169,9 @@ def route(dtype: torch.dtype) -> str:
 @functools.lru_cache(maxsize=None)
 def decode_plan(b: int, hk: int, s: int, d: int, sms: int, *, g: int) -> tuple:
     """(tile, chunk, n_split) of the sm90 kernel on `sms` SMs for g query
-    rows a KV head: `tile` keys a ring stage (`sm90_tile`); n_split splits of S that take its tiles in turn (split i:
-    tiles i, i + n_split, ...), as many as give B * Hk * n_split blocks up
+    rows a KV head: `tile` keys a ring stage (`sm90_tile`); n_split splits
+    of S that take its tiles in turn (split i: tiles i, i + n_split, ...),
+    as many as give B * Hk * n_groups * n_split blocks (`decode_groups`) up
     to one wave of SM90_BLOCKS_PER_SM blocks an SM, each at least one tile;
     `chunk` the keys a split takes at most (whole tiles, at most
     SM90_MAX_CHUNK). Taking tiles in turn spreads a masked tail or the keys
@@ -153,7 +181,8 @@ def decode_plan(b: int, hk: int, s: int, d: int, sms: int, *, g: int) -> tuple:
     7,680 keys, g = 4) 33 ways."""
     tile = sm90_tile(d, g)
     tiles = -(-s // tile)
-    n_split = max(1, min(-(-SM90_BLOCKS_PER_SM * sms // (b * hk)), tiles))
+    heads = b * hk * decode_groups(g)[2]
+    n_split = max(1, min(-(-SM90_BLOCKS_PER_SM * sms // heads), tiles))
     n_split = max(n_split, -(-tiles // (SM90_MAX_CHUNK // tile)))
     return tile, -(-tiles // n_split) * tile, n_split
 
@@ -166,18 +195,16 @@ def split_tiles(split: int, s: int, plan: tuple) -> range:
 
 def check_shapes(q_shape, k_shape, v_shape) -> None:
     """Raise unless q [B,Hq,D] and k / v [B,Hk,S,D] are shapes the kernels
-    are built for: D in HEAD_DIMS and G in GROUPS query heads per KV head."""
+    take: the same B and D, Hq a multiple of Hk (any G), D a multiple of
+    HEAD_ALIGN (the wrapper pads any other first) up to MAX_HEAD_DIM."""
     b, hq, d = q_shape
     hk = k_shape[1]
     if len(k_shape) != 4 or k_shape[0] != b or k_shape[3] != d or v_shape != k_shape or hq % hk:
         raise ValueError(f"decode_attention: q {tuple(q_shape)} k {tuple(k_shape)} "
-                         f"v {tuple(v_shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: the kernels are built for head dims "
-                         f"{HEAD_DIMS}, got D = {d}")
-    if hq // hk not in GROUPS:
-        raise ValueError(f"decode_attention: the kernels are built for {GROUPS} query "
-                         f"heads per KV head, got G = {hq // hk}")
+                         f"v {tuple(v_shape)}: Hq must be a multiple of Hk")
+    head_width(d, name="decode_attention")
+    if d % HEAD_ALIGN:
+        raise ValueError(f"decode_attention: head dim D = {d} is no multiple of {HEAD_ALIGN}")
 
 
 def block_strides(name: str, shape, strides, ptr: int, elem_size: int) -> tuple:
@@ -287,9 +314,26 @@ def decode_attention_schedule(q, k, v, kv_mask, sm_scale: float,
     SM90_CONSUMERS keys of every tile (scores, softcap, MASK_VALUE for
     hidden keys, running max, p rounded to v's dtype for P @ V, l in fp32);
     the warps merged per split, the splits in split order; with
-    `return_lse` the merged rows' m + log(l) too."""
-    tile, _, n_split = plan
+    `return_lse` the merged rows' m + log(l) too. Each row group of
+    `decode_groups` runs on its own, as the kernel's blocks do."""
     b, hq, d = q.shape
+    hk = k.shape[1]
+    _, rg, n_groups = decode_groups(hq // hk)
+    if n_groups > 1:  # the groups' rows are the q heads hk * g + grp * rg ..
+        g = hq // hk
+        parts = []
+        for grp in range(n_groups):
+            heads = torch.tensor([h * g + j for h in range(hk)
+                                  for j in range(grp * rg, min(g, (grp + 1) * rg))])
+            parts.append((heads, decode_attention_schedule(
+                q[:, heads], k, v, kv_mask, sm_scale, softcap, window, q_pos, plan=plan,
+                return_lse=True)))
+        out = torch.empty_like(q)
+        lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
+        for heads, (o, ls) in parts:
+            out[:, heads], lse[:, heads] = o, ls
+        return (out, lse) if return_lse else out
+    tile, _, n_split = plan
     hk, s = k.shape[1], k.shape[2]
     g = hq // hk
     kpw = tile // SM90_CONSUMERS
@@ -349,11 +393,12 @@ def same_device(q, k, v) -> tuple:
 
 # The C entries' arguments, packed into one block (csrc/decode_attention.cu,
 # `DecodeArgs`): q, k, v, kv_mask, q_pos, part_m, part_l, part_acc, counters,
-# out, lse (pointers; lse 0 when not asked for); B, Hq, Hk, S, D, q_pos is
-# int64; the strides of q (batch, head), k and v (batch, head, key), the
-# mask's rows and q_pos; scale, softcap; window, n_split, chunk.
-ARGS = struct.Struct("<11Q6i10q2f3i")
-ARGS_BYTES = 216  # sizeof(DecodeArgs)
+# out, lse (pointers; lse 0 when not asked for); B, Hq, Hk, S, the compiled
+# width, q_pos is int64; the strides of q (batch, head), k and v (batch,
+# head, key), the mask's rows and q_pos; scale, softcap; the head dim and
+# the row groups (kg, rg, n_groups); window, n_split, chunk.
+ARGS = struct.Struct("<11Q6i10q2f4i3i")
+ARGS_BYTES = 232  # sizeof(DecodeArgs)
 
 
 def _call(entry: str, dev, stream: int, values: tuple) -> None:
@@ -376,8 +421,9 @@ def _call(entry: str, dev, stream: int, values: tuple) -> None:
 
 def _layout(q, k, v) -> tuple:
     """Check q / k / v's devices, dtypes, shapes and strides and plan the
-    call: (entry, b, hq, hk, s, d, q strides, k strides, v strides, chunk,
-    n_split). The pointers' alignment is checked by the caller, per call."""
+    call: (entry, b, hq, hk, s, d, width, row groups, q strides, k strides,
+    v strides, chunk, n_split). The pointers' alignment is checked by the
+    caller, per call."""
     dev, dtype = same_device(q, k, v)
     entry = route(dtype)
     q_shape, k_shape = q.shape, k.shape
@@ -386,6 +432,8 @@ def _layout(q, k, v) -> tuple:
     check_shapes(q_shape, k_shape, v.shape)
     b, hq, d = q_shape
     hk, s = k_shape[1], k_shape[2]
+    w = head_width(d, WIDTHS[entry], "decode_attention")
+    groups = decode_groups(hq // hk)
     q_st = q.stride()
     if q_st[2] != 1 or q_st[0] % 2 or q_st[1] % 2:
         raise ValueError(f"decode_attention q: last dim must be contiguous with even "
@@ -401,7 +449,7 @@ def _layout(q, k, v) -> tuple:
         _lib.check_operand(v, "decode_attention v", 4, dtype)
         ks, vs = k.stride()[:3], v.stride()[:3]
         chunk, n_split = CHUNK, -(-s // CHUNK)
-    return entry, b, hq, hk, s, d, q_st[:2], ks, vs, chunk, n_split
+    return entry, b, hq, hk, s, d, w, groups, q_st[:2], ks, vs, chunk, n_split
 
 
 _LAYOUTS = {}  # _layout's result by the metadata it reads
@@ -411,14 +459,20 @@ def _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos, return_lse=False
     """Check the operands, plan and launch. Decode makes 126 of these calls a
     step, so host time counts: a layout checked once (same devices, dtypes,
     shapes and strides) is looked up, and only the pointers are checked."""
-    global launches
+    global launches, pad_copies
+    d = q.shape[-1]
+    if d % HEAD_ALIGN:  # rows a bulk copy cannot address: one zero-padded copy each
+        q, k, v = padded_heads("decode_attention", q, k, v)
+        pad_copies += 3
+        res = _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos, return_lse)
+        return (res[0][..., :d], res[1]) if return_lse else res[..., :d]
     dev = q.device
     key = (dev, q.dtype, k.dtype, v.dtype, k.device, v.device, q.shape, k.shape, v.shape,
            q.stride(), k.stride(), v.stride())
     lay = _LAYOUTS.get(key)
     if lay is None:
         lay = _LAYOUTS[key] = _layout(q, k, v)
-    entry, b, hq, hk, s, d, q_st, ks, vs, chunk, n_split = lay
+    entry, b, hq, hk, s, d, w, (kg, rg, n_groups), q_st, ks, vs, chunk, n_split = lay
     if window is not None and window <= 0:
         raise ValueError(f"decode_attention: window must be positive, got {window}")
     q_ptr, k_ptr, v_ptr = q.data_ptr(), k.data_ptr(), v.data_ptr()
@@ -433,14 +487,15 @@ def _launch(q, k, v, kv_mask, sm_scale, softcap, window, q_pos, return_lse=False
     mask, mask_sb = mask_operand(kv_mask, b, s, dev)
     qpos, qpos64, qpos_s = qpos_operand(q_pos if window is not None else None, b, dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    ws = WORKSPACE.get(dev, stream, b * hq * n_split, d, b * hk)
+    ws = WORKSPACE.get(dev, stream, b * hk * n_groups * kg * n_split, w, b * hk * n_groups)
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lse else None
     _call(entry, dev, stream, (
         q_ptr, k_ptr, v_ptr, 0 if mask is None else mask.data_ptr(),
         0 if qpos is None else qpos.data_ptr(), *ws["ptrs"], out.data_ptr(),
         0 if lse is None else lse.data_ptr(),
-        b, hq, hk, s, d, qpos64, *q_st, *ks, *vs, mask_sb, qpos_s,
-        float(sm_scale), float(softcap or 0.0), int(window or 0), n_split, chunk))
+        b, hq, hk, s, w, qpos64, *q_st, *ks, *vs, mask_sb, qpos_s,
+        float(sm_scale), float(softcap or 0.0), d, kg, rg, n_groups, int(window or 0),
+        n_split, chunk))
     launches += 1
     return out if lse is None else (out, lse)

@@ -27,6 +27,18 @@ computes in full fp32 for the card-vs-CPU checks. Both skip the key tiles
 outside a block's causal / window band and, with segment ids, the tiles
 whose ids cannot meet the block's rows' (`segments_meet`, the Pallas
 kernel's `_seg_overlap`); `sm90_fwd_tiles` mirrors the bf16 kernel's walk.
+
+Head dims and groups: as the TPU kernel, K1 takes any head dim D up to
+MAX_HEAD_DIM and any group g = Hq / Hk. Both routes are compiled for the
+widths WIDTHS and run a head dim at the least width that holds it
+(`head_width`), reading the operands in place: the columns past D are
+zeros and are not stored. A D that is no multiple of 8 (rows TMA cannot
+address) is copied once into zero-padded operands (`padded_heads`, counted
+in `pad_copies`) and the output sliced. The sm90 kernel packs 128 // g
+queries of a group into its 128-row tile (`sm90_rows`); the 128 % g rows
+left over are computed and not stored (`sm90_stored`); a group wider than
+the tile runs as slices of at most 128 query heads (`group_slices`). A D
+above MAX_HEAD_DIM raises.
 """
 from __future__ import annotations
 
@@ -39,15 +51,20 @@ from vidi_tpu_torch.ops.cuda import _lib
 EMPTY_ROW_LSE = 0.7 * torch.finfo(torch.float32).max
 Q_TILE, KV_TILE = 16, 64  # the SIMT kernel's block tile (csrc/attention_common.cuh)
 MIN_SPLIT_KEYS = 512      # fewest keys worth one SIMT block of a KV split
-HEAD_DIMS = (128, 256)    # the instantiations in csrc/flash_attention.cu
+# the compiled widths of K1 and K2, both routes (csrc/flash_attention.cu,
+# csrc/tower_attention.cu): a head dim runs at the least one that holds it
+WIDTHS = (64, 72, 128, 256)
+MAX_HEAD_DIM = 256  # the widest head dim any kernel takes
+HEAD_ALIGN = 8  # elements: rows of a multiple of 8 bf16 are 16-byte aligned
 # the sm90 kernel (csrc/flash_forward_sm90.cuh): query rows per block, keys
-# per K/V tile by head dim, fewest keys worth one block of a KV split
+# per K/V tile by compiled width, fewest keys worth one block of a KV split
 SM90_ROWS = 128
 SM90_KEY_TILE = {64: 128, 72: 128, 128: 128, 256: 64}
 SM90_MIN_SPLIT_KEYS = 256
 SM90_LIVE_TILES = 8192  # key tiles a packed block's live-tile mask holds (kLiveWords x 32)
 TMA_ALIGN = 16  # bytes: TMA wants 16-byte aligned row starts and strides
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
+pad_copies = 0  # operands copied into a zero-padded head dim (D % 8 != 0)
 
 
 def flash_attention(q, k, v, kv_mask, sm_scale: float, causal: bool = False,
@@ -159,6 +176,37 @@ def _kv_split(b, t, s, hq, device):
     return -(-s // kv_split), kv_split
 
 
+def head_width(d: int, widths=WIDTHS, name: str = "flash_attention") -> int:
+    """The compiled width a head dim `d` runs at: the least of `widths`
+    that holds it. Raises above MAX_HEAD_DIM."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} is outside the kernels' 1..{MAX_HEAD_DIM}")
+    return next(w for w in widths if w >= d)
+
+
+def padded_heads(name: str, *xs) -> tuple:
+    """Each of `xs` copied once into a zero-padded last dim of the next
+    multiple of HEAD_ALIGN (the rows the kernels address); raises above
+    MAX_HEAD_DIM. The zero columns add nothing to q . k and come out as
+    zero columns of the output, which the caller slices off."""
+    d = xs[0].shape[-1]
+    head_width(d, name=name)
+    pad = -d % HEAD_ALIGN
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
+
+
+def group_slices(hq: int, hk: int, most: int) -> list:
+    """[(KV head, first query head, end query head)]: each KV head's g =
+    hq // hk query heads cut into the fewest slices of at most `most`
+    heads, of near equal size (a group wider than a kernel's row tile runs
+    as one call a slice)."""
+    g = hq // hk
+    n = -(-g // most)
+    size = -(-g // n)
+    return [(h, h * g + j, h * g + min(g, j + size))
+            for h in range(hk) for j in range(0, g, size)]
+
+
 def route(dtype: torch.dtype) -> str:
     """The C entry K1 launches for operands of `dtype`: bf16 -> the sm90
     kernel, fp32 -> the SIMT template. Nothing else is taken."""
@@ -171,8 +219,9 @@ def route(dtype: torch.dtype) -> str:
 
 def sm90_blocks(b: int, t: int, hq: int, hk: int) -> int:
     """(batch, KV head, 128-row tile) blocks of the sm90 kernel before any
-    split of S: a KV head's g = hq // hk query heads share its rows."""
-    return b * hk * -(-t * (hq // hk) // SM90_ROWS)
+    split of S: a KV head's g = hq // hk query heads share its rows, 128 //
+    g queries a tile."""
+    return b * hk * -(-t // (SM90_ROWS // (hq // hk)))
 
 
 def sm90_plan(b: int, t: int, s: int, hq: int, hk: int, d: int, sms: int):
@@ -181,31 +230,37 @@ def sm90_plan(b: int, t: int, s: int, hq: int, hk: int, d: int, sms: int):
     SM90_MIN_SPLIT_KEYS keys, each split a whole number of key tiles. The
     9B's T2V cross attention (16 blocks) splits 8 ways on 132 SMs."""
     n_split = max(1, min(sms // sm90_blocks(b, t, hq, hk), s // SM90_MIN_SPLIT_KEYS))
-    tile = SM90_KEY_TILE[d]
+    tile = SM90_KEY_TILE[head_width(d)]
     kv_split = -(-(-(-s // n_split)) // tile) * tile
     return -(-s // kv_split), kv_split
 
 
-def sm90_group(hq: int, hk: int) -> int:
-    """g = hq // hk query heads per KV head, whose rows share a tile: raises
-    unless g divides the 128-row tile."""
-    g = hq // hk
-    if SM90_ROWS % g:
-        raise ValueError(f"flash_attention: {g} query heads per KV head do not "
-                         f"divide the {SM90_ROWS}-row tile")
-    return g
+def packed_rows(t: int, g: int, tile: int) -> tuple:
+    """The rows of a kernel that packs a group's g query heads into row
+    tiles of `tile` rows: tile x holds queries x * (tile // g) onwards, row r
+    query x * (tile // g) + r // g of head r % g. -> (rows [tiles, tile, 2]
+    of (t, head offset), stored [tiles, tile] bool): a row is stored iff its
+    t < T and it is not one of the tile % g rows left over past the
+    tile's queries (those compute the next tile's first query again)."""
+    per = tile // g
+    r = torch.arange(tile)
+    tiles = torch.arange(-(-t // per))[:, None]
+    rows = torch.stack((tiles * per + r // g, (r % g).expand(tiles.shape[0], -1)), dim=-1)
+    return rows, (rows[..., 0] < t) & (r < per * g)
 
 
 def sm90_rows(t: int, hq: int, hk: int) -> torch.Tensor:
     """[tiles, 128, 2] (t, query head offset within the KV head's group) of
     each row of each query tile, as the sm90 kernel reads them: row r of
     tile x is query x * (128 // g) + r // g of head r % g (g = hq // hk).
-    Rows with t >= T are computed and not stored."""
-    g = sm90_group(hq, hk)
-    r = torch.arange(SM90_ROWS)
-    tiles = torch.arange(-(-t * g // SM90_ROWS))[:, None]
-    return torch.stack((tiles * (SM90_ROWS // g) + r // g,
-                        (r % g).expand(tiles.shape[0], -1)), dim=-1)
+    Rows with t >= T and the 128 % g rows left over are computed and not
+    stored (`sm90_stored`)."""
+    return packed_rows(t, hq // hk, SM90_ROWS)[0]
+
+
+def sm90_stored(t: int, hq: int, hk: int) -> torch.Tensor:
+    """[tiles, 128] bool: which rows of `sm90_rows` the kernel stores."""
+    return packed_rows(t, hq // hk, SM90_ROWS)[1]
 
 
 def segments_meet(q_ids, k_ids, k_ok) -> bool:
@@ -230,7 +285,7 @@ def sm90_fwd_tiles(b, t, s, hq, hk, d, sms, causal, window, kv_mask=None,
     to the causal / window band of its rows, and, with segment ids, a tile
     skipped unless `segments_meet`.
     -> [(batch, KV head, split, first t, end t, first key, end key)]."""
-    rows_t, keys = SM90_ROWS // sm90_group(hq, hk), SM90_KEY_TILE[d]
+    rows_t, keys = SM90_ROWS // (hq // hk), SM90_KEY_TILE[head_width(d)]
     n_split, kv_split = sm90_plan(b, t, s, hq, hk, d, sms)
     ok = (torch.ones((b, s), dtype=torch.bool) if kv_mask is None
           else (kv_mask != 0).cpu())
@@ -298,7 +353,9 @@ def mask_bytes(kv_mask, shape, device, name: str):
 
 
 def check_qkv(q, k, v, window, name: str):
-    """Raise unless q/k/v and the window are what K1 and K4 take."""
+    """Raise unless q/k/v and the window are what K1 and K4 take: shapes
+    that agree, a head dim that is a multiple of HEAD_ALIGN (the wrappers
+    pad any other first) up to MAX_HEAD_DIM."""
     for label, x in (("q", q), ("k", k), ("v", v)):
         _lib.check_operand(x, f"{name} {label}", 4, q.dtype)
     b, t, hq, d = q.shape
@@ -306,19 +363,32 @@ def check_qkv(q, k, v, window, name: str):
     if k.shape != (b, s, hk, d) or v.shape != k.shape or hq % hk:
         raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: the kernel is built for head dims "
-                         f"{HEAD_DIMS}, got {d}")
+    head_width(d, name=name)
+    if d % HEAD_ALIGN:
+        raise ValueError(f"{name}: head dim {d} is no multiple of {HEAD_ALIGN}")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window must be positive, got {window}")
 
 
 def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
             kv_segs):
-    global launches
+    global launches, pad_copies
+    d = q.shape[-1]
+    if d % HEAD_ALIGN:  # rows TMA cannot address: one zero-padded copy each
+        q, k, v = padded_heads("flash_attention", q, k, v)
+        pad_copies += 3
+        out, lse = _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
+                           kv_segs)
+        return out[..., :d], lse
     check_qkv(q, k, v, window, "flash_attention")
     b, t, hq, d = q.shape
     s, hk = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16 and hq // hk > SM90_ROWS:  # one call a slice of heads
+        parts = [_launch(q[:, :, h0:h1], k[:, :, h:h + 1], v[:, :, h:h + 1], kv_mask,
+                         sm_scale, causal, window, softcap, q_segs, kv_segs)
+                 for h, h0, h1 in group_slices(hq, hk, SM90_ROWS)]
+        return torch.cat([o for o, _ in parts], 2), torch.cat([lse for _, lse in parts], 1)
+    w = head_width(d)
 
     mask = mask_bytes(kv_mask, (b, s), q.device, "flash_attention")
     qs = int32_rows(q_segs, (b, t), q.device, "flash_attention")
@@ -331,9 +401,8 @@ def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
         strides = [tma_strides(f"flash_attention {label}", x.shape, x.stride(),
                                x.data_ptr(), x.element_size())[:3]
                    for label, x in (("q", q), ("k", k), ("v", v))]
-        sm90_group(hq, hk)
         n_split, kv_split = sm90_plan(b, t, s, hq, hk, d, _lib.sm_count(q.device))
-        if qs is not None and -(-min(kv_split, s) // SM90_KEY_TILE[d]) > SM90_LIVE_TILES:
+        if qs is not None and -(-min(kv_split, s) // SM90_KEY_TILE[w]) > SM90_LIVE_TILES:
             raise ValueError(f"flash_attention: {min(kv_split, s)} keys a block with segment "
                              f"ids exceed the kernel's {SM90_LIVE_TILES} live-tile marks")
     else:
@@ -343,13 +412,13 @@ def _launch(q, k, v, kv_mask, sm_scale, causal, window, softcap, q_segs,
         f32 = dict(dtype=torch.float32, device=q.device)
         part = [torch.empty((b, hq, t, n_split), **f32),
                 torch.empty((b, hq, t, n_split), **f32),
-                torch.empty((b, hq, t, n_split, d), **f32)]
+                torch.empty((b, hq, t, n_split, w), **f32)]
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib = _lib.library()
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(mask), ptr(qs), ptr(ks),
-            out.data_ptr(), lse.data_ptr(), b, t, s, hq, hk, d,
+            out.data_ptr(), lse.data_ptr(), b, t, s, hq, hk, w, d,
             *strides[0], *strides[1], *strides[2],
             float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0),
             n_split, kv_split, *map(ptr, part),

@@ -26,6 +26,16 @@ Two routes on the card, by dtype (`route`), as K1 has:
   rounded, for the card-vs-CPU checks.
 No route uses atomics: two runs give bit-equal gradients.
 
+Head dims and groups as K1 takes them: each route is compiled for the
+widths WIDTHS and runs a head dim at the least that holds it, a D that is
+no multiple of 8 goes through one zero-padded copy of each operand
+(`pad_copies`), and a group g that does not divide a kernel's row tile
+computes its leftover rows without storing them (`dkv_rows`,
+`dkv_stored`); a group wider than the dk / dv kernel's 64-row tile runs as
+slices of at most 64 query heads: each slice's dk / dv comes back from its
+kernel in the operands' dtype, and the slices are summed in fp32 by
+PyTorch and rounded once more.
+
 On a CPU tensor the wrapper runs `flash_attention_bwd_plain`; on a CUDA
 tensor it launches the kernels or raises.
 """
@@ -36,17 +46,23 @@ from typing import Optional
 import torch
 
 from vidi_tpu_torch.ops.cuda import _lib
-from vidi_tpu_torch.ops.cuda.flash_attention import (SM90_MIN_SPLIT_KEYS, SM90_ROWS, _kv_split,
-                                                     check_qkv, int32_rows, mask_bytes,
-                                                     sm90_blocks, sm90_group, tma_strides,
-                                                     visible_mask)
+from vidi_tpu_torch.ops.cuda.flash_attention import (HEAD_ALIGN, SM90_MIN_SPLIT_KEYS, SM90_ROWS,
+                                                     _kv_split, check_qkv, group_slices,
+                                                     head_width, int32_rows, mask_bytes,
+                                                     packed_rows, padded_heads, sm90_blocks,
+                                                     tma_strides, visible_mask)
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
+pad_copies = 0  # operands copied into a zero-padded head dim (D % 8 != 0)
 # the same launches by C entry (`route`): which route each call took
 route_launches = {"vidi_flash_attention_bwd_sm90": 0, "vidi_flash_attention_bwd": 0}
+# the compiled widths by route (csrc/flash_attention_bwd.cu): the sm90
+# kernels' 64-column chunks split between two warpgroups start at 128
+WIDTHS = {"vidi_flash_attention_bwd_sm90": (128, 256),
+          "vidi_flash_attention_bwd": (64, 128, 256)}
 # the sm90 kernels (csrc/flash_backward_sm90.cuh): keys per tile of the dq
-# kernel by head dim; keys per block and packed query rows per streamed
-# tile of the dk / dv kernel
+# kernel by compiled width; keys per block and packed query rows per
+# streamed tile of the dk / dv kernel
 SM90_BWD_DQ_KEYS = {128: 64, 256: 32}
 SM90_BWD_KV_KEYS = 64
 SM90_BWD_KV_ROWS = 64
@@ -129,25 +145,18 @@ def sm90_bwd_plan(b: int, t: int, s: int, hq: int, hk: int, sms: int) -> int:
     return max(1, min(sms // sm90_blocks(b, t, hq, hk), s // SM90_MIN_SPLIT_KEYS))
 
 
-def sm90_bwd_group(hq: int, hk: int) -> int:
-    """g = hq // hk: raises unless g divides both kernels' row tiles."""
-    g = sm90_group(hq, hk)
-    if SM90_BWD_KV_ROWS % g:
-        raise ValueError(f"flash_attention_bwd: {g} query heads per KV head do not "
-                         f"divide the {SM90_BWD_KV_ROWS}-row tile")
-    return g
-
-
 def dkv_rows(t: int, hq: int, hk: int) -> torch.Tensor:
     """[tiles, 64, 2] (t, query head offset within the KV head's group) of
     each packed row of each query tile the dk / dv kernel streams, as it
     gathers lse and di for them: row r of tile x is query x * (64 // g) +
-    r // g of head r % g. Rows with t >= T carry no gradient."""
-    g = sm90_bwd_group(hq, hk)
-    r = torch.arange(SM90_BWD_KV_ROWS)
-    tiles = torch.arange(-(-t * g // SM90_BWD_KV_ROWS))[:, None]
-    return torch.stack((tiles * (SM90_BWD_KV_ROWS // g) + r // g,
-                        (r % g).expand(tiles.shape[0], -1)), dim=-1)
+    r // g of head r % g. Rows with t >= T and the 64 % g rows left over
+    carry no gradient (`dkv_stored`)."""
+    return packed_rows(t, hq // hk, SM90_BWD_KV_ROWS)[0]
+
+
+def dkv_stored(t: int, hq: int, hk: int) -> torch.Tensor:
+    """[tiles, 64] bool: the rows of `dkv_rows` that carry a gradient."""
+    return packed_rows(t, hq // hk, SM90_BWD_KV_ROWS)[1]
 
 
 def _seg_meet(q_segs, kv_segs, rows: slice, keys) -> bool:
@@ -165,8 +174,7 @@ def sm90_bwd_dq_tiles(b, t, s, hq, hk, d, n_split, causal, window,
     splits in turn, a tile skipped when all its keys are masked or its
     segment ids cannot meet the rows'.
     -> [(batch, KV head, split, first t, end t, first key, end key)]."""
-    g = sm90_bwd_group(hq, hk)
-    rows_t, keys = SM90_ROWS // g, SM90_BWD_DQ_KEYS[d]
+    rows_t, keys = SM90_ROWS // (hq // hk), SM90_BWD_DQ_KEYS[head_width(d, WIDTHS[route(torch.bfloat16)])]
     live = []
     for bi in range(b):
         for x in range(-(-t // rows_t)):
@@ -195,8 +203,7 @@ def sm90_bwd_dkv_tiles(b, t, s, hq, hk, causal, window, kv_mask=None,
     block's rows clipped to the causal / window band of its 64 keys, none
     when every key is masked, a tile skipped when its segment ids cannot
     meet the keys'. -> [(batch, KV head, first t, end t, first key, end key)]."""
-    g = sm90_bwd_group(hq, hk)
-    rows_t, keys = SM90_BWD_KV_ROWS // g, SM90_BWD_KV_KEYS
+    rows_t, keys = SM90_BWD_KV_ROWS // (hq // hk), SM90_BWD_KV_KEYS
     live = []
     for bi in range(b):
         for k0 in range(0, s, keys):
@@ -227,13 +234,42 @@ def tma_operand_strides(q, k, v, do) -> list:
             for label, x in (("q", q), ("k", k), ("v", v), ("do", do))]
 
 
+def _sliced(q, k, v, kv_mask, out, lse, do, *args):
+    """The backward of a group wider than the dk / dv kernel's row tile: one
+    call a slice of at most SM90_BWD_KV_ROWS query heads of a KV head
+    (`group_slices`), dq joined; each KV head's dk / dv are the slices'
+    (rounded to the operands' dtype by their kernels) summed in fp32 and
+    rounded again."""
+    hq, hk = q.shape[2], k.shape[2]
+    dq, dk, dv = [], [[] for _ in range(hk)], [[] for _ in range(hk)]
+    for h, h0, h1 in group_slices(hq, hk, SM90_BWD_KV_ROWS):
+        a, b_, c = _launch(q[:, :, h0:h1], k[:, :, h:h + 1], v[:, :, h:h + 1], kv_mask,
+                           out[:, :, h0:h1], lse[:, h0:h1], do[:, :, h0:h1], *args)
+        dq.append(a)
+        dk[h].append(b_.float())
+        dv[h].append(c.float())
+    return (torch.cat(dq, 2), torch.cat([sum(x) for x in dk], 2).to(k.dtype),
+            torch.cat([sum(x) for x in dv], 2).to(v.dtype))
+
+
 def _launch(q, k, v, kv_mask, out, lse, do, sm_scale, causal, window, softcap,
             q_segs, kv_segs):
-    global launches
+    global launches, pad_copies
+    d = q.shape[-1]
+    if d % HEAD_ALIGN:  # rows TMA cannot address: one zero-padded copy each
+        q, k, v, out, do = padded_heads("flash_attention_bwd", q, k, v, out, do)
+        pad_copies += 5
+        grads = _launch(q, k, v, kv_mask, out, lse, do, sm_scale, causal, window, softcap,
+                        q_segs, kv_segs)
+        return tuple(x[..., :d] for x in grads)
     check_qkv(q, k, v, window, "flash_attention_bwd")
     entry = route(q.dtype)
     b, t, hq, d = q.shape
     s, hk = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16 and hq // hk > SM90_BWD_KV_ROWS:
+        return _sliced(q, k, v, kv_mask, out, lse, do, sm_scale, causal, window, softcap,
+                       q_segs, kv_segs)
+    w = head_width(d, WIDTHS[entry], "flash_attention_bwd")
     do = do.contiguous()
     for name, x in (("out", out), ("do", do)):
         _lib.check_operand(x, f"flash_attention_bwd {name}", 4, q.dtype)
@@ -249,7 +285,6 @@ def _launch(q, k, v, kv_mask, out, lse, do, sm_scale, causal, window, softcap,
     ks = int32_rows(kv_segs, (b, s), q.device, "flash_attention_bwd")
     if q.dtype == torch.bfloat16:
         strides = tma_operand_strides(q, k, v, do)
-        sm90_bwd_group(hq, hk)
         mask = mask_bytes(kv_mask, (b, s), q.device, "flash_attention_bwd")
         n_split, kv_split = sm90_bwd_plan(b, t, s, hq, hk, _lib.sm_count(q.device)), 0
     else:
@@ -259,14 +294,14 @@ def _launch(q, k, v, kv_mask, out, lse, do, sm_scale, causal, window, softcap,
     dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hk, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, hk, d), dtype=v.dtype, device=q.device)
-    dq_part = (torch.empty((n_split, b, t, hq, d), dtype=torch.float32,
+    dq_part = (torch.empty((n_split, b, t, hq, w), dtype=torch.float32,
                            device=q.device) if n_split > 1 else None)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     _lib.call(entry, q.device,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), di.data_ptr(), ptr(mask), ptr(qs), ptr(ks),
               dq.data_ptr(), ptr(dq_part), dk.data_ptr(), dv.data_ptr(),
-              b, t, s, hq, hk, d, *(x for st in strides for x in st),
+              b, t, s, hq, hk, w, d, *(x for st in strides for x in st),
               float(sm_scale), int(causal), int(window or 0), float(softcap or 0.0),
               n_split, kv_split)
     launches += 1

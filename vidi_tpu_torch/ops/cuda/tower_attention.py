@@ -5,7 +5,11 @@ Replaces the Pallas kernels of `vidi_tpu.ops.pallas.tower_attention`
 non-causal multi-head attention, q [B,T,H,D] and k/v [B,S,H,D] -> [B,T,H,D].
 One layout serves every geometry: the kernel reads the [B,T,H*D] projection
 outputs in place through strides. Reached from `ops.basic.mha(use_flash=
-True)` for SigLIP (T=729, D=72) and Whisper (T=1500, D=64).
+True)` for SigLIP (T=729, D=72), CLIP (T=257, D=64) and Whisper (T=1500,
+D=64), and any other head dim up to 256: the kernels are compiled for K1's
+widths (`flash_attention.WIDTHS`) and run a head dim at the least width
+that holds it; a D that is no multiple of 8 is copied once into
+zero-padded operands (counted in `pad_copies`).
 
 `tower_attention` is a `torch.autograd.Function` whose backward recomputes
 the attention with `tower_attention_plain` under autograd, as the JAX
@@ -20,10 +24,11 @@ from __future__ import annotations
 import torch
 
 from vidi_tpu_torch.ops.cuda import _lib
-from vidi_tpu_torch.ops.cuda.flash_attention import tma_strides
+from vidi_tpu_torch.ops.cuda.flash_attention import (HEAD_ALIGN, head_width, padded_heads,
+                                                     tma_strides)
 
-HEAD_DIMS = (64, 72)  # Whisper, SigLIP: the instantiations in csrc/tower_attention.cu
 launches = 0  # kernel launches since the last reset (chip_smoke reads this)
+pad_copies = 0  # operands copied into a zero-padded head dim (D % 8 != 0)
 
 
 def tower_attention(q, k, v, scale: float):
@@ -69,7 +74,12 @@ def route(dtype: torch.dtype) -> str:
 
 
 def _launch(q, k, v, scale):
-    global launches
+    global launches, pad_copies
+    d = q.shape[-1]
+    if d % HEAD_ALIGN:  # rows TMA cannot address: one zero-padded copy each
+        q, k, v = padded_heads("tower_attention", q, k, v)
+        pad_copies += 3
+        return _launch(q, k, v, scale)[..., :d]
     for name, x in (("q", q), ("k", k), ("v", v)):
         _lib.check_operand(x, f"tower_attention {name}", 4, q.dtype)
     b, t, h, d = q.shape
@@ -77,9 +87,7 @@ def _launch(q, k, v, scale):
     if k.shape != (b, s, h, d) or v.shape != k.shape:
         raise ValueError(f"tower_attention: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"tower_attention: the kernel is built for head dims "
-                         f"{HEAD_DIMS}, got {d}")
+    w = head_width(d, name="tower_attention")
     entry = route(q.dtype)
     strides = [x.stride()[:3] for x in (q, k, v)]
     if q.dtype == torch.bfloat16:
@@ -91,7 +99,7 @@ def _launch(q, k, v, scale):
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, t, s, h, d, *strides[0], *strides[1], *strides[2],
+            b, t, s, h, w, d, *strides[0], *strides[1], *strides[2],
             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     _lib.check(err, "tower_attention")
     launches += 1

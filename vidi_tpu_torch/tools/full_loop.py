@@ -12,15 +12,18 @@ predictions with the VUE-TR evaluator: data -> the train and serve CLIs
 
     python -m vidi_tpu_torch.tools.full_loop [--work-dir DIR] [--steps 300]
         [--start 1.5b|tiny|...] [--device cuda|cpu] [--learning-rate 1e-3]
+        [--plain]
 
 The start is `loader.CONFIGS[start]` with random weights from seed
 SEED, saved with `save_pretrained` and handed to the train CLI as
 `--model_path`; where the init's logits reach past the final softcap
 (the 1.5b, the 9B) its tied embedding is scaled first (START_LOGIT_STD).
 On CUDA the loop runs bf16 on the attention kernels (`--use_flash` in
-training, the runner's own choice in serving), whose head dims are those
-of the shipped configurations: the tiny start (head dim 16) raises
-there. On the CPU it runs fp32 (`--start tiny --device cpu` is the
+training, the runner's own choice in serving), which take every head dim
+up to 256: `--start tiny --device cuda` runs the tiny model (head dim 16)
+on them; `--plain` trains and reads the margins on the plain route
+instead, in the same dtype, to tell the kernels from bf16 rounding. On
+the CPU it runs fp32 (`--start tiny --device cpu` is the
 reference loop's model, its init unscaled). Both CLIs run in this
 process through their `main(argv)`; prints the IoU and the answer
 tokens' least top-2 margin (`answer_margins`), and exits 0 when the
@@ -87,17 +90,18 @@ def write_start(work_dir: str, start: str = "1.5b", device="cuda") -> str:
 
 
 def train_argv(work_dir: str, steps: int, device="cuda",
-               learning_rate: float = LEARNING_RATE) -> list:
+               learning_rate: float = LEARNING_RATE, plain: bool = False) -> list:
     """The train CLI's arguments: the start checkpoint finetuned on the
     fixture (text and adapters trained, towers frozen), exported at the
-    end; the kernels on CUDA, as the runner decides (`run_benchmark`)."""
+    end; the kernels on CUDA, as the runner decides (`run_benchmark`),
+    unless `plain`."""
     p = paths(work_dir)
     argv = ["--model_path", p["start"], "--data_path", p["data"],
             "--video_folder", work_dir, "--max_steps", str(steps),
             "--learning_rate", str(learning_rate), "--mm_rand_lr", str(learning_rate),
             "--train_llm", "true", "--output_dir", p["run"], "--export_hf", p["hf"],
             "--device", str(device), "--dtype", _dtype(device)]
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type == "cuda" and not plain:
         argv.append("--use_flash")
     return argv
 
@@ -141,12 +145,13 @@ def score(work_dir: str, pred_path=None) -> dict:
     return evaluate(pred_path or p["preds"], p["gt"], breakdown=False)
 
 
-def answer_margins(work_dir: str, device="cuda") -> list:
+def answer_margins(work_dir: str, device="cuda", plain: bool = False) -> list:
     """The top-2 margin (nats) of each labelled token of the fixture's
     first record under the loop's exported model: log p(label) - log p(the
     likeliest other token), teacher-forced with no position noise. Greedy
     decoding emits the memorized answer only while every margin is
-    positive, so the least one says how near a run came to failing."""
+    positive, so the least one says how near a run came to failing. On
+    the kernels on CUDA unless `plain`."""
     import torch.nn.functional as F
 
     from vidi_tpu_torch.constants import IGNORE_INDEX
@@ -160,7 +165,7 @@ def answer_margins(work_dir: str, device="cuda") -> list:
     ds = data.VideoConvDataset(paths(work_dir)["data"], work_dir, tok, cfg, fps=1.0)
     batch = data.to_device(data.collate([ds[0]], cfg), dev)
     hw = train_step.make_batch_hw(cfg, int(batch["frame_counts"].sum()))
-    flash = dev.type == "cuda"
+    flash = dev.type == "cuda" and not plain
     with torch.no_grad():
         img, img_mask = dattn.encode_video_images(
             params, cfg, batch["images"], batch["frame_counts"], hw, mm_chunks=4,
@@ -194,8 +199,10 @@ def _release(dev: torch.device) -> None:
 
 def run_full_loop(work_dir: str, steps: int = 300, copies: int = 8, seconds: float = 25.0,
                   *, start: str = "1.5b", device="cuda",
-                  learning_rate: float = LEARNING_RATE, verbose: bool = True, stage=None) -> dict:
-    """Run the stages; returns the vue_tr evaluate() dict. `stage(name)`,
+                  learning_rate: float = LEARNING_RATE, verbose: bool = True, stage=None,
+                  plain: bool = False) -> dict:
+    """Run the stages; returns the vue_tr evaluate() dict. `plain`: train
+    on the plain route on CUDA (serving stays the runner's). `stage(name)`,
     when given, returns a context manager entered around each stage:
     "fixture", "start", "train" (the train CLI with its export), "serve"
     (the runner: reload and generate) and "score"."""
@@ -218,7 +225,7 @@ def run_full_loop(work_dir: str, steps: int = 300, copies: int = 8, seconds: flo
         with stage("start"):
             write_start(work_dir, start, dev)
         with stage("train"):
-            train.main(train_argv(work_dir, steps, dev, learning_rate))
+            train.main(train_argv(work_dir, steps, dev, learning_rate, plain))
             _release(dev)  # the trainer's parameters and moments
         # 3. reload the EXPORTED checkpoint and run the benchmark runner
         with stage("serve"):
@@ -242,15 +249,18 @@ def main(argv=None) -> int:
                     help="the configuration of the random start checkpoint")
     ap.add_argument("--device", default="cuda", help="cuda (raises without a card) or cpu")
     ap.add_argument("--learning-rate", type=float, default=LEARNING_RATE)
+    ap.add_argument("--plain", action="store_true",
+                    help="train and read the margins on the plain route (no kernels)")
     args = ap.parse_args(argv)
 
     work = args.work_dir or tempfile.mkdtemp(prefix="vidi_full_loop_")
     os.makedirs(work, exist_ok=True)
     scores = run_full_loop(work, steps=args.steps, copies=args.copies, start=args.start,
-                           device=args.device, learning_rate=args.learning_rate)
+                           device=args.device, learning_rate=args.learning_rate,
+                           plain=args.plain)
     iou = scores["overall"]["iou"]
     ok = iou > 0.5
-    margins = answer_margins(work, args.device)
+    margins = answer_margins(work, args.device, args.plain)
     print(f"full loop: IoU {iou:.4f} over {scores['n_query']} queries, least top-2 margin "
           f"of the answer's tokens {min(margins):.2f} nats -> "
           f"{'OK' if ok else 'FAILED (model did not converge to the span)'}")
